@@ -1,0 +1,497 @@
+"""Compiled lane programs: the segment-fused execution path.
+
+Port of ``repro.core.laneprogram``.  A :class:`LaneProgram` removes the
+per-op interpreter's dispatch and event overhead in two moves:
+
+* **Segment partitioning.**  Each PU lane's FIFO queue is cut into
+  *maximal contiguous same-lane segments*: a new segment starts only at
+  a cross-lane boundary (an op whose predecessor ran on another lane —
+  the handoff points) or at a request switch on a shared lane.  The
+  segments of a sequential chain admit one order, and the program runs
+  them inline, with no threads or events at all.  (The reference also
+  runs programs whose segments can co-execute, on one worker thread per
+  lane; those come with the concurrent and DAG lane queues, which are
+  not ported yet.)
+
+* **Segment composition with verified variants.**  Each segment's op
+  payloads compose into one callable.  On a lane bound to a
+  :class:`~repro_torch.core.targets.Target` the segment keeps the
+  reference payloads as its oracle and resolves the target dialect's
+  variants; the first (*cold*) run serves the reference outputs and
+  probes every variant op against them, each fed the reference
+  composition's own inputs — accepted when bitwise equal, else when
+  within the target's per-dtype or declared tolerance, else rejected
+  (the segment then serves the reference for good).  A variant is never
+  served unverified.  A kernel-dialect variant that fails to run raises
+  instead (:data:`KERNEL_DIALECTS`).  The port jits nothing:
+  the reference's ``jax.jit`` probe has no counterpart here (capturing
+  segments as CUDA graphs is later work, ``ROADMAP.md``).
+
+**Device placement.**  Every segment of a device-bound target moves its
+inputs to the target's device before running — the reference
+composition, the probe and every warm run alike — so a lane never
+computes on the device its inputs happened to arrive on.  All CUDA
+lanes of one device launch on that device's current stream, so a
+handoff between them is ordered by the stream itself; a handoff to or
+from the host is a ``.to()`` copy, which waits for the producing work.
+
+Op payloads must be **pure** on this path: the cold run executes the
+reference and the variant payloads, and warm runs replay the composed
+callable — a payload with internal state would advance differently
+than under the per-op interpreter, which remains the oracle
+(``Orchestrator.execute(..., compile=False)``).  Purity is also what
+makes the fault runtime's segment-granularity retry safe
+(:mod:`repro_torch.core.faults`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .errors import PULostError
+from .faults import ExecutionPolicy, FaultPlan, RunContext, run_with_retries
+from .op import OpGraph
+from .profiler import place
+from .targets import KERNEL_DIALECTS, variant_tolerance
+
+# segment execution modes
+COLD = "cold"        # not yet run: the next run probes the variant
+WARM = "warm"        # settled: serves the verified variant or the reference
+
+_BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+
+
+def _tensor(x):
+    return torch.from_numpy(np.asarray(x)) if isinstance(x, np.ndarray) \
+        else x
+
+
+def _bitwise_equal(a, b) -> bool:
+    """True iff two payload outputs are bitwise identical (dtype, shape
+    and raw bits, compared on ``a``'s device — ``allclose`` is
+    deliberately not used here)."""
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = _tensor(a), _tensor(b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    b = b.to(a.device)
+    if a.is_floating_point():          # compare bits, not values
+        bits = _BITS[a.element_size()]
+        a = a.contiguous().view(bits)
+        b = b.contiguous().view(bits)
+    return bool(torch.equal(a, b))
+
+
+def results_bitwise_equal(a: Mapping[int, Any], b: Mapping[int, Any]) -> bool:
+    """Bitwise comparison of two executor results dicts (the strict form
+    of ``ScheduleExecutor.outputs_close``: dtypes and bits must match)."""
+    if set(a) != set(b):
+        return False
+    return all(_bitwise_equal(a[k], b[k]) for k in a)
+
+
+def probe_error(ref, got, target=None) -> tuple[float, float, float]:
+    """How far a variant output is from the reference output, in
+    float64: (max |got - ref|, that over max |ref| — the error normalised
+    by the output's largest magnitude —, and the least atol that would
+    pass ``allclose`` at the target's rtol for this dtype).  NaNs for
+    outputs that are not comparable floats."""
+    a, b = _tensor(ref), _tensor(got)
+    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.is_floating_point() and a.shape == b.shape
+            and a.numel()):
+        return float("nan"), float("nan"), float("nan")
+    rtol = (target.tolerance(a.dtype) if target is not None
+            else variant_tolerance(a.dtype))[1]
+    a = a.double()
+    diff = (b.to(a.device).double() - a).abs()
+    err = float(diff.max())
+    scale = float(a.abs().max())
+    need = max(float((diff - rtol * a.abs()).max()), 0.0)
+    return err, (err / scale if scale > 0 else err), need
+
+
+def _within_tolerance(ref, got, target) -> bool:
+    """Variant-vs-reference closeness at the target's per-dtype tolerance
+    bucket (non-float outputs must be bitwise; shape/dtype must match)."""
+    if ref is None or got is None:
+        return ref is None and got is None
+    a, b = _tensor(ref), _tensor(got)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return _bitwise_equal(a, b)
+    atol, rtol = (target.tolerance_for(a) if target is not None
+                  else variant_tolerance(a.dtype))
+    if atol == 0.0 and rtol == 0.0:
+        return _bitwise_equal(a, b)
+    return bool(torch.allclose(a.double(), b.to(a.device).double(),
+                               atol=atol, rtol=rtol))
+
+
+@dataclasses.dataclass
+class Segment:
+    """A maximal run of same-lane ops composed into one callable.
+
+    ``items`` are ``(request, op)`` pairs in lane-queue order; ``deps``
+    are indices of segments on *other* lanes whose outputs this segment
+    reads (same-lane predecessors are implicit in FIFO order).
+
+    When the lane is bound to a :class:`~repro_torch.core.targets.Target`,
+    ``fns`` holds the reference payloads (the probe oracle) and
+    ``var_fns`` the target-dialect variants; the cold run verifies each
+    variant op against the reference outputs before any is ever served.
+    ``verified`` records the outcome (``"bitwise"`` / ``"tolerance"`` /
+    ``"rejected"`` / ``"error: ..."``, the last for non-kernel dialects
+    only) and
+    ``probe_errors`` the per-op ``probe_error`` of a non-bitwise probe.
+    """
+
+    index: int
+    lane: str
+    target: Any = None
+    items: list[tuple[int, int]] = dataclasses.field(default_factory=list)
+    fns: list[Callable | None] = dataclasses.field(default_factory=list)
+    var_fns: list[Callable | None] | None = None
+    use_variant: bool = False
+    verified: str | None = None
+    probe_errors: list[tuple[float, float, float]] | None = None
+    deps: list[int] = dataclasses.field(default_factory=list)
+    # results of other segments this segment reads, in flat order
+    flat_refs: list[tuple[int, int]] = dataclasses.field(default_factory=list)
+    # per item: arg sources after the op's external inputs — ("f", j) is
+    # flat input j (another segment's output), ("o", t) is item t's output
+    argspecs: list[list[tuple[str, int]]] = dataclasses.field(
+        default_factory=list)
+    # one descriptive wait label per entry of ``deps`` (watchdog messages)
+    dep_whats: list[str] = dataclasses.field(default_factory=list)
+    mode: str = COLD
+
+    # -- composition --------------------------------------------------------
+    def _compose(self, fns: Sequence[Callable | None], flat: tuple,
+                 ext_lists: tuple, feed: Sequence[Any] | None = None
+                 ) -> tuple:
+        """Run every op of the segment over a payload list.  Arg order
+        per op matches the interpreter exactly: external inputs first,
+        then predecessor outputs in ``graph.pred`` order.  ``feed``, when
+        given, supplies the segment-internal predecessor outputs in place
+        of the ones this composition computes (the probe feeds every
+        variant op the reference composition's own inputs)."""
+        outs: list[Any] = []
+        for t, spec in enumerate(self.argspecs):
+            fn = fns[t]
+            if fn is None:
+                outs.append(None)
+                continue
+            internal = outs if feed is None else feed
+            deps = tuple(flat[j] if kind == "f" else internal[j]
+                         for kind, j in spec)
+            outs.append(fn(*(tuple(ext_lists[t]) + deps)))
+        return tuple(outs)
+
+    def _place(self, flat: tuple, ext_lists: tuple) -> tuple[tuple, tuple]:
+        """Move segment inputs to the bound target's device (identity
+        when no target/device is bound)."""
+        device = None if self.target is None else self.target.device
+        return place(flat, device), tuple(place(e, device) for e in ext_lists)
+
+    def _gather(self, results: Sequence[dict], ext: Sequence[dict]):
+        flat = tuple(results[r][p] for r, p in self.flat_refs)
+        ext_lists = tuple(tuple(ext[r].get(i, ())) for r, i in self.items)
+        return flat, ext_lists
+
+    def execute(self, results: Sequence[dict], ext: Sequence[dict]) -> None:
+        flat, ext_lists = self._place(*self._gather(results, ext))
+        if self.use_variant:
+            outs = self._compose(self.var_fns, flat, ext_lists)
+        else:
+            outs = self._compose(self.fns, flat, ext_lists)
+            if self.mode == COLD:
+                if self.var_fns is not None:
+                    self._verify_variant(flat, ext_lists, outs)
+                self.mode = WARM
+        for (r, i), o in zip(self.items, outs):
+            results[r][i] = o
+
+    def _verify_variant(self, flat, ext_lists, ref_outs) -> None:
+        """Probe the variants against the reference outputs (which this
+        cold run serves), op by op: each variant op runs on the inputs
+        its reference op ran on, so it is held to its own error, not to
+        the upstream ops' error as the chain amplifies it.  (The
+        reference package probes the variant composition whole; at the
+        main path's width that measures the chain's conditioning rather
+        than any one kernel.)  Accepts on bitwise equality, else on the
+        target's tolerance; rejection drops ``var_fns`` so the segment
+        permanently serves the reference payloads, and so does an
+        execution error — except on a kernel dialect, where it raises
+        (the segment stays cold, so a rerun probes again)."""
+        try:
+            got = self._compose(self.var_fns, flat, ext_lists,
+                                feed=ref_outs)
+        except Exception as e:
+            if self.target.dialect in KERNEL_DIALECTS:
+                raise RuntimeError(
+                    f"segment {self.index} on lane {self.lane!r}: the "
+                    f"{self.target.dialect!r} variant failed in its "
+                    f"probe: {type(e).__name__}: {e}") from e
+            self.verified = f"error: {type(e).__name__}: {e}"
+            self.var_fns = None
+            return
+        if len(got) == len(ref_outs) and all(
+                _bitwise_equal(a, b) for a, b in zip(ref_outs, got)):
+            self.verified = "bitwise"
+            self.use_variant = True
+            return
+        self.probe_errors = [probe_error(a, b, self.target)
+                             for a, b in zip(ref_outs, got)]
+        if len(got) == len(ref_outs) and all(
+                _within_tolerance(a, b, self.target)
+                for a, b in zip(ref_outs, got)):
+            self.verified = "tolerance"
+            self.use_variant = True
+        else:
+            self.verified = "rejected"
+            self.var_fns = None
+
+
+class LaneProgram:
+    """A compiled plan: per-lane segment lists + cross-lane handoff deps.
+
+    Build with :func:`compile_lane_program` (or
+    ``ScheduleExecutor.compile_scheduled``); ``run(external_inputs)``
+    returns the same results dict as the interpreter's ``run_scheduled``.
+    Ops are addressed as ``(request, op)`` pairs as in the reference;
+    the port's programs cover one request (the multi-request concurrent
+    programs are not ported yet).
+    """
+
+    def __init__(self, graphs: Sequence[OpGraph],
+                 segments: list[Segment],
+                 lane_segments: dict[str, list[Segment]]):
+        self.graphs = list(graphs)
+        self.segments = segments
+        self.lane_segments = lane_segments
+        self.lanes = [pu for pu, segs in lane_segments.items() if segs]
+        self.runs = 0
+        # the segment DAG (handoff deps + per-lane FIFO order) of a
+        # single chain admits exactly ONE topological order: run()
+        # executes it inline.  Segments that could co-execute need the
+        # concurrent lane queues, which are not ported yet.
+        self.serial_order = self._serial_order()
+        if self.serial_order is None:
+            raise NotImplementedError(
+                "a lane program whose segments could run concurrently is "
+                "not ported yet (ROADMAP.md, 'Modules to port', item 1)")
+        # identity snapshot of every covered op's fn + variant table,
+        # taken at compile time (see payloads_current)
+        self._payload_tokens: dict[tuple[int, int], tuple] = {
+            (r, i): self.graphs[r].ops[i].payload_token()
+            for seg in segments for (r, i) in seg.items}
+
+    def payloads_current(self) -> bool:
+        """True while every op's payload *and variant table* are still
+        the ones baked in at compile time; the orchestrator recompiles on
+        a mismatch, so a stale composition is never served."""
+        for (r, i), (fn0, var0) in self._payload_tokens.items():
+            op = self.graphs[r].ops[i]
+            if op.fn is not fn0:
+                return False
+            variants = op.variants
+            if len(variants) != len(var0):
+                return False
+            for key, f in var0:
+                if variants.get(key) is not f:
+                    return False
+        return True
+
+    def _serial_order(self) -> list[Segment] | None:
+        n = len(self.segments)
+        indeg = [0] * n
+        succ: list[list[int]] = [[] for _ in range(n)]
+        for s in self.segments:
+            for d in s.deps:
+                succ[d].append(s.index)
+                indeg[s.index] += 1
+        for segs in self.lane_segments.values():
+            for a, b in zip(segs, segs[1:]):
+                succ[a.index].append(b.index)
+                indeg[b.index] += 1
+        ready = [i for i in range(n) if indeg[i] == 0]
+        order: list[int] = []
+        while ready:
+            if len(ready) > 1:
+                return None            # two segments could co-execute
+            u = ready.pop()
+            order.append(u)
+            for v in succ[u]:
+                indeg[v] -= 1
+                if indeg[v] == 0:
+                    ready.append(v)
+        return [self.segments[i] for i in order] if len(order) == n else None
+
+    @property
+    def stats(self) -> dict:
+        """Structure + verification summary (verdicts settle after the
+        first ``run``; before it every segment reports ``cold``)."""
+        return {
+            "n_ops": sum(len(s.items) for s in self.segments),
+            "n_segments": len(self.segments),
+            "n_cold": sum(1 for s in self.segments if s.mode == COLD),
+            "n_variant": sum(1 for s in self.segments if s.use_variant),
+            "variant_verified": {s.index: s.verified for s in self.segments
+                                 if s.verified is not None},
+            "variant_errors": {s.index: s.probe_errors
+                               for s in self.segments
+                               if s.probe_errors is not None},
+            "lane_targets": {s.lane: s.target.name for s in self.segments
+                             if s.target is not None},
+            "max_segment_ops": max((len(s.items) for s in self.segments),
+                                   default=0),
+            "runs": self.runs,
+        }
+
+    def _exec_segment(self, seg: Segment, results, ext,
+                      run: RunContext | None) -> None:
+        """Execute one segment under the fault runtime: injected faults
+        fire per (request, op) item and transient failures retry the
+        whole segment with backoff (payloads are pure on this path, and a
+        failed ``execute`` writes no results, so re-execution is clean).
+        ``run=None`` is the fault-free serial fast path."""
+        what = (f"segment {seg.index} on lane {seg.lane!r} "
+                f"(ops {seg.items[0]}..{seg.items[-1]})")
+
+        def attempt():
+            if run is not None and run.faults is not None:
+                for (r, i) in seg.items:
+                    run.faults.fire(seg.lane, r, i, run)
+            seg.execute(results, ext)
+
+        r0, i0 = seg.items[0]
+        if run is not None:
+            run.current[seg.lane] = what
+        try:
+            run_with_retries(run, attempt, what,
+                             lane=seg.lane, request=r0, op=i0)
+        finally:
+            if run is not None:
+                run.current.pop(seg.lane, None)
+
+    def run(self, external_inputs=None, *,
+            policy: ExecutionPolicy | None = None,
+            faults: FaultPlan | None = None,
+            estimate: float | None = None):
+        """Execute the program; same results shape as the interpreter.
+
+        ``policy`` tunes the retry runtime (``estimate`` — e.g. the
+        plan's cost-model latency — scales the watchdog budget) and
+        ``faults`` injects a scripted
+        :class:`~repro_torch.core.faults.FaultPlan`.  On a permanent PU
+        loss the raised
+        :class:`~repro_torch.core.errors.PULostError` carries the
+        execution frontier (results of every segment completed before
+        the loss).
+        """
+        ext = [dict(external_inputs or {})]
+        results: list[dict[int, Any]] = [{}]
+        # no cross-lane waits exist in a serial program, so fault-free
+        # runs skip the RunContext entirely (the warm fast path)
+        run = (RunContext(policy, faults, estimate)
+               if faults is not None else None)
+        try:
+            for seg in self.serial_order:
+                self._exec_segment(seg, results, ext, run)
+        except PULostError as e:
+            if e.partial is None:
+                e.partial = [dict(res) for res in results]
+            raise
+        self.runs += 1
+        return results[0]
+
+
+def compile_lane_program(graphs: Sequence[OpGraph],
+                         lane_items: Mapping[str, Sequence[tuple[int, int]]],
+                         targets: Mapping[str, Any] | None = None
+                         ) -> LaneProgram:
+    """Partition per-lane op queues into segments and build the program.
+
+    ``lane_items`` maps each PU lane to its FIFO queue of ``(request,
+    op)`` pairs (already validated/ordered by the executor).  A new
+    segment starts when the request changes (segments never span
+    requests) or when any predecessor ran on a *different* lane (the
+    handoff cut: waits happen only at segment starts, so a cross-lane
+    input is only legal for a segment's first op).  Same-lane
+    predecessors never cut.
+
+    ``targets`` optionally binds lane names to
+    :class:`~repro_torch.core.targets.Target`\\ s: a bound segment keeps
+    the reference payloads as its probe oracle and additionally resolves
+    the target dialect's variant payloads at compile time (served only
+    after the cold-run verification — see :class:`Segment`).
+    """
+    lane_of: dict[tuple[int, int], str] = {}
+    for pu, items in lane_items.items():
+        for it in items:
+            lane_of[it] = pu
+
+    tmap = dict(targets or {})
+    segments: list[Segment] = []
+    lane_segments: dict[str, list[Segment]] = {pu: [] for pu in lane_items}
+    seg_of: dict[tuple[int, int], Segment] = {}
+    for pu, items in lane_items.items():
+        cur: Segment | None = None
+        for (r, i) in items:
+            cross = any(lane_of.get((r, p)) != pu
+                        for p in graphs[r].pred[i])
+            if cur is None or cur.items[-1][0] != r or cross:
+                cur = Segment(index=len(segments), lane=pu,
+                              target=tmap.get(pu))
+                segments.append(cur)
+                lane_segments[pu].append(cur)
+            cur.items.append((r, i))
+            cur.fns.append(graphs[r].ops[i].fn)
+            seg_of[(r, i)] = cur
+
+    # compile-time variant selection: a segment on a non-"ref"-dialect
+    # target gets the resolved variant payload list iff any op actually
+    # carries a variant for that dialect (otherwise the reference path
+    # is the variant path and nothing needs verifying)
+    for seg in segments:
+        tgt = seg.target
+        if tgt is None or tgt.dialect in (None, "ref"):
+            continue
+        vf = [graphs[r].ops[i].payload_for(tgt.dialect)
+              for (r, i) in seg.items]
+        if any(v is not f for v, f in zip(vf, seg.fns)):
+            seg.var_fns = vf
+
+    for seg in segments:
+        internal = {it: t for t, it in enumerate(seg.items)}
+        flat_index: dict[tuple[int, int], int] = {}
+        deps: set[int] = set()
+        for (r, i) in seg.items:
+            spec: list[tuple[str, int]] = []
+            for p in graphs[r].pred[i]:
+                src = (r, p)
+                t2 = internal.get(src)
+                if t2 is not None:
+                    spec.append(("o", t2))
+                    continue
+                j = flat_index.setdefault(src, len(flat_index))
+                spec.append(("f", j))
+                producer = seg_of.get(src)
+                if producer is not None and producer.lane != seg.lane:
+                    deps.add(producer.index)
+            seg.argspecs.append(spec)
+        seg.flat_refs = sorted(flat_index, key=flat_index.get)
+        seg.deps = sorted(deps)
+        seg.dep_whats = [
+            f"segment {seg.index} on lane {seg.lane!r} (first op "
+            f"{seg.items[0]}) waiting for segment {d} on lane "
+            f"{segments[d].lane!r} (ops {segments[d].items[0]}.."
+            f"{segments[d].items[-1]})"
+            for d in seg.deps]
+    return LaneProgram(graphs, segments, lane_segments)

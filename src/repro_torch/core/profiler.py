@@ -1,0 +1,256 @@
+"""Profiler (Algorithm 1, Stage 1).
+
+Port of ``repro.core.profiler``.  Two complementary paths fill the same
+``CostTable``:
+
+* ``AnalyticProfiler`` — per-PU analytic cost models (``EdgeSoCCostModel``),
+  used when the target PUs don't physically exist.
+* ``MeasuredProfiler`` — wall-clock measurement of each fused operator on
+  real backends (the paper's extract-and-measure flow, with fewer
+  iterations than its 20 warm-up + 200 measured).
+
+CUDA calls return before the card has finished, so every timed call is
+fenced with ``torch.cuda.synchronize`` on the devices its inputs and
+outputs lie on.  ``trace_fused_ops`` (a jaxpr walk in the reference) is
+not ported yet (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from .costmodel import CostEntry, CostTable, EdgeSoCCostModel
+from .op import FusedOp, OpGraph
+
+_log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class Measurement:
+    """One payload's timing distribution: ``median`` (the robust number
+    the cost table consumes), ``best`` (the min — what a noiseless
+    machine would report), and the raw ``times`` so jitter is never
+    hidden by a single scalar."""
+
+    median: float
+    best: float
+    times: tuple[float, ...]
+
+    @property
+    def spread(self) -> float:
+        """max/best - 1: the visible jitter of this measurement."""
+        return (max(self.times) / self.best - 1.0) if self.best > 0 else 0.0
+
+    def __float__(self) -> float:
+        return self.median
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+def fence(*objs) -> None:
+    """Wait until the CUDA work behind the tensors in ``objs`` (nested
+    tuples/lists allowed) has finished."""
+    for dev in {t.device for t in _tensors(objs) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+def place(args: Sequence[Any], device) -> tuple:
+    """``args`` with every tensor moved to ``device`` (identity when
+    ``device`` is None)."""
+    if device is None:
+        return tuple(args)
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def measure_callable_stats(fn: Callable, args: Sequence[Any], *,
+                           warmup: int = 3, iters: int = 10,
+                           device: Any = None) -> Measurement:
+    """Wall-clock :class:`Measurement` of ``fn(*args)``.
+
+    ``device`` moves the inputs there first (so transfers are not billed
+    to the payload).  Every warm-up and timed call is fenced on the
+    devices of its inputs and outputs: without the fence a CUDA payload
+    times as its launch cost alone."""
+    args = place(args, device)
+    for _ in range(max(warmup, 1)):   # at least once: first-use builds
+        fence(args, fn(*args))
+    ts = []
+    for _ in range(max(iters, 1)):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        fence(args, out)
+        ts.append(time.perf_counter() - t0)
+    return Measurement(median=float(np.median(ts)), best=float(min(ts)),
+                       times=tuple(ts))
+
+
+def measure_callable(fn: Callable, args: Sequence[Any], *, warmup: int = 3,
+                     iters: int = 10, device: Any = None) -> float:
+    """Median wall-clock seconds of ``fn(*args)`` (fenced).  Scalar form
+    of :func:`measure_callable_stats`."""
+    return measure_callable_stats(fn, args, warmup=warmup, iters=iters,
+                                  device=device).median
+
+
+class AnalyticProfiler:
+    """Fill a CostTable from analytic PU models (no hardware needed)."""
+
+    def __init__(self, model: EdgeSoCCostModel | None = None):
+        self.model = model or EdgeSoCCostModel()
+
+    def profile(self, graph: OpGraph) -> CostTable:
+        return self.model.build_table(graph)
+
+
+class MeasuredProfiler:
+    """Fill the cost table from real wall-clock measurements.
+
+    Two modes share the constructor:
+
+    * **CPU-anchored (default, ``targets=None``).**  The paper's
+      offline-profiling stand-in when the PUs don't physically exist:
+      measure each payload once on the host, anchor the CPU column, and
+      derive the accelerator columns via the analytic per-PU ratios.
+    * **Per-target (``targets={lane: Target}``).**  The real loop: each
+      op's resolved payload variant (``op.payload_for(target.dialect)``)
+      is measured *on every bound backend*, its inputs moved to the
+      target's device, and each measurement lands directly in that
+      lane's column (``kernel`` = median; ``dispatch``/``h2d``/``d2h``/
+      ``power`` from the target's declared pricing).  Full distributions
+      go to ``table.meta["measurements"]``
+      (``{(op, lane): {"median", "best", "spread"}}``).  Payload-less
+      ops fall back to the analytic CPU estimate on every lane (noted in
+      ``table.meta["analytic_fallback"]``); an op a target declares in
+      ``meta["unsupported_on"]`` gets no cell on that lane.
+
+    A measurement that *fails* is never silently swallowed: each failure
+    is logged, collected into the returned table's
+    ``meta["profile_failures"]`` (``{op index: "ExcType: message"}`` in
+    CPU-anchored mode, ``{(op index, lane): ...}`` per-target — where a
+    failed cell is *omitted*, i.e. the op is unsupported on that
+    backend), and under ``strict=True`` re-raised with the op named
+    instead of falling back.
+    """
+
+    def __init__(self, model: EdgeSoCCostModel | None = None,
+                 warmup: int = 2, iters: int = 5, strict: bool = False,
+                 targets=None):
+        from .targets import resolve_targets
+        self.model = model or EdgeSoCCostModel()
+        self.warmup = warmup
+        self.iters = iters
+        self.strict = strict
+        self.targets = resolve_targets(targets)
+
+    def profile(self, graph: OpGraph,
+                strict: bool | None = None) -> CostTable:
+        strict = self.strict if strict is None else strict
+        if self.targets is not None:
+            return self._profile_targets(graph, strict)
+        failures: dict[int, str] = {}
+        table = CostTable(list(self.model.pus))
+        table.meta["profile_failures"] = failures
+        for i, op in enumerate(graph.ops):
+            analytic = {name: self.model.entry(op, pu)
+                        for name, pu in self.model.pus.items()}
+            cpu_est = analytic.get("CPU")
+            measured = None
+            if op.fn is not None and "example_inputs" in op.meta:
+                try:
+                    measured = measure_callable(
+                        op.fn, op.meta["example_inputs"],
+                        warmup=self.warmup, iters=self.iters)
+                except Exception as e:
+                    if strict:
+                        raise RuntimeError(
+                            f"MeasuredProfiler: measuring op {i} "
+                            f"({op.name!r}, kind {op.kind!r}) failed"
+                        ) from e
+                    failures[i] = f"{type(e).__name__}: {e}"
+                    _log.warning(
+                        "MeasuredProfiler: op %d (%s) measurement failed "
+                        "(%s); falling back to the analytic CPU estimate",
+                        i, op.name, failures[i])
+                    measured = None
+            scale = (measured / cpu_est.kernel
+                     if (measured and cpu_est and cpu_est.kernel > 0) else 1.0)
+            for name, e in analytic.items():
+                if e is None:
+                    continue
+                table.set(i, name, CostEntry(
+                    kernel=e.kernel * scale, dispatch=e.dispatch,
+                    h2d=e.h2d, d2h=e.d2h, power=e.power))
+        return table
+
+    # -- per-target mode ----------------------------------------------------
+    def _analytic_anchor(self, op: FusedOp) -> CostEntry | None:
+        """Analytic estimate for payload-less ops: the model's CPU spec
+        (any host spec if "CPU" is absent)."""
+        pu = self.model.pus.get("CPU")
+        if pu is None:
+            pu = next(iter(self.model.pus.values()))
+        return self.model.entry(op, pu)
+
+    def _profile_targets(self, graph: OpGraph, strict: bool) -> CostTable:
+        """Measure every op on every bound backend; see the class docs."""
+        targets = self.targets
+        failures: dict[tuple[int, str], str] = {}
+        stats: dict[tuple[int, str], dict] = {}
+        fallback: list[tuple[int, str]] = []
+        table = CostTable(list(targets))
+        table.meta["profile_failures"] = failures
+        table.meta["measurements"] = stats
+        table.meta["analytic_fallback"] = fallback
+        table.meta["targets"] = {lane: t.name for lane, t in targets.items()}
+        for i, op in enumerate(graph.ops):
+            unsupported = op.meta.get("unsupported_on", ())
+            for lane, tgt in targets.items():
+                if lane in unsupported or tgt.name in unsupported:
+                    continue
+                fn = op.payload_for(tgt.dialect)
+                if fn is None or "example_inputs" not in op.meta:
+                    est = self._analytic_anchor(op)
+                    if est is None:
+                        continue
+                    fallback.append((i, lane))
+                    table.set(i, lane, CostEntry(
+                        kernel=est.kernel, dispatch=tgt.dispatch_s,
+                        h2d=tgt.handoff_s, d2h=tgt.handoff_s,
+                        power=tgt.power_compute))
+                    continue
+                try:
+                    m = measure_callable_stats(
+                        fn, op.meta["example_inputs"],
+                        warmup=self.warmup, iters=self.iters,
+                        device=tgt.device)
+                except Exception as e:
+                    if strict:
+                        raise RuntimeError(
+                            f"MeasuredProfiler: measuring op {i} "
+                            f"({op.name!r}, kind {op.kind!r}) on target "
+                            f"{tgt.name!r} (lane {lane!r}) failed") from e
+                    failures[(i, lane)] = f"{type(e).__name__}: {e}"
+                    _log.warning(
+                        "MeasuredProfiler: op %d (%s) failed on target %s "
+                        "(%s); cell omitted — op unsupported on this lane",
+                        i, op.name, tgt.name, failures[(i, lane)])
+                    continue
+                stats[(i, lane)] = {"median": m.median, "best": m.best,
+                                    "spread": m.spread}
+                table.set(i, lane, CostEntry(
+                    kernel=m.median, dispatch=tgt.dispatch_s,
+                    h2d=tgt.handoff_s, d2h=tgt.handoff_s,
+                    power=tgt.power_compute))
+        return table
