@@ -13,9 +13,11 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    ``src/repro_torch/csrc`` and times the build;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
-   decode with ``q_offset``, ``initial_state``, capacity drop) and at the
-   main-path shapes, in f32 and bf16, and times kernel, plain version and
-   (where one exists) a library call;
+   decode with ``q_offset``, ``initial_state``, capacity drop), at the
+   main-path shapes and at d = 2048 for the expert GLU, in f32 and bf16;
+   checks that the tensor-core kernels are bitwise equal between two runs
+   on the same inputs; and times kernel, plain version and (where one
+   exists) a library call;
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
    torch-cpu, cuda:0, cuda-kernels), ``Orchestrator.plan``, the compiled
@@ -39,9 +41,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LOG = ROOT / "chiprun_out" / "chip_smoke.log"
 
-# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth.  Bounds below are stated against these.
+# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, TF32 and bf16
+# on the tensor cores, HBM3 bandwidth.  Bounds below are stated against
+# these.  A kernel whose f32 products run in 3xTF32 on the tensor cores
+# (expert_glu, flash_attention) is bound by three TF32 products per f32
+# one; its CUDA-core f32 bound is printed beside it.
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -119,6 +125,34 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def tc_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Bound of a tensor-core kernel: f32 products as 3xTF32 (three TF32
+    products each), bf16 ones at the bf16 peak."""
+    import torch
+    if dtype == torch.bfloat16:
+        return bound(flops, nbytes, PEAK_BF16)
+    return bound(3 * flops, nbytes, PEAK_TF32)
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same shape, dtype and bits (NaNs included)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return bool(torch.equal(a.view(bits), b.view(bits)))
+
+
+def check_repeatable(name, label, fn, args) -> None:
+    """Two runs of ``fn(*args)`` give the same bits (fixed-order sums)."""
+    import torch
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    check(bitwise_equal(first, second),
+          f"{name} {label} {str(args[0].dtype)[6:]}: two runs on the same "
+          "inputs are bitwise equal")
+
+
 # ---------------------------------------------------------------------------
 # phase 1: environment and build
 # ---------------------------------------------------------------------------
@@ -144,14 +178,18 @@ def phase_environment() -> dict:
     for name in _build.KERNELS:
         _build.function(name)
     log(f"built {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
+    log("ptxas, per instantiation (registers a thread, static shared "
+        "memory, spill stores / loads):")
     for name, out in _build.build_log.items():
-        regs = sorted({int(w) for line in out.splitlines()
-                       if "registers" in line
-                       for w in [line.split("Used ")[1].split()[0]]})
-        spills = sum(int(line.split(" bytes spill stores")[0].split()[-1])
-                     for line in out.splitlines() if "spill stores" in line)
-        log(f"  {name}: registers per thread {regs}, spill stores "
-            f"{spills} bytes")
+        usage = _build.ptxas_usage(out)
+        names = _build.demangle([u["name"] for u in usage])
+        for u, full in zip(usage, names):
+            end = full.find(">(")       # cut the parameter list
+            short = full[:end + 1] if end >= 0 else full
+            short = short.replace("void ", "").replace("<unnamed>::", "")
+            log(f"  {name}: {u['registers']:3d} regs, smem {u['smem']} B, "
+                f"spills {u['spill_stores']} / {u['spill_loads']} B  "
+                f"{short[:100]}")
     return {"card": card}
 
 
@@ -167,6 +205,16 @@ def _attn_case(rng, B, Tq, Tk, Hq, Hk, D, causal, off, dtype):
     got = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
     want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
     return (q, k, v), got, want
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past an
+    allocation's start, so not on a 16-byte boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    u = flat[1:].view(t.shape)
+    u.copy_(t)
+    return u
 
 
 def _ssd_case(rng, B, T, H, N, P, chunk, with_s0, dtype):
@@ -238,13 +286,24 @@ def phase_kernels(main_cfg: dict) -> dict:
     ]
     for dtype in (f32, bf16):
         for label, shape, small in attn_cases:
-            _, got, want = _attn_case(rng, *shape, dtype)
+            args, got, want = _attn_case(rng, *shape, dtype)
             err = _hold("flash_attention", label, got, want, dtype, small)
-            if label == "main path" and dtype == f32:
-                main_err = err
+            if label == "main path":
+                check_repeatable("flash_attention", label,
+                                 fa.flash_attention_cuda, args)
+                if dtype == f32:
+                    main_err = err
+    # k and v off a 16-byte boundary take plain loads, not cp.async
+    for dtype in (f32, bf16):
+        (q, k, v), _, want = _attn_case(rng, 1, 96, 96, 4, 2, 64, True, 0,
+                                        dtype)
+        got = fa.flash_attention_cuda(q, _unaligned(k), _unaligned(v))
+        _hold("flash_attention", "k, v not 16-byte aligned", got, want,
+              dtype, True)
     (q, k, v), _, _ = _attn_case(rng, B, T, T, H, H, D, True, 0, f32)
     pairs = H * sum(min(t + 1, T) for t in range(T)) * B
-    b_ms, b_by = bound(pairs * 4 * D, 4 * q.numel() * 4, PEAK_F32)
+    b_ms, b_by = tc_bound(pairs * 4 * D, 4 * q.numel() * 4, f32)
+    cc_ms = bound(pairs * 4 * D, 4 * q.numel() * 4, PEAK_F32)[0]
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
@@ -255,7 +314,7 @@ def phase_kernels(main_cfg: dict) -> dict:
         plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True)))
+            qh, kh, vh, is_causal=True)), cuda_core_bound_ms=cc_ms)
 
     # -- SSD scan ----------------------------------------------------------
     ssd_cases = [
@@ -296,14 +355,20 @@ def phase_kernels(main_cfg: dict) -> dict:
         ("E=8 cap=24 d=64 F=32", (8, 24, 64, 32), 0.1, True),
         ("E=4 cap=128 d=32 F=16", (4, 128, 32, 16), 0.1, True),
         ("E=2 cap=16 d=16 F=8", (2, 16, 16, 8), 0.1, True),
+        ("E=3 cap=20 d=18 F=10 (rows not 16-byte aligned)",
+         (3, 20, 18, 10), 0.1, True),
         ("main path", (E, cap, d, F), 0.5, False),
+        ("E=4 cap=256 d=2048 F=512", (4, cap, 2 * d, F), 0.5, False),
     ]
     for dtype in (f32, bf16):
         for label, shape, scale, small in glu_cases:
-            _, got, want = _glu_case(rng, *shape, dtype, scale)
+            args, got, want = _glu_case(rng, *shape, dtype, scale)
             err = _hold("expert_glu", label, got, want, dtype, small)
-            if label == "main path" and dtype == f32:
-                main_err = err
+            if label == "main path":
+                check_repeatable("expert_glu", label, mg.expert_glu_cuda,
+                                 args)
+                if dtype == f32:
+                    main_err = err
     # capacity drop through the whole MoE composition, against the oracle
     for dtype in (f32, bf16):
         Tm, dm, Em, Km, Fm, capm = 128, 64, 8, 2, 32, 24
@@ -324,9 +389,10 @@ def phase_kernels(main_cfg: dict) -> dict:
             f"({int((~keep).sum())} of {keep.numel()} slots dropped) "
             f"{str(dtype)[6:]}: /max|oracle| {rel:.3e} <= {tol:g}")
     (x, w_up, w_down), _, _ = _glu_case(rng, E, cap, d, F, f32, 0.5)
-    b_ms, b_by = bound(E * cap * (4 * d * F + 2 * F * d),
-                       4 * (2 * x.numel() + w_up.numel() + w_down.numel()),
-                       PEAK_F32)
+    glu_flops = E * cap * (4 * d * F + 2 * F * d)
+    glu_bytes = 4 * (2 * x.numel() + w_up.numel() + w_down.numel())
+    b_ms, b_by = tc_bound(glu_flops, glu_bytes, f32)
+    cc_ms = bound(glu_flops, glu_bytes, PEAK_F32)[0]
 
     def bmm_glu():
         h = torch.bmm(x, w_up)
@@ -340,12 +406,15 @@ def phase_kernels(main_cfg: dict) -> dict:
         plain_ms=time_ms(lambda: mg.expert_glu_plain(x, w_up, w_down),
                          iters=5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(bmm_glu, iters=5))
+        library_ms=time_ms(bmm_glu, iters=5), cuda_core_bound_ms=cc_ms)
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        cc = r.get("cuda_core_bound_ms")
+        tc = "" if cc is None else \
+            f", 3xTF32 tensor cores; f32 CUDA-core bound {cc:.4f} ms"
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}{tc})")
     return rows
 
 

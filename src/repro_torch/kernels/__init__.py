@@ -6,7 +6,7 @@ use, bound with ``ctypes``) with a plain PyTorch version beside it:
 
 * ``flash_attention`` — blockwise causal GQA attention;
 * ``ssd_scan``        — the chunked Mamba-2 state-space scan;
-* ``expert_glu``      — the capacity-padded fused MoE expert GLU, under
+* ``expert_glu``      — the capacity-padded MoE expert GLU, under
   ``moe_dispatch_combine``.
 
 ``ops`` dispatches on the tensor's device (CPU: the plain version; CUDA:

@@ -17,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,7 +38,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_attention": ("bident_flash_attention", [_P] * 4 + [_I] * 9 + [_P]),
     "ssd_scan": ("bident_ssd_scan", [_P] * 7 + [_I] * 7 + [_P]),
-    "expert_glu": ("bident_expert_glu", [_P] * 4 + [_I] * 5 + [_P]),
+    "expert_glu": ("bident_expert_glu", [_P] * 5 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -94,6 +95,55 @@ def build_all(names=KERNELS) -> dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function '|Function "
+                          r"properties for )([\w$.]+)")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_usage(out: str) -> list[dict]:
+    """What ``nvcc -Xptxas -v`` output (a ``build_log`` entry) reports
+    for each kernel instantiation, in order: ``name`` (mangled),
+    ``registers`` a thread, ``smem`` (static shared memory bytes; the
+    kernels' dynamic shared memory is set at launch), ``spill_stores``
+    and ``spill_loads`` bytes."""
+    rows: dict[str, dict] = {}
+    cur = None
+    for line in out.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = rows.setdefault(m.group(1), dict(
+                name=m.group(1), registers=None, smem=0, spill_stores=0,
+                spill_loads=0))
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILLS.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = _PTXAS_SMEM.search(line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return [r for r in rows.values() if r["registers"] is not None]
+
+
+def demangle(names: list[str]) -> list[str]:
+    """C++ names of mangled kernel symbols, by the toolkit's ``cu++filt``
+    (the names unchanged where it is missing)."""
+    try:
+        tool = Path(nvcc()).with_name("cu++filt")
+        out = subprocess.run([str(tool)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return list(names)
+    got = out.stdout.splitlines()
+    return got if out.returncode == 0 and len(got) == len(names) else \
+        list(names)
 
 
 def function(name: str):

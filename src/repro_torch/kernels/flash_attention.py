@@ -3,8 +3,9 @@ version.
 
 Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).  The
 kernel (``csrc/flash_attention.cu``) owns one (batch, head, 64-row query
-tile) per block and loops over 64-row kv tiles with an online softmax in
-registers; its source states the design and what bounds it.
+tile) per block and loops over 64-row kv tiles, with both products on
+the tensor cores (3xTF32) and an online softmax in registers; its source
+states the design and what bounds it.
 :func:`flash_attention_plain` repeats the kernel's arithmetic tile by
 tile in PyTorch (the same 64 x 64 tiles, mask, causal tile skip and
 ``l`` clamp), so the kernel can be held against it on the card and the

@@ -1,11 +1,12 @@
-"""Fused MoE expert GLU: the CUDA kernel, its plain version, and the
+"""MoE expert GLU: the CUDA kernel, its plain version, and the
 dispatch bookkeeping.
 
 Port of ``repro.kernels.moe_gather`` (the Pallas TPU kernel and its XLA
-glue).  The kernel (``csrc/expert_glu.cu``) runs one block per (expert,
-32-token tile), loops over the hidden width F and keeps the f32 output
-accumulator in registers; its source states the design and what bounds
-it.  :func:`expert_glu_plain` is the same function in PyTorch, rounding
+glue).  The kernel (``csrc/expert_glu.cu``) is two grouped tensor-core
+GEMMs launched by one C call: the up projection with the GLU in its
+epilogue, writing the activation to a scratch buffer, then the down
+projection; its source states the design and what bounds it.
+:func:`expert_glu_plain` is the same function in PyTorch, rounding
 the activation to x's dtype before the down projection exactly where
 the kernel does.  :func:`dispatch_indices` stays PyTorch glue, as it was
 XLA glue; the gather -> expert GLU -> combine composition is
@@ -17,8 +18,6 @@ import torch
 import torch.nn.functional as F_
 
 from . import _build
-
-MAX_D = 1024   # the kernel's register accumulator holds 4 columns a thread
 
 
 def _shapes(x, w_up, w_down):
@@ -42,19 +41,19 @@ def expert_glu_plain(x, w_up, w_down):
 
 
 def expert_glu_cuda(x, w_up, w_down):
-    """Launch the CUDA kernel on the current stream of x's device.  x,
-    w_up, w_down share one dtype (f32 or bf16); d is at most ``MAX_D``."""
+    """Launch the CUDA kernel on the current stream of x's device (one
+    counted launch: the C call runs the up and the down projection).  x,
+    w_up, w_down share one dtype (f32 or bf16)."""
     E, cap, d, F = _shapes(x, w_up, w_down)
     _build.check_operands("expert_glu", x=(x, _build.FLOATS),
                           w_up=(w_up, (x.dtype,)), w_down=(w_down, (x.dtype,)))
-    if d > MAX_D:
-        raise ValueError(f"expert_glu: the kernel takes d <= {MAX_D}, got {d}")
+    act = torch.empty((E, cap, F), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("expert_glu", x.data_ptr(), w_up.data_ptr(),
-                      w_down.data_ptr(), y.data_ptr(), E, cap, d, F,
-                      int(x.dtype == torch.bfloat16), stream)
+                      w_down.data_ptr(), act.data_ptr(), y.data_ptr(), E,
+                      cap, d, F, int(x.dtype == torch.bfloat16), stream)
     return y
 
 

@@ -73,6 +73,40 @@ def test_each_launch_is_counted_once(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_glu_beyond_d_1024(cuda, dtype):
+    """The tensor-core GLU has no cap on d: d = 2048 (moe_d_ff 512, 4
+    experts) against the plain version, normalised by the largest output
+    as chip_smoke.py holds the main-path shapes."""
+    rng = np.random.default_rng(10)
+    x = _rand(rng, (4, 256, 2048), cuda, dtype)
+    wu = _rand(rng, (4, 2048, 1024), cuda, dtype, 0.5)
+    wd = _rand(rng, (4, 512, 2048), cuda, dtype, 0.5)
+    got = mg.expert_glu_cuda(x, wu, wd).double()
+    want = mg.expert_glu_plain(x, wu, wd).double()
+    assert got.shape == want.shape
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= TOL[dtype]["rtol"], rel
+
+
+@pytest.mark.gpu
+def test_expert_glu_counts_one_launch_for_its_two_kernels(cuda):
+    """One ``ops.expert_glu`` call runs the up and the down projection as
+    two device kernels from one C call, and counts one launch."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, (4, 40, 64), cuda, torch.float32)
+    wu = _rand(rng, (4, 64, 64), cuda, torch.float32, 0.1)
+    wd = _rand(rng, (4, 32, 64), cuda, torch.float32, 0.1)
+    kernels.reset_launch_counts()
+    y = ops.expert_glu(x, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"flash_attention": 0, "ssd_scan": 0,
+                                       "expert_glu": 1}
+    torch.testing.assert_close(y, mg.expert_glu_plain(x, wu, wd),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros
     with pytest.raises(TypeError, match="dtype"):

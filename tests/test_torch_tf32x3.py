@@ -1,0 +1,126 @@
+"""Why the port's tensor-core kernels may use 3xTF32 and not TF32.
+
+``expert_glu`` and ``flash_attention`` (``src/repro_torch/csrc``) run
+their f32 products on the tensor cores as ``mma.sync`` TF32 tiles.  TF32
+keeps 10 explicit mantissa bits, so one TF32 product per f32 product
+misses the f32 bucket of 3e-5 (``chip_smoke.py`` ``F32_TOL``, normalised
+by the largest output).  The 3xTF32 split a = hi + lo, hi = tf32(a),
+lo = tf32(a - hi), a.b ~ lo.b_hi + hi.b_lo + hi.b_hi keeps it.  This file
+emulates both in torch on the CPU, at the main path's reduction depths
+and scales (``GRANITE_MAIN_PATH``: the up projection over d = 1024, the
+down projection over F = 512, attention over D = 64 and a 64-wide kv
+tile), and holds each to the bucket.
+
+The tensor cores' f32 accumulator may truncate (round toward zero) at
+every ``mma``; a long chain of truncations drifts.  The last test
+emulates that accumulator and the kernels' remedy: each stretch of K (32
+deep in ``expert_glu``, one 64-wide kv tile in attention) is summed in a
+fresh accumulator and added to the running f32 sum, rounding to nearest.
+"""
+import numpy as np
+import pytest
+import torch
+
+F32_TOL = 3e-5          # chip_smoke.py F32_TOL, the f32 bucket
+MMA_K = 8               # depth of one m16n8k8 TF32 tile
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (nearest, ties away from zero), as the card's
+    ``cvt.rna.tf32.f32``: the low 13 mantissa bits are rounded away."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32(x)
+    return hi, tf32(x.float() - hi)
+
+
+def rz32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounding toward zero."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    r[over] = torch.nextafter(r[over], torch.zeros_like(r[over]))
+    return r
+
+
+def one_tf32(a, b):
+    return tf32(a).double() @ tf32(b).double()
+
+
+def three_tf32(a, b):
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al.double() @ bh.double() + ah.double() @ bl.double()
+            + ah.double() @ bh.double())
+
+
+def three_tf32_truncating(a, b, fold: int):
+    """3xTF32 with the tensor cores' accumulator emulated: every 8-deep
+    ``mma`` rounds toward zero into a partial sum that starts at zero
+    every ``fold`` of K, and each partial is added to the running f32 sum
+    rounding to nearest (``fold`` = K: one chain, no fold)."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for f0 in range(0, a.shape[1], fold):
+        part = torch.zeros_like(total)
+        for k0 in range(f0, f0 + fold, MMA_K):
+            ks = slice(k0, k0 + MMA_K)
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                part = rz32(part.double() + x[:, ks].double()
+                            @ y[ks].double())
+        total = total + part
+    return total.double()
+
+
+def _operands(case: str):
+    """(A, B) at one of the main path's products, from a seeded rng."""
+    rng = np.random.default_rng({"up": 0, "down": 1, "qk": 2, "pv": 3}[case])
+
+    def n(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).float()
+    if case == "up":            # x (N(0,1)) . w_up (0.5 N(0,1)), K = d
+        return n(64, 1024), n(1024, 128, scale=0.5)
+    if case == "down":          # silu(g) * u . w_down, K = F
+        h = (n(64, 1024).double() @ n(1024, 1024, scale=0.5).double())
+        act = (torch.nn.functional.silu(h[:, :512]) * h[:, 512:]).float()
+        return act, n(512, 128, scale=0.5)
+    if case == "qk":            # (q / sqrt(D)) . k^T, K = D
+        return n(64, 64) * 0.125, n(64, 64)
+    s = n(64, 64) @ n(64, 64) * 0.125       # p . v over one kv tile
+    p = torch.exp(s - s.amax(dim=1, keepdim=True))
+    return p, n(64, 64)
+
+
+def _err(got, a, b) -> float:
+    want = a.double() @ b.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+CASES = ["up", "down", "qk", "pv"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_one_tf32_product_misses_the_f32_bucket(case):
+    a, b = _operands(case)
+    assert _err(one_tf32(a, b), a, b) > F32_TOL
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_3xtf32_split_holds_the_f32_bucket(case):
+    a, b = _operands(case)
+    err = _err(three_tf32(a, b), a, b)
+    assert err <= F32_TOL / 30, err      # ~1e-7: f32's own order
+    f32 = _err((a @ b).double(), a, b)
+    assert err <= 4 * f32 + 1e-7, (err, f32)
+
+
+@pytest.mark.parametrize("case,fold", [("up", 32), ("down", 32),
+                                       ("qk", 64), ("pv", 64)])
+def test_3xtf32_with_a_truncating_accumulator_holds_the_bucket(case, fold):
+    a, b = _operands(case)
+    folded = _err(three_tf32_truncating(a, b, fold), a, b)
+    assert folded <= F32_TOL / 10, folded
+    if a.shape[1] > fold:       # one chain over all of K drifts further
+        chained = _err(three_tf32_truncating(a, b, a.shape[1]), a, b)
+        assert chained > folded, (chained, folded)
