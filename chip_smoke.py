@@ -14,9 +14,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
-   main-path shapes and at d = 2048 for the expert GLU, in f32 and bf16;
-   checks that the tensor-core kernels are bitwise equal between two runs
-   on the same inputs; and times kernel, plain version and (where one
+   main-path shapes, at d = 2048 for the expert GLU and at chunks 128
+   and 256 (one case under strong decay) for the SSD scan, in f32 and
+   bf16; checks that each kernel is bitwise equal between two runs on
+   the same inputs; and times kernel, plain version and (where one
    exists) a library call;
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
@@ -43,9 +44,9 @@ LOG = ROOT / "chiprun_out" / "chip_smoke.log"
 
 # H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, TF32 and bf16
 # on the tensor cores, HBM3 bandwidth.  Bounds below are stated against
-# these.  A kernel whose f32 products run in 3xTF32 on the tensor cores
-# (expert_glu, flash_attention) is bound by three TF32 products per f32
-# one; its CUDA-core f32 bound is printed beside it.
+# these.  Every kernel runs its f32 products in 3xTF32 on the tensor
+# cores, so it is bound by three TF32 products per f32 one; its CUDA-core
+# f32 bound is printed beside it.
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
@@ -144,11 +145,14 @@ def bitwise_equal(a, b) -> bool:
 
 
 def check_repeatable(name, label, fn, args) -> None:
-    """Two runs of ``fn(*args)`` give the same bits (fixed-order sums)."""
+    """Two runs of ``fn(*args)`` give the same bits (fixed-order sums);
+    ``fn`` returns a tensor or a tuple of tensors."""
     import torch
     first, second = fn(*args), fn(*args)
     torch.cuda.synchronize()
-    check(bitwise_equal(first, second),
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
+    check(all(bitwise_equal(a, b) for a, b in zip(first, second)),
           f"{name} {label} {str(args[0].dtype)[6:]}: two runs on the same "
           "inputs are bitwise equal")
 
@@ -217,13 +221,19 @@ def _unaligned(t):
     return u
 
 
-def _ssd_case(rng, B, T, H, N, P, chunk, with_s0, dtype):
+def _ssd_case(rng, B, T, H, N, P, chunk, with_s0, dtype, decay=None):
+    """One SSD case; ``decay`` (< 0) draws log_a around that value per
+    step instead of -softplus(N(0, 1))."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     c = rand(rng, (B, T, H, N), dtype, 0.5)
     b = rand(rng, (B, T, H, N), dtype, 0.5)
     v = rand(rng, (B, T, H, P), dtype)
-    la = -torch.nn.functional.softplus(rand(rng, (B, T, H), torch.float32))
+    if decay is None:
+        la = -torch.nn.functional.softplus(rand(rng, (B, T, H),
+                                                torch.float32))
+    else:
+        la = (decay + 0.5 * rand(rng, (B, T, H), torch.float32)).clamp(max=0)
     s0 = rand(rng, (B, H, N, P), torch.float32) if with_s0 else None
     y, s = ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=chunk)
     yp, sp = ss.ssd_scan_plain(c, b, v, la, initial_state=s0, chunk=chunk)
@@ -324,20 +334,46 @@ def phase_kernels(main_cfg: dict) -> dict:
         ("T=17 < chunk, initial_state", (1, 17, 2, 8, 8, 32, True), True),
         ("main path + initial_state", (B, T, H, N, D, 64, True), False),
         ("main path", (B, T, H, N, D, main_cfg["chunk"], False), False),
+        # the Pallas kernel's own chunks, at Zamba2's N = P = 64 with a
+        # padded last chunk
+        ("Zamba2 T=1000 chunk 128", (1, 1000, H, N, D, 128, False), False),
+        ("Zamba2 T=1000 chunk 128 + initial_state",
+         (1, 1000, H, N, D, 128, True), False),
+        ("Zamba2 T=1000 chunk 256", (1, 1000, H, N, D, 256, False), False),
+        ("Zamba2 T=1000 chunk 256 + initial_state",
+         (1, 1000, H, N, D, 256, True), False),
+        # log_a ~ -5 a step: cum reaches ~-1280 in a chunk of 256, where
+        # exp(cum_i) exp(-cum_j) overflows and exp(cum_i - cum_j) does not
+        ("strong decay chunk 256", (1, 1000, H, N, D, 256, True), False),
     ]
     for dtype in (f32, bf16):
         for label, shape, small in ssd_cases:
-            _, (y, s), (yp, sp) = _ssd_case(rng, *shape, dtype)
+            decay = -5.0 if label.startswith("strong decay") else None
+            args, (y, s), (yp, sp) = _ssd_case(rng, *shape, dtype, decay)
             err = _hold("ssd_scan", label, y, yp, dtype, small)
             _hold("ssd_scan", label + " state", s, sp, f32, False)
+            check(bool(torch.isfinite(y.float()).all()
+                       and torch.isfinite(s).all()),
+                  f"ssd_scan {label} {str(dtype)[6:]}: finite outputs")
+            if label in ("main path", "Zamba2 T=1000 chunk 256"):
+                check_repeatable(
+                    "ssd_scan", label,
+                    lambda c, b, v, la, s0, ch=shape[5]: ss.ssd_scan_cuda(
+                        c, b, v, la, initial_state=s0, chunk=ch), args)
             if label == "main path" and dtype == f32:
                 main_err = err
     (c, b, v, la, _), _, _ = _ssd_case(rng, B, T, H, N, D,
                                        main_cfg["chunk"], False, f32)
-    steps = B * T * H
-    b_ms, b_by = bound(steps * 4 * N * D,
-                       4 * (c.numel() + b.numel() + 2 * v.numel()
-                            + la.numel() + B * H * N * D), PEAK_F32)
+    # the chunked algebra with full tiles, per (b, h, chunk): c b^T and
+    # G v (2 C^2 N + 2 C^2 P), the inter term and the chunk state (2 x
+    # 2 C N P)
+    C_ = main_cfg["chunk"]
+    ssd_flops = B * H * (-(-T // C_)) * (2 * C_ * C_ * (N + D)
+                                         + 4 * C_ * N * D)
+    ssd_bytes = 4 * (c.numel() + b.numel() + 2 * v.numel() + la.numel()
+                     + B * H * N * D)
+    b_ms, b_by = tc_bound(ssd_flops, ssd_bytes, f32)
+    cc_ms = bound(ssd_flops, ssd_bytes, PEAK_F32)[0]
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
@@ -347,7 +383,8 @@ def phase_kernels(main_cfg: dict) -> dict:
                                             chunk=main_cfg["chunk"])),
         plain_ms=time_ms(lambda: ss.ssd_scan_plain(
             c, b, v, la, chunk=main_cfg["chunk"]), iters=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        cuda_core_bound_ms=cc_ms)
 
     # -- expert GLU ---------------------------------------------------------
     glu_cases = [

@@ -6,14 +6,16 @@ CUDA toolkit:
 
     python3 kernel_variants.py
 
-Builds ``src/repro_torch/csrc/expert_glu.cu`` and ``flash_attention.cu``
-as they are ("shipped") and with one design choice undone at a time, by a
-textual substitution of the sources (each substitution must match, so a
-variant cannot silently become the shipped kernel), into
-``build/kernels/variants/``.  Each variant runs at the main-path shapes
-(``GRANITE_MAIN_PATH``) in f32 and bf16 and prints its time (CUDA
+Builds ``src/repro_torch/csrc/expert_glu.cu``, ``flash_attention.cu``
+and ``ssd_scan.cu`` as they are ("shipped") and with one design choice
+undone at a time, by a textual substitution of the sources (each
+substitution must match, so a variant cannot silently become the shipped
+kernel), into ``build/kernels/variants/``.  Each variant runs at the
+main-path shapes (``GRANITE_MAIN_PATH``; the SSD scan at chunks 64, the
+main path's, 128 and 256) in f32 and bf16 and prints its time (CUDA
 events), its error over the largest output of the plain version, and the
-time of one library call for the same function, all in one process:
+time of one library call for the same function where there is one, all
+in one process:
 
 * ``cvt_rna`` — the 3xTF32 split by two ``cvt.rna.tf32.f32`` instead of
   integer rounding (same numbers, more instructions);
@@ -22,7 +24,11 @@ time of one library call for the same function, all in one process:
   truncating accumulator);
 * ``one_tf32`` — only the hi.hi product (wrong by ~3e-4: a speed ceiling
   for the products, not a kernel to ship);
-* ``warps16`` — the GLU with 16 warps of 32 x 32 instead of 8 of 64 x 32.
+* ``warps16`` — the GLU with 16 warps of 32 x 32 instead of 8 of 64 x 32;
+* ``fold64`` — the SSD scan's fresh accumulator spans 64 of K instead of
+  32: at the main path (N = 64, kv tiles of 64, chunk 64) every product
+  is one chain, so this shows what the fold costs there and how far the
+  truncating accumulator drifts without it.
 
 A full log goes to ``chiprun_out/kernel_variants.log``.
 """
@@ -53,11 +59,16 @@ ATTN_THREE = ("  bident::mma_tf32(c, al, bh);\n"
               "  if constexpr (sizeof(T) == 4) bident::mma_tf32(c, ah, bl);\n"
               "  bident::mma_tf32(c, ah, bh);")
 ATTN_ONE = "  bident::mma_tf32(c, ah, bh);"
+SSD_THREE = ("  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);\n"
+             "  if constexpr (!B_EXACT) bident::mma_tf32(c, ah, bl);\n"
+             "  bident::mma_tf32(c, ah, bh);")
+SSD_ONE = "  bident::mma_tf32(c, ah, bh);"
+SSD_FOLD = "constexpr int FOLD_K8 = 4;"
 WARPS_M = "constexpr int WARPS_M = 2;"
 BOUNDS = "__launch_bounds__(NT, Layout<T>::F32 ? 1 : 2)"
 
-# variant -> {file: [(old, new), ...]}; expert_glu and flash_attention
-# each build with their own copy of common.cuh
+# variant -> {file: [(old, new), ...]}; each kernel builds with its own
+# copy of common.cuh
 VARIANTS = {
     "shipped": {},
     "cvt_rna": {"common.cuh": [(SPLIT, CVT_RNA)]},
@@ -65,11 +76,13 @@ VARIANTS = {
                                                                  "acc")),
                                   (GLU_FOLD, ";")]},
     "one_tf32": {"expert_glu.cu": [(GLU_THREE, GLU_ONE)],
-                 "flash_attention.cu": [(ATTN_THREE, ATTN_ONE)]},
+                 "flash_attention.cu": [(ATTN_THREE, ATTN_ONE)],
+                 "ssd_scan.cu": [(SSD_THREE, SSD_ONE)]},
     "warps16": {"expert_glu.cu": [(WARPS_M, "constexpr int WARPS_M = 4;"),
                                   (BOUNDS, "__launch_bounds__(NT, 1)")]},
+    "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
 }
-KERNELS = ("expert_glu", "flash_attention")
+KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
 
 _log_lines: list[str] = []
 
@@ -128,6 +141,23 @@ def build() -> dict[tuple[str, str], ctypes.CDLL]:
     return libs
 
 
+def host_us(fn, iters: int = 1000) -> float:
+    """Mean host time of ``fn()`` in microseconds, without a sync inside
+    the timed loop (the launches' own cost on the host)."""
+    import time
+
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
+
+
 def bind(lib, kernel):
     from repro_torch.kernels import _build
     symbol, argtypes = _build._SIGNATURES[kernel]
@@ -149,6 +179,7 @@ def main() -> int:
     from repro_torch.core import GRANITE_MAIN_PATH
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gather as mg
+    from repro_torch.kernels import ssd_scan as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -221,6 +252,44 @@ def main() -> int:
             rel = norm_err(o, want)[1]
             log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
                 f"/ max|plain| {rel:.3e}")
+        # the SSD scan at the main path's widths and three chunks
+        N, P = cfg["state"], D
+        c_, b_ = rand((B, T, H, N), dtype, .5), rand((B, T, H, N), dtype, .5)
+        v_ = rand((B, T, H, P), dtype)
+        la = -F_.softplus(rand((B, T, H), torch.float32))
+        y_, s_ = torch.empty_like(v_), torch.empty((B, H, N, P), device="cuda")
+        for chunk in (64, 128, 256):
+            want = ss.ssd_scan_plain(c_, b_, v_, la, chunk=chunk)[0]
+            work = torch.empty(B * H * -(-T // chunk) * (N * P + 1),
+                               device="cuda")
+            log(f"ssd_scan {name} at (B, T, H, N, P) = ({B}, {T}, {H}, {N},"
+                f" {P}), chunk {chunk}:")
+            for variant in VARIANTS:
+                if (variant, "ssd_scan") not in libs:
+                    continue
+                fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
+
+                def call():
+                    err = fn(c_.data_ptr(), b_.data_ptr(), v_.data_ptr(),
+                             la.data_ptr(), None, y_.data_ptr(),
+                             s_.data_ptr(), work.data_ptr(), B, T, H, N, P,
+                             chunk, bf, stream)
+                    if err:
+                        raise RuntimeError(f"{variant}: cudaError_t {err}")
+                call()
+                torch.cuda.synchronize()
+                rel = norm_err(y_, want)[1]
+                log(f"  {variant:9s} {time_ms(call, iters=50):.4f} ms, error "
+                    f"/ max|plain| {rel:.3e}")
+                if variant == "shipped" and chunk == 64:
+                    raw_call = call
+            # host time a call (no sync), of the C entry point and of the
+            # wrapper, which also allocates and checks: where it exceeds
+            # the device time, a wrapper timed by CUDA events reads it
+            log(f"  host time a call at chunk 64: C entry point "
+                f"{host_us(raw_call):.1f} us, ssd_scan_cuda "
+                f"{host_us(lambda: ss.ssd_scan_cuda(c_, b_, v_, la, chunk=64)):.1f}"
+                f" us")
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("\n".join(_log_lines) + "\n")
     return 0

@@ -4,8 +4,8 @@
 // fixed order (no atomics, no split reduction, so a run is bitwise
 // reproducible) and writes in the operand dtype.
 //
-// Products.  The GEMM-shaped kernels (expert_glu, flash_attention) run
-// their products on the tensor cores with `mma.sync`.  One TF32 product
+// Products.  Every kernel (expert_glu, flash_attention, ssd_scan) runs
+// its products on the tensor cores with `mma.sync`.  One TF32 product
 // keeps 11 significant bits of each operand, about 3e-4 of the largest
 // output at the main path's K, which the f32 bucket of 3e-5 does not
 // hold.  They use the 3xTF32 split instead: a = a_hi + a_lo with
@@ -17,7 +17,7 @@
 // `mma` (on the card one chain over K = 1024 drifts to 1.7e-5 of the
 // largest output, PERF.md), so each kernel sums a bounded stretch of K in
 // a fresh accumulator and adds it to the running sum with an f32 add
-// (round to nearest).  The SSD scan stays on the CUDA cores.
+// (round to nearest).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -37,7 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # every entry point returns its launch's cudaError_t
 _SIGNATURES = {
     "flash_attention": ("bident_flash_attention", [_P] * 4 + [_I] * 9 + [_P]),
-    "ssd_scan": ("bident_ssd_scan", [_P] * 7 + [_I] * 7 + [_P]),
+    "ssd_scan": ("bident_ssd_scan", [_P] * 8 + [_I] * 7 + [_P]),
     "expert_glu": ("bident_expert_glu", [_P] * 5 + [_I] * 5 + [_P]),
 }
 

@@ -35,7 +35,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
                                 q_offset=q_offset)
 
 
-def ssd_scan(c, b, v, log_a, *, initial_state=None, chunk: int = 64):
+def ssd_scan(c, b, v, log_a, *, initial_state=None, chunk: int = 256):
     """c, b: (B,T,H,N); v: (B,T,H,P); log_a: (B,T,H) (<= 0).  Returns
     (y (B,T,H,P) in v.dtype, S_final (B,H,N,P) f32)."""
     if _on_cpu(v):

@@ -1,13 +1,16 @@
 """Chunked Mamba-2 SSD scan: the CUDA kernel and its plain version.
 
 Port of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel).  The kernel
-(``csrc/ssd_scan.cu``) runs one block per (batch, head) sequence and
-loops over the chunks with the f32 state in shared memory; its source
-states the design and what bounds it.  :func:`ssd_scan_plain` repeats the
-same chunked algebra in PyTorch (intra-chunk ``((c b^T) o L) v``,
-inter-chunk ``(c o e^cum) S``, carry ``S e^tot + (b o e^(tot-cum))^T v``),
-so the kernel can be held against it on the card and the CPU path runs
-the same algorithm.
+(``csrc/ssd_scan.cu``) runs in three phases, the first and last parallel
+over chunks: every chunk's own state contribution, then a short
+sequential pass that carries the state across chunks, then every chunk's
+outputs on the tensor cores; its source states the design and what
+bounds it.  :func:`ssd_scan_plain` repeats the same chunked algebra in
+PyTorch in the same phase order (chunk states ``(b o e^(tot-cum))^T v``
+for all chunks at once, the carry ``S e^tot + chunk_state`` chunk by
+chunk, then intra-chunk ``((c b^T) o L) v`` plus inter-chunk
+``(c o e^cum) S_in``), so the kernel can be held against it on the card
+and the CPU path runs the same algorithm.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from . import _build
 
-MAX_CHUNK = 64
+MAX_CHUNK = 256
 MAX_STATE = 128
 
 
@@ -33,27 +36,35 @@ def ssd_scan_plain(c, b, v, log_a, *, initial_state=None,
     nc = -(-T // C)
     pad = nc * C - T
 
-    def heads_first(x):                     # (B,T,H,...) -> (B,H,T,...) f32
+    def chunks(x):               # (B,T,H,...) -> (B,H,nc,C,...) f32, zero pad
         x = x.float().transpose(1, 2)
-        return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad))
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad))
+        return x.reshape(B, H, nc, C, *x.shape[3:])
 
-    cf, bf, vf = heads_first(c), heads_first(b), heads_first(v)
-    la = torch.nn.functional.pad(log_a.float().transpose(1, 2), (0, pad))
+    cf, bf, vf = chunks(c), chunks(b), chunks(v)
+    cum = torch.cumsum(chunks(log_a), dim=-1)                  # B,H,nc,C
+    tot = cum[..., -1]                                         # B,H,nc
+
+    # 1. every chunk's own contribution to the state
+    w = torch.exp(tot[..., None] - cum)
+    chunk_states = (bf * w[..., None]).transpose(-1, -2) @ vf  # B,H,nc,N,P
+
+    # 2. the state entering each chunk, carried in order
     S = (torch.zeros((B, H, N, P), dtype=torch.float32, device=v.device)
-         if initial_state is None else initial_state.float().clone())
+         if initial_state is None else initial_state.float())
+    decay = torch.exp(tot)
+    s_in = []
+    for ci in range(nc):
+        s_in.append(S)
+        S = S * decay[:, :, ci, None, None] + chunk_states[:, :, ci]
+    s_in = torch.stack(s_in, dim=2)                            # B,H,nc,N,P
+
+    # 3. every chunk's outputs
     lower = torch.tril(torch.ones((C, C), dtype=torch.bool, device=v.device))
-    ys = []
-    for t0 in range(0, nc * C, C):
-        cc, bb, vv = cf[:, :, t0:t0 + C], bf[:, :, t0:t0 + C], vf[:, :, t0:t0 + C]
-        cum = torch.cumsum(la[:, :, t0:t0 + C], dim=-1)           # B,H,C
-        tot = cum[..., -1:]
-        diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~lower, -1e30)
-        y = ((cc @ bb.transpose(-1, -2)) * torch.exp(diff)) @ vv
-        y = y + (cc * torch.exp(cum)[..., None]) @ S
-        chunk_state = (bb * torch.exp(tot - cum)[..., None]).transpose(-1, -2) @ vv
-        S = S * torch.exp(tot)[..., None] + chunk_state
-        ys.append(y)
-    y = torch.cat(ys, dim=2)[:, :, :T].transpose(1, 2)
+    diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~lower, -1e30)
+    y = ((cf @ bf.transpose(-1, -2)) * torch.exp(diff)) @ vf
+    y = y + (cf * torch.exp(cum)[..., None]) @ s_in
+    y = y.reshape(B, H, nc * C, P)[:, :, :T].transpose(1, 2)
     return y.to(v.dtype), S
 
 
@@ -61,10 +72,9 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
                   chunk: int = MAX_CHUNK):
     """Launch the CUDA kernel on the current stream of v's device.  c, b,
     v share one dtype (f32 or bf16); log_a and initial_state are f32;
-    the effective chunk is at most ``MAX_CHUNK`` and N, P at most
-    ``MAX_STATE``.  The chunk defaults to ``MAX_CHUNK``, not to the
-    Pallas kernel's 256: the kernel keeps a chunk's C x C decay matrix
-    in shared memory, and 256 does not fit (``ROADMAP.md``)."""
+    the effective chunk is at most ``MAX_CHUNK`` (the Pallas kernel's
+    default, 256, and the default here) and N, P at most
+    ``MAX_STATE``."""
     B, T, H, N = b.shape
     P = v.shape[-1]
     if c.shape != b.shape or v.shape[:3] != b.shape[:3] \
@@ -88,11 +98,16 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
     _build.check_operands("ssd_scan", **operands)
     y = torch.empty_like(v)
     s_final = torch.empty((B, H, N, P), dtype=torch.float32, device=v.device)
+    # the chunk states (B, H, nc, N, P), then each chunk's tot (B, H, nc)
+    nc = -(-T // C)
+    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float32,
+                       device=v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("ssd_scan", c.data_ptr(), b.data_ptr(), v.data_ptr(),
                       log_a.data_ptr(),
                       None if initial_state is None else initial_state.data_ptr(),
-                      y.data_ptr(), s_final.data_ptr(), B, T, H, N, P, C,
+                      y.data_ptr(), s_final.data_ptr(), work.data_ptr(),
+                      B, T, H, N, P, C,
                       int(v.dtype == torch.bfloat16), stream)
     return y, s_final

@@ -51,3 +51,10 @@ def test_kernel_variants_still_match_the_sources():
             files = kv.sources(variant, kernel)
             if files is not None and variant != "shipped":
                 assert files != shipped, (variant, kernel)
+    # every kernel has its variants, the SSD scan's fold among them
+    assert set(kv.KERNELS) == set(_build.KERNELS)
+    for variant, kernel in (("fold64", "ssd_scan"), ("one_tf32", "ssd_scan"),
+                            ("cvt_rna", "ssd_scan")):
+        assert kv.sources(variant, kernel) is not None, (variant, kernel)
+    assert "constexpr int FOLD_K8 = 8;" in \
+        kv.sources("fold64", "ssd_scan")["ssd_scan.cu"]

@@ -107,6 +107,28 @@ def test_expert_glu_counts_one_launch_for_its_two_kernels(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_at_chunk_256(cuda, dtype):
+    """The chunk-parallel scan at the Pallas kernel's own chunk: T = 600
+    (a padded third chunk), N = P = 64, with an initial state, against
+    the plain version, normalised by the largest output."""
+    rng = np.random.default_rng(12)
+    c, b = (_rand(rng, (1, 600, 2, 64), cuda, dtype, 0.5) for _ in range(2))
+    x = _rand(rng, (1, 600, 2, 64), cuda, dtype)
+    la = -torch.nn.functional.softplus(_rand(rng, (1, 600, 2), cuda,
+                                             torch.float32))
+    s0 = _rand(rng, (1, 2, 64, 64), cuda, torch.float32)
+    (y, s), (yp, sp) = (f(c, b, x, la, initial_state=s0, chunk=256) for f in
+                        (ss.ssd_scan_cuda, ss.ssd_scan_plain))
+    for got, want, tol in ((y, yp, TOL[dtype]["rtol"]),
+                           (s, sp, TOL[torch.float32]["rtol"])):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        got, want = got.double(), want.double()
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros
     with pytest.raises(TypeError, match="dtype"):
@@ -118,7 +140,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         mg.expert_glu_cuda(z(2, 8, 4, device=cuda).transpose(1, 2),
                            z(2, 8, 8, device=cuda), z(2, 4, 8, device=cuda))
     with pytest.raises(ValueError, match="chunk"):
-        ss.ssd_scan_cuda(z(1, 200, 1, 8, device=cuda),
-                         z(1, 200, 1, 8, device=cuda),
-                         z(1, 200, 1, 8, device=cuda),
-                         z(1, 200, 1, device=cuda), chunk=128)
+        ss.ssd_scan_cuda(z(1, 600, 1, 8, device=cuda),
+                         z(1, 600, 1, 8, device=cuda),
+                         z(1, 600, 1, 8, device=cuda),
+                         z(1, 600, 1, device=cuda), chunk=512)

@@ -87,11 +87,23 @@ SSD_SHAPES = [
     (2, 64, 2, 16, 16, 16, True),      # initial state
     (1, 17, 2, 8, 8, 32, True),        # T < chunk
 ]
+# At the Pallas kernel's own chunks the sums run over hundreds of steps:
+# with unit-scale c and b (|y| ~ 25-40) f32 rounding alone puts the
+# Pallas kernel 4e-5 to 2.2e-4 from an f64 recurrence, past the f32
+# bucket's elementwise 3e-5, so these draw c and b at 0.5, the scale
+# kernel_chain draws them at (|y| ~ 10).
+SSD_LONG_SHAPES = [
+    (1, 300, 2, 16, 32, 128, False),   # chunk 128, padded T
+    (1, 200, 2, 8, 16, 128, True),     # chunk 128, T not a multiple, state
+    (1, 600, 1, 16, 32, 256, True),    # chunk 256, padded third chunk, state
+    (1, 100, 2, 8, 16, 256, False),    # chunk 256 > T
+]
 
 
-def _ssd_inputs(rng, B, T, H, N, P, with_s0, dtype):
-    c, b = (pair(rng.standard_normal((B, T, H, N), dtype=np.float32), dtype)
-            for _ in range(2))
+def _ssd_inputs(rng, B, T, H, N, P, with_s0, dtype, scale=1.0):
+    c, b = (pair(np.float32(scale) * rng.standard_normal((B, T, H, N),
+                                                         dtype=np.float32),
+                 dtype) for _ in range(2))
     v = pair(rng.standard_normal((B, T, H, P), dtype=np.float32), dtype)
     la_np = -np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(np.float32)
     la = pair(la_np, "float32")
@@ -100,12 +112,10 @@ def _ssd_inputs(rng, B, T, H, N, P, with_s0, dtype):
     return c, b, v, la, s0
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,T,H,N,P,chunk,with_s0", SSD_SHAPES)
-def test_ssd_scan_matches_jax(B, T, H, N, P, chunk, with_s0, dtype):
+def _ssd_matches_jax(B, T, H, N, P, chunk, with_s0, dtype, scale=1.0):
     rng = np.random.default_rng(2)
     (jc, c), (jb, b), (jv, v), (jla, la), (js0, s0) = _ssd_inputs(
-        rng, B, T, H, N, P, with_s0, dtype)
+        rng, B, T, H, N, P, with_s0, dtype, scale)
     yr, Sr = jref.ssd_scan_ref(jc, jb, jv, jla, initial_state=js0)
     y, S = ref.ssd_scan_ref(c, b, v, la, initial_state=s0)
     close(y, yr, TOL[dtype])
@@ -115,6 +125,38 @@ def test_ssd_scan_matches_jax(B, T, H, N, P, chunk, with_s0, dtype):
     y, S = ops.ssd_scan(c, b, v, la, initial_state=s0, chunk=chunk)
     assert y.dtype == TDT[dtype] and S.dtype == torch.float32
     close(y, yk, TOL[dtype])
+    close(S, Sk, dict(atol=5e-4, rtol=5e-4))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,H,N,P,chunk,with_s0", SSD_SHAPES)
+def test_ssd_scan_matches_jax(B, T, H, N, P, chunk, with_s0, dtype):
+    _ssd_matches_jax(B, T, H, N, P, chunk, with_s0, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,H,N,P,chunk,with_s0", SSD_LONG_SHAPES)
+def test_ssd_scan_long_chunks_match_jax(B, T, H, N, P, chunk, with_s0,
+                                        dtype):
+    _ssd_matches_jax(B, T, H, N, P, chunk, with_s0, dtype, scale=0.5)
+
+
+def test_ssd_scan_default_chunk_is_the_pallas_kernels():
+    """Without a ``chunk`` argument both packages chunk at 256, so the
+    same call computes the same chunked algebra: T = 300 runs as one full
+    chunk of 256 and a padded second one in both."""
+    import inspect
+    assert inspect.signature(ops.ssd_scan).parameters["chunk"].default \
+        == inspect.signature(jops.ssd_scan).parameters["chunk"].default \
+        == ss.ssd_scan_plain.__kwdefaults__["chunk"] \
+        == ss.ssd_scan_cuda.__kwdefaults__["chunk"] == 256
+    rng = np.random.default_rng(13)
+    (jc, c), (jb, b), (jv, v), (jla, la), (js0, s0) = _ssd_inputs(
+        rng, 1, 300, 2, 8, 16, True, "float32", 0.5)
+    yk, Sk = jops.ssd_scan(jc, jb, jv, jla, initial_state=js0,
+                           interpret=True)
+    y, S = ops.ssd_scan(c, b, v, la, initial_state=s0)
+    close(y, yk, TOL["float32"])
     close(S, Sk, dict(atol=5e-4, rtol=5e-4))
 
 
