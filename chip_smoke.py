@@ -25,7 +25,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    program on the planned route and on every single-lane route, each
    checked against the interpreter oracle; then one warm run of the
    planned route through ``Orchestrator.execute``, with the kernels'
-   launch counts zeroed just before it and read just after.
+   launch counts zeroed just before it and read just after;
+4. concurrent requests — phase 3's chain (A) beside two chains at seq
+   256 with their own weights (B, C), planned jointly as (A, B) and
+   (A, B, C) on the same lanes and run as compiled concurrent programs
+   (one worker thread and one CUDA stream per lane): predicted against
+   measured makespan, against the requests' own programs back to back;
+   each request bitwise its run alone with the same op -> lane
+   assignment, within the route bound of the interpreter and bitwise
+   between two warm runs; the segments' host intervals, a device trace's
+   busy time per stream and the streams' overlap; and each kernel's
+   launches in one warm concurrent run, counted from zero.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -67,6 +77,10 @@ KERNEL_OF_OP = {"attn": "flash_attention", "ssd": "ssd_scan",
 # drift is bounded by the chain's conditioning; each kernel on its own
 # is held to the bucket by its lane's probe and by phase 2.
 ROUTE_BUCKET, SPREAD = 3e-4, 4.0
+# the __global__ functions of src/repro_torch/csrc (a device trace names
+# the stream each one ran on)
+HAND_KERNELS = ("attn_kernel", "gemm_kernel", "state_kernel", "pass_kernel",
+                "out_kernel")
 
 _log_lines: list[str] = []
 
@@ -641,7 +655,325 @@ def phase_main_path(main_cfg: dict) -> dict:
     ck, c0 = results["cuda-kernels"]["outs"], results["cuda:0"]["outs"]
     _drift_ok("all-cuda-kernels route against the all-cuda:0 route",
               ck, c0, spread)
-    return {"counts": counts}
+    return {"counts": counts, "orch": orch, "binding": binding, "h": h,
+            "graph": graph, "ext": ext, "spread": spread}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: concurrent requests at the Granite widths
+# ---------------------------------------------------------------------------
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _fenced(fn):
+    """Wall seconds of ``fn()`` (which returns results dicts), fenced on
+    the card; returns (seconds, results)."""
+    from repro_torch.core.profiler import fence
+    t0 = time.perf_counter()
+    outs = fn()
+    fence([list(o.values()) for o in outs])
+    return time.perf_counter() - t0, outs
+
+
+def _plan_summary(label, plan, names, graphs) -> None:
+    """Routes by lane, co-scheduled steps and the predicted makespan."""
+    steps = plan.schedule.steps
+    co = sum(1 for st in steps if sum(o is not None for o in st.ops) > 1)
+    log(f"  plan ({label}), mode {plan.mode!r} ({plan.schedule.mode}): "
+        f"predicted makespan {1e3 * plan.latency:.3f} ms, {len(steps)} "
+        f"steps, {co} co-scheduled (barrier) steps")
+    for r, name in enumerate(names):
+        lanes = dict(plan.schedule.assignment_of(r))
+        route = [lanes[i] for i in range(len(graphs[r]))]
+        counts = {lane: route.count(lane) for lane in dict.fromkeys(route)}
+        log(f"    request {name}: {counts}  {route}")
+
+
+def _union(iv) -> list:
+    """The union of (start, end) intervals, as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _busy(iv) -> float:
+    """Length of the union of (start, end) intervals."""
+    return sum(b - a for a, b in _union(iv))
+
+
+def _overlap(iv_a, iv_b) -> float:
+    """Length of the intersection of the unions of two interval sets."""
+    ua, ub = _union(iv_a), _union(iv_b)
+    i = j = 0
+    total = 0.0
+    while i < len(ua) and j < len(ub):
+        lo, hi = max(ua[i][0], ub[j][0]), min(ua[i][1], ub[j][1])
+        total += max(0.0, hi - lo)
+        if ua[i][1] < ub[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _stream_trace(orch, plan, exts, label) -> None:
+    """One warm run under ``torch.profiler``: device busy time per CUDA
+    stream and the overlap between streams, from the exported trace's
+    kernel, copy and memset intervals."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.profiler import fence
+    fence([list(o.values()) for o in orch.execute(plan, exts)])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = orch.execute(plan, exts)
+        fence([list(o.values()) for o in outs])
+        wall = time.perf_counter() - t0
+    path = LOG.parent / f"phase4_trace_{label}.json"
+    LOG.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    by_stream: dict = {}
+    names: dict = {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        sid = ev.get("args", {}).get("stream")
+        a = float(ev["ts"])
+        by_stream.setdefault(sid, []).append((a, a + float(ev["dur"])))
+        name = ev.get("name", "")
+        hand = [k for k in HAND_KERNELS if k in name]
+        if ev.get("cat") == "kernel" and hand:
+            names.setdefault(sid, set()).add(hand[0])
+    if not by_stream:
+        log(f"  device trace ({label}): no device events recorded "
+            "(not measured)")
+        return
+    all_iv = [iv for ivs in by_stream.values() for iv in ivs]
+    busy_all = _busy(all_iv) / 1e3
+    log(f"  device trace ({label}), one warm run: wall "
+        f"{1e3 * wall:.3f} ms (traced), device busy {busy_all:.3f} ms "
+        f"on all streams together, idle "
+        f"{100 * (1 - busy_all / (1e3 * wall)):.1f}%")
+    for sid, ivs in sorted(by_stream.items(), key=lambda kv: str(kv[0])):
+        kern = sorted(names.get(sid, ()))
+        log(f"    stream {sid}: {len(ivs)} device ops, busy "
+            f"{_busy(ivs) / 1e3:.3f} ms"
+            + (f", hand-written kernels {kern}" if kern else ""))
+    sids = sorted(by_stream, key=str)
+    pairs = [(a, b) for k, a in enumerate(sids) for b in sids[k + 1:]]
+    total = 0.0
+    for a, b in pairs:
+        ov = _overlap(by_stream[a], by_stream[b]) / 1e3
+        total += ov
+        log(f"    overlap of streams {a} and {b}: {ov:.3f} ms")
+    log(f"  streams overlapped {total:.3f} ms of {busy_all:.3f} ms busy "
+        f"({label})")
+
+
+def _host_spread(graph, ext, card_outs) -> list:
+    """Per op: the error between the reference payloads on the host and
+    on the card, over the largest output (the chain's conditioning, as
+    phase 3 measures it for request A)."""
+    from repro_torch.core import ScheduleExecutor
+    host_ext = {0: tuple(x.cpu() for x in ext[0])}
+    host = ScheduleExecutor(["cpu"]).run_monolithic(graph, host_ext)
+    return [norm_err(host[i], card_outs[i])[1] for i in range(len(graph))]
+
+
+def phase_concurrent(main_cfg: dict, main: dict) -> dict:
+    """Requests A (phase 3's chain), B and C (seq 256, their own
+    weights) planned jointly on the same four lanes and run at once."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import (KERNEL_DIALECTS, MeasuredProfiler,
+                                  kernel_chain, results_bitwise_equal)
+    from repro_torch.core.profiler import fence
+
+    log("== phase 4: concurrent requests at the Granite widths")
+    orch, binding = main["orch"], main["binding"]
+    short = {**main_cfg, "seq": 256}
+    log(f"requests: A = phase 3's chain (seed 0, seq {main_cfg['seq']}); "
+        f"B, C = {json.dumps(short)} (seeds 1, 2, own weights)")
+    graphs, exts, hs = [main["graph"]], [main["ext"]], [main["h"]]
+    t0 = time.perf_counter()
+    for seed in (1, 2):
+        graph, ext = kernel_chain(seed=seed, **short)
+        table = MeasuredProfiler(warmup=1, iters=3, strict=True,
+                                 targets=binding).profile(graph)
+        fails = table.meta["profile_failures"]
+        check(not fails, f"request {'ABC'[seed]}: profiled "
+                         f"{len(table.meta['measurements'])} cells, "
+                         f"failures: {fails or 'none'}")
+        graphs.append(graph)
+        exts.append(ext)
+        hs.append(orch.register(graph, table=table))
+    log(f"  built and profiled B and C in {time.perf_counter() - t0:.1f}s")
+    names = "ABC"
+    n = len(graphs[0])
+
+    # each request alone: its sequential plan, the back-to-back sum and
+    # the best single lane
+    seq_plans = [orch.plan(h) for h in hs]
+    for r, p in enumerate(seq_plans):
+        log(f"  request {names[r]} alone: sequential plan predicted "
+            f"{1e3 * p.latency:.3f} ms, route "
+            f"{[lane for _, lane in p.route[0]]}")
+    singles = {lane: [orch.workload(h).evaluate([lane] * n)[0] for h in hs]
+               for lane in LANES}
+
+    # the oracles: reference payloads op by op, and each request's spread
+    spreads = [main["spread"]] + [
+        _host_spread(graphs[r], exts[r],
+                     orch.executor.run_monolithic(graphs[r], exts[r]))
+        for r in (1, 2)]
+    for r in (1, 2):
+        log(f"  request {names[r]}: reference payloads, host against card,"
+            f" error / max|card| by op: "
+            f"{[f'{e:.1e}' for e in spreads[r]]}")
+
+    summary = {}
+    for group in ((0, 1), (0, 1, 2)):
+        label = "".join(names[r] for r in group)
+        gh = [hs[r] for r in group]
+        gg = [graphs[r] for r in group]
+        ge = [exts[r] for r in group]
+        t0 = time.perf_counter()
+        plan = orch.plan(gh)
+        t_plan = time.perf_counter() - t0
+        check(plan.kind == "concurrent" and plan.mode == "concurrent",
+              f"({label}) plan(mode='auto') is a concurrent plan, solved "
+              f"in {1e3 * t_plan:.1f} ms")
+        _plan_summary(label, plan, [names[r] for r in group], gg)
+        b2b = sum(seq_plans[r].latency for r in group)
+        best = min(LANES, key=lambda lane: sum(singles[lane][r]
+                                               for r in group))
+        log(f"    back-to-back sequential plans {1e3 * b2b:.3f} ms; best "
+            f"single lane {best} {1e3 * sum(singles[best][r] for r in group):.3f}"
+            f" ms; predicted concurrent / back-to-back "
+            f"{plan.latency / b2b:.3f}")
+
+        # the program: cold (probes), then warm runs fenced on the card
+        prog = orch.program_for(plan, ge)
+        st = prog.stats
+        log(f"    program: {st['n_segments']} segments, "
+            f"{st['n_barrier']} barrier, lanes {prog.lanes}, CUDA lane "
+            f"streams {sorted(prog.lane_streams()) if not st['serial'] else 'none (serial)'}")
+        t_cold, _ = _fenced(lambda: orch.execute(plan, ge))
+        runs = [_fenced(lambda: orch.execute(plan, ge))
+                for _ in range(REPEATS)]
+        times = [t for t, _ in runs]
+        outs, outs2 = runs[0][1], runs[1][1]
+        verdicts = prog.stats["variant_verified"]
+        log(f"    cold run {1e3 * t_cold:.1f} ms; verdicts {verdicts}")
+        for seg in prog.segments:
+            kinds = {gg[r].ops[i].name.rsplit(".", 1)[-1]
+                     for r, i in seg.items}
+            if seg.target is not None and seg.target.dialect == "cuda" \
+                    and kinds & set(KERNEL_OF_OP):
+                check(seg.verified in ("bitwise", "tolerance"),
+                      f"({label}) cuda-dialect segment {seg.index} "
+                      f"({sorted(kinds)}) verified {seg.verified!r}")
+
+        # back to back: each request's own compiled sequential program
+        seq_progs = [orch.program_for(seq_plans[r], exts[r]) for r in group]
+        for r, p in zip(group, seq_progs):
+            fence(list(p.run(exts[r]).values()))
+        b2b_runs = [_fenced(lambda: [p.run(exts[r]) for r, p in
+                                     zip(group, seq_progs)])[0]
+                    for _ in range(REPEATS)]
+        conc, seqt = _median(times), _median(b2b_runs)
+        log(f"    measured concurrent makespan median {1e3 * conc:.3f} ms "
+            f"(runs {', '.join(f'{1e3 * t:.3f}' for t in times)}); "
+            f"predicted {1e3 * plan.latency:.3f} ms, predicted / measured "
+            f"{plan.latency / conc:.3f}")
+        log(f"    measured back-to-back sequential programs median "
+            f"{1e3 * seqt:.3f} ms (runs "
+            f"{', '.join(f'{1e3 * t:.3f}' for t in b2b_runs)}); concurrent "
+            f"/ back-to-back {conc / seqt:.3f}")
+
+        # (a) each request bitwise its own run alone, compiled with the
+        # same op -> lane assignment; (b) within the route bound of the
+        # per-op interpreter oracle; (c) two warm runs bitwise equal
+        oracle = orch.execute(plan, ge, compile=False)
+        fence([list(o.values()) for o in oracle])
+        alones = []
+        for k, r in enumerate(group):
+            alone = orch.executor.compile_scheduled(
+                graphs[r], dict(plan.schedule.assignment_of(k)))
+            fence(list(alone.run(exts[r]).values()))
+            alones.append(alone)
+        # the same routes with no threads: each request alone, inline
+        # on this thread's stream, one after another
+        inline = _median([_fenced(lambda: [p.run(exts[r]) for r, p in
+                                           zip(group, alones)])[0]
+                          for _ in range(REPEATS)])
+        log(f"    the concurrent plan's routes run alone back to back (no "
+            f"threads, one stream) median {1e3 * inline:.3f} ms; threaded "
+            f"/ that {conc / inline:.3f}")
+        for k, r in enumerate(group):
+            assign = dict(plan.schedule.assignment_of(k))
+            got_alone = alones[k].run(exts[r])
+            fence(list(got_alone.values()))
+            check(results_bitwise_equal(outs[k], got_alone),
+                  f"({label}) request {names[r]}: (a) bitwise equal to the "
+                  "request alone, compiled with the same op -> lane "
+                  "assignment")
+            route = tuple(assign[i] for i in range(n))
+            seg_verdicts = [seg.verified for seg in prog.segments
+                            if seg.items[0][0] == k
+                            and seg.verified is not None]
+            _route_matches(f"({label}) request {names[r]} (b)", outs[k],
+                           oracle[k], route, binding, seg_verdicts,
+                           spreads[r])
+            check(results_bitwise_equal(outs[k], outs2[k]),
+                  f"({label}) request {names[r]}: (c) two warm runs are "
+                  "bitwise equal")
+
+        # the segments' lanes and wall intervals in one warm run
+        trace = []
+        _fenced(lambda: orch.execute(plan, ge, trace=trace))
+        log(f"    segments of one warm run (lane, first..last (request, "
+            f"op), host interval ms from the run's start):")
+        for t in sorted(trace, key=lambda t: t.start):
+            log(f"      {t.lane:13s} {t.items[0]}..{t.items[-1]}  "
+                f"{1e3 * t.start:8.3f} - {1e3 * (t.start + t.seconds):8.3f}")
+        per_lane = {}
+        for t in trace:
+            per_lane[t.lane] = per_lane.get(t.lane, 0.0) + t.seconds
+        log(f"    host ms in segments by lane: "
+            f"{ {k: round(1e3 * v, 3) for k, v in per_lane.items()} }, "
+            f"sum {1e3 * sum(per_lane.values()):.3f} ms")
+        _stream_trace(orch, plan, ge, label)
+
+        # the concurrent path's launches: one warm run, counted from zero
+        kernels.reset_launch_counts()
+        fence([list(o.values()) for o in orch.execute(plan, ge)])
+        counts = kernels.launch_counts()
+        expected = dict.fromkeys(counts, 0)
+        for seg in prog.segments:
+            if seg.use_variant and seg.target.dialect in KERNEL_DIALECTS:
+                for _, i in seg.items:
+                    kind = graphs[0].ops[i].name.rsplit(".", 1)[-1]
+                    if kind in KERNEL_OF_OP:
+                        expected[KERNEL_OF_OP[kind]] += 1
+        log(f"    kernel launches in one warm run of ({label}): {counts}")
+        for name, count in counts.items():
+            check(count == expected[name] >= 1,
+                  f"({label}) {name} launched {count} times in one warm "
+                  f"concurrent run (its kernel-lane ops: {expected[name]}, "
+                  "at least 1)")
+        summary[label] = dict(predicted=plan.latency, measured=conc,
+                              back_to_back=seqt, counts=counts)
+        prog.close()
+    return summary
 
 
 def main() -> int:
@@ -667,6 +999,7 @@ def main() -> int:
         env = phase_environment()
         rows = phase_kernels(GRANITE_MAIN_PATH)
         main = phase_main_path(GRANITE_MAIN_PATH)
+        phase_concurrent(GRANITE_MAIN_PATH, main)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

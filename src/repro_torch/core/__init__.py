@@ -1,12 +1,16 @@
 """BIDENT core on PyTorch: profile → plan → execute.
 
-Port of the main-path part of ``repro.core``: the NumPy planning layer
-(ops, cost tables, workloads, the sequential solvers, schedules) copied
-as it is, and the execution layer (targets, measured profiler, lane
-programs, executor, orchestrator) rebuilt on torch tensors and devices.
+Port of the main-path, parallel and concurrent part of ``repro.core``:
+the NumPy planning layer (ops, cost tables, workloads, contention laws,
+the sequential, parallel and concurrent solvers, schedules) copied as it
+is, and the execution layer (targets, measured profiler, lane programs,
+executor, orchestrator) rebuilt on torch tensors, devices and streams.
 """
-from .costmodel import (CPU, EDGE_PUS, GPU, NPU, CostEntry, CostTable,
-                        DenseCostTable, EdgeSoCCostModel, PUSpec,
+from .contention import (ContentionModel, DEFAULT_MM_SF, GroupCostCache,
+                         PairCostCache, uses_default_coexec,
+                         uses_default_group)
+from .costmodel import (CPU, DEFAULT_SF, EDGE_PUS, GPU, NPU, CostEntry,
+                        CostTable, DenseCostTable, EdgeSoCCostModel, PUSpec,
                         transition_cost)
 from .errors import (ExecutionError, ExecutionTimeoutError,
                      FaultRetryExceededError, InfeasibleScheduleError,
@@ -15,16 +19,25 @@ from .executor import ScheduleExecutor
 from .faults import (DEFAULT_POLICY, ExecutionPolicy, FaultPlan, FaultSpec,
                      TransientFault)
 from .graph import build_dense_chain, build_sequential_graph
-from .laneprogram import LaneProgram, compile_lane_program, results_bitwise_equal
+from .laneprogram import (LanePool, LaneProgram, SegmentTime,
+                          compile_lane_program, results_bitwise_equal)
 from .modelgraph import (GRANITE_MAIN_PATH, arrays_to_device, chain_arrays,
                          kernel_chain)
-from .op import FusedOp, OpGraph, chain_graph
+from .op import Branch, FusedOp, OpGraph, Phase, chain_graph
 from .orchestrator import Orchestrator, Plan
 from .profiler import (AnalyticProfiler, MeasuredProfiler, Measurement,
                        measure_callable, measure_callable_stats)
-from .schedule import (SeqSchedule, evaluate_sequential, schedule_from_dict,
+from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
+                       ParallelSchedule, PhaseSchedule, SeqSchedule,
+                       evaluate_sequential, schedule_from_dict,
                        schedule_to_dict, single_pu_cost)
-from .search import (dijkstra, sequential_dp, sequential_dp_reference,
+from .search import (DEFAULT_MAX_STATES, DEFAULT_WINDOW_STATES,
+                     ConcurrentCaches, IncrementalConcurrentSolver,
+                     dijkstra, sequential_dp, sequential_dp_reference,
+                     solve_concurrent, solve_concurrent_aligned,
+                     solve_concurrent_aligned_reference,
+                     solve_concurrent_horizon, solve_concurrent_joint,
+                     solve_concurrent_joint_reference, solve_parallel,
                      solve_sequential)
 from .targets import (KERNEL_DIALECTS, Target, TargetRegistry, VARIANT_TOL,
                       resolve_targets, variant_tolerance)

@@ -1,26 +1,28 @@
 """Execution orchestrator: applies a static schedule and really runs it.
 
-Port of the sequential part of ``repro.core.executor``.  Each PU is an
-execution *lane* (a worker thread with a FIFO command queue).  Two
+Port of ``repro.core.executor`` without the DAG lane queues.  Each PU is
+an execution *lane* (a worker thread with a FIFO command queue).  Two
 execution paths share the lane model:
 
-* the **per-op interpreter** (``run_scheduled``): ops are enqueued onto
-  their assigned lane in dependency order and cross-lane dependencies
-  synchronise via one event per op.  This is the bitwise-equivalence
+* the **per-op interpreter** (``run_scheduled`` / ``run_concurrent``,
+  both on the shared threaded runtime ``_run_lanes``): ops are enqueued
+  onto their assigned lane in dependency order and cross-lane
+  dependencies synchronise via one event per op.  This is the bitwise-equivalence
   oracle: orchestrated execution must produce outputs identical to
   monolithic single-lane execution (``run_monolithic``).  It always runs
   the reference payloads ``op.fn``, on whatever device their inputs are;
 
-* the **compiled path** (``compile_scheduled`` →
-  :class:`~repro_torch.core.laneprogram.LaneProgram`): each lane's queue
-  is partitioned into maximal contiguous same-lane segments, each placed
-  on its target's device and serving that target's verified payload
-  variants, run inline in the one order a sequential chain's segments
-  admit.
+* the **compiled path** (``compile_scheduled`` / ``compile_concurrent``
+  → :class:`~repro_torch.core.laneprogram.LaneProgram`): each lane's
+  queue is partitioned into maximal contiguous same-lane segments, each
+  placed on its target's device and serving that target's verified
+  payload variants — run inline when the segments admit one order (a
+  sequential chain), else on one worker thread and one CUDA stream per
+  lane.
 
 Both paths run under the fault runtime of :mod:`repro_torch.core.faults`.
-The concurrent and DAG lane queues (``run_concurrent``, ``run_dag`` and
-their compiled forms) are not ported yet (``ROADMAP.md``).
+The DAG lane queues (``run_dag``, ``compile_dag``) wait for a later
+slice (``ROADMAP.md``, "Modules to port", item 1).
 """
 from __future__ import annotations
 
@@ -75,14 +77,17 @@ class ScheduleExecutor:
         return results
 
     # ------------------------------------------------------------------
-    # assignment normalization (shared by both paths)
+    # assignment / schedule normalization (shared by both paths)
     # ------------------------------------------------------------------
     def _normalize_assignment(self, graph: OpGraph, assignment
                               ) -> dict[int, str]:
-        """``{op index: PU name}`` from a mapping or a ``SeqSchedule``
-        (via its chain), with coverage validation."""
+        """``{op index: PU name}`` from a mapping or any schedule object
+        exposing one (``SeqSchedule`` — via its chain — or
+        ``ParallelSchedule.assignment``), with coverage validation."""
         if hasattr(assignment, "chain") and hasattr(assignment, "assignment"):
             assignment = dict(zip(assignment.chain, assignment.assignment))
+        elif hasattr(assignment, "assignment"):
+            assignment = assignment.assignment
         missing = [i for i in range(len(graph.ops)) if i not in assignment]
         if missing:
             raise ValueError(
@@ -95,14 +100,67 @@ class ScheduleExecutor:
                              f"the executor's lanes are {self.pus}")
         return dict(assignment)
 
-    def _lane_items(self, graph: OpGraph, assignment: Mapping[int, str]
-                    ) -> dict[str, list[tuple[int, int]]]:
+    def _scheduled_lane_queues(self, graph: OpGraph,
+                               assignment: Mapping[int, str]
+                               ) -> dict[str, list[tuple[int, int]]]:
         """One FIFO lane per PU; ops enqueue in topological order as
         ``(request 0, op)`` items."""
-        lane_items: dict[str, list[tuple[int, int]]] = {p: [] for p in self.pus}
+        lane_queues: dict[str, list[tuple[int, int]]] = {
+            p: [] for p in self.pus}
         for i in graph.topo_order():
-            lane_items[assignment[i]].append((0, i))
-        return lane_items
+            lane_queues[assignment[i]].append((0, i))
+        return lane_queues
+
+    def _concurrent_lane_queues(self, graphs: Sequence[OpGraph], schedule
+                                ) -> tuple[dict[str, list[tuple[int, int]]],
+                                           set[tuple[int, int]]]:
+        """Lane queues in schedule-step order + the co-scheduled op set.
+
+        Validates coverage AND dependency order (a mis-ordered schedule
+        would otherwise deadlock the lane workers instead of raising).
+        Ops of a step where >= 2 requests advance together are returned
+        as *barrier* ops: the compiled path keeps them individually
+        dispatched so the co-execution granularity the contention laws
+        priced is preserved.  (The reference also takes a resume
+        frontier and schedule windows here, for PU-loss recovery and the
+        serving loop; they come with those slices.)
+        """
+        m = len(graphs)
+        if schedule.n_requests != m:
+            raise ValueError(
+                f"schedule covers {schedule.n_requests} requests, "
+                f"got {m} graphs")
+        lane_queues: dict[str, list[tuple[int, int]]] = {
+            p: [] for p in self.pus}
+        barriers: set[tuple[int, int]] = set()
+        seen: list[set[int]] = [set() for _ in range(m)]
+        for st in schedule.steps:
+            active = [(r, oi, pu) for r, (oi, pu)
+                      in enumerate(zip(st.ops, st.pus)) if oi is not None]
+            for r, oi, pu in active:
+                missing_pred = [p for p in graphs[r].pred[oi]
+                                if p not in seen[r]]
+                if missing_pred:
+                    raise ValueError(
+                        f"schedule lists op {oi} of request {r} before its "
+                        f"predecessor(s) {missing_pred} — executing it "
+                        "would deadlock the lanes")
+                if pu not in lane_queues:
+                    raise ValueError(
+                        f"schedule assigns op {oi} of request {r} to "
+                        f"unknown lane {pu!r}; the executor's lanes are "
+                        f"{self.pus}")
+                lane_queues[pu].append((r, oi))
+                seen[r].add(oi)
+                if len(active) > 1:
+                    barriers.add((r, oi))
+        for r, g in enumerate(graphs):
+            if seen[r] != set(range(len(g.ops))):
+                missing = sorted(set(range(len(g.ops))) - seen[r])
+                raise ValueError(
+                    f"schedule does not cover request {r}: missing ops "
+                    f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
+        return lane_queues, barriers
 
     # ------------------------------------------------------------------
     # per-op interpreter (the bitwise-equivalence oracle)
@@ -114,17 +172,64 @@ class ScheduleExecutor:
                       estimate: float | None = None) -> dict[int, Any]:
         """Run under the schedule: one worker lane per PU, event-synced.
 
-        ``assignment`` is an ``{op index: PU name}`` mapping or a
-        ``SeqSchedule``.  ``policy`` tunes the watchdog/retry runtime
-        (``estimate`` — e.g. the plan's cost-model latency — scales the
-        watchdog budget) and ``faults`` injects a scripted
+        ``assignment`` is an ``{op index: PU name}`` mapping, or any
+        schedule object exposing one (``SeqSchedule`` or
+        ``ParallelSchedule``).  ``policy`` tunes the watchdog/retry
+        runtime (``estimate`` — e.g. the plan's cost-model latency —
+        scales the watchdog budget) and ``faults`` injects a scripted
         :class:`~repro_torch.core.faults.FaultPlan`.
         """
         assignment = self._normalize_assignment(graph, assignment)
-        lane_queues = self._lane_items(graph, assignment)
-        ext = dict(external_inputs or {})
-        results: dict[int, Any] = {}
-        done_ev = {i: threading.Event() for i in range(len(graph.ops))}
+        lane_queues = self._scheduled_lane_queues(graph, assignment)
+        return self._run_lanes([graph], lane_queues, [external_inputs],
+                               policy=policy, faults=faults,
+                               estimate=estimate)[0]
+
+    def run_concurrent(self, graphs: Sequence[OpGraph], schedule,
+                       external_inputs: Sequence[Mapping[int, tuple] | None]
+                       | None = None, *,
+                       policy: ExecutionPolicy | None = None,
+                       faults: FaultPlan | None = None,
+                       estimate: float | None = None
+                       ) -> list[dict[int, Any]]:
+        """Run an M-model ``ConcurrentSchedule`` across the PU lanes.
+
+        All M models' ops are multiplexed onto the *shared* lanes (one
+        FIFO worker per PU): ops enqueue in schedule-step order, so two
+        co-scheduled ops land on their assigned lanes side by side and
+        same-PU co-scheduled ops serialise on one queue.  Dependencies
+        are per-model (requests are independent); each model's results
+        dict is returned in request order.
+
+        ``policy`` / ``faults`` / ``estimate`` behave as in
+        :meth:`run_scheduled`.
+        """
+        lane_queues, _ = self._concurrent_lane_queues(graphs, schedule)
+        ext = list(external_inputs or [None] * len(graphs))
+        return self._run_lanes(list(graphs), lane_queues, ext,
+                               policy=policy, faults=faults,
+                               estimate=estimate)
+
+    def _run_lanes(self, graphs: Sequence[OpGraph],
+                   lane_queues: Mapping[str, Sequence[tuple[int, int]]],
+                   ext: Sequence[Mapping[int, tuple] | None], *,
+                   policy: ExecutionPolicy | None,
+                   faults: FaultPlan | None,
+                   estimate: float | None) -> list[dict[int, Any]]:
+        """Shared lane runtime of both interpreter entry points.
+
+        One daemon worker thread per non-empty lane; per-op events bound
+        by the run's watchdog budget; the first failure aborts the run
+        and releases every event so no lane stays parked on a dead
+        producer.  Every worker launches on its
+        thread's default stream, which all threads of one device share,
+        so CUDA work of the interpreter is ordered by that one stream.
+        """
+        results: list[dict[int, Any]] = [{} for _ in graphs]
+        done_ev: dict[tuple[int, int], threading.Event] = {
+            (r, i): threading.Event()
+            for r, g in enumerate(graphs) for i in range(len(g.ops))}
+
         run = RunContext(policy, faults, estimate)
 
         def release_all() -> None:
@@ -133,33 +238,36 @@ class ScheduleExecutor:
 
         run.release = release_all
 
-        def exec_op(pu: str, i: int) -> None:
-            for p in graph.pred[i]:
-                if not done_ev[p].is_set():
-                    run.wait(done_ev[p], f"op {i} on lane {pu!r} "
-                                         f"(waiting for op {p})")
+        def exec_op(pu: str, r: int, i: int) -> None:
+            g = graphs[r]
+            for p in g.pred[i]:
+                if not done_ev[(r, p)].is_set():
+                    run.wait(done_ev[(r, p)],
+                             f"op {i} of request {r} on lane {pu!r} "
+                             f"(waiting for op {p})")
             run.check_abort()
-            op = graph.ops[i]
-            what = f"op {i} on lane {pu!r}"
+            op = g.ops[i]
+            what = f"op {i} of request {r} on lane {pu!r}"
             run.current[pu] = what
 
             def attempt():
                 if run.faults is not None:
-                    run.faults.fire(pu, 0, i, run)
+                    run.faults.fire(pu, r, i, run)
                 if op.fn is None:
                     return None
-                dep_vals = tuple(results[p] for p in graph.pred[i])
-                return op.fn(*(tuple(ext.get(i, ())) + dep_vals))
+                e = (ext[r] or {}).get(i, ())
+                dep_vals = tuple(results[r][p] for p in g.pred[i])
+                return op.fn(*(tuple(e) + dep_vals))
 
-            results[i] = run_with_retries(run, attempt, what,
-                                          lane=pu, request=0, op=i)
+            results[r][i] = run_with_retries(run, attempt, what,
+                                             lane=pu, request=r, op=i)
             run.current.pop(pu, None)
-            done_ev[i].set()
+            done_ev[(r, i)].set()
 
         def lane_worker(pu: str) -> None:
             try:
-                for _, i in lane_queues[pu]:
-                    exec_op(pu, i)
+                for r, i in lane_queues[pu]:
+                    exec_op(pu, r, i)
             except _Aborted:
                 pass  # a peer already failed; unwind silently
             except BaseException as e:
@@ -184,7 +292,7 @@ class ScheduleExecutor:
         if run.errors:
             err = run.first_error()
             if isinstance(err, PULostError) and err.partial is None:
-                err.partial = [dict(results)]
+                err.partial = [dict(res) for res in results]
             raise err
         return results
 
@@ -192,15 +300,27 @@ class ScheduleExecutor:
     # compiled path (laneprogram)
     # ------------------------------------------------------------------
     def compile_scheduled(self, graph: OpGraph, assignment) -> LaneProgram:
-        """Compile a sequential plan into a :class:`LaneProgram`.
+        """Compile a sequential/parallel plan into a :class:`LaneProgram`.
 
         Accepts the same ``assignment`` forms as ``run_scheduled``;
         ``program.run(external_inputs)`` then returns the same results
         dict, with per-op dispatch/event overhead collapsed to one
-        composed call per segment.
+        composed call + one event per segment.
         """
         assignment = self._normalize_assignment(graph, assignment)
-        return compile_lane_program([graph], self._lane_items(graph, assignment),
+        queues = self._scheduled_lane_queues(graph, assignment)
+        return compile_lane_program([graph], queues, single=True,
+                                    targets=self.targets)
+
+    def compile_concurrent(self, graphs: Sequence[OpGraph], schedule
+                           ) -> LaneProgram:
+        """Compile an M-model ``ConcurrentSchedule`` into a
+        :class:`LaneProgram` (co-scheduled steps become single-op barrier
+        segments); ``program.run(inputs)`` matches ``run_concurrent``."""
+        lane_queues, barriers = self._concurrent_lane_queues(graphs,
+                                                             schedule)
+        return compile_lane_program(list(graphs), lane_queues,
+                                    barriers=barriers, single=False,
                                     targets=self.targets)
 
     # ------------------------------------------------------------------

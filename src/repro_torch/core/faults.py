@@ -35,9 +35,11 @@ for each:
   seconds (``float("inf")`` = forever).  **Recoverable** when ``delay``
   fits the budget.  Otherwise the watchdog converts the hang into a
   typed :class:`~repro_torch.core.errors.ExecutionTimeoutError`: every
-  cross-lane wait is deadline-bounded, the stalled lane itself sleeps
-  abort-aware and raises at the deadline, and worker pools shut down
-  cleanly — **no execution path can block forever**.
+  cross-lane wait is deadline-bounded — a host lane's wait for CUDA work
+  on another lane's stream too (:meth:`RunContext.wait_device` polls
+  the CUDA event, never a bare ``synchronize()``) —, the stalled lane
+  itself sleeps abort-aware and raises at the deadline, and worker pools
+  shut down cleanly — **no execution path can block forever**.
 
 * ``"pu_lost"`` — the lane dies permanently from the injection point on
   (every later dispatch on it raises
@@ -92,8 +94,8 @@ from typing import Callable, Iterable, Sequence
 
 from ..fault.manager import RecoverableError
 
-from .errors import (ExecutionTimeoutError, FaultRetryExceededError,
-                     PULostError)
+from .errors import (ExecutionError, ExecutionTimeoutError,
+                     FaultRetryExceededError, PULostError)
 
 FAULT_KINDS = ("transient", "stall", "straggler", "pu_lost")
 
@@ -217,6 +219,33 @@ class RunContext:
         elif not ev.wait(max(self.deadline - time.monotonic(), 0.0)):
             self.check_abort()
             raise self._timeout(what)
+        self.check_abort()
+
+    def wait_device(self, ev, what: str) -> None:
+        """Deadline-bounded host wait for the device work behind ``ev``
+        (a ``torch.cuda.Event``, or anything with a ``query()`` that
+        turns true): polls ``query()`` with a growing pause (10 µs to
+        0.2 ms), raises :class:`ExecutionTimeoutError` at the deadline and
+        ``_Aborted`` when a peer lane has failed.  Never a bare
+        ``synchronize()``: an asynchronous CUDA error that ``query()``
+        reports surfaces here as an :class:`ExecutionError` naming
+        ``what``."""
+        pause = 1e-5
+        while True:
+            try:
+                if ev.query():
+                    break
+            except Exception as e:
+                raise ExecutionError(
+                    f"{what}: the device reported an error: "
+                    f"{type(e).__name__}: {e}") from e
+            if self.deadline is not None and \
+                    time.monotonic() >= self.deadline:
+                self.check_abort()
+                raise self._timeout(what)
+            if self.abort.wait(pause):
+                raise _Aborted()
+            pause = min(2 * pause, 2e-4)
         self.check_abort()
 
     def stall(self, duration: float, what: str) -> None:

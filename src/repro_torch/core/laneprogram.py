@@ -6,12 +6,15 @@ per-op interpreter's dispatch and event overhead in two moves:
 * **Segment partitioning.**  Each PU lane's FIFO queue is cut into
   *maximal contiguous same-lane segments*: a new segment starts only at
   a cross-lane boundary (an op whose predecessor ran on another lane —
-  the handoff points) or at a request switch on a shared lane.  The
-  segments of a sequential chain admit one order, and the program runs
-  them inline, with no threads or events at all.  (The reference also
-  runs programs whose segments can co-execute, on one worker thread per
-  lane; those come with the concurrent and DAG lane queues, which are
-  not ported yet.)
+  the handoff points), at a request switch on a shared lane, or at a
+  co-scheduled concurrent step (co-scheduled ops stay individually
+  dispatched so the granularity the contention laws priced is preserved
+  — they become single-op *barrier* segments).  The segments of a
+  sequential chain admit one order, and the program runs them inline,
+  with no threads or events at all.  A program whose segments can
+  co-execute (parallel branches, concurrent requests) runs one worker
+  thread per lane (:class:`LanePool`), with one event per segment,
+  waited on only across the boundary cuts.
 
 * **Segment composition with verified variants.**  Each segment's op
   payloads compose into one callable.  On a lane bound to a
@@ -27,13 +30,36 @@ per-op interpreter's dispatch and event overhead in two moves:
   the reference's ``jax.jit`` probe has no counterpart here (capturing
   segments as CUDA graphs is later work, ``ROADMAP.md``).
 
-**Device placement.**  Every segment of a device-bound target moves its
-inputs to the target's device before running — the reference
+**Devices and streams.**  Every segment of a device-bound target moves
+its inputs to the target's device before running — the reference
 composition, the probe and every warm run alike — so a lane never
-computes on the device its inputs happened to arrive on.  All CUDA
-lanes of one device launch on that device's current stream, so a
-handoff between them is ordered by the stream itself; a handoff to or
-from the host is a ``.to()`` copy, which waits for the producing work.
+computes on the device its inputs happened to arrive on.  A program run
+inline launches all its CUDA work on the caller's current stream, so the
+stream itself orders every handoff.  A threaded program gives each CUDA
+lane a stream of its own, made once per program: the lane's worker runs
+every task inside ``torch.cuda.device(dev)`` and
+``torch.cuda.stream(lane_stream)``, and the kernels' wrappers launch on
+that stream (``torch.cuda.current_stream()`` is per thread).  Streams do
+not order each other, so every handoff out of a CUDA lane carries a
+``torch.cuda.Event`` recorded on the producer's stream and published
+with the segment's ``threading.Event``:
+
+* a consumer on another CUDA lane makes its stream wait on it
+  (``Stream.wait_event``) before it launches, and marks the tensors it
+  reads with ``record_stream`` so the caching allocator does not hand
+  their memory back to the producer's stream while it still reads them;
+* a consumer on a host lane waits on the host for the event before its
+  ``.to("cpu")`` copies (which run on the host thread's stream, not the
+  producer's), polling ``Event.query()`` under the run's deadline
+  (:meth:`~repro_torch.core.faults.RunContext.wait_device`): no wait is
+  unbounded, and an asynchronous CUDA error surfaces there as a typed
+  :class:`~repro_torch.core.errors.ExecutionError`.
+
+Each lane's stream first waits on the caller's current stream (the
+inputs may still be in flight there), and ``run`` ends with the caller's
+current stream waiting on every lane's last event, so the outputs it
+returns are complete on the caller's stream (they are marked with
+``record_stream`` for it).  ``run`` itself does not wait for the card.
 
 Op payloads must be **pure** on this path: the cold run executes the
 reference and the variant payloads, and warm runs replay the composed
@@ -41,20 +67,27 @@ callable — a payload with internal state would advance differently
 than under the per-op interpreter, which remains the oracle
 (``Orchestrator.execute(..., compile=False)``).  Purity is also what
 makes the fault runtime's segment-granularity retry safe
-(:mod:`repro_torch.core.faults`).
+(:mod:`repro_torch.core.faults`).  A program's first ``run`` settles its
+segments' probes, so one program must not be run from two threads at
+once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Mapping, Sequence
+import queue
+import threading
+import time
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .errors import PULostError
-from .faults import ExecutionPolicy, FaultPlan, RunContext, run_with_retries
+from .faults import (_JOIN_GRACE, ExecutionPolicy, FaultPlan, RunContext,
+                     _Aborted, run_with_retries)
 from .op import OpGraph
-from .profiler import place
+from .profiler import _tensors, place
 from .targets import KERNEL_DIALECTS, variant_tolerance
 
 # segment execution modes
@@ -139,7 +172,9 @@ class Segment:
 
     ``items`` are ``(request, op)`` pairs in lane-queue order; ``deps``
     are indices of segments on *other* lanes whose outputs this segment
-    reads (same-lane predecessors are implicit in FIFO order).
+    reads (same-lane predecessors are implicit in FIFO order).  A
+    ``barrier`` segment holds exactly one co-scheduled concurrent-step op
+    and is never fused with its neighbours.
 
     When the lane is bound to a :class:`~repro_torch.core.targets.Target`,
     ``fns`` holds the reference payloads (the probe oracle) and
@@ -153,6 +188,7 @@ class Segment:
 
     index: int
     lane: str
+    barrier: bool = False
     target: Any = None
     items: list[tuple[int, int]] = dataclasses.field(default_factory=list)
     fns: list[Callable | None] = dataclasses.field(default_factory=list)
@@ -258,34 +294,133 @@ class Segment:
             self.var_fns = None
 
 
+class SegmentTime(NamedTuple):
+    """One segment of a run, as ``LaneProgram.run(trace=...)`` records
+    it: its lane, its ``(request, op)`` items, the host's wall seconds
+    for its call (for a CUDA lane: the time to issue its work, which the
+    card may finish later), and its start in seconds from the run's
+    start."""
+
+    lane: str
+    items: tuple
+    seconds: float
+    start: float
+
+
+def _current_stream(device):
+    """The calling thread's current stream on ``device``."""
+    return torch.cuda.current_stream(device)
+
+
+def _cuda_device_of(value):
+    """The device of the first CUDA tensor in ``value``, else None."""
+    for t in _tensors(value):
+        if t.is_cuda:
+            return t.device
+    return None
+
+
+def _on_stream(device, stream) -> contextlib.ExitStack:
+    """Enter ``device`` and make ``stream`` this thread's current
+    stream."""
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(torch.cuda.device(device))
+    ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
+class LanePool:
+    """Persistent lane workers: one daemon thread + FIFO task queue per
+    lane (the command-queue model, kept warm across runs so thread spawn
+    cost never lands on the dispatch path).
+
+    ``streams`` maps a CUDA lane to its ``(device, stream)``: that
+    lane's worker runs every task on its device with the stream as its
+    current stream, so everything the task launches goes to the lane's
+    stream.
+
+    Threads are **daemon** deliberately: a payload that hangs in native
+    code past the watchdog budget wedges its worker, and a non-daemon
+    thread would then block interpreter exit forever.  The watchdog
+    backstop drops the whole pool (``shutdown``) and the next run builds
+    a fresh one; wedged daemon workers leak harmlessly.
+    """
+
+    def __init__(self, lanes: Sequence[str],
+                 streams: Mapping[str, tuple] | None = None):
+        self._queues: dict[str, queue.SimpleQueue] = {}
+        streams = streams or {}
+        for pu in lanes:
+            q: queue.SimpleQueue = queue.SimpleQueue()
+            self._queues[pu] = q
+            threading.Thread(target=self._worker,
+                             args=(q, streams.get(pu)),
+                             name=f"lane-{pu}", daemon=True).start()
+
+    @staticmethod
+    def _worker(q: "queue.SimpleQueue", stream: tuple | None) -> None:
+        while True:
+            task = q.get()
+            if task is None:
+                return
+            fn, done = task
+            try:
+                if stream is None:
+                    fn()
+                else:
+                    with _on_stream(*stream):
+                        fn()
+            except BaseException:   # submitted fns do their own reporting
+                pass
+            finally:
+                done.set()
+
+    def submit(self, lane: str, fn: Callable[[], None]) -> threading.Event:
+        """Enqueue ``fn`` on ``lane``; the returned event is set when it
+        finishes (success or not — errors are the fn's job to record)."""
+        done = threading.Event()
+        self._queues[lane].put((fn, done))
+        return done
+
+    def shutdown(self) -> None:
+        for q in self._queues.values():
+            q.put(None)
+
+
 class LaneProgram:
     """A compiled plan: per-lane segment lists + cross-lane handoff deps.
 
-    Build with :func:`compile_lane_program` (or
-    ``ScheduleExecutor.compile_scheduled``); ``run(external_inputs)``
-    returns the same results dict as the interpreter's ``run_scheduled``.
-    Ops are addressed as ``(request, op)`` pairs as in the reference;
-    the port's programs cover one request (the multi-request concurrent
-    programs are not ported yet).
+    Build with :func:`compile_lane_program` (or the ``ScheduleExecutor``
+    ``compile_*`` wrappers); ``run(external_inputs)`` returns the same
+    results shape as the interpreter (``run_scheduled`` for
+    single-graph programs, ``run_concurrent`` for M-request programs).
     """
 
     def __init__(self, graphs: Sequence[OpGraph],
                  segments: list[Segment],
-                 lane_segments: dict[str, list[Segment]]):
+                 lane_segments: dict[str, list[Segment]],
+                 single: bool):
         self.graphs = list(graphs)
         self.segments = segments
         self.lane_segments = lane_segments
         self.lanes = [pu for pu, segs in lane_segments.items() if segs]
+        self.single = single
+        self.n_requests = len(self.graphs)
         self.runs = 0
-        # the segment DAG (handoff deps + per-lane FIFO order) of a
-        # single chain admits exactly ONE topological order: run()
-        # executes it inline.  Segments that could co-execute need the
-        # concurrent lane queues, which are not ported yet.
+        # a program whose segment DAG (handoff deps + per-lane FIFO
+        # order) admits exactly ONE topological order is inherently
+        # serial: run() executes it inline, with no threads and no
+        # events.  Sequential chains always qualify; programs with real
+        # co-execution (parallel branches, concurrent requests) keep
+        # persistent lane workers, one CUDA stream per CUDA lane.
         self.serial_order = self._serial_order()
-        if self.serial_order is None:
-            raise NotImplementedError(
-                "a lane program whose segments could run concurrently is "
-                "not ported yet (ROADMAP.md, 'Modules to port', item 1)")
+        self._pool: LanePool | None = None
+        self._streams: dict[str, tuple] | None = None
+        # segments whose completion another lane waits on, plus each
+        # lane's last: the ones that publish a CUDA event when their
+        # lane has a stream
+        self._publish = {d for s in segments for d in s.deps} | {
+            segs[-1].index for segs in lane_segments.values() if segs}
         # identity snapshot of every covered op's fn + variant table,
         # taken at compile time (see payloads_current)
         self._payload_tokens: dict[tuple[int, int], tuple] = {
@@ -307,6 +442,14 @@ class LaneProgram:
                 if variants.get(key) is not f:
                     return False
         return True
+
+    def close(self) -> None:
+        """Release the persistent lane-worker pool (idempotent; a later
+        ``run`` lazily recreates it).  Called on cache eviction so idle
+        worker threads don't outlive the program's cache entry."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
     def _serial_order(self) -> list[Segment] | None:
         n = len(self.segments)
@@ -333,6 +476,21 @@ class LaneProgram:
                     ready.append(v)
         return [self.segments[i] for i in order] if len(order) == n else None
 
+    def lane_streams(self) -> dict[str, tuple]:
+        """``{lane: (device, stream)}`` of the program's CUDA lanes (the
+        lanes bound to a target on a CUDA device), made at the first
+        threaded run and kept for the program's life."""
+        if self._streams is None:
+            streams = {}
+            for pu in self.lanes:
+                tgt = self.lane_segments[pu][0].target
+                dev = None if tgt is None else tgt.device
+                if dev is not None and torch.device(dev).type == "cuda":
+                    dev = torch.device(dev)
+                    streams[pu] = (dev, torch.cuda.Stream(device=dev))
+            self._streams = streams
+        return self._streams
+
     @property
     def stats(self) -> dict:
         """Structure + verification summary (verdicts settle after the
@@ -341,6 +499,7 @@ class LaneProgram:
             "n_ops": sum(len(s.items) for s in self.segments),
             "n_segments": len(self.segments),
             "n_cold": sum(1 for s in self.segments if s.mode == COLD),
+            "n_barrier": sum(1 for s in self.segments if s.barrier),
             "n_variant": sum(1 for s in self.segments if s.use_variant),
             "variant_verified": {s.index: s.verified for s in self.segments
                                  if s.verified is not None},
@@ -351,6 +510,7 @@ class LaneProgram:
                              if s.target is not None},
             "max_segment_ops": max((len(s.items) for s in self.segments),
                                    default=0),
+            "serial": self.serial_order is not None,
             "runs": self.runs,
         }
 
@@ -383,48 +543,180 @@ class LaneProgram:
     def run(self, external_inputs=None, *,
             policy: ExecutionPolicy | None = None,
             faults: FaultPlan | None = None,
-            estimate: float | None = None):
+            estimate: float | None = None,
+            trace: list | None = None):
         """Execute the program; same results shape as the interpreter.
 
-        ``policy`` tunes the retry runtime (``estimate`` — e.g. the
-        plan's cost-model latency — scales the watchdog budget) and
+        ``policy`` tunes the watchdog/retry runtime (``estimate`` — e.g.
+        the plan's cost-model latency — scales the watchdog budget) and
         ``faults`` injects a scripted
-        :class:`~repro_torch.core.faults.FaultPlan`.  On a permanent PU
-        loss the raised
+        :class:`~repro_torch.core.faults.FaultPlan`.  Every cross-lane
+        wait is deadline-bounded, device waits included; on a permanent
+        PU loss the raised
         :class:`~repro_torch.core.errors.PULostError` carries the
         execution frontier (results of every segment completed before
         the loss).
+
+        ``external_inputs`` is one ``{op: (args...)}`` mapping for a
+        single-graph program and a sequence of them, one per request, for
+        an M-request program.  ``trace``, when a list, receives one
+        :class:`SegmentTime` per executed segment.
         """
-        ext = [dict(external_inputs or {})]
-        results: list[dict[int, Any]] = [{}]
-        # no cross-lane waits exist in a serial program, so fault-free
-        # runs skip the RunContext entirely (the warm fast path)
-        run = (RunContext(policy, faults, estimate)
-               if faults is not None else None)
-        try:
-            for seg in self.serial_order:
-                self._exec_segment(seg, results, ext, run)
-        except PULostError as e:
-            if e.partial is None:
-                e.partial = [dict(res) for res in results]
-            raise
+        if self.single:
+            ext = [dict(external_inputs or {})]
+        else:
+            ext_seq = list(external_inputs or [None] * self.n_requests)
+            if len(ext_seq) != self.n_requests:
+                raise ValueError(
+                    f"program covers {self.n_requests} requests, got "
+                    f"{len(ext_seq)} input mapping(s)")
+            ext = [dict(e or {}) for e in ext_seq]
+        results: list[dict[int, Any]] = [{} for _ in ext]
+        t_run = time.perf_counter()
+
+        def exec_seg(seg: Segment, run: RunContext | None) -> None:
+            t0 = time.perf_counter() if trace is not None else 0.0
+            self._exec_segment(seg, results, ext, run)
+            if trace is not None:
+                t1 = time.perf_counter()
+                trace.append(SegmentTime(seg.lane, tuple(seg.items),
+                                         t1 - t0, t0 - t_run))
+
+        if self.serial_order is not None:
+            # inherently serial: no cross-lane waits exist, so fault-free
+            # runs skip the RunContext entirely (the warm fast path)
+            run = (RunContext(policy, faults, estimate)
+                   if faults is not None else None)
+            try:
+                for seg in self.serial_order:
+                    exec_seg(seg, run)
+            except PULostError as e:
+                if e.partial is None:
+                    e.partial = [dict(res) for res in results]
+                raise
+            self.runs += 1
+            return results[0] if self.single else results
+        self._run_threaded(results, exec_seg,
+                           RunContext(policy, faults, estimate))
         self.runs += 1
-        return results[0]
+        return results[0] if self.single else results
+
+    def _run_threaded(self, results, exec_seg, run: RunContext) -> None:
+        """One worker per lane, handoffs by segment events (and CUDA
+        events out of a CUDA lane; see the module docstring)."""
+        streams = self.lane_streams()
+        done = [threading.Event() for _ in self.segments]
+        device_ev: list[Any] = [None] * len(self.segments)
+
+        def release_all() -> None:
+            for ev in done:
+                ev.set()
+
+        run.release = release_all
+        # each lane stream starts behind the caller's current stream,
+        # where the inputs may still be in flight
+        start_ev = {}
+        for dev, _ in streams.values():
+            if dev not in start_ev:
+                start_ev[dev] = _current_stream(dev).record_event()
+
+        def publish(seg: Segment, stream):
+            """The CUDA event a consumer of ``seg`` waits on: recorded on
+            the lane's stream, or — for a lane without one whose outputs
+            lie on a card — on the thread's current stream there."""
+            if stream is not None:
+                return stream[1].record_event()
+            if not streams:
+                return None
+            dev = _cuda_device_of([results[r].get(i) for r, i in seg.items])
+            return None if dev is None else _current_stream(dev).record_event()
+
+        def lane_worker(pu: str) -> None:
+            stream = streams.get(pu)
+            try:
+                if stream is not None:
+                    stream[1].wait_event(start_ev[stream[0]])
+                for seg in self.lane_segments[pu]:
+                    for d, dwhat in zip(seg.deps, seg.dep_whats):
+                        if not done[d].is_set():
+                            run.wait(done[d], dwhat)
+                        ev = device_ev[d]
+                        if ev is None:
+                            continue
+                        if stream is None:
+                            run.wait_device(ev, dwhat)
+                        else:
+                            stream[1].wait_event(ev)
+                    run.check_abort()
+                    if stream is not None:
+                        for r, p in seg.flat_refs:
+                            for t in _tensors(results[r].get(p)):
+                                if t.is_cuda:
+                                    t.record_stream(stream[1])
+                    exec_seg(seg, run)
+                    if seg.index in self._publish:
+                        device_ev[seg.index] = publish(seg, stream)
+                    done[seg.index].set()
+            except _Aborted:
+                pass  # a peer already failed; unwind silently
+            except BaseException as e:
+                run.fail(e)
+
+        if self._pool is None:
+            self._pool = LanePool(self.lanes, streams)
+        tasks = [(pu, self._pool.submit(pu, lambda pu=pu: lane_worker(pu)))
+                 for pu in self.lanes]
+        for pu, task_done in tasks:
+            if run.deadline is None:
+                task_done.wait()
+            elif not task_done.wait(
+                    max(run.deadline - time.monotonic(), 0.0) + _JOIN_GRACE):
+                # backstop: a payload the watchdog cannot interrupt wedged
+                # this worker — drop the whole pool (daemon threads; the
+                # next run builds a fresh one) and surface a typed timeout
+                run.abort.set()
+                release_all()
+                self.close()
+                raise run._timeout(f"lane worker {pu!r}")
+        if run.errors:
+            err = run.first_error()
+            if isinstance(err, PULostError) and err.partial is None:
+                err.partial = [dict(res) for res in results]
+            raise err
+        # the caller's stream waits for every lane's last event, and the
+        # outputs made on a lane stream are marked as used on it
+        for pu, (dev, stream) in streams.items():
+            caller = _current_stream(dev)
+            caller.wait_event(device_ev[self.lane_segments[pu][-1].index])
+            for seg in self.lane_segments[pu]:
+                for r, i in seg.items:
+                    for t in _tensors(results[r][i]):
+                        if t.is_cuda:
+                            t.record_stream(caller)
 
 
 def compile_lane_program(graphs: Sequence[OpGraph],
                          lane_items: Mapping[str, Sequence[tuple[int, int]]],
+                         barriers: frozenset[tuple[int, int]] | set = frozenset(),
+                         single: bool = False,
                          targets: Mapping[str, Any] | None = None
                          ) -> LaneProgram:
     """Partition per-lane op queues into segments and build the program.
 
     ``lane_items`` maps each PU lane to its FIFO queue of ``(request,
-    op)`` pairs (already validated/ordered by the executor).  A new
-    segment starts when the request changes (segments never span
-    requests) or when any predecessor ran on a *different* lane (the
-    handoff cut: waits happen only at segment starts, so a cross-lane
-    input is only legal for a segment's first op).  Same-lane
-    predecessors never cut.
+    op)`` pairs (already validated/ordered by the executor); ``barriers``
+    are co-scheduled concurrent-step ops that must stay single-op
+    segments.  Cut rules, applied walking each queue in order — a new
+    segment starts when:
+
+    * the op (or the previous op) is a barrier op,
+    * the request changes (segments never span requests), or
+    * any predecessor ran on a *different* lane (the handoff cut: waits
+      happen only at segment starts, so a cross-lane input is only legal
+      for a segment's first op).
+
+    Same-lane predecessors never cut.  ``single`` marks a program over
+    one graph (``run`` then takes and returns one mapping).
 
     ``targets`` optionally binds lane names to
     :class:`~repro_torch.core.targets.Target`\\ s: a bound segment keeps
@@ -444,10 +736,12 @@ def compile_lane_program(graphs: Sequence[OpGraph],
     for pu, items in lane_items.items():
         cur: Segment | None = None
         for (r, i) in items:
+            barrier = (r, i) in barriers
             cross = any(lane_of.get((r, p)) != pu
                         for p in graphs[r].pred[i])
-            if cur is None or cur.items[-1][0] != r or cross:
-                cur = Segment(index=len(segments), lane=pu,
+            if (cur is None or barrier or cur.barrier
+                    or cur.items[-1][0] != r or cross):
+                cur = Segment(index=len(segments), lane=pu, barrier=barrier,
                               target=tmap.get(pu))
                 segments.append(cur)
                 lane_segments[pu].append(cur)
@@ -494,4 +788,4 @@ def compile_lane_program(graphs: Sequence[OpGraph],
             f"{segments[d].lane!r} (ops {segments[d].items[0]}.."
             f"{segments[d].items[-1]})"
             for d in seg.deps]
-    return LaneProgram(graphs, segments, lane_segments)
+    return LaneProgram(graphs, segments, lane_segments, single=single)

@@ -1,25 +1,34 @@
 """``Orchestrator`` — the session-style front door of BIDENT.
 
-Port of the sequential part of ``repro.core.orchestrator``: the
-register → plan → execute flow of a serving system,
+Port of ``repro.core.orchestrator``: the register → plan → execute flow
+of a serving system,
 
     orch = Orchestrator(MeasuredProfiler(targets=reg), targets=reg)
     h = orch.register(graph)              # profile + dense Workload, once
-    plan = orch.plan(h)                   # sequential DP, cached
+    plan = orch.plan(h)                   # routed solve, cached
     outputs = orch.execute(plan, inputs)  # compiled lane program
 
 * ``register`` profiles the graph through the configured cost provider
   (or takes a prebuilt ``CostTable``) and memoizes the dense
   ``Workload``.  Malformed inputs fail here with descriptive errors.
-* ``plan`` solves one chain handle with the sequential DP; the result
-  is bitwise identical to the direct ``solve_sequential`` call and is
-  cached keyed by (workload signature, objective).  Every other regime
-  of the reference — parallel, concurrent, aligned and DAG plans,
-  runtime conditions, admission, PU-loss recovery — raises
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+* ``plan`` routes by shape as the reference does: one chain handle →
+  the sequential DP; one fork/join handle → the phase/branch parallel
+  solve; several handles → the M-ary concurrent search
+  (``mode="aligned"`` opts a pair into the lockstep solver).  Results
+  are bitwise identical to the direct solver calls and cached keyed by
+  (workload signatures, objective, resolved mode, route knobs); the
+  objective-independent solver state (``ConcurrentCaches``) is one pool
+  per session.  The reference serves repeated concurrent re-plans from
+  a warm incremental solver whose schedules are bitwise its cold ones;
+  the port takes the cold route.  The DAG route, runtime conditions,
+  online admission and PU-loss recovery raise ``NotImplementedError``
+  naming their ``ROADMAP.md`` item.
 * ``execute`` runs a plan through a compiled, cached
-  :class:`~repro_torch.core.laneprogram.LaneProgram` by default;
-  ``compile=False`` runs the per-op interpreter, the bitwise oracle.
+  :class:`~repro_torch.core.laneprogram.LaneProgram` by default — inline
+  for a chain, on one worker thread and one CUDA stream per lane when
+  segments can co-execute; ``compile=False`` runs the per-op
+  interpreter, the bitwise oracle.  Concurrent plans take one input
+  mapping per request and return one results dict per request.
 """
 from __future__ import annotations
 
@@ -28,35 +37,37 @@ import hashlib
 import json
 from typing import Any, Mapping, Sequence
 
+from .contention import ContentionModel
 from .costmodel import EDGE_PUS, CostTable, PUSpec
 from .executor import ScheduleExecutor
 from .faults import ExecutionPolicy, FaultPlan
 from .laneprogram import LaneProgram
 from .op import FusedOp, OpGraph, chain_graph
-from .schedule import SeqSchedule, schedule_from_dict, schedule_to_dict
-from .search import solve_sequential
+from .schedule import (ConcurrentSchedule, ParallelSchedule, SeqSchedule,
+                       schedule_from_dict, schedule_to_dict)
+from .search import (ConcurrentCaches, _not_ported, _pair_cache,
+                     solve_concurrent, solve_concurrent_aligned,
+                     solve_parallel, solve_sequential)
 from .targets import pu_specs_for_targets, resolve_targets
 from .workload import Workload
 
-PLAN_MODES = ("auto", "sequential")
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP.md, 'Modules to port', "
-               "item {item})")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(_NOT_PORTED.format(what=what, item=item))
+PLAN_MODES = ("auto", "sequential", "parallel", "concurrent", "aligned",
+              "dag")
+# concurrent-search routes accepted by plan(algorithm=...), as in the
+# reference ("grid_astar" is accepted and raises: not ported yet)
+CONCURRENT_ALGORITHMS = ("auto", "grid", "grid_astar", "rolling", "pairwise")
 
 
 @dataclasses.dataclass
 class Plan:
-    """Result of ``Orchestrator.plan``: one schedule plus the routing
-    metadata needed to execute or serialize it."""
+    """Uniform result of ``Orchestrator.plan``: one schedule of any kind
+    plus the routing metadata needed to execute or serialize it."""
 
-    kind: str          # "sequential" (the only kind the port plans yet)
-    schedule: SeqSchedule
+    kind: str          # "sequential" | "parallel" | "concurrent"
+    schedule: SeqSchedule | ParallelSchedule | ConcurrentSchedule
     objective: str
     handles: tuple[int, ...] = ()
-    mode: str = ""
+    mode: str = ""            # resolved plan mode (e.g. "aligned")
     # the plan-cache key this plan was stored under (the program cache
     # reuses it); not serialized: restored plans fall back to a content
     # hash
@@ -73,9 +84,19 @@ class Plan:
 
     @property
     def route(self) -> list[list[tuple[int, str]]]:
-        """Per-request ``[(op index, PU name), ...]`` in execution order."""
+        """Per-request ``[(op index, PU name), ...]`` in execution order.
+        For parallel plans the order is phase by phase, each branch's
+        chain listed whole."""
         s = self.schedule
-        return [list(zip(s.chain, s.assignment))]
+        if isinstance(s, SeqSchedule):
+            return [list(zip(s.chain, s.assignment))]
+        if isinstance(s, ParallelSchedule):
+            out: list[tuple[int, str]] = []
+            for ph in s.phases:
+                for br in ph.branches:
+                    out.extend(zip(br.branch_ops, br.assignment))
+            return [out]
+        return [s.assignment_of(r) for r in range(s.n_requests)]
 
     def to_json(self) -> str:
         return json.dumps({"kind": self.kind, "objective": self.objective,
@@ -96,11 +117,20 @@ def _arg_signature(a) -> tuple:
 
 
 def _inputs_signature(inputs) -> tuple | None:
-    """Hashable shapes/dtypes/devices signature of ``execute`` inputs."""
+    """Hashable shapes/dtypes/devices signature of ``execute`` inputs:
+    one sorted ``(op, per-arg signature)`` tuple per request mapping."""
     if inputs is None:
         return None
-    return tuple(sorted((i, tuple(_arg_signature(a) for a in args))
-                        for i, args in inputs.items()))
+
+    def one(mapping) -> tuple:
+        if mapping is None:
+            return ()
+        return tuple(sorted((i, tuple(_arg_signature(a) for a in args))
+                            for i, args in mapping.items()))
+
+    if isinstance(inputs, Mapping):
+        return ("single", one(inputs))
+    return ("multi", tuple(one(m) for m in inputs))
 
 
 @dataclasses.dataclass
@@ -111,6 +141,7 @@ class _Registration:
     table: CostTable
     wl: Workload
     sig: str          # Workload content signature (chain + dense arrays)
+    struct_sig: str   # graph edge-structure hash (phases/branches)
     # the exact object the caller registered — kept alive so the
     # id()-keyed memo can never collide with a recycled address
     source: Any = None
@@ -135,6 +166,7 @@ class Orchestrator:
     """
 
     def __init__(self, cost, pus: Mapping[str, PUSpec] | None = None,
+                 contention: ContentionModel | None = None,
                  max_cached_plans: int = 256, max_cached_programs: int = 64,
                  targets=None):
         if not (isinstance(cost, CostTable) or hasattr(cost, "build_table")
@@ -155,6 +187,7 @@ class Orchestrator:
                 raise ValueError(
                     f"target binding names lane(s) {unknown} absent from "
                     f"the PU set {sorted(self.pus)}")
+        self.contention = contention or ContentionModel()
         self.executor = ScheduleExecutor(list(self.pus),
                                          targets=self.targets)
         self.stats = {"hits": 0, "misses": 0,
@@ -166,12 +199,16 @@ class Orchestrator:
         self._regs: dict[int, _Registration] = {}
         self._by_graph: dict[int, int] = {}          # id(graph) -> handle
         self._plans: dict[tuple, Plan] = {}          # insertion-ordered LRU
+        self._caches: ConcurrentCaches | None = None
 
-    def _evict_lru(self, cache: dict, cap: int, stat: str) -> None:
+    def _evict_lru(self, cache: dict, cap: int, stat: str,
+                   close: bool = False) -> None:
         """Drop oldest entries of an insertion-ordered LRU dict past
         ``cap``, counting them under ``stats[stat]``."""
         while len(cache) > cap:
-            cache.pop(next(iter(cache)))
+            victim = cache.pop(next(iter(cache)))
+            if close:
+                victim.close()
             self.stats[stat] += 1
 
     # -- register -----------------------------------------------------------
@@ -205,9 +242,12 @@ class Orchestrator:
         chain = graph.topo_order()
         wl = Workload.build(chain, table, self.pus, ops=graph.ops)
         h = len(self._regs)
+        struct_sig = hashlib.blake2b(repr(sorted(graph.edges)).encode(),
+                                     digest_size=8).hexdigest()
         self._regs[h] = _Registration(handle=h, graph=graph, chain=chain,
                                       table=table, wl=wl,
-                                      sig=wl.signature(), source=source)
+                                      sig=wl.signature(),
+                                      struct_sig=struct_sig, source=source)
         if not explicit_table:
             self._by_graph[memo_key] = h
         return h
@@ -226,63 +266,201 @@ class Orchestrator:
 
     # -- plan ---------------------------------------------------------------
     def plan(self, handles: int | Sequence[int], objective: str = "latency",
-             mode: str = "auto") -> Plan:
-        """Solve (or serve from cache) the schedule of one chain handle
-        with the sequential DP (``mode`` ``"auto"`` or ``"sequential"``).
-        Bitwise identical to the direct ``solve_sequential`` call."""
+             mode: str = "auto", algorithm: str = "auto",
+             max_states: int | None = None) -> Plan:
+        """Solve (or serve from cache) a schedule for one or more handles.
+
+        ``mode="auto"`` routes a single chain handle to the sequential
+        DP, a single fork/join handle to the phase/branch parallel solve,
+        and several handles to the M-ary concurrent search;
+        ``"aligned"`` forces the lockstep pair solver for exactly two
+        handles.  A single *disconnected* handle (a union of chains) and
+        ``mode="dag"`` take the reference's DAG route, which is not
+        ported yet.  Results are bitwise identical to the corresponding
+        direct solver call on the same workloads.
+
+        ``algorithm`` and ``max_states`` are the knobs of the concurrent
+        search (:func:`~repro_torch.core.search.solve_concurrent`:
+        ``"grid"``, ``"rolling"``, ``"pairwise"``); both are part of the
+        plan-cache key, and they are rejected for modes without such
+        knobs rather than silently ignored.
+        """
         hs = (handles,) if isinstance(handles, int) else tuple(handles)
         if not hs:
             raise ValueError("plan: no handles given")
         regs = [self._reg(h) for h in hs]
-        if len(hs) > 1 or mode in ("concurrent", "aligned"):
-            raise _not_ported("concurrent planning of several handles", 1)
-        if mode in ("parallel", "dag"):
-            raise _not_ported(f"mode={mode!r}", 1)
         if mode not in PLAN_MODES:
             raise ValueError(f"unknown mode {mode!r}; one of {PLAN_MODES}")
-        reg = regs[0]
-        if not reg.graph.is_chain() or len(reg.graph.components()) > 1:
-            raise _not_ported("planning a graph that is not one chain "
-                              "(fork/join or disconnected)", 1)
-        key = (reg.sig, objective, "sequential")
+        if max_states is not None and max_states < 1:
+            raise ValueError(f"max_states must be >= 1, got {max_states}")
+        if mode == "auto":
+            if len(hs) > 1:
+                mode = "concurrent"
+            elif not regs[0].graph.is_chain():
+                mode = "parallel"
+            elif len(regs[0].graph.components()) > 1:
+                # a union of chains has no single sequence to DP over:
+                # the reference routes it to the DAG front door
+                mode = "dag"
+            else:
+                mode = "sequential"
+        if mode == "dag":
+            raise _not_ported("the DAG route (mode='dag', or one handle "
+                              "whose graph is a union of chains)", 1)
+        if algorithm not in CONCURRENT_ALGORITHMS:
+            raise ValueError(f"unknown algorithm {algorithm!r}; one of "
+                             f"{CONCURRENT_ALGORITHMS} for mode={mode!r}")
+        if mode in ("sequential", "parallel") and len(hs) != 1:
+            raise ValueError(
+                f"mode={mode!r} plans one handle, got {len(hs)}")
+        if mode == "aligned" and len(hs) != 2:
+            raise ValueError(
+                f"mode='aligned' is the lockstep pair solver, got "
+                f"{len(hs)} handle(s)")
+        if algorithm != "auto" or max_states is not None:
+            if mode != "concurrent":
+                raise ValueError(
+                    "algorithm=/max_states= are knobs of the M-ary "
+                    "concurrent search and the DAG route; this plan "
+                    f"resolved to mode={mode!r}")
+            if mode == "concurrent" and len(hs) == 1:
+                raise ValueError(
+                    "algorithm=/max_states= route the M >= 2 concurrent "
+                    "search; a single-request concurrent plan is a solo "
+                    "best-PU walk with nothing to route")
+        return self._plan_cached(regs, hs, objective, mode, algorithm,
+                                 max_states)
+
+    def _plan_cached(self, regs: list[_Registration], hs: tuple[int, ...],
+                     objective: str, mode: str, algorithm: str = "auto",
+                     max_states: int | None = None) -> Plan:
+        # the sequential/concurrent solvers consume only the chain + dense
+        # cost views (covered by the workload signature); the parallel
+        # solve also consumes the graph's edge structure, so its key
+        # includes the structure hash.  algorithm/max_states are in the
+        # key: a forced-pairwise plan is never served a cached grid one.
+        if mode == "parallel":
+            wl_key = tuple((reg.sig, reg.struct_sig) for reg in regs)
+        else:
+            wl_key = tuple(reg.sig for reg in regs)
+        key = (wl_key, objective, mode, algorithm, max_states)
         plan = self._plans.get(key)
         if plan is not None:
             self.stats["hits"] += 1
             self._plans[key] = self._plans.pop(key)   # LRU refresh
-            return plan if plan.handles == hs \
-                else dataclasses.replace(plan, handles=hs)
+            if plan.handles != hs:
+                # equal signatures make the *schedule* shareable, but the
+                # handles must be the caller's — execute() resolves graphs
+                # (and their op payloads) through them
+                plan = dataclasses.replace(plan, handles=hs)
+            return plan
         self.stats["misses"] += 1
-        sched = solve_sequential(reg.wl.chain, reg.graph.ops, reg.table,
-                                 self.pus, objective, workload=reg.wl)
-        plan = Plan("sequential", sched, objective, hs, "sequential",
-                    cache_key=key)
+        plan = self._solve(regs, hs, objective, mode, algorithm, max_states)
+        plan.cache_key = key
         self._plans[key] = plan
         self._evict_lru(self._plans, self._max_plans, "plan_evictions")
         return plan
 
+    def _pool(self) -> ConcurrentCaches:
+        """Objective-independent solver state (pair-cost matrices, group
+        edge tables) shared across every concurrent solve of the session.
+        ``ConcurrentCaches`` keys everything by content signature, so
+        overlapping handle sets hit the same tables.  (The reference
+        keeps one pool per runtime condition; the port has no conditions
+        yet, so it keeps one.)"""
+        if self._caches is None:
+            self._caches = ConcurrentCaches()
+        return self._caches
+
+    def _solve(self, regs: list[_Registration], hs: tuple[int, ...],
+               objective: str, mode: str, algorithm: str = "auto",
+               max_states: int | None = None) -> Plan:
+        wls = [reg.wl for reg in regs]
+        if mode == "sequential":
+            reg, wl = regs[0], wls[0]
+            sched = solve_sequential(wl.chain, reg.graph.ops, reg.table,
+                                     self.pus, objective, workload=wl)
+            return Plan("sequential", sched, objective, hs, mode)
+        if mode == "parallel":
+            reg, wl = regs[0], wls[0]
+            sched = solve_parallel(reg.graph, reg.table, self.pus,
+                                   self.contention, objective, workload=wl)
+            return Plan("parallel", sched, objective, hs, mode)
+        pool = self._pool()
+        if mode == "aligned":
+            w0, w1 = wls
+            cache = _pair_cache(pool, self.contention, wls, 0, 1)
+            sched = solve_concurrent_aligned(
+                w0.chain, w0.table, w1.chain, w1.table, self.pus,
+                self.contention, objective, dense0=w0.dense,
+                dense1=w1.dense, cache=cache)
+            return Plan("concurrent", sched, objective, hs, mode)
+        kw = {} if max_states is None else {"max_states": max_states}
+        sched = solve_concurrent(wls, self.contention, objective,
+                                 algorithm=algorithm, caches=pool, **kw)
+        return Plan("concurrent", sched, objective, hs, mode)
+
+    # -- what later slices add ------------------------------------------------
+    def admit(self, h: int, *args, **kwargs):
+        """Online admission into the active concurrent set; not ported
+        yet."""
+        raise _not_ported("online admission (admit)", 5)
+
+    def advance(self, h: int, n_ops: int = 1):
+        """Execution progress of an active request; not ported yet."""
+        raise _not_ported("online admission (advance)", 5)
+
+    def retire(self, h: int, *args, **kwargs):
+        """Removal from the active concurrent set; not ported yet."""
+        raise _not_ported("online admission (retire)", 5)
+
+    def replan_active(self, *args, **kwargs):
+        """Re-plan of the active concurrent set; not ported yet."""
+        raise _not_ported("online admission (replan_active)", 5)
+
+    def on_condition(self, cond):
+        """Folding a runtime condition into the session; not ported
+        yet."""
+        raise _not_ported("runtime conditions (on_condition)", 7)
+
     # -- execute ------------------------------------------------------------
     def execute(self, plan: Plan, inputs=None, *, compile: bool = True,
                 policy: ExecutionPolicy | None = None,
-                faults: FaultPlan | None = None) -> Any:
-        """Run a plan on the multi-lane executor; takes one
-        ``{op: (args...)}`` mapping and returns the graph's results dict.
+                faults: FaultPlan | None = None,
+                recover: bool = False,
+                trace: list | None = None) -> Any:
+        """Run a plan on the multi-lane executor.
+
+        Sequential and parallel plans take one ``{op: (args...)}``
+        mapping and return that graph's results dict; concurrent plans
+        take a sequence of such mappings (one per request, in handle
+        order) and return a list of results dicts.
 
         By default execution goes through the compiled, cached lane
         program (:meth:`program_for`); ``compile=False`` runs the per-op
-        interpreter, the bitwise oracle.  ``policy``/``faults`` drive the
-        fault runtime as in the reference; a PU loss propagates as
-        :class:`~repro_torch.core.errors.PULostError` (re-planning onto
-        the surviving PUs needs runtime conditions, ROADMAP.md item 2).
+        interpreter, the bitwise oracle.  ``trace`` (compiled path)
+        receives one :class:`~repro_torch.core.laneprogram.SegmentTime`
+        per segment.  ``policy``/``faults`` drive the fault runtime as in
+        the reference; a PU loss propagates as
+        :class:`~repro_torch.core.errors.PULostError`: re-planning onto
+        the surviving PUs (``recover=True``, the reference's default)
+        needs runtime conditions, which are not ported yet.
         """
-        if plan.kind != "sequential":
-            raise _not_ported(f"executing a {plan.kind!r} plan", 1)
+        if recover:
+            raise _not_ported("PU-loss recovery (execute(recover=True))", 7)
         if not compile:
-            graph = self._execute_regs(plan)[0].graph
-            return self.executor.run_scheduled(
-                graph, plan.schedule, inputs,
+            regs = self._execute_regs(plan)
+            graphs = [reg.graph for reg in regs]
+            if plan.kind in ("sequential", "parallel"):
+                return self.executor.run_scheduled(
+                    graphs[0], plan.schedule, inputs,
+                    policy=policy, faults=faults, estimate=plan.latency)
+            return self.executor.run_concurrent(
+                graphs, plan.schedule, inputs,
                 policy=policy, faults=faults, estimate=plan.latency)
         return self.program_for(plan, inputs).run(
-            inputs, policy=policy, faults=faults, estimate=plan.latency)
+            inputs, policy=policy, faults=faults, estimate=plan.latency,
+            trace=trace)
 
     def program_for(self, plan: Plan, inputs=None) -> LaneProgram:
         """The compiled :class:`LaneProgram` for a plan (cached).
@@ -300,13 +478,17 @@ class Orchestrator:
                 self.stats["program_hits"] += 1
                 self._programs[key] = self._programs.pop(key)  # LRU refresh
                 return prog
-            del self._programs[key]
+            self._programs.pop(key).close()
         self.stats["program_misses"] += 1
-        graph = self._execute_regs(plan)[0].graph
-        prog = self.executor.compile_scheduled(graph, plan.schedule)
+        regs = self._execute_regs(plan)
+        graphs = [reg.graph for reg in regs]
+        if plan.kind in ("sequential", "parallel"):
+            prog = self.executor.compile_scheduled(graphs[0], plan.schedule)
+        else:
+            prog = self.executor.compile_concurrent(graphs, plan.schedule)
         self._programs[key] = prog
         self._evict_lru(self._programs, self._max_programs,
-                        "program_evictions")
+                        "program_evictions", close=True)
         return prog
 
     def _execute_regs(self, plan: Plan) -> list[_Registration]:
@@ -317,7 +499,13 @@ class Orchestrator:
         regs = [self._reg(h) for h in plan.handles]
         # a stale/re-registered plan must fail here with the handle named,
         # not deep inside lane-queue construction
-        for reg, route in zip(regs, plan.route):
+        routes = plan.route
+        if len(routes) != len(regs):
+            raise ValueError(
+                f"plan routes {len(routes)} request(s) but carries "
+                f"{len(regs)} handle(s) {plan.handles} — the plan does not "
+                "match this orchestrator's registrations")
+        for reg, route in zip(regs, routes):
             n = len(reg.graph.ops)
             bad = [i for i, _ in route if not 0 <= i < n]
             if bad:

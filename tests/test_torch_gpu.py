@@ -144,3 +144,106 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                          z(1, 600, 1, 8, device=cuda),
                          z(1, 600, 1, 8, device=cuda),
                          z(1, 600, 1, device=cuda), chunk=512)
+
+
+# ---------------------------------------------------------------------------
+# the threaded lane runtime on the card: one stream per CUDA lane
+# ---------------------------------------------------------------------------
+
+
+def _cuda_lane(name, cuda, dialect="ref"):
+    from repro_torch.core import Target
+    return Target(name, kind="cuda", dialect=dialect, device=cuda,
+                  is_accelerator=True)
+
+
+@pytest.mark.gpu
+def test_handoffs_out_of_a_slow_cuda_lane_wait_for_its_event(cuda):
+    """The producer's segment spins its stream for ~0.1 s before it
+    writes its output.  A consumer on a second CUDA lane (its own stream)
+    and one on a host lane must both read the finished output: the first
+    waits on the producer's event on the device, the second on the host
+    before its ``.to("cpu")``."""
+    from repro_torch.core import (FusedOp, OpGraph, ScheduleExecutor,
+                                  results_bitwise_equal)
+    from repro_torch.core.backends import torch_cpu
+
+    def slow(x):
+        torch.cuda._sleep(200_000_000)
+        return x * 2.0 + 1.0
+
+    graph = OpGraph([FusedOp("slow", "other", fn=slow),
+                     FusedOp("card", "other", fn=lambda a: a * 3.0),
+                     FusedOp("host", "other", fn=lambda a: a - 1.0)],
+                    edges=[(0, 1), (0, 2)])
+    lanes = {"k1": _cuda_lane("k1", cuda), "k2": _cuda_lane("k2", cuda),
+             "torch-cpu": torch_cpu()}
+    ex = ScheduleExecutor(list(lanes), targets=lanes)
+    prog = ex.compile_scheduled(graph, {0: "k1", 1: "k2", 2: "torch-cpu"})
+    x = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    oracle = ex.run_scheduled(graph, {0: "k1", 1: "k2", 2: "torch-cpu"},
+                              {0: (x,)})
+    for _ in range(3):
+        out = prog.run({0: (x,)})
+        assert out[1].device.type == "cuda" and out[2].device.type == "cpu"
+        torch.cuda.synchronize()
+        assert results_bitwise_equal(out, oracle)
+    streams = prog.lane_streams()
+    assert sorted(streams) == ["k1", "k2"]
+    assert streams["k1"][1] != streams["k2"][1]
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_concurrent_small_chains_bitwise_alone_and_run_to_run(cuda):
+    """Checks (a) and (c) of ``chip_smoke.py`` phase 4 at a small size:
+    two small chains planned side by side on both CUDA lanes and the
+    host lanes; each request's outputs are bitwise its run alone with
+    the same op -> lane assignment, and two warm runs are bitwise
+    equal."""
+    from repro_torch import kernels
+    from repro_torch.core import (CostEntry, CostTable, Orchestrator,
+                                  kernel_chain, results_bitwise_equal)
+    from repro_torch.core.backends import default_registry
+    from repro_torch.core.profiler import fence
+
+    reg = default_registry()
+    lanes = {n: reg.get(n) for n in ("numpy-eager", "torch-cpu", "cuda:0",
+                                     "cuda-kernels")}
+    chains = [kernel_chain(seed=s, blocks=2, seq=128) for s in (0, 1)]
+    orch = Orchestrator(CostTable(list(lanes)), targets=lanes)
+    hs = []
+    for k, (graph, _) in enumerate(chains):
+        # request 0 is cheap on cuda-kernels, request 1 on cuda:0, and
+        # the glue on the host, so the plan co-schedules across lanes
+        table = CostTable(list(lanes))
+        for i, op in enumerate(graph.ops):
+            kernel_op = op.name.rsplit(".", 1)[-1] in ("attn", "ssd", "moe")
+            for lane in lanes:
+                fast = (lane == ("cuda-kernels", "cuda:0")[k]) if kernel_op \
+                    else lane == "numpy-eager"
+                table.set(i, lane, CostEntry(kernel=1e-4 if fast else 5e-3,
+                                             dispatch=1e-5, h2d=0.0,
+                                             d2h=0.0, power=100.0))
+        hs.append(orch.register(graph, table=table))
+    plan = orch.plan(hs)
+    exts = [ext for _, ext in chains]
+    used = {lane for r in range(2) for _, lane in plan.route[r]}
+    assert {"cuda:0", "cuda-kernels"} <= used
+    prog = orch.program_for(plan, exts)
+    assert not prog.stats["serial"] and prog.stats["n_barrier"] > 0
+    fence([list(o.values()) for o in orch.execute(plan, exts)])   # cold
+    kernels.reset_launch_counts()
+    first = orch.execute(plan, exts)
+    second = orch.execute(plan, exts)
+    fence([list(o.values()) for o in first + second])
+    assert sum(kernels.launch_counts().values()) > 0
+    for r, (graph, ext) in enumerate(chains):
+        assert results_bitwise_equal(first[r], second[r])
+        alone = orch.executor.compile_scheduled(
+            graph, dict(plan.schedule.assignment_of(r)))
+        alone.run(ext)
+        got = alone.run(ext)
+        fence(list(got.values()))
+        assert results_bitwise_equal(first[r], got), r
+    prog.close()

@@ -34,7 +34,8 @@ def _modules() -> list[str]:
 def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _modules()
     assert {"repro_torch.core.orchestrator", "repro_torch.kernels.ops",
-            "repro_torch.fault.manager"} <= set(modules)
+            "repro_torch.fault.manager",
+            "repro_torch.core.contention"} <= set(modules)
     code = "\n".join([
         "import sys",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",

@@ -4,8 +4,7 @@ Small hand-built chains on the CPU, no JAX.  Each variant op is probed
 on the reference composition's own inputs, against the target's
 tolerance (atol optionally scaled by the output's largest magnitude);
 a kernel-dialect variant that fails to run raises; a program whose
-segments could run concurrently is refused until the concurrent lane
-queues are ported.
+segments could run concurrently runs on its lane workers.
 """
 import numpy as np
 import pytest
@@ -103,8 +102,17 @@ def test_a_kernel_that_fails_to_run_raises():
 
 
 def test_segments_that_could_run_concurrently_are_not_ported():
-    graph = OpGraph([_op(i, lambda x: x) for i in range(3)],
-                    edges=[(0, 1), (0, 2)])
+    """A fork whose branches land on different lanes: the segments can
+    co-execute, so the program runs on its lane workers (not inline),
+    and its outputs are bitwise the per-op interpreter's."""
+    graph = OpGraph([_op(0, lambda x: x * 2.0), _op(1, lambda x: x + 1.0),
+                     _op(2, lambda x: x.sin())], edges=[(0, 1), (0, 2)])
     ex = ScheduleExecutor(["a", "b", "c"])
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ex.compile_scheduled(graph, {0: "a", 1: "b", 2: "c"})
+    assignment = {0: "a", 1: "b", 2: "c"}
+    prog = ex.compile_scheduled(graph, assignment)
+    assert prog.serial_order is None and not prog.stats["serial"]
+    oracle = ex.run_scheduled(graph, assignment, {0: (X,)})
+    for _ in range(2):
+        assert results_bitwise_equal(prog.run({0: (X,)}), oracle)
+    assert prog.runs == 2
+    prog.close()

@@ -103,7 +103,19 @@ def test_plan_json_round_trip_and_cache():
     assert orch.plan(h) is plan and orch.stats["hits"] == 1
     back = P.Plan.from_json(plan.to_json())
     assert back.route == plan.route and back.latency == plan.latency
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        orch.plan([h, h])
+    # two requests: the concurrent search, as the reference plans it
+    pair = orch.plan([h, h])
+    jtable = J.CostTable(list(J.EDGE_PUS))
+    for i, row in enumerate(rows):
+        for pu, (k, d, hh, o, w) in row.items():
+            jtable.set(i, pu, J.CostEntry(kernel=k, dispatch=d, h2d=hh,
+                                          d2h=o, power=w))
+    jorch = J.Orchestrator(jtable, pus=J.EDGE_PUS)
+    jh = jorch.register([J.FusedOp(name=f"op{i}", kind="matmul",
+                                   in_shapes=((4, 4),), out_shape=(4, 4))
+                         for i in range(16)])
+    assert pair.kind == "concurrent"
+    assert pair.to_json() == jorch.plan([jh, jh]).to_json()
+    assert P.Plan.from_json(pair.to_json()).route == pair.route
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         orch.plan(h, mode="dag")
