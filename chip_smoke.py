@@ -35,7 +35,23 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    assignment, within the route bound of the interpreter and bitwise
    between two warm runs; the segments' host intervals, a device trace's
    busy time per stream and the streams' overlap; and each kernel's
-   launches in one warm concurrent run, counted from zero.
+   launches in one warm concurrent run, counted from zero;
+5. DAG plans — two DAGs of the same chains as one handle each: U, the
+   union of A and B (24 ops, no edge between them), and F, a fork (A's
+   12 ops and a one-block tower D of its own weights hung off A's op 5),
+   with phases 3 and 4's measured cost rows and D profiled anew.  U
+   auto-routes to the DAG route's union-grid sweep, whose latency the
+   frontier DP matches; F auto-routes to the parallel solve, and
+   ``mode="dag"`` gives the phase route at its latency, bitwise.  Each of
+   the four DAG plans (U union-grid and frontier, F phase and frontier)
+   runs compiled: within the route bound of the interpreter (``run_dag``),
+   two warm runs bitwise equal, every kernel segment verified, every
+   output on its lane's device, launches as its kernel-lane ops;
+   predicted against measured, co-scheduled steps, a device trace's
+   stream overlap and idle share.  Baselines: every op on
+   ``cuda-kernels`` (which must launch all three kernels), the best
+   sequential route over the topological order, and for U the two
+   requests' own programs back to back.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -169,6 +185,40 @@ def check_repeatable(name, label, fn, args) -> None:
     check(all(bitwise_equal(a, b) for a, b in zip(first, second)),
           f"{name} {label} {str(args[0].dtype)[6:]}: two runs on the same "
           "inputs are bitwise equal")
+
+
+def _expected_launches(prog) -> dict:
+    """Launches of each kernel in one run of ``prog``: one per op of a
+    kernel kind in a segment that serves the kernel dialect."""
+    from repro_torch import kernels
+    from repro_torch.core import KERNEL_DIALECTS
+    expected = dict.fromkeys(kernels.launch_counts(), 0)
+    for seg in prog.segments:
+        if seg.use_variant and seg.target.dialect in KERNEL_DIALECTS:
+            for r, i in seg.items:
+                kind = prog.graphs[r].ops[i].name.rsplit(".", 1)[-1]
+                if kind in KERNEL_OF_OP:
+                    expected[KERNEL_OF_OP[kind]] += 1
+    return expected
+
+
+def _counted_run(run, prog, label, every_kernel: bool) -> dict:
+    """One warm ``run()`` with the launch counts zeroed just before and
+    read just after; each kernel must have launched once per kernel-lane
+    op of its kind (and at least once when ``every_kernel``)."""
+    from repro_torch import kernels
+    from repro_torch.core.profiler import fence
+    kernels.reset_launch_counts()
+    fence([list(o.values()) for o in run()])
+    counts = kernels.launch_counts()
+    expected = _expected_launches(prog)
+    log(f"    kernel launches in one warm run ({label}): {counts}")
+    for name, count in counts.items():
+        check(count == expected[name] and (count >= 1 or not every_kernel),
+              f"{label}: {name} launched {count} times (its kernel-lane "
+              f"ops: {expected[name]}"
+              + (", at least 1)" if every_kernel else ")"))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -544,9 +594,7 @@ def _trace(prog, ext) -> None:
 
 def phase_main_path(main_cfg: dict) -> dict:
     import torch
-    from repro_torch import kernels
-    from repro_torch.core import (KERNEL_DIALECTS, MeasuredProfiler,
-                                  Orchestrator, kernel_chain)
+    from repro_torch.core import MeasuredProfiler, Orchestrator, kernel_chain
     from repro_torch.core.backends import default_registry
     from repro_torch.core.profiler import fence
 
@@ -634,21 +682,8 @@ def phase_main_path(main_cfg: dict) -> dict:
     # the main path's own launches: one warm run of the planned route
     # through the user's entry point, counted from zero
     prog = orch.program_for(plan, ext)
-    kernels.reset_launch_counts()
-    fence(list(orch.execute(plan, ext).values()))
-    counts = kernels.launch_counts()
-    expected = dict.fromkeys(counts, 0)
-    for seg in prog.segments:
-        if seg.use_variant and seg.target.dialect in KERNEL_DIALECTS:
-            for _, i in seg.items:
-                kind = graph.ops[i].name.rsplit(".", 1)[-1]
-                if kind in KERNEL_OF_OP:
-                    expected[KERNEL_OF_OP[kind]] += 1
-    log(f"kernel launches in one run of the planned route: {counts}")
-    for name, count in counts.items():
-        check(count == expected[name] >= 1,
-              f"{name} launched {count} times in one run of the planned "
-              f"route (its kernel-lane ops: {expected[name]}, at least 1)")
+    counts = _counted_run(lambda: [orch.execute(plan, ext)], prog,
+                          "the planned route", every_kernel=True)
 
     _trace(prog, ext)
 
@@ -722,20 +757,23 @@ def _overlap(iv_a, iv_b) -> float:
     return total
 
 
-def _stream_trace(orch, plan, exts, label) -> None:
-    """One warm run under ``torch.profiler``: device busy time per CUDA
-    stream and the overlap between streams, from the exported trace's
-    kernel, copy and memset intervals."""
+def _stream_trace(run, label, phase: int = 4) -> dict | None:
+    """One warm run of ``run()`` (which returns a list of results dicts)
+    under ``torch.profiler``: device busy time per CUDA stream and the
+    overlap between streams, from the exported trace's kernel, copy and
+    memset intervals.  Returns the run's traced wall ms, busy ms, stream
+    overlap ms and idle share (None when the trace has no device
+    events)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.profiler import fence
-    fence([list(o.values()) for o in orch.execute(plan, exts)])
+    fence([list(o.values()) for o in run()])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        outs = orch.execute(plan, exts)
+        outs = run()
         fence([list(o.values()) for o in outs])
         wall = time.perf_counter() - t0
-    path = LOG.parent / f"phase4_trace_{label}.json"
+    path = LOG.parent / f"phase{phase}_trace_{label}.json"
     LOG.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
@@ -755,7 +793,7 @@ def _stream_trace(orch, plan, exts, label) -> None:
     if not by_stream:
         log(f"  device trace ({label}): no device events recorded "
             "(not measured)")
-        return
+        return None
     all_iv = [iv for ivs in by_stream.values() for iv in ivs]
     busy_all = _busy(all_iv) / 1e3
     log(f"  device trace ({label}), one warm run: wall "
@@ -776,6 +814,8 @@ def _stream_trace(orch, plan, exts, label) -> None:
         log(f"    overlap of streams {a} and {b}: {ov:.3f} ms")
     log(f"  streams overlapped {total:.3f} ms of {busy_all:.3f} ms busy "
         f"({label})")
+    return dict(wall=1e3 * wall, busy=busy_all, overlap=total,
+                idle=1 - busy_all / (1e3 * wall), streams=len(by_stream))
 
 
 def _host_spread(graph, ext, card_outs) -> list:
@@ -783,7 +823,7 @@ def _host_spread(graph, ext, card_outs) -> list:
     on the card, over the largest output (the chain's conditioning, as
     phase 3 measures it for request A)."""
     from repro_torch.core import ScheduleExecutor
-    host_ext = {0: tuple(x.cpu() for x in ext[0])}
+    host_ext = {i: tuple(x.cpu() for x in args) for i, args in ext.items()}
     host = ScheduleExecutor(["cpu"]).run_monolithic(graph, host_ext)
     return [norm_err(host[i], card_outs[i])[1] for i in range(len(graph))]
 
@@ -791,10 +831,8 @@ def _host_spread(graph, ext, card_outs) -> list:
 def phase_concurrent(main_cfg: dict, main: dict) -> dict:
     """Requests A (phase 3's chain), B and C (seq 256, their own
     weights) planned jointly on the same four lanes and run at once."""
-    import torch
-    from repro_torch import kernels
-    from repro_torch.core import (KERNEL_DIALECTS, MeasuredProfiler,
-                                  kernel_chain, results_bitwise_equal)
+    from repro_torch.core import (MeasuredProfiler, kernel_chain,
+                                  results_bitwise_equal)
     from repro_torch.core.profiler import fence
 
     log("== phase 4: concurrent requests at the Granite widths")
@@ -951,29 +989,289 @@ def phase_concurrent(main_cfg: dict, main: dict) -> dict:
         log(f"    host ms in segments by lane: "
             f"{ {k: round(1e3 * v, 3) for k, v in per_lane.items()} }, "
             f"sum {1e3 * sum(per_lane.values()):.3f} ms")
-        _stream_trace(orch, plan, ge, label)
+        _stream_trace(lambda: orch.execute(plan, ge), label)
 
         # the concurrent path's launches: one warm run, counted from zero
-        kernels.reset_launch_counts()
-        fence([list(o.values()) for o in orch.execute(plan, ge)])
-        counts = kernels.launch_counts()
-        expected = dict.fromkeys(counts, 0)
-        for seg in prog.segments:
-            if seg.use_variant and seg.target.dialect in KERNEL_DIALECTS:
-                for _, i in seg.items:
-                    kind = graphs[0].ops[i].name.rsplit(".", 1)[-1]
-                    if kind in KERNEL_OF_OP:
-                        expected[KERNEL_OF_OP[kind]] += 1
-        log(f"    kernel launches in one warm run of ({label}): {counts}")
-        for name, count in counts.items():
-            check(count == expected[name] >= 1,
-                  f"({label}) {name} launched {count} times in one warm "
-                  f"concurrent run (its kernel-lane ops: {expected[name]}, "
-                  "at least 1)")
+        counts = _counted_run(lambda: orch.execute(plan, ge), prog,
+                              f"({label}) concurrent", every_kernel=True)
         summary[label] = dict(predicted=plan.latency, measured=conc,
                               back_to_back=seqt, counts=counts)
         prog.close()
-    return summary
+    return {"sets": summary, "graphs": graphs, "exts": exts, "hs": hs,
+            "seq_plans": seq_plans, "spreads": spreads}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: DAG plans at the Granite widths
+# ---------------------------------------------------------------------------
+
+def _dag_graph(parts, edges=()):
+    """One OpGraph over several chains' ops: ``parts`` is a list of
+    ``(prefix, graph, external inputs or None)``; each chain keeps its
+    own edges, its ops get ``prefix`` on their names, and ``edges`` (in
+    the joined numbering) link them.  Returns (graph, external inputs,
+    offset of each part)."""
+    import dataclasses
+    from repro_torch.core import OpGraph
+    ops, all_edges, ext, offsets = [], list(edges), {}, []
+    for prefix, graph, gext in parts:
+        base = len(ops)
+        offsets.append(base)
+        ops += [dataclasses.replace(op, name=prefix + op.name)
+                for op in graph.ops]
+        all_edges += [(a + base, b + base) for a, b in graph.edges]
+        ext.update({i + base: v for i, v in (gext or {}).items()})
+    return OpGraph(ops, edges=all_edges), ext, offsets
+
+
+def _joined_table(lanes, parts):
+    """A CostTable over a joined graph from its parts' measured tables
+    (``(table, offset)``): the same ops at the same shapes, so their
+    measured rows carry over, re-indexed."""
+    from repro_torch.core import CostTable
+    table = CostTable(list(lanes))
+    for part, off in parts:
+        for (i, lane), entry in part.items():
+            table.set(i + off, lane, entry)
+    return table
+
+
+def _dag_plan_summary(label, plan, graph) -> None:
+    """A DAG plan's steps, lanes and predicted latency."""
+    sched = plan.schedule
+    lanes = list(sched.assignment.values())
+    counts = {lane: lanes.count(lane) for lane in dict.fromkeys(lanes)}
+    log(f"  plan {label}: kind {plan.kind!r}, schedule mode "
+        f"{sched.mode!r}, predicted {1e3 * plan.latency:.3f} ms "
+        f"({plan.latency.hex()}); {len(sched.steps)} steps, "
+        f"{sched.n_parallel_steps} co-scheduled (multi-op); lanes {counts}")
+    for st in sched.steps:
+        log(f"    {1e3 * st.cost:8.3f} ms  "
+            + ", ".join(f"{graph.ops[o].name}@{p}"
+                        for o, p in zip(st.ops, st.pus)))
+
+
+def _run_dag_plan(label, orch, plan, graph, ext, binding, spread) -> dict:
+    """Checks (a)-(e) and the measurements of one DAG plan."""
+    from repro_torch.core import KERNEL_DIALECTS, results_bitwise_equal
+    from repro_torch.core.profiler import fence
+    n = len(graph)
+    prog = orch.program_for(plan, ext)
+    st = prog.stats
+    log(f"    program: {st['n_segments']} segments, lanes {prog.lanes}, "
+        + ("serial (inline)" if st["serial"] else
+           f"threaded, CUDA lane streams {sorted(prog.lane_streams())}"))
+    t_cold, _ = _fenced(lambda: [orch.execute(plan, ext)])
+    runs = [_fenced(lambda: [orch.execute(plan, ext)])
+            for _ in range(REPEATS)]
+    times = [t for t, _ in runs]
+    outs, outs2 = runs[0][1][0], runs[1][1][0]
+    verdicts = prog.stats["variant_verified"]
+    log(f"    cold run {1e3 * t_cold:.1f} ms; verdicts {verdicts}")
+    measured = _median(times)
+    log(f"    measured median {1e3 * measured:.3f} ms (runs "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in times)}); predicted "
+        f"{1e3 * plan.latency:.3f} ms, predicted / measured "
+        f"{plan.latency / measured:.3f}")
+    # (a) and (d): within the route bound of the interpreter (run_dag),
+    # every output on its lane's device
+    oracle = orch.execute(plan, ext, compile=False)
+    fence(list(oracle.values()))
+    assign = dict(plan.route[0])
+    route = tuple(assign[i] for i in range(n))
+    _route_matches(f"{label} (a)", outs, oracle, route, binding,
+                   verdicts.values(), spread)
+    # (b) two warm runs bitwise equal
+    check(results_bitwise_equal(outs, outs2),
+          f"{label}: (b) two warm runs are bitwise equal")
+    # (c) every kernel-dialect segment verified
+    for seg in prog.segments:
+        kinds = {graph.ops[i].name.rsplit(".", 1)[-1] for _, i in seg.items}
+        if seg.target is not None and \
+                seg.target.dialect in KERNEL_DIALECTS and \
+                kinds & set(KERNEL_OF_OP):
+            check(seg.verified in ("bitwise", "tolerance"),
+                  f"{label}: (c) kernel segment {seg.index} "
+                  f"({sorted(kinds)}) verified {seg.verified!r}")
+    # (e) the kernels' launches where the plan puts their ops on the
+    # kernel lane
+    counts = _counted_run(lambda: [orch.execute(plan, ext)], prog, label,
+                          every_kernel=False)
+    trace = []
+    _fenced(lambda: [orch.execute(plan, ext, trace=trace)])
+    log("    segments of one warm run (lane, first..last op, host "
+        "interval ms from the run's start):")
+    for t in sorted(trace, key=lambda t: t.start):
+        log(f"      {t.lane:13s} {graph.ops[t.items[0][1]].name}.."
+            f"{graph.ops[t.items[-1][1]].name}  {1e3 * t.start:8.3f} - "
+            f"{1e3 * (t.start + t.seconds):8.3f}")
+    dev = _stream_trace(lambda: [orch.execute(plan, ext)], label, phase=5)
+    return dict(predicted=plan.latency, measured=measured, runs=times,
+                co=plan.schedule.n_parallel_steps,
+                steps=len(plan.schedule.steps), counts=counts, device=dev)
+
+
+def _run_baseline(label, prog, run, graph, oracle, route, binding, spread,
+                  predicted, every_kernel) -> dict:
+    """A compiled baseline: cold run, route bound against the oracle,
+    median of 3 fenced warm runs; launches counted from zero when
+    ``every_kernel`` (then each kernel must launch)."""
+    _fenced(run)
+    runs = [_fenced(run) for _ in range(REPEATS)]
+    times = [t for t, _ in runs]
+    outs = runs[0][1]
+    merged = {}
+    for o in outs:
+        merged.update(o)
+    if route is not None:
+        _route_matches(label, merged, oracle, route, binding,
+                       prog.stats["variant_verified"].values(), spread)
+    measured = _median(times)
+    log(f"    {label}: measured median {1e3 * measured:.3f} ms (runs "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in times)}), predicted "
+        f"{1e3 * predicted:.3f} ms")
+    counts = (_counted_run(run, prog, label, every_kernel=True)
+              if every_kernel else None)
+    return dict(predicted=predicted, measured=measured, runs=times,
+                counts=counts)
+
+
+def phase_dag(main_cfg: dict, main: dict, conc: dict) -> dict:
+    """Two DAGs of the Granite chain on phase 3's lanes: U, the union of
+    requests A and B (24 ops, one handle, no edge between them), and F,
+    a fork (A's 12 ops and a one-block tower D hung off A's op 5)."""
+    from repro_torch.core import (MeasuredProfiler, kernel_chain,
+                                  solve_sequential)
+    from repro_torch.core.profiler import fence
+
+    log("== phase 5: DAG plans at the Granite widths")
+    orch, binding = main["orch"], main["binding"]
+    gA, gB = conc["graphs"][0], conc["graphs"][1]
+    eA, eB = conc["exts"][0], conc["exts"][1]
+    tA = orch.workload(main["h"]).table
+    tB = orch.workload(conc["hs"][1]).table
+    t0 = time.perf_counter()
+    gD, _ = kernel_chain(seed=2, **{**main_cfg, "blocks": 1})
+    tD = MeasuredProfiler(warmup=1, iters=3, strict=True,
+                          targets=binding).profile(gD)
+    fails = tD.meta["profile_failures"]
+    check(not fails, f"tower D (one block, seq {main_cfg['seq']}, seed 2): "
+                     f"profiled {len(tD.meta['measurements'])} cells in "
+                     f"{time.perf_counter() - t0:.1f}s, failures: "
+                     f"{fails or 'none'}")
+    for i, op in enumerate(gD.ops):
+        cells = "  ".join(
+            f"{lane} {1e3 * tD.meta['measurements'][(i, lane)]['median']:9.3f}"
+            for lane in LANES)
+        log(f"  D op {i} {op.name:8s} ms: {cells}")
+
+    gU, eU, offU = _dag_graph([("", gA, eA), ("B.", gB, eB)])
+    fork = [i for i, op in enumerate(gA.ops) if op.name == "b0.out"][0]
+    gF, eF, offF = _dag_graph([("", gA, eA), ("D.", gD, None)],
+                              edges=[(fork, len(gA))])
+    tU = _joined_table(LANES, [(tA, 0), (tB, offU[1])])
+    tF = _joined_table(LANES, [(tA, 0), (tD, offF[1])])
+    hU, hF = orch.register(gU, table=tU), orch.register(gF, table=tF)
+    log(f"  U: {len(gU)} ops, {len(gU.components())} components "
+        f"(A seq {main_cfg['seq']}, B seq 256), inputs at ops "
+        f"{sorted(eU)}; F: {len(gF)} ops, D's first op after A's op "
+        f"{fork} ({gA.ops[fork].name}), {len(gF.phases())} phases")
+
+    # the routes the issue fixes, checked before anything runs
+    t0 = time.perf_counter()
+    pU = orch.plan(hU)
+    pUf = orch.plan(hU, mode="dag", algorithm="frontier")
+    pF = orch.plan(hF)
+    pFd = orch.plan(hF, mode="dag")
+    pFf = orch.plan(hF, mode="dag", algorithm="frontier")
+    log(f"  five plans solved in {1e3 * (time.perf_counter() - t0):.1f} ms")
+    check(pU.kind == "dag" and pU.schedule.mode == "union-grid",
+          f"U: plan() auto-routes the disconnected handle to the DAG route "
+          f"(kind {pU.kind!r}, mode {pU.schedule.mode!r})")
+    check(pUf.schedule.mode == "frontier"
+          and pUf.latency.hex() == pU.latency.hex(),
+          f"U: the frontier plan's latency {pUf.latency.hex()} equals the "
+          f"union-grid sweep's {pU.latency.hex()}")
+    check(pF.kind == "parallel",
+          f"F: plan() auto-routes the fork to the parallel solve "
+          f"(kind {pF.kind!r})")
+    check(pFd.kind == "dag" and pFd.schedule.mode == "phase"
+          and pFd.latency.hex() == pF.latency.hex(),
+          f"F: mode='dag' takes the phase route ({pFd.schedule.mode!r}) "
+          f"at the parallel plan's latency, bitwise "
+          f"({pFd.latency.hex()} vs {pF.latency.hex()})")
+    check(pFf.schedule.mode == "frontier",
+          "F: mode='dag', algorithm='frontier' is the frontier plan")
+
+    spreadU = main["spread"] + conc["spreads"][1]
+    spreadF = _host_spread(gF, eF, orch.executor.run_monolithic(gF, eF))
+    log(f"  F: reference payloads, host against card, error / max|card| "
+        f"by op: {[f'{e:.1e}' for e in spreadF]}")
+    out = {}
+    for label, plan, graph, ext, h, spread in (
+            ("U-union-grid", pU, gU, eU, hU, spreadU),
+            ("U-frontier", pUf, gU, eU, hU, spreadU),
+            ("F-phase", pFd, gF, eF, hF, spreadF),
+            ("F-frontier", pFf, gF, eF, hF, spreadF)):
+        log(f"  -- {label}")
+        _dag_plan_summary(label, plan, graph)
+        out[label] = _run_dag_plan(label, orch, plan, graph, ext, binding,
+                                   spread)
+
+    # baselines: every op on the kernel lane; the best sequential route
+    # over the topological order; for U, A's and B's own programs
+    for name, graph, ext, h, table, spread in (
+            ("U", gU, eU, hU, tU, spreadU), ("F", gF, eF, hF, tF, spreadF)):
+        n = len(graph)
+        log(f"  -- baselines of {name}")
+        oracle = orch.executor.run_dag(graph, pU.schedule if name == "U"
+                                       else pFf.schedule, ext)
+        fence(list(oracle.values()))
+        allk = orch.executor.compile_scheduled(
+            graph, {i: "cuda-kernels" for i in range(n)})
+        wl = orch.workload(h)
+        out[f"{name}-all-cuda-kernels"] = _run_baseline(
+            f"{name} every op on cuda-kernels", allk,
+            lambda: [allk.run(ext)], graph, oracle,
+            ("cuda-kernels",) * n, binding, spread,
+            wl.evaluate(["cuda-kernels"] * n)[0], every_kernel=True)
+        seq = solve_sequential(wl.chain, graph.ops, table, orch.pus,
+                               "latency", workload=wl)
+        seq_prog = orch.executor.compile_scheduled(graph, seq)
+        amap = dict(zip(seq.chain, seq.assignment))
+        lanes = {p: seq.assignment.count(p)
+                 for p in dict.fromkeys(seq.assignment)}
+        log(f"    best sequential route over the topological order: {lanes}")
+        out[f"{name}-sequential"] = _run_baseline(
+            f"{name} best sequential route", seq_prog,
+            lambda: [seq_prog.run(ext)], graph, oracle,
+            tuple(amap[i] for i in range(n)), binding, spread, seq.latency,
+            every_kernel=False)
+        allk.close()
+        seq_prog.close()
+    sp = [conc["seq_plans"][0], conc["seq_plans"][1]]
+    progs = [orch.program_for(p, e) for p, e in zip(sp, (eA, eB))]
+    out["U-back-to-back"] = _run_baseline(
+        "U as A's and B's own sequential programs back to back", progs[0],
+        lambda: [p.run(e) for p, e in zip(progs, (eA, eB))], gU, None,
+        None, binding, None, sp[0].latency + sp[1].latency,
+        every_kernel=False)
+
+    log("  summary (ms): plan, predicted, measured median, predicted / "
+        "measured, co-scheduled steps / steps, stream overlap / busy, "
+        "idle share")
+    for label, r in out.items():
+        dev = r.get("device")
+        extra = ""
+        if "co" in r:
+            extra = f", {r['co']} / {r['steps']}"
+            if dev is not None:
+                extra += (f", {dev['overlap']:.3f} / {dev['busy']:.3f}, "
+                          f"{100 * dev['idle']:.1f}%")
+        log(f"    {label}: {1e3 * r['predicted']:.3f}, "
+            f"{1e3 * r['measured']:.3f}, "
+            f"{r['predicted'] / r['measured']:.3f}{extra}")
+    return out
 
 
 def main() -> int:
@@ -999,7 +1297,8 @@ def main() -> int:
         env = phase_environment()
         rows = phase_kernels(GRANITE_MAIN_PATH)
         main = phase_main_path(GRANITE_MAIN_PATH)
-        phase_concurrent(GRANITE_MAIN_PATH, main)
+        conc = phase_concurrent(GRANITE_MAIN_PATH, main)
+        phase_dag(GRANITE_MAIN_PATH, main, conc)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

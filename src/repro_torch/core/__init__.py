@@ -1,10 +1,11 @@
 """BIDENT core on PyTorch: profile → plan → execute.
 
-Port of the main-path, parallel and concurrent part of ``repro.core``:
-the NumPy planning layer (ops, cost tables, workloads, contention laws,
-the sequential, parallel and concurrent solvers, schedules) copied as it
-is, and the execution layer (targets, measured profiler, lane programs,
-executor, orchestrator) rebuilt on torch tensors, devices and streams.
+Port of the main-path, parallel, DAG and concurrent part of
+``repro.core``: the NumPy planning layer (ops, cost tables, workloads,
+contention laws, the sequential, parallel, DAG and concurrent solvers,
+schedules, the paper's analytic zoo) copied as it is, and the execution
+layer (targets, measured profiler, lane programs, executor,
+orchestrator) rebuilt on torch tensors, devices and streams.
 """
 from .contention import (ContentionModel, DEFAULT_MM_SF, GroupCostCache,
                          PairCostCache, uses_default_coexec,
@@ -28,18 +29,19 @@ from .orchestrator import Orchestrator, Plan
 from .profiler import (AnalyticProfiler, MeasuredProfiler, Measurement,
                        measure_callable, measure_callable_stats)
 from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
-                       ParallelSchedule, PhaseSchedule, SeqSchedule,
-                       evaluate_sequential, schedule_from_dict,
+                       DagSchedule, DagStep, ParallelSchedule, PhaseSchedule,
+                       SeqSchedule, evaluate_sequential, schedule_from_dict,
                        schedule_to_dict, single_pu_cost)
-from .search import (DEFAULT_MAX_STATES, DEFAULT_WINDOW_STATES,
-                     ConcurrentCaches, IncrementalConcurrentSolver,
-                     dijkstra, sequential_dp, sequential_dp_reference,
+from .search import (DAG_ALGORITHMS, DEFAULT_MAX_STATES,
+                     DEFAULT_WINDOW_STATES, ConcurrentCaches,
+                     IncrementalConcurrentSolver, dijkstra, sequential_dp,
+                     sequential_dp_reference,
                      solve_concurrent, solve_concurrent_aligned,
                      solve_concurrent_aligned_reference,
                      solve_concurrent_horizon, solve_concurrent_joint,
-                     solve_concurrent_joint_reference, solve_parallel,
-                     solve_sequential)
+                     solve_concurrent_joint_reference, solve_dag,
+                     solve_parallel, solve_sequential)
 from .targets import (KERNEL_DIALECTS, Target, TargetRegistry, VARIANT_TOL,
                       resolve_targets, variant_tolerance)
 from .workload import Workload
-from . import backends  # noqa: F401
+from . import backends, paperzoo  # noqa: F401

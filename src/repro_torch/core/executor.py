@@ -1,28 +1,31 @@
 """Execution orchestrator: applies a static schedule and really runs it.
 
-Port of ``repro.core.executor`` without the DAG lane queues.  Each PU is
-an execution *lane* (a worker thread with a FIFO command queue).  Two
-execution paths share the lane model:
+Port of ``repro.core.executor``.  Each PU is an execution *lane* (a
+worker thread with a FIFO command queue).  Two execution paths share the
+lane model:
 
-* the **per-op interpreter** (``run_scheduled`` / ``run_concurrent``,
-  both on the shared threaded runtime ``_run_lanes``): ops are enqueued
-  onto their assigned lane in dependency order and cross-lane
-  dependencies synchronise via one event per op.  This is the bitwise-equivalence
-  oracle: orchestrated execution must produce outputs identical to
-  monolithic single-lane execution (``run_monolithic``).  It always runs
-  the reference payloads ``op.fn``, on whatever device their inputs are;
+* the **per-op interpreter** (``run_scheduled`` / ``run_dag`` /
+  ``run_concurrent``, all on the shared threaded runtime
+  ``_run_lanes``): ops are enqueued onto their assigned lane in
+  dependency order and cross-lane dependencies synchronise via one
+  event per op.  This is the bitwise-equivalence oracle: orchestrated
+  execution must produce outputs identical to monolithic single-lane
+  execution (``run_monolithic``).  It always runs the reference payloads
+  ``op.fn``, on whatever device their inputs are;
 
-* the **compiled path** (``compile_scheduled`` / ``compile_concurrent``
-  → :class:`~repro_torch.core.laneprogram.LaneProgram`): each lane's
+* the **compiled path** (``compile_scheduled`` / ``compile_dag`` /
+  ``compile_concurrent`` →
+  :class:`~repro_torch.core.laneprogram.LaneProgram`): each lane's
   queue is partitioned into maximal contiguous same-lane segments, each
   placed on its target's device and serving that target's verified
   payload variants — run inline when the segments admit one order (a
   sequential chain), else on one worker thread and one CUDA stream per
   lane.
 
-Both paths run under the fault runtime of :mod:`repro_torch.core.faults`.
-The DAG lane queues (``run_dag``, ``compile_dag``) wait for a later
-slice (``ROADMAP.md``, "Modules to port", item 1).
+A ``DagSchedule`` enqueues its ops per lane in step order, and lanes
+synchronise only at the graph's true dependency edges, with no step
+barriers, so independent subgraphs on different lanes overlap.  Both
+paths run under the fault runtime of :mod:`repro_torch.core.faults`.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
-from .errors import PULostError
+from .errors import InfeasibleScheduleError, PULostError
 from .faults import (_JOIN_GRACE, ExecutionPolicy, FaultPlan, RunContext,
                      _Aborted, run_with_retries)
 from .laneprogram import LaneProgram, _tensor, compile_lane_program
@@ -162,6 +165,52 @@ class ScheduleExecutor:
                     f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
         return lane_queues, barriers
 
+    def _dag_lane_queues(self, graph: OpGraph, schedule
+                         ) -> dict[str, list[tuple[int, int]]]:
+        """Lane queues in DAG-schedule step order.
+
+        Ops enqueue onto their assigned lane in the order the
+        ``DagSchedule`` lists them; synchronization at runtime comes from
+        the graph's *true dependency edges* only (per-op events in the
+        interpreter, segment cuts in the compiled path) — no step
+        barriers, so independent subgraphs on different lanes overlap
+        (the paper's intra-model-parallelism win).  Coverage and
+        precedence are validated here: a step op whose predecessors have
+        not all been listed earlier (same step counts, in listed order)
+        raises :class:`InfeasibleScheduleError` naming the node and its
+        unmet predecessors instead of deadlocking the lane workers.
+        (The reference also takes a resume frontier here, for PU-loss
+        recovery; it comes with that slice.)
+        """
+        lane_queues: dict[str, list[tuple[int, int]]] = {
+            p: [] for p in self.pus}
+        seen: set[int] = set()
+
+        def _nm(i: int) -> str:
+            return f"op {i} ({graph.ops[i].name})"
+
+        for st in schedule.steps:
+            for oi, pu in zip(st.ops, st.pus):
+                unmet = [p for p in graph.pred[oi] if p not in seen]
+                if unmet:
+                    raise InfeasibleScheduleError(
+                        f"DAG schedule lists node {_nm(oi)} before its "
+                        f"unmet predecessor(s) "
+                        f"{[_nm(p) for p in unmet]} — executing it would "
+                        "deadlock the lanes")
+                if pu not in lane_queues:
+                    raise ValueError(
+                        f"DAG schedule assigns {_nm(oi)} to unknown lane "
+                        f"{pu!r} (executor lanes: {self.pus})")
+                lane_queues[pu].append((0, oi))
+                seen.add(oi)
+        if seen != set(range(len(graph.ops))):
+            missing = sorted(set(range(len(graph.ops))) - seen)
+            raise ValueError(
+                f"DAG schedule does not cover the graph: missing ops "
+                f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
+        return lane_queues
+
     # ------------------------------------------------------------------
     # per-op interpreter (the bitwise-equivalence oracle)
     # ------------------------------------------------------------------
@@ -181,6 +230,23 @@ class ScheduleExecutor:
         """
         assignment = self._normalize_assignment(graph, assignment)
         lane_queues = self._scheduled_lane_queues(graph, assignment)
+        return self._run_lanes([graph], lane_queues, [external_inputs],
+                               policy=policy, faults=faults,
+                               estimate=estimate)[0]
+
+    def run_dag(self, graph: OpGraph, schedule,
+                external_inputs: Mapping[int, tuple] | None = None, *,
+                policy: ExecutionPolicy | None = None,
+                faults: FaultPlan | None = None,
+                estimate: float | None = None) -> dict[int, Any]:
+        """Run a ``DagSchedule``: ops enqueue per-lane in step order and
+        cross-lane synchronization happens only at true dependency edges,
+        so a multi-op (antichain) step's ops really overlap across lanes.
+
+        ``policy`` / ``faults`` / ``estimate`` behave as in
+        :meth:`run_scheduled`.
+        """
+        lane_queues = self._dag_lane_queues(graph, schedule)
         return self._run_lanes([graph], lane_queues, [external_inputs],
                                policy=policy, faults=faults,
                                estimate=estimate)[0]
@@ -310,6 +376,16 @@ class ScheduleExecutor:
         assignment = self._normalize_assignment(graph, assignment)
         queues = self._scheduled_lane_queues(graph, assignment)
         return compile_lane_program([graph], queues, single=True,
+                                    targets=self.targets)
+
+    def compile_dag(self, graph: OpGraph, schedule) -> LaneProgram:
+        """Compile a ``DagSchedule`` into a :class:`LaneProgram`: each
+        lane's queue (in step order) partitions into fused segments with
+        events only at cross-lane dependency cuts, so independent
+        subgraphs on different lanes overlap exactly as in :meth:`run_dag`;
+        ``program.run(external_inputs)`` matches it bitwise."""
+        lane_queues = self._dag_lane_queues(graph, schedule)
+        return compile_lane_program([graph], lane_queues, single=True,
                                     targets=self.targets)
 
     def compile_concurrent(self, graphs: Sequence[OpGraph], schedule

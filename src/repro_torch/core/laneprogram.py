@@ -6,7 +6,9 @@ per-op interpreter's dispatch and event overhead in two moves:
 * **Segment partitioning.**  Each PU lane's FIFO queue is cut into
   *maximal contiguous same-lane segments*: a new segment starts only at
   a cross-lane boundary (an op whose predecessor ran on another lane —
-  the handoff points), at a request switch on a shared lane, or at a
+  the handoff points), after an op whose output another lane reads (a
+  fork: the consumer waits for that op, not for the rest of the
+  producer's lane), at a request switch on a shared lane, or at a
   co-scheduled concurrent step (co-scheduled ops stay individually
   dispatched so the granularity the contention laws priced is preserved
   — they become single-op *barrier* segments).  The segments of a
@@ -713,7 +715,12 @@ def compile_lane_program(graphs: Sequence[OpGraph],
     * the request changes (segments never span requests), or
     * any predecessor ran on a *different* lane (the handoff cut: waits
       happen only at segment starts, so a cross-lane input is only legal
-      for a segment's first op).
+      for a segment's first op), or
+    * the previous op's output is read on a different lane (the fork
+      cut: a segment publishes its outputs when it ends, so without it
+      a consumer on another lane would wait for every later op of the
+      producer's segment — the reference's partition, which serializes
+      a fork whose producer lane goes on with one of its towers).
 
     Same-lane predecessors never cut.  ``single`` marks a program over
     one graph (``run`` then takes and returns one mapping).
@@ -728,6 +735,10 @@ def compile_lane_program(graphs: Sequence[OpGraph],
     for pu, items in lane_items.items():
         for it in items:
             lane_of[it] = pu
+    # ops whose output a consumer on another lane reads
+    read_elsewhere = {(r, p) for (r, i), pu in lane_of.items()
+                      for p in graphs[r].pred[i]
+                      if lane_of.get((r, p), pu) != pu}
 
     tmap = dict(targets or {})
     segments: list[Segment] = []
@@ -740,7 +751,8 @@ def compile_lane_program(graphs: Sequence[OpGraph],
             cross = any(lane_of.get((r, p)) != pu
                         for p in graphs[r].pred[i])
             if (cur is None or barrier or cur.barrier
-                    or cur.items[-1][0] != r or cross):
+                    or cur.items[-1][0] != r or cross
+                    or cur.items[-1] in read_elsewhere):
                 cur = Segment(index=len(segments), lane=pu, barrier=barrier,
                               target=tmap.get(pu))
                 segments.append(cur)

@@ -13,21 +13,25 @@ of a serving system,
   ``Workload``.  Malformed inputs fail here with descriptive errors.
 * ``plan`` routes by shape as the reference does: one chain handle →
   the sequential DP; one fork/join handle → the phase/branch parallel
-  solve; several handles → the M-ary concurrent search
-  (``mode="aligned"`` opts a pair into the lockstep solver).  Results
-  are bitwise identical to the direct solver calls and cached keyed by
-  (workload signatures, objective, resolved mode, route knobs); the
-  objective-independent solver state (``ConcurrentCaches``) is one pool
-  per session.  The reference serves repeated concurrent re-plans from
-  a warm incremental solver whose schedules are bitwise its cold ones;
-  the port takes the cold route.  The DAG route, runtime conditions,
+  solve; one *disconnected* handle (a union of chains) → the DAG route;
+  several handles → the M-ary concurrent search (``mode="aligned"``
+  opts a pair into the lockstep solver, ``mode="dag"`` forces the
+  antichain-frontier front door
+  :func:`~repro_torch.core.search.solve_dag` for any single-handle
+  shape).  Results are bitwise identical to the direct solver calls and
+  cached keyed by (workload signatures, objective, resolved mode, route
+  knobs); the objective-independent solver state (``ConcurrentCaches``)
+  is one pool per session.  The reference serves repeated concurrent
+  re-plans from a warm incremental solver whose schedules are bitwise
+  its cold ones; the port takes the cold route.  Runtime conditions,
   online admission and PU-loss recovery raise ``NotImplementedError``
   naming their ``ROADMAP.md`` item.
 * ``execute`` runs a plan through a compiled, cached
   :class:`~repro_torch.core.laneprogram.LaneProgram` by default — inline
   for a chain, on one worker thread and one CUDA stream per lane when
   segments can co-execute; ``compile=False`` runs the per-op
-  interpreter, the bitwise oracle.  Concurrent plans take one input
+  interpreter, the bitwise oracle.  DAG plans synchronise lanes only at
+  the graph's true dependency edges.  Concurrent plans take one input
   mapping per request and return one results dict per request.
 """
 from __future__ import annotations
@@ -43,18 +47,18 @@ from .executor import ScheduleExecutor
 from .faults import ExecutionPolicy, FaultPlan
 from .laneprogram import LaneProgram
 from .op import FusedOp, OpGraph, chain_graph
-from .schedule import (ConcurrentSchedule, ParallelSchedule, SeqSchedule,
-                       schedule_from_dict, schedule_to_dict)
-from .search import (ConcurrentCaches, _not_ported, _pair_cache,
-                     solve_concurrent, solve_concurrent_aligned,
-                     solve_parallel, solve_sequential)
+from .schedule import (ConcurrentSchedule, DagSchedule, ParallelSchedule,
+                       SeqSchedule, schedule_from_dict, schedule_to_dict)
+from .search import (DAG_ALGORITHMS, ConcurrentCaches, _not_ported,
+                     _pair_cache, solve_concurrent, solve_concurrent_aligned,
+                     solve_dag, solve_parallel, solve_sequential)
 from .targets import pu_specs_for_targets, resolve_targets
 from .workload import Workload
 
 PLAN_MODES = ("auto", "sequential", "parallel", "concurrent", "aligned",
               "dag")
 # concurrent-search routes accepted by plan(algorithm=...), as in the
-# reference ("grid_astar" is accepted and raises: not ported yet)
+# reference (mode="dag" takes search.DAG_ALGORITHMS instead)
 CONCURRENT_ALGORITHMS = ("auto", "grid", "grid_astar", "rolling", "pairwise")
 
 
@@ -63,8 +67,9 @@ class Plan:
     """Uniform result of ``Orchestrator.plan``: one schedule of any kind
     plus the routing metadata needed to execute or serialize it."""
 
-    kind: str          # "sequential" | "parallel" | "concurrent"
-    schedule: SeqSchedule | ParallelSchedule | ConcurrentSchedule
+    kind: str          # "sequential" | "parallel" | "concurrent" | "dag"
+    schedule: (SeqSchedule | ParallelSchedule | ConcurrentSchedule
+               | DagSchedule)
     objective: str
     handles: tuple[int, ...] = ()
     mode: str = ""            # resolved plan mode (e.g. "aligned")
@@ -86,10 +91,14 @@ class Plan:
     def route(self) -> list[list[tuple[int, str]]]:
         """Per-request ``[(op index, PU name), ...]`` in execution order.
         For parallel plans the order is phase by phase, each branch's
-        chain listed whole."""
+        chain listed whole; for DAG plans step by step (co-scheduled ops
+        listed together)."""
         s = self.schedule
         if isinstance(s, SeqSchedule):
             return [list(zip(s.chain, s.assignment))]
+        if isinstance(s, DagSchedule):
+            return [[(o, p) for st in s.steps
+                     for o, p in zip(st.ops, st.pus)]]
         if isinstance(s, ParallelSchedule):
             out: list[tuple[int, str]] = []
             for ph in s.phases:
@@ -145,6 +154,11 @@ class _Registration:
     # the exact object the caller registered — kept alive so the
     # id()-keyed memo can never collide with a recycled address
     source: Any = None
+    # lazily-built DAG workload (``Workload.from_graph`` — same dense
+    # arrays as ``wl`` plus explicit predecessor sets).  Kept separate so
+    # the preds-free ``wl``/``sig`` the chain/concurrent routes key their
+    # caches by are untouched by DAG planning.
+    dag_wl: Workload | None = None
 
 
 class Orchestrator:
@@ -264,6 +278,14 @@ class Orchestrator:
                 f"unknown handle {h!r}; register(graph) first "
                 f"(valid handles: {sorted(self._regs)})") from None
 
+    def _dag_wl(self, reg: _Registration) -> Workload:
+        """Registration DAG workload (``Workload.from_graph``, built
+        lazily).  The reference also derives it under the session's
+        runtime condition; conditions come with a later slice."""
+        if reg.dag_wl is None:
+            reg.dag_wl = Workload.from_graph(reg.graph, reg.table, self.pus)
+        return reg.dag_wl
+
     # -- plan ---------------------------------------------------------------
     def plan(self, handles: int | Sequence[int], objective: str = "latency",
              mode: str = "auto", algorithm: str = "auto",
@@ -272,18 +294,23 @@ class Orchestrator:
 
         ``mode="auto"`` routes a single chain handle to the sequential
         DP, a single fork/join handle to the phase/branch parallel solve,
-        and several handles to the M-ary concurrent search;
+        a single *disconnected* handle (a union of chains) to the DAG
+        route, and several handles to the M-ary concurrent search;
         ``"aligned"`` forces the lockstep pair solver for exactly two
-        handles.  A single *disconnected* handle (a union of chains) and
-        ``mode="dag"`` take the reference's DAG route, which is not
-        ported yet.  Results are bitwise identical to the corresponding
-        direct solver call on the same workloads.
+        handles; ``"dag"`` forces the antichain-frontier front door
+        (:func:`~repro_torch.core.search.solve_dag`) for any
+        single-handle graph shape.  Results are bitwise identical to the
+        corresponding direct solver call on the same workloads.
 
-        ``algorithm`` and ``max_states`` are the knobs of the concurrent
-        search (:func:`~repro_torch.core.search.solve_concurrent`:
-        ``"grid"``, ``"rolling"``, ``"pairwise"``); both are part of the
-        plan-cache key, and they are rejected for modes without such
-        knobs rather than silently ignored.
+        ``algorithm`` and ``max_states`` are route knobs passed through
+        verbatim: for concurrent plans the
+        :func:`~repro_torch.core.search.solve_concurrent` set (``"grid"``,
+        ``"grid_astar"``, ``"rolling"``, ``"pairwise"``), for DAG plans
+        the :func:`~repro_torch.core.search.solve_dag` set (``"chain"``,
+        ``"union-grid"``, ``"phase"``, ``"frontier"``); ``max_states``
+        bounds the exact-solve grid / discovered order ideals.  Both are
+        part of the plan-cache key, and they are rejected for modes
+        without such knobs rather than silently ignored.
         """
         hs = (handles,) if isinstance(handles, int) else tuple(handles)
         if not hs:
@@ -299,18 +326,18 @@ class Orchestrator:
             elif not regs[0].graph.is_chain():
                 mode = "parallel"
             elif len(regs[0].graph.components()) > 1:
-                # a union of chains has no single sequence to DP over:
-                # the reference routes it to the DAG front door
+                # degree-wise a "chain" but disconnected: a union of
+                # chains has no single sequence to DP over — route it to
+                # the DAG front door (union-grid co-scheduling)
                 mode = "dag"
             else:
                 mode = "sequential"
-        if mode == "dag":
-            raise _not_ported("the DAG route (mode='dag', or one handle "
-                              "whose graph is a union of chains)", 1)
-        if algorithm not in CONCURRENT_ALGORITHMS:
+        allowed = (DAG_ALGORITHMS if mode == "dag"
+                   else CONCURRENT_ALGORITHMS)
+        if algorithm not in allowed:
             raise ValueError(f"unknown algorithm {algorithm!r}; one of "
-                             f"{CONCURRENT_ALGORITHMS} for mode={mode!r}")
-        if mode in ("sequential", "parallel") and len(hs) != 1:
+                             f"{allowed} for mode={mode!r}")
+        if mode in ("sequential", "parallel", "dag") and len(hs) != 1:
             raise ValueError(
                 f"mode={mode!r} plans one handle, got {len(hs)}")
         if mode == "aligned" and len(hs) != 2:
@@ -318,7 +345,7 @@ class Orchestrator:
                 f"mode='aligned' is the lockstep pair solver, got "
                 f"{len(hs)} handle(s)")
         if algorithm != "auto" or max_states is not None:
-            if mode != "concurrent":
+            if mode not in ("concurrent", "dag"):
                 raise ValueError(
                     "algorithm=/max_states= are knobs of the M-ary "
                     "concurrent search and the DAG route; this plan "
@@ -336,10 +363,11 @@ class Orchestrator:
                      max_states: int | None = None) -> Plan:
         # the sequential/concurrent solvers consume only the chain + dense
         # cost views (covered by the workload signature); the parallel
-        # solve also consumes the graph's edge structure, so its key
-        # includes the structure hash.  algorithm/max_states are in the
-        # key: a forced-pairwise plan is never served a cached grid one.
-        if mode == "parallel":
+        # and DAG solves also consume the graph's edge structure
+        # (phases/branches — predecessor sets), so their keys include the
+        # structure hash.  algorithm/max_states are in the key: a
+        # forced-pairwise plan is never served a cached grid one.
+        if mode in ("parallel", "dag"):
             wl_key = tuple((reg.sig, reg.struct_sig) for reg in regs)
         else:
             wl_key = tuple(reg.sig for reg in regs)
@@ -386,6 +414,13 @@ class Orchestrator:
             sched = solve_parallel(reg.graph, reg.table, self.pus,
                                    self.contention, objective, workload=wl)
             return Plan("parallel", sched, objective, hs, mode)
+        if mode == "dag":
+            reg = regs[0]
+            sched = solve_dag(
+                reg.graph, reg.table, self.pus, self.contention, objective,
+                algorithm=algorithm, workload=self._dag_wl(reg),
+                caches=self._pool(), max_states=max_states)
+            return Plan("dag", sched, objective, hs, mode)
         pool = self._pool()
         if mode == "aligned":
             w0, w1 = wls
@@ -431,7 +466,7 @@ class Orchestrator:
                 trace: list | None = None) -> Any:
         """Run a plan on the multi-lane executor.
 
-        Sequential and parallel plans take one ``{op: (args...)}``
+        Sequential, parallel and DAG plans take one ``{op: (args...)}``
         mapping and return that graph's results dict; concurrent plans
         take a sequence of such mappings (one per request, in handle
         order) and return a list of results dicts.
@@ -451,6 +486,10 @@ class Orchestrator:
         if not compile:
             regs = self._execute_regs(plan)
             graphs = [reg.graph for reg in regs]
+            if plan.kind == "dag":
+                return self.executor.run_dag(
+                    graphs[0], plan.schedule, inputs,
+                    policy=policy, faults=faults, estimate=plan.latency)
             if plan.kind in ("sequential", "parallel"):
                 return self.executor.run_scheduled(
                     graphs[0], plan.schedule, inputs,
@@ -482,7 +521,9 @@ class Orchestrator:
         self.stats["program_misses"] += 1
         regs = self._execute_regs(plan)
         graphs = [reg.graph for reg in regs]
-        if plan.kind in ("sequential", "parallel"):
+        if plan.kind == "dag":
+            prog = self.executor.compile_dag(graphs[0], plan.schedule)
+        elif plan.kind in ("sequential", "parallel"):
             prog = self.executor.compile_scheduled(graphs[0], plan.schedule)
         else:
             prog = self.executor.compile_concurrent(graphs, plan.schedule)

@@ -1,10 +1,9 @@
-"""Search engine (Algorithm 1, Stage 3): the sequential, parallel and
-concurrent solvers.
+"""Search engine (Algorithm 1, Stage 3): the sequential, parallel, DAG
+and concurrent solvers.
 
-A copy of ``repro.core.search`` without the DAG front door, the retained
-heap A* of the grid (``algorithm="grid_astar"``), the bounded-horizon
-solver and the warm incremental re-planner, which wait for later slices
-(``ROADMAP.md``, "Modules to port", items 1-4).  What is here is the
+A copy of ``repro.core.search`` without the bounded-horizon solver and
+the warm incremental re-planner, which wait for a later slice
+(``ROADMAP.md``, "Modules to port", items 3-4).  What is here is the
 reference's code as it stands, so every route gives bitwise the
 reference's schedules, latencies and energies:
 
@@ -18,6 +17,13 @@ reference's schedules, latencies and energies:
 * ``solve_parallel`` — phase/branch partitioning + per-branch search +
   contention-adjusted makespans (§3.3.2); the contention re-walk is a
   gathered-array computation instead of a per-op Python loop.
+* ``solve_dag`` — the unified front door over op DAGs: antichain-frontier
+  scheduling whose state is an order ideal of DAG nodes.  Linear chains
+  dispatch to the chain DP, disjoint unions of chains to the exact grid
+  sweep, and fork/join shapes to ``solve_parallel`` — each bit-for-bit —
+  while ``algorithm="frontier"`` runs the exact DP over order ideals
+  (``_solve_dag_frontier``), co-scheduled antichain steps priced by the
+  same solo edges / group-law tables as the grid sweep.
 * ``solve_concurrent_aligned`` / ``solve_concurrent_joint`` — the two
   pair modes (§3.2.2 / §3.3.3).  The joint solver is A* over the
   (i, j) progress grid: edge costs come from memoized ``(K0, K1)``
@@ -30,10 +36,11 @@ reference's schedules, latencies and energies:
 * ``solve_concurrent`` — the M-request generalization over ``Workload``
   views: M = 2 dispatches to the pair A* bit-for-bit; M-dimensional
   progress grids up to ``max_states`` are searched exactly by a
-  vectorized anti-diagonal sweep (``_solve_concurrent_grid``), larger
-  grids stitch a rolling-horizon merge (``_solve_concurrent_rolling``),
-  and custom contention laws take the pairwise-merge fallback
-  (``_solve_concurrent_pairwise``).
+  vectorized anti-diagonal sweep (``_solve_concurrent_grid``; the
+  retained heap A*, ``algorithm="grid_astar"``, is its equivalence
+  oracle), larger grids stitch a rolling-horizon merge
+  (``_solve_concurrent_rolling``), and custom contention laws take the
+  pairwise-merge fallback (``_solve_concurrent_pairwise``).
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ from .graph import (ExecGraph, build_dense_chain, build_sequential_graph,
                     node_weight)
 from .op import FusedOp, OpGraph
 from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
-                       ParallelSchedule, PhaseSchedule, SeqSchedule)
+                       DagSchedule, DagStep, ParallelSchedule, PhaseSchedule,
+                       SeqSchedule)
 from .workload import Workload
 
 _NOT_PORTED = ("{what} is not ported yet (ROADMAP.md, 'Modules to port', "
@@ -388,6 +396,377 @@ def solve_parallel(
             total_eng += b.energy
     return ParallelSchedule(phases=phases_out, latency=total_lat,
                             energy=total_eng, objective=objective)
+
+
+# ---------------------------------------------------------------------------
+# DAG (antichain-frontier) search — chains and branches unified
+# ---------------------------------------------------------------------------
+
+
+DAG_ALGORITHMS = ("auto", "chain", "union-grid", "phase", "frontier")
+
+# A frontier advance co-schedules at most this many ready ops per step:
+# one op per PU of the paper's edge SoC.  Larger antichains still
+# execute (across consecutive steps); the cap bounds the per-ideal
+# subset fan-out and the group-edge table size (``n_sig ** k`` cells).
+_DAG_GROUP_CAP = 3
+
+
+def _seq_to_dag(wl: Workload, s: SeqSchedule) -> DagSchedule:
+    """Chain-route conversion: one singleton step per position.
+
+    Step costs carry the exact sequential decomposition (boundary H2D on
+    the first step, incoming transition per step, boundary D2H on the
+    last), but ``latency``/``energy`` are the authoritative
+    ``SeqSchedule`` values (bitwise the chain DP's)."""
+    d = wl.dense
+    c = wl.cols(s.assignment)
+    rows = np.arange(d.n)
+    cost = d.w[rows, c]            # fancy indexing: already a fresh array
+    if cost.dtype != np.float64:
+        cost = cost.astype(float)
+    h2d = d.h2d[rows, c]
+    d2h = d.d2h[rows, c]
+    accv = d.acc[c]
+    cost[0] += h2d[0]
+    cost[-1] += d2h[-1]
+    if d.n > 1:
+        same = c[1:] == c[:-1]
+        cost[1:] += np.where(same, 0.0,
+                             np.where(accv[1:], h2d[1:], 0.0)
+                             + np.where(accv[:-1], d2h[:-1], 0.0))
+    pu_t = {p: (p,) for p in set(s.assignment)}   # few PUs, many steps
+    steps = list(map(DagStep, zip(s.chain),      # zip -> the (op,) tuples
+                     map(pu_t.__getitem__, s.assignment), cost.tolist()))
+    return DagSchedule(steps=steps, latency=s.latency, energy=s.energy,
+                       objective=s.objective, mode="chain")
+
+
+def _concurrent_to_dag(cs: ConcurrentSchedule, mode: str) -> DagSchedule:
+    """Union-of-chains conversion: drop the per-request ``None`` padding
+    (each non-idle (op, pu) pair carries over in request order)."""
+    steps = [DagStep(
+        ops=tuple(o for o in st.ops if o is not None),
+        pus=tuple(p for p in st.pus if p is not None),
+        cost=st.cost) for st in cs.steps]
+    return DagSchedule(steps=steps, latency=cs.latency, energy=cs.energy,
+                       objective=cs.objective, mode=mode)
+
+
+def _parallel_to_dag(par: ParallelSchedule) -> DagSchedule:
+    """Phase-route conversion: one step per fork/join phase (a
+    precedence-closed unit — ops listed branch-by-branch in branch
+    order, *not* an antichain), cost = the phase makespan.  Latency,
+    energy, and the per-op assignment are bitwise ``solve_parallel``'s.
+    """
+    steps = []
+    for ph in par.phases:
+        ops = tuple(o for b in ph.branches for o in b.branch_ops)
+        pus_ = tuple(p for b in ph.branches for p in b.assignment)
+        steps.append(DagStep(ops=ops, pus=pus_, cost=float(ph.makespan)))
+    return DagSchedule(steps=steps, latency=par.latency, energy=par.energy,
+                       objective=par.objective, mode="phase")
+
+
+def solve_dag(
+    graph: OpGraph,
+    table: CostTable | None,
+    pus: Mapping[str, PUSpec],
+    contention: ContentionModel | None = None,
+    objective: str = "latency",
+    algorithm: str = "auto",
+    workload: Workload | None = None,
+    caches: ConcurrentCaches | None = None,
+    max_states: int | None = None,
+    group_cap: int = _DAG_GROUP_CAP,
+) -> DagSchedule:
+    """Schedule an op DAG as antichain-frontier advances — the front door
+    that unifies the chain, branch, and general-DAG shapes.
+
+    Routes (``algorithm="auto"`` picks the first match; each named route
+    can be forced):
+
+    * ``"chain"`` — a single linear chain: dispatches to the sequential
+      chain DP **bit-for-bit** (full sequential cost semantics: boundary
+      H2D/D2H and inter-op transitions included).
+    * ``"union-grid"`` — a disjoint union of linear chains: dispatches
+      each component to one axis of the exact anti-diagonal grid sweep
+      **bit-for-bit** (the concurrent formulation: node weights only,
+      group advances priced by the contention model's group laws).
+    * ``"phase"`` — anything else: dispatches to the retained
+      fork/join branch route (``solve_parallel``) **bit-for-bit** (the
+      old branch re-walk, demoted to oracle duty).
+    * ``"frontier"`` — the generalization (never auto-selected, so the
+      oracle-reproducing routes above stay bitwise): exact DP over the
+      DAG's order ideals, each step advancing an antichain of ready
+      nodes, priced exactly like the grid sweep (solo edges for
+      singletons, :class:`~repro_torch.core.contention.GroupCostCache` group
+      laws for co-scheduled sets).  On a union of chains the ideal
+      lattice *is* the progress grid, so this reduces to today's sweep;
+      on a general DAG it finds step-level co-schedules the phase route
+      cannot (ops of different fork/join phases overlapping), which is
+      the paper's intra-model-parallelism win.
+
+    Pass ``workload`` (a DAG workload from :meth:`Workload.from_graph`,
+    possibly ``under_condition``-adjusted) to reuse a prebuilt dense
+    view; ``table`` may then be ``None``.  ``max_states`` bounds the
+    frontier route's discovered order ideals (and the union route's
+    grid) — a memory bound, as for ``solve_concurrent``.
+    """
+    contention = contention or ContentionModel()
+    if algorithm not in DAG_ALGORITHMS:
+        raise ValueError(algorithm)
+    n_ops = len(graph.ops)
+    if workload is not None and (
+            len(workload.chain) != n_ops
+            or sorted(workload.chain) != list(range(n_ops))):
+        raise ValueError(
+            f"solve_dag: the workload's rows ({len(workload.chain)} ops) "
+            f"do not cover the graph's {n_ops} ops exactly — build it "
+            "with Workload.from_graph(graph, table, pus)")
+
+    def need_wl(preds: bool) -> Workload:
+        # the chain/union/phase oracles never read predecessor sets, so
+        # only the frontier route pays for ``from_graph`` — this keeps
+        # the dispatch overhead on linear DAGs at the plain-build cost
+        if workload is not None:
+            return workload
+        if preds:
+            return Workload.from_graph(graph, table, pus)
+        return Workload.build(graph.topo_order(), table, pus, ops=graph.ops)
+
+    all_chains = graph.is_chain()   # degrees <= 1: chain(s), possibly many
+    # for a degree-<=1 graph every edge merges two components, so the
+    # component count is n - #edges — no union-find needed to route
+    n_comps = n_ops - graph.n_edges if all_chains else None
+    comps: list[list[int]] | None = None
+    if all_chains and n_comps > 1:
+        comps = graph.components()
+    if algorithm == "auto":
+        if all_chains and n_comps == 1:
+            algorithm = "chain"
+        elif (all_chains and uses_default_group(contention)
+              and math.prod(len(c) + 1 for c in comps)
+              <= (max_states if max_states is not None
+                  else DEFAULT_MAX_STATES)):
+            algorithm = "union-grid"
+        else:
+            algorithm = "phase"
+    if algorithm == "chain":
+        if not (all_chains and n_comps == 1):
+            raise ValueError(
+                "algorithm='chain' requires a single linear chain; this "
+                f"graph has {len(graph.components())} component(s) and "
+                f"{'only chain' if all_chains else 'fork/join'} structure "
+                "— use 'auto', 'phase', or 'frontier'")
+        wl = need_wl(preds=False)
+        s = solve_sequential(wl.chain, graph.ops, table, pus, objective,
+                             workload=wl)
+        return _seq_to_dag(wl, s)
+    if algorithm == "union-grid":
+        if not all_chains:
+            raise ValueError(
+                "algorithm='union-grid' requires a disjoint union of "
+                "linear chains (no forks/joins) — use 'auto', 'phase', "
+                "or 'frontier'")
+        if not uses_default_group(contention):
+            raise ValueError(
+                "algorithm='union-grid' dispatches to the exact grid "
+                "sweep, which requires the default group co-execution "
+                f"laws; {type(contention).__name__} overrides them — use "
+                "'auto' or 'phase'")
+        if comps is None:
+            comps = graph.components()
+        wl = need_wl(preds=False)
+        comp_wls = [wl.select(c) for c in comps]
+        cs = _solve_concurrent_grid(comp_wls, contention, objective, caches)
+        return _concurrent_to_dag(cs, "union-grid")
+    if algorithm == "phase":
+        par = solve_parallel(graph, table, pus, contention, objective,
+                             workload=need_wl(preds=False))
+        return _parallel_to_dag(par)
+    wl = need_wl(preds=True)
+    if wl.preds is None and not (all_chains and n_comps == 1):
+        raise ValueError(
+            "algorithm='frontier' on a non-chain graph needs a DAG "
+            "workload carrying predecessor sets — build it with "
+            "Workload.from_graph(graph, table, pus) (a preds-free "
+            "workload would be scheduled under linear-chain precedence)")
+    return _solve_dag_frontier(wl, contention, objective,
+                               caches=caches, max_states=max_states,
+                               group_cap=group_cap)
+
+
+def _dag_infeasible(wl: Workload, pos: int) -> InfeasibleScheduleError:
+    """DAG-route infeasibility: name the node and its predecessor
+    context (a request-index/chain-position message is meaningless for
+    DAG nodes)."""
+    preds = wl.pred_positions(pos)
+    pstr = (", ".join(wl.op_name(q) for q in preds) if preds
+            else "none (a source node)")
+    return InfeasibleScheduleError(
+        f"DAG node {wl.op_name(pos)} (topological position {pos}; "
+        f"predecessors: {pstr}) is unsupported on every PU — no frontier "
+        "advance can ever schedule it, so the DAG cannot complete")
+
+
+def _solve_dag_frontier(
+    wl: Workload, cm: ContentionModel, objective: str,
+    caches: ConcurrentCaches | None = None,
+    max_states: int | None = None,
+    group_cap: int = _DAG_GROUP_CAP,
+) -> DagSchedule:
+    """Exact DP over the DAG's order ideals (downward-closed node sets).
+
+    State = the completed ideal as a bitmask over topological positions;
+    the *frontier* of an ideal is its antichain of ready positions (all
+    predecessors inside).  A transition advances any non-empty ready
+    subset of size ``<= group_cap``: singletons are priced from the
+    dense solo edges, larger sets from the contention model's group law
+    via a :class:`~repro_torch.core.contention.GroupCostCache` over ``k``
+    copies of this workload's dense table (memoized per ``k`` — and per
+    content signature when a :class:`ConcurrentCaches` pool is passed,
+    where it is shared with any grid solve over content-identical
+    workloads).  Every transition strictly grows the ideal, so ideals
+    are relaxed exactly, grouped by popcount (the anti-diagonal order);
+    ties resolve to the first strict improvement in (ideal, subset-size,
+    position-lexicographic) order — deterministic.  On a union of
+    chains, ideals are exactly the progress-grid states and the
+    transitions the grid's advance subsets, so this reduces to today's
+    sweep.
+    """
+    if not uses_default_group(cm):
+        raise ValueError(
+            "the frontier route prices co-scheduled antichains with the "
+            "default group co-execution laws via GroupCostCache; "
+            f"{type(cm).__name__} overrides them — use algorithm='phase'")
+    n = wl.n
+    if n > 63:
+        raise ValueError(
+            f"the frontier route's ideal bitmasks cover at most 63 nodes "
+            f"(graph has {n}) — use algorithm='phase'")
+    if max_states is None:
+        max_states = DEFAULT_MAX_STATES
+    d = wl.dense
+    skey, sarg, sw, se = _solo_edges(d, objective)
+    bad = ~np.isfinite(np.asarray(skey))
+    if bad.any():
+        raise _dag_infeasible(wl, int(np.argmax(bad)))
+    pred_mask = [0] * n
+    for i in range(n):
+        for q in wl.pred_positions(i):
+            pred_mask[i] |= 1 << q
+    sig = d.sig
+    # adaptive group cap: a near-unique-signature profile would make the
+    # k-ary edge table (n_sig ** k cells) dwarf the search — shrink k
+    # until the table fits the rolling-route cap
+    cap = max(1, group_cap)
+    while cap > 1 and d.n_sig ** cap > _ROLLING_TABLE_CAP:
+        cap -= 1
+
+    group_tabs: dict[int, tuple] = {}
+
+    def tables(k: int) -> tuple:
+        tabs = group_tabs.get(k)
+        if tabs is None:
+            if caches is not None:
+                key = (wl.signature(),) * k
+                gc = caches.group_tables.get(key)
+                created = gc is None
+                if created:
+                    gc = GroupCostCache(cm, [d] * k)
+                    caches.group_tables[key] = gc
+                else:
+                    caches.group_tables[key] = caches.group_tables.pop(key)
+                tabs = gc.edge_tables(objective)
+                if created:
+                    caches.trim()
+            else:
+                tabs = GroupCostCache(cm, [d] * k).edge_tables(objective)
+            group_tabs[k] = tabs
+        return tabs
+
+    full = (1 << n) - 1
+    INF = float("inf")
+    dist: dict[int, float] = {0: 0.0}
+    # act[ideal] = (prev ideal, ops positions, pus, step cost, step energy)
+    act: dict[int, tuple] = {}
+    levels: list[list[int]] = [[] for _ in range(n + 1)]
+    levels[0].append(0)
+
+    for t in range(n):
+        lvl = sorted(levels[t])
+        for ideal in lvl:
+            base = dist[ideal]
+            rest = ~ideal
+            ready = [i for i in range(n)
+                     if (rest >> i) & 1 and (pred_mask[i] & rest) == 0]
+            kmax = min(cap, len(ready))
+            for k in range(1, kmax + 1):
+                if k == 1:
+                    combos = ((i,) for i in ready)
+                else:
+                    combos = itertools.combinations(ready, k)
+                    ktab, stab, etab, atab = tables(k)
+                for S in combos:
+                    if k == 1:
+                        i = S[0]
+                        key = float(skey[i])
+                        cost = float(sw[i])
+                        energy = float(se[i])
+                        pus_ = (d.pus[int(sarg[i])],)
+                    else:
+                        idx = tuple(int(sig[i]) for i in S)
+                        key = float(ktab[idx])
+                        if not math.isfinite(key):
+                            continue   # pragma: no cover - gated above
+                        cost = float(stab[idx])
+                        energy = float(etab[idx])
+                        ci = int(atab[idx])
+                        js = []
+                        for _ in range(k):
+                            ci, j = divmod(ci, d.k)
+                            js.append(j)
+                        js.reverse()
+                        pus_ = tuple(d.pus[j] for j in js)
+                    nmask = ideal
+                    for i in S:
+                        nmask |= 1 << i
+                    nd = base + key
+                    old = dist.get(nmask)
+                    if old is None:
+                        if len(dist) >= max_states:
+                            raise ValueError(
+                                f"frontier sweep exceeded max_states="
+                                f"{max_states} order ideals (a memory "
+                                "bound) — raise max_states or use "
+                                "algorithm='phase'")
+                        dist[nmask] = nd
+                        act[nmask] = (ideal, S, pus_, cost, energy)
+                        levels[t + k].append(nmask)
+                    elif nd < old:
+                        dist[nmask] = nd
+                        act[nmask] = (ideal, S, pus_, cost, energy)
+
+    if not math.isfinite(dist.get(full, INF)):  # pragma: no cover
+        raise InfeasibleScheduleError(
+            "frontier sweep exhausted without completing the DAG (every "
+            "node passed the per-PU support gate, so this indicates an "
+            "internal inconsistency)")
+
+    steps: list[DagStep] = []
+    total_energy = 0.0
+    s = full
+    while s != 0:
+        prev, S, pus_, cost, energy = act[s]
+        steps.append(DagStep(ops=tuple(wl.chain[i] for i in S), pus=pus_,
+                             cost=cost))
+        total_energy += energy
+        s = prev
+    steps.reverse()
+    latency = sum(st.cost for st in steps)
+    return DagSchedule(steps=steps, latency=latency, energy=total_energy,
+                       objective=objective, mode="frontier")
 
 
 # ---------------------------------------------------------------------------
@@ -977,10 +1356,9 @@ def solve_concurrent(
       M = 2 case).
     * **M >= 3, grids up to ``max_states``** — exact vectorized
       anti-diagonal sweep of the M-dimensional progress grid
-      (``algorithm="grid"`` forces it, and raises if the grid exceeds
-      ``max_states`` or the contention model overrides the group laws;
-      the reference's retained heap A* oracle, ``"grid_astar"``, is not
-      ported yet and raises ``NotImplementedError``).
+      (``algorithm="grid"`` forces it; ``"grid_astar"`` forces the
+      retained heap A* oracle; both raise if the grid exceeds
+      ``max_states`` or the contention model overrides the group laws).
       ``max_states`` (``None`` = ``DEFAULT_MAX_STATES``) is a *memory*
       bound (~100 bytes/state for the sweep's dense per-state arrays),
       not a time bound; it governs the M >= 3 routes and the explicitly
@@ -1061,8 +1439,17 @@ def solve_concurrent(
                 "or 'pairwise'")
         if algorithm == "grid":
             return _solve_concurrent_grid(wls, contention, objective, caches)
-        raise _not_ported("the retained heap A* of the grid "
-                          "(algorithm='grid_astar')", 2)
+        group_memo = None
+        if caches is not None:
+            # the heap A* memo's (subset, signature-id) keys are only
+            # meaningful for one workload tuple — scope them under the
+            # tuple's content signatures so a shared pool stays safe
+            scope = tuple(wl.signature() for wl in wls)
+            group_memo = caches.group.setdefault(scope, {})
+            caches.group[scope] = caches.group.pop(scope)  # LRU refresh
+            caches.trim()
+        return _solve_concurrent_grid_astar(wls, contention, objective,
+                                            group_memo)
     if algorithm == "rolling":
         if not default_laws:
             raise ValueError(
@@ -1518,6 +1905,183 @@ def _solve_concurrent_rolling(
     latency = sum(st.cost for st in steps)
     return ConcurrentSchedule(steps=steps, latency=latency, energy=energy,
                               objective=objective, mode="rolling")
+
+
+def _solve_concurrent_grid_astar(
+    wls: Sequence[Workload], cm: ContentionModel, objective: str,
+    group_memo: dict | None = None,
+) -> ConcurrentSchedule:
+    """Retained heap A* on the M-dimensional progress grid (the
+    pre-vectorization implementation, kept as the equivalence oracle for
+    the anti-diagonal sweep — ``algorithm="grid_astar"``).
+
+    Same structure as the pair A*: singleton advances use the per-request
+    solo edges; subset advances of size >= 2 are priced by the group
+    co-execution laws, minimized over all supported PU combinations and
+    memoized per (subset, signature-tuple) — the model zoo's repeated
+    layer shapes make the memo hit rate high.  The admissible heuristic
+    is the per-request scaled suffix bound (max across requests for
+    latency — a makespan dominates every request's remaining floor — and
+    the sum for energy, which is additive per op).
+    """
+    m = len(wls)
+    denses = [wl.dense for wl in wls]
+    ns = [d.n for d in denses]
+    solo = [_solo_edges(d, objective) for d in denses]
+    _require_all_advanceable(wls, [s[0] for s in solo])
+    sigs = [d.sig.tolist() for d in denses]
+    sk = [s[0].tolist() for s in solo]
+    scale = cm.min_factor()
+    sufs = [_suffix_heuristic(d, objective, scale) for d in denses]
+
+    # dense heuristic over the whole grid (<= max_states floats)
+    shape = tuple(n + 1 for n in ns)
+    if objective == "latency":
+        h = np.zeros(shape)
+        for r, suf in enumerate(sufs):
+            np.maximum(h, suf.reshape([-1 if i == r else 1
+                                       for i in range(m)]), out=h)
+    else:
+        h = sum(suf.reshape([-1 if i == r else 1 for i in range(m)])
+                for r, suf in enumerate(sufs))
+        h = np.ascontiguousarray(h)
+    hs = h.ravel()
+
+    strides = [0] * m
+    strides[m - 1] = 1
+    for r in range(m - 2, -1, -1):
+        strides[r] = strides[r + 1] * shape[r + 1]
+    n_states = strides[0] * shape[0]
+    target = n_states - 1
+
+    # subset masks, their advancing-request tuples and state deltas
+    masks = []
+    for bits in range(1, 1 << m):
+        reqs = tuple(r for r in range(m) if bits & (1 << r))
+        masks.append((bits, reqs, sum(strides[r] for r in reqs)))
+
+    pu_lists = [d.pus for d in denses]
+    if group_memo is None:
+        group_memo = {}
+    obj_idx = 0 if objective == "latency" else 1
+
+    def group_edge(reqs: tuple[int, ...], sig_key: tuple[int, ...]) -> tuple:
+        """(key, step_cost, energy, pu-index tuple) minimized over all
+        supported PU combos; first minimum in lexicographic PU-index
+        order (the M-ary analog of the pair cache's row-major argmin).
+        One enumeration computes BOTH objectives' bests — the memo is
+        objective-independent, so a shared pool serves a latency solve
+        and an energy solve of the same workload tuple."""
+        res = group_memo.get((reqs, sig_key))
+        if res is not None:
+            return res[obj_idx]
+        rows = [denses[r].sig_row[s] for r, s in zip(reqs, sig_key)]
+        wrows = [denses[r].w[row] for r, row in zip(reqs, rows)]
+        prows = [denses[r].power[row] for r, row in zip(reqs, rows)]
+        sup = [np.flatnonzero(denses[r].mask[row])
+               for r, row in zip(reqs, rows)]
+        inf = float("inf")
+        best_l = best_e = (inf, inf, inf, None)
+        for combo in itertools.product(*sup):
+            ts = [float(wr[j]) for wr, j in zip(wrows, combo)]
+            pws = [float(pr[j]) for pr, j in zip(prows, combo)]
+            pnames = [pu_lists[r][j] for r, j in zip(reqs, combo)]
+            step = cm.group_step_cost(ts, pnames)
+            e = cm.group_energy(ts, pws, pnames)
+            if step < best_l[0]:
+                best_l = (step, step, e, combo)
+            if e < best_e[0]:
+                best_e = (e, step, e, combo)
+        group_memo[(reqs, sig_key)] = (best_l, best_e)
+        return best_l if obj_idx == 0 else best_e
+
+    # tie plateaus: same quantization + deeper-g tie-break as the pair A*
+    c00 = float(hs[0])
+    quantum = (c00 if c00 > 0 else 1.0) * (sum(ns) + 64) * 1e-15
+    inv_q = 1.0 / quantum
+
+    dist = np.full(n_states, np.inf)
+    act = np.zeros(n_states, dtype=np.int32)   # subset bitmask taken
+    dist[0] = 0.0
+    heap: list[tuple[int, float, int]] = [(int(c00 * inv_q), 0.0, 0)]
+    found = False
+    while heap:
+        fq, ng, s = heapq.heappop(heap)
+        g = -ng
+        if g > dist[s]:
+            continue
+        if s == target:
+            found = True
+            break
+        pos = []
+        rem = s
+        for st in strides:
+            q, rem = divmod(rem, st)
+            pos.append(q)
+        for bits, reqs, delta in masks:
+            ok = True
+            for r in reqs:
+                if pos[r] >= ns[r]:
+                    ok = False
+                    break
+            if not ok:
+                continue
+            if len(reqs) == 1:
+                r = reqs[0]
+                key = sk[r][pos[r]]
+            else:
+                key = group_edge(
+                    reqs, tuple(sigs[r][pos[r]] for r in reqs))[0]
+                if key == float("inf"):
+                    continue
+            nd = g + key
+            nst = s + delta
+            if nd < dist[nst]:
+                dist[nst] = nd
+                act[nst] = bits
+                heapq.heappush(
+                    heap, (int((nd + hs[nst]) * inv_q), -nd, nst))
+    if not found:  # pragma: no cover - gated by _require_all_advanceable
+        raise InfeasibleScheduleError(
+            "grid A* exhausted without reaching the all-requests-complete "
+            "state (every op passed the per-PU support gate, so this "
+            "indicates an internal inconsistency)")
+
+    # reconstruct target -> start
+    steps: list[ConcurrentStep] = []
+    energy = 0.0
+    pos = list(ns)
+    s = target
+    while s != 0:
+        bits = int(act[s])
+        if bits == 0:  # pragma: no cover - corrupt predecessor chain
+            raise RuntimeError(f"grid A*: no action recorded at {pos}")
+        reqs = tuple(r for r in range(m) if bits & (1 << r))
+        for r in reqs:
+            pos[r] -= 1
+        s -= sum(strides[r] for r in reqs)
+        ops: list[int | None] = [None] * m
+        pus_: list[str | None] = [None] * m
+        if len(reqs) == 1:
+            r = reqs[0]
+            _, sarg, sw, se = solo[r]
+            ops[r] = wls[r].chain[pos[r]]
+            pus_[r] = pu_lists[r][int(sarg[pos[r]])]
+            cost = float(sw[pos[r]])
+            energy += float(se[pos[r]])
+        else:
+            _, cost, e, combo = group_edge(
+                reqs, tuple(sigs[r][pos[r]] for r in reqs))
+            for r, j in zip(reqs, combo):
+                ops[r] = wls[r].chain[pos[r]]
+                pus_[r] = pu_lists[r][j]
+            energy += e
+        steps.append(ConcurrentStep(ops=tuple(ops), pus=tuple(pus_),
+                                    cost=cost))
+    steps.reverse()
+    latency = sum(st.cost for st in steps)
+    return ConcurrentSchedule(steps=steps, latency=latency, energy=energy,
+                              objective=objective, mode="joint-grid")
 
 
 def _solve_concurrent_pairwise(

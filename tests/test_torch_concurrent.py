@@ -6,10 +6,10 @@ own copies of ``contention`` and of the concurrent part of ``search``),
 so the same cost tables — drawn from the same seeded
 ``np.random.default_rng`` as ``tests/test_concurrent_m.py`` draws them —
 must give the same schedules, latencies, energies and plan JSON,
-bitwise, through both packages: every ``solve_concurrent`` route that
-is ported, the aligned pair solver, ``solve_parallel``, the two
-contention caches, and the orchestrator's concurrent, aligned and
-parallel modes.
+bitwise, through both packages: every ``solve_concurrent`` route (the
+grid's heap A* oracle also in ``tests/test_torch_zoo.py``), the aligned
+pair solver, ``solve_parallel``, the two contention caches, and the
+orchestrator's concurrent, aligned and parallel modes.
 """
 import json
 
@@ -160,15 +160,14 @@ def test_shared_caches_serve_both_objectives_bitwise():
 
 def test_unported_routes_name_their_roadmap_item():
     wls = _workloads(P, _rows(0, [3, 3, 3]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        P.solve_concurrent(wls, algorithm="grid_astar")
     with pytest.raises(NotImplementedError, match="item 3"):
         P.solve_concurrent_horizon(wls)
     with pytest.raises(NotImplementedError, match="item 4"):
         P.IncrementalConcurrentSolver(wls)
 
 
-@pytest.mark.parametrize("algorithm", ["grid", "rolling", "pairwise"])
+@pytest.mark.parametrize("algorithm", ["grid", "grid_astar", "rolling",
+                                       "pairwise"])
 def test_infeasible_request_message_matches(algorithm):
     """An op no PU can run (built directly, as ``Workload.build``
     refuses it) raises the same typed error, naming request, op and
@@ -358,6 +357,15 @@ def test_orchestrator_argument_checks_match():
         dict(handles=jh[:2], algorithm="bogus"),
         dict(handles=jh[:2], max_states=0),
         dict(handles=jh[:2], mode="nope"),
+        # the DAG route's and the grid A*'s own argument checks
+        dict(handles=jh[0], mode="dag", algorithm="grid"),
+        dict(handles=jh[0], mode="dag", algorithm="grid_astar"),
+        dict(handles=jh[:2], mode="dag"),
+        dict(handles=jh[0], algorithm="frontier"),
+        dict(handles=jh[:2], mode="concurrent", algorithm="frontier"),
+        dict(handles=jh[0], algorithm="grid_astar"),
+        dict(handles=jh[:3], algorithm="grid_astar", max_states=10),
+        dict(handles=jh[:2], algorithm="grid_astar", max_states=10),
     ]
     for call in bad:
         hs = call.pop("handles")
@@ -366,10 +374,6 @@ def test_orchestrator_argument_checks_match():
         with pytest.raises(ValueError) as pe:
             po.plan(hs, **call)
         assert str(pe.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        po.plan(ph[0], mode="dag")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        po.plan(ph, algorithm="grid_astar")
 
 
 def test_session_calls_of_later_slices_name_their_items():

@@ -247,3 +247,96 @@ def test_concurrent_small_chains_bitwise_alone_and_run_to_run(cuda):
         fence(list(got.values()))
         assert results_bitwise_equal(first[r], got), r
     prog.close()
+
+
+@pytest.mark.gpu
+def test_dag_fork_out_of_a_slow_kernel_lane_feeds_a_card_and_a_host_lane(
+        cuda):
+    """A DAG fork: the producer on ``cuda-kernels`` spins its stream for
+    ~0.1 s before it writes, then goes on with its own tower; one
+    consumer runs on ``cuda:0`` (its own stream: a device wait on the
+    producer's event, and ``record_stream``) and one on ``torch-cpu``
+    (a host wait before its copy).  The compiled DAG program matches the
+    interpreter bitwise, run after run, and no wait hits its deadline."""
+    from repro_torch.core import (DagSchedule, DagStep, ExecutionPolicy,
+                                  FusedOp, OpGraph, ScheduleExecutor,
+                                  results_bitwise_equal)
+    from repro_torch.core.backends import default_registry
+
+    def slow(x):
+        torch.cuda._sleep(200_000_000)
+        return x * 2.0 + 1.0
+
+    graph = OpGraph([FusedOp("slow", "other", fn=slow),
+                     FusedOp("tower", "other", fn=lambda a: a.sin()),
+                     FusedOp("card", "other", fn=lambda a: a * 3.0),
+                     FusedOp("host", "other", fn=lambda a: a - 1.0)],
+                    edges=[(0, 1), (0, 2), (0, 3)])
+    reg = default_registry()
+    lanes = {n: reg.get(n) for n in ("cuda-kernels", "cuda:0", "torch-cpu")}
+    sched = DagSchedule(
+        steps=[DagStep(ops=(0,), pus=("cuda-kernels",), cost=1e-3),
+               DagStep(ops=(1, 2, 3),
+                       pus=("cuda-kernels", "cuda:0", "torch-cpu"),
+                       cost=1e-3)],
+        latency=2e-3, energy=0.0, objective="latency", mode="frontier")
+    ex = ScheduleExecutor(list(lanes), targets=lanes)
+    prog = ex.compile_dag(graph, sched)
+    # the fork cut: the consumers wait for the producer's op, not for its
+    # lane's tower behind it
+    assert [s.items for s in prog.lane_segments["cuda-kernels"]] == [
+        [(0, 0)], [(0, 1)]]
+    x = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    policy = ExecutionPolicy(timeout=30.0)
+    oracle = ex.run_dag(graph, sched, {0: (x,)}, policy=policy)
+    for _ in range(3):
+        out = prog.run({0: (x,)}, policy=policy)
+        assert out[2].device.type == "cuda" and out[3].device.type == "cpu"
+        torch.cuda.synchronize()
+        assert results_bitwise_equal(out, oracle)
+    assert sorted(prog.lane_streams()) == ["cuda-kernels", "cuda:0"]
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_union_dag_with_two_card_inputs_caches_its_program(cuda):
+    """A union of two chains, each fed its own CUDA tensor: the plan is
+    the DAG route's union-grid sweep, its compiled program is cached
+    over both inputs, and other input shapes compile anew."""
+    from repro_torch.core import (CostEntry, CostTable, FusedOp, OpGraph,
+                                  Orchestrator, results_bitwise_equal)
+    from repro_torch.core.backends import default_registry
+
+    graph = OpGraph([FusedOp("a0", "other", fn=lambda a: a * 2.0),
+                     FusedOp("a1", "other", fn=lambda a: a.tanh()),
+                     FusedOp("b0", "other", fn=lambda a: a + 1.0),
+                     FusedOp("b1", "other", fn=lambda a: a.cos())],
+                    edges=[(0, 1), (2, 3)])
+    reg = default_registry()
+    lanes = {n: reg.get(n) for n in ("cuda:0", "cuda-kernels")}
+    table = CostTable(list(lanes))
+    for i in range(4):
+        for k, lane in enumerate(lanes):
+            fast = (i < 2) == (k == 0)    # chain a on cuda:0, b on the other
+            table.set(i, lane, CostEntry(kernel=1e-4 if fast else 1e-2,
+                                         dispatch=1e-5, h2d=0.0, d2h=0.0,
+                                         power=100.0))
+    orch = Orchestrator(table, targets=lanes)
+    plan = orch.plan(orch.register(graph))
+    assert plan.kind == "dag" and plan.schedule.mode == "union-grid"
+    rng = np.random.default_rng(12)
+    ins = {0: (_rand(rng, (256, 64), cuda, torch.float32),),
+           2: (_rand(rng, (128, 32), cuda, torch.float32),)}
+    oracle = orch.execute(plan, ins, compile=False)
+    for _ in range(3):
+        out = orch.execute(plan, ins)
+        torch.cuda.synchronize()
+        assert results_bitwise_equal(out, oracle)
+    assert (orch.stats["program_misses"], orch.stats["program_hits"]) == (1, 2)
+    other = {0: ins[0], 2: (_rand(rng, (64, 32), cuda, torch.float32),)}
+    out = orch.execute(plan, other)
+    torch.cuda.synchronize()
+    assert orch.stats["program_misses"] == 2
+    assert results_bitwise_equal(out, orch.execute(plan, other,
+                                                   compile=False))
+    assert not orch.program_for(plan, ins).stats["serial"]

@@ -117,5 +117,10 @@ def test_plan_json_round_trip_and_cache():
     assert pair.kind == "concurrent"
     assert pair.to_json() == jorch.plan([jh, jh]).to_json()
     assert P.Plan.from_json(pair.to_json()).route == pair.route
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        orch.plan(h, mode="dag")
+    # one chain through the DAG front door: the chain DP, as the
+    # reference plans it
+    dag = orch.plan(h, mode="dag")
+    assert dag.kind == "dag" and dag.schedule.mode == "chain"
+    assert dag.to_json() == jorch.plan(jh, mode="dag").to_json()
+    assert dag.latency.hex() == plan.latency.hex()
+    assert P.Plan.from_json(dag.to_json()).route == dag.route
