@@ -21,11 +21,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    exists) a library call;
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
-   torch-cpu, cuda:0, cuda-kernels), ``Orchestrator.plan``, the compiled
-   program on the planned route and on every single-lane route, each
-   checked against the interpreter oracle; then one warm run of the
-   planned route through ``Orchestrator.execute``, with the kernels'
-   launch counts zeroed just before it and read just after;
+   torch-cpu, cuda:0, cuda-kernels; the CUDA lanes' cells timed as
+   captured replays), ``Orchestrator.plan``, the compiled program on the
+   planned route and on every single-lane route, each checked against
+   the interpreter oracle, with each CUDA segment's ``jit_verified``;
+   one warm run of the planned route through ``Orchestrator.execute``,
+   with the kernels' launch counts zeroed just before it and read just
+   after; then the planned route and the ``cuda-kernels`` route each
+   compiled twice, captured and eager (copies of the CUDA targets with
+   ``jit=False``), timed in turns, traced, and held to each other by
+   ``jit_verified``'s rule — every CUDA segment of the planned route
+   must be captured;
 4. concurrent requests — phase 3's chain (A) beside two chains at seq
    256 with their own weights (B, C), planned jointly as (A, B) and
    (A, B, C) on the same lanes and run as compiled concurrent programs
@@ -51,7 +57,19 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    stream overlap and idle share.  Baselines: every op on
    ``cuda-kernels`` (which must launch all three kernels), the best
    sequential route over the topological order, and for U the two
-   requests' own programs back to back.
+   requests' own programs back to back;
+6. online admission — A admitted alone, B and C (phase 4's) admitted as
+   the executed steps' estimated cost passes 40% and 70% of A's
+   predicted latency; every re-plan a horizon window
+   (``DEFAULT_HORIZON_STATES``), held bitwise to the cold solve of the
+   same progress; each window of steps compiled as a window program from
+   the frontier (``completed=``, ``partial=True``), run cold (probe and
+   capture) and warm (committed), ``advance`` by what completed and
+   ``retire`` at each request's end.  Each request's outputs are bitwise
+   its run alone with the op -> lane assignment it was given and within
+   the route bound of the interpreter; windows, re-plans with their solve
+   ms, the cold cost per window and each request's time from admission
+   to completion are printed.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -81,6 +99,7 @@ PEAK_BYTES = 3.35e12
 F32_TOL, BF16_TOL = 3e-5, 3e-2          # tests/test_kernels.py buckets
 LANES = ("numpy-eager", "torch-cpu", "cuda:0", "cuda-kernels")
 REPEATS = 3                              # warm runs timed per route
+CAPTURE_REPEATS = 11     # warm runs of each of phase 3's captured / eager pair
 # which kernel each op of kernel_chain launches on the kernel lane
 KERNEL_OF_OP = {"attn": "flash_attention", "ssd": "ssd_scan",
                 "moe": "expert_glu"}
@@ -562,10 +581,11 @@ def _route_matches(label, outs, oracle, route, binding, verdicts, spread):
                      outs, oracle, spread)
 
 
-def _trace(prog, ext) -> None:
+def _trace(prog, ext, label) -> float | None:
     """One traced warm run of a compiled program: device time by kernel
     name and the device's busy share of the run's wall time (tracing
-    slows the host, so the idle share it gives is an upper bound)."""
+    slows the host, so the idle share it gives is an upper bound).
+    Returns the busy share, None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.profiler import fence
@@ -585,11 +605,93 @@ def _trace(prog, ext) -> None:
             rows.append((us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e6
-    log(f"  traced planned route: wall {1e3 * wall:.3f} ms, device busy "
+    if not rows:
+        log(f"  traced {label}: wall {1e3 * wall:.3f} ms, no device time "
+            "in the trace (device busy share not measured)")
+        return None
+    log(f"  traced {label}: wall {1e3 * wall:.3f} ms, device busy "
         f"{1e3 * busy:.3f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(n for _, n, _ in rows)} kernels")
+        f"{sum(n for _, n, _ in rows)} device ops")
     for us, n, key in rows[:12]:
         log(f"    {us / 1e3:9.3f} ms  x{n:<4d} {key[:90]}")
+    return busy / wall
+
+
+def _jit_summary(label, prog, graphs) -> None:
+    """Each segment on a CUDA lane: its ops, mode and ``jit_verified``
+    (and why a capture was not kept)."""
+    for seg in prog.segments:
+        dev = None if seg.target is None else seg.target.device
+        if dev is None or dev.type != "cuda":
+            continue
+        names = [graphs[r].ops[i].name for r, i in seg.items]
+        why = f", {seg.capture_error}" if seg.capture_error else ""
+        log(f"    {label} segment {seg.index} on {seg.lane} "
+            f"({names[0]}..{names[-1]}, {len(names)} ops): mode "
+            f"{seg.mode}, jit_verified {seg.jit_verified!r}{why}")
+
+
+def _eager_binding(binding) -> dict:
+    """The same lanes with copies of the CUDA targets that do not
+    capture (``jit=False``)."""
+    import dataclasses
+    return {lane: dataclasses.replace(t, jit=False) if t.jit else t
+            for lane, t in binding.items()}
+
+
+def _captured_against_eager(label, graph, ext, assign, orch, binding,
+                            spread, must_capture) -> dict:
+    """The same route compiled twice — against the CUDA targets, which
+    capture their segments, and against copies that do not — timed in
+    turns over CAPTURE_REPEATS warm runs each, traced once each, and held
+    to each other by ``jit_verified``'s rule: bitwise where every CUDA
+    segment was admitted bitwise, else within the route bound."""
+    from repro_torch.core import ScheduleExecutor, results_bitwise_equal
+    from repro_torch.core.laneprogram import JIT
+    eager_ex = ScheduleExecutor(list(binding),
+                                targets=_eager_binding(binding))
+    progs = {"captured": orch.executor.compile_scheduled(graph, assign),
+             "eager": eager_ex.compile_scheduled(graph, assign)}
+    for prog in progs.values():
+        _fenced(lambda: [prog.run(ext)])               # cold: probe, capture
+    _jit_summary(f"{label} (captured)", progs["captured"], [graph])
+    cuda_segs = [seg for seg in progs["captured"].segments
+                 if seg.target is not None
+                 and seg.target.device.type == "cuda"]
+    if must_capture:
+        check(all(seg.mode == JIT for seg in cuda_segs),
+              f"{label}: every segment on a CUDA lane is captured "
+              f"({sum(seg.mode == JIT for seg in cuda_segs)} of "
+              f"{len(cuda_segs)}; "
+              f"{progs['captured'].stats['capture_errors']})")
+    times = {k: [] for k in progs}
+    outs = {}
+    for _ in range(CAPTURE_REPEATS):
+        for k, prog in progs.items():
+            t, o = _fenced(lambda: [prog.run(ext)])
+            times[k].append(t)
+            outs[k] = o[0]
+    verdicts = [seg.jit_verified for seg in cuda_segs]
+    if cuda_segs and all(v == "bitwise" for v in verdicts):
+        check(results_bitwise_equal(outs["captured"], outs["eager"]),
+              f"{label}: captured outputs bitwise the eager program's "
+              f"(every CUDA segment jit_verified 'bitwise')")
+    else:
+        _drift_ok(f"{label}: captured against eager (jit_verified "
+                  f"{verdicts})", outs["captured"], outs["eager"], spread)
+    out = {}
+    for k, prog in progs.items():
+        med = _median(times[k])
+        share = _trace(prog, ext, f"{label} ({k})")
+        log(f"  route {label} ({k}): median {1e3 * med:.3f} ms over "
+            f"{len(times[k])} warm runs (runs "
+            f"{', '.join(f'{1e3 * t:.3f}' for t in times[k])})")
+        out[k] = dict(median=med, runs=times[k], busy=share)
+    log(f"  route {label}: captured / eager "
+        f"{out['captured']['median'] / out['eager']['median']:.3f}")
+    for prog in progs.values():
+        prog.close()
+    return out
 
 
 def phase_main_path(main_cfg: dict) -> dict:
@@ -620,6 +722,11 @@ def phase_main_path(main_cfg: dict) -> dict:
     check(not fails, f"profiled {len(table.meta['measurements'])} "
                      f"(op, lane) cells in {t_profile:.1f}s, failures: "
                      f"{fails or 'none'}")
+    cuda_cells = [m for (_, lane), m in table.meta["measurements"].items()
+                  if binding[lane].device.type == "cuda"]
+    check(all(m["captured"] for m in cuda_cells),
+          f"{sum(m['captured'] for m in cuda_cells)} of {len(cuda_cells)} "
+          "cells on the CUDA lanes timed as captured replays")
     for i, op in enumerate(graph.ops):
         cells = "  ".join(
             f"{lane} {1e3 * table.meta['measurements'][(i, lane)]['median']:9.3f}"
@@ -669,6 +776,7 @@ def phase_main_path(main_cfg: dict) -> dict:
             log(f"    segment {seg} probe, by op (max abs err, / max|ref|,"
                 f" atol needed at the lane's rtol): "
                 f"{[tuple(f'{x:.2e}' for x in e) for e in errs]}")
+        _jit_summary(f"route {label}", prog, [graph])
         on_host = all(binding[lane].device.type == "cpu" for lane in route)
         _route_matches(label, outs, host_oracle if on_host else oracle,
                        route, binding, st["variant_verified"].values(),
@@ -685,13 +793,20 @@ def phase_main_path(main_cfg: dict) -> dict:
     counts = _counted_run(lambda: [orch.execute(plan, ext)], prog,
                           "the planned route", every_kernel=True)
 
-    _trace(prog, ext)
-
     ck, c0 = results["cuda-kernels"]["outs"], results["cuda:0"]["outs"]
     _drift_ok("all-cuda-kernels route against the all-cuda:0 route",
               ck, c0, spread)
+
+    # captured against eager: the planned route (whose CUDA segments
+    # must all be captured) and the kernel lane's single-lane route
+    both = {}
+    for label, route in (("planned", planned),
+                         ("cuda-kernels", ("cuda-kernels",) * n)):
+        both[label] = _captured_against_eager(
+            label, graph, ext, {i: route[i] for i in range(n)}, orch,
+            binding, spread, must_capture=label == "planned")
     return {"counts": counts, "orch": orch, "binding": binding, "h": h,
-            "graph": graph, "ext": ext, "spread": spread}
+            "graph": graph, "ext": ext, "spread": spread, "capture": both}
 
 
 # ---------------------------------------------------------------------------
@@ -911,6 +1026,7 @@ def phase_concurrent(main_cfg: dict, main: dict) -> dict:
         outs, outs2 = runs[0][1], runs[1][1]
         verdicts = prog.stats["variant_verified"]
         log(f"    cold run {1e3 * t_cold:.1f} ms; verdicts {verdicts}")
+        _jit_summary(f"({label})", prog, gg)
         for seg in prog.segments:
             kinds = {gg[r].ops[i].name.rsplit(".", 1)[-1]
                      for r, i in seg.items}
@@ -1068,6 +1184,7 @@ def _run_dag_plan(label, orch, plan, graph, ext, binding, spread) -> dict:
     outs, outs2 = runs[0][1][0], runs[1][1][0]
     verdicts = prog.stats["variant_verified"]
     log(f"    cold run {1e3 * t_cold:.1f} ms; verdicts {verdicts}")
+    _jit_summary(label, prog, [graph])
     measured = _median(times)
     log(f"    measured median {1e3 * measured:.3f} ms (runs "
         f"{', '.join(f'{1e3 * t:.3f}' for t in times)}); predicted "
@@ -1274,6 +1391,207 @@ def phase_dag(main_cfg: dict, main: dict, conc: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: online admission at the Granite widths
+# ---------------------------------------------------------------------------
+
+def _select_window(plan, cursor, now, arrival, ops_done, n_ops):
+    """``serve.py``'s window (``select_window``): the plan's steps from
+    ``cursor`` up to the next arrival on the estimated clock, or through
+    the first step that completes a request.  Returns (end, the
+    estimated clock at its end)."""
+    steps = plan.schedule.steps
+    t, end, count = now, cursor, dict(ops_done)
+    while end < len(steps):
+        if arrival is not None and t >= arrival:
+            break
+        st = steps[end]
+        end += 1
+        t += st.cost
+        fin = False
+        for k, op in enumerate(st.ops):
+            if op is not None:
+                h = plan.handles[k]
+                count[h] += 1
+                fin |= count[h] >= n_ops[h]
+        if fin:
+            break
+    return end, t
+
+
+def phase_admission(main_cfg: dict, main: dict, conc: dict) -> dict:
+    """Requests arriving mid-flight, with phase 4's lanes, tables and
+    weights: A admitted alone, B once the executed steps' estimated cost
+    passes 40% of A's predicted latency, C at 70%.  Each re-plan is a
+    horizon window from every request's progress; each window of steps
+    runs as a compiled window program from the frontier (cold: probe and
+    capture; then warm, whose results are committed), the way
+    ``serve.py``'s real-execution loop runs windows; ``advance`` by what
+    completed, ``retire`` as each request finishes."""
+    from repro_torch import kernels
+    from repro_torch.core import (DEFAULT_HORIZON_STATES, ConcurrentCaches,
+                                  ConcurrentSchedule, results_bitwise_equal,
+                                  solve_concurrent_horizon)
+    from repro_torch.core.laneprogram import JIT
+    from repro_torch.core.profiler import fence
+
+    log("== phase 6: online admission at the Granite widths")
+    orch, binding = main["orch"], main["binding"]
+    graphs, exts, hs = conc["graphs"], conc["exts"], conc["hs"]
+    names = "ABC"
+    horizon = DEFAULT_HORIZON_STATES
+    lat_a = conc["seq_plans"][0].latency
+    waiting = [(0.0, 0), (0.4 * lat_a, 1), (0.7 * lat_a, 2)]
+    log(f"  A (seq {main_cfg['seq']}) admitted at 0; A's predicted latency "
+        f"{1e3 * lat_a:.3f} ms; B, C (seq 256) admitted once the executed "
+        f"steps' estimated cost passes {1e3 * waiting[1][0]:.3f} and "
+        f"{1e3 * waiting[2][0]:.3f} ms; horizon_states {horizon}")
+    slot = {h: r for r, h in enumerate(hs)}
+    n_ops = {h: len(graphs[r]) for r, h in enumerate(hs)}
+    done = {h: {} for h in hs}
+    assign = {h: {} for h in hs}
+    verdicts = {h: [] for h in hs}
+    admitted, finished = {}, {}
+    replans, windows = [], []
+    warm0, cold0 = orch.stats["replans_warm"], orch.stats["replans_cold"]
+
+    def replan(event, call, *args):
+        t0 = time.perf_counter()
+        p = call(*args, horizon_states=horizon)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if p is not None:
+            items = [(h, q) for h, q in sorted(orch._active.items())
+                     if q < n_ops[h]]
+            cold = solve_concurrent_horizon(
+                [orch.workload(h).tail(q) if q else orch.workload(h)
+                 for h, q in items], orch.contention,
+                caches=ConcurrentCaches(), horizon_states=horizon)
+            check(p.schedule.steps == cold.steps
+                  and p.latency.hex() == cold.latency.hex(),
+                  f"re-plan {len(replans) + 1} ({event}): the plan equals "
+                  f"the cold solve of the same progress, bitwise "
+                  f"({p.latency.hex()})")
+        replans.append((event, ms, p))
+        log(f"    re-plan {len(replans)} ({event}): solve {ms:.3f} ms, "
+            + ("None" if p is None else
+               f"{len(p.schedule.steps)} steps ({p.schedule.mode}) over "
+               f"{''.join(names[slot[h]] for h in p.handles)}, progress "
+               f"{ {names[slot[h]]: q for h, q in orch._active.items()} }"))
+        return p
+
+    now, cursor, plan = 0.0, 0, None
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    while True:
+        while waiting and waiting[0][0] <= now:
+            r = waiting.pop(0)[1]
+            admitted[hs[r]] = time.perf_counter()
+            plan, cursor = replan(f"admit {names[r]}", orch.admit, hs[r]), 0
+        if plan is None:
+            plan, cursor = replan("window frontier", orch.replan_active), 0
+        if plan is None:
+            if not waiting:
+                break
+            now = waiting[0][0]
+            continue
+        end, t = _select_window(plan, cursor, now,
+                                waiting[0][0] if waiting else None,
+                                {h: len(done[h]) for h in plan.handles},
+                                n_ops)
+        if end <= cursor:
+            plan = None
+            continue
+        steps = list(plan.schedule.steps[cursor:end])
+        sub = ConcurrentSchedule(steps=steps, latency=t - now, energy=0.0,
+                                 objective=plan.objective, mode="window")
+        gs = [graphs[slot[h]] for h in plan.handles]
+        es = [exts[slot[h]] for h in plan.handles]
+        front = [dict(done[h]) for h in plan.handles]
+        t0 = time.perf_counter()
+        prog = orch.executor.compile_concurrent(gs, sub, completed=front,
+                                                partial=True)
+        fence([list(o.values()) for o in prog.run(es, completed=front)])
+        t_cold = time.perf_counter() - t0
+        before, seg_t = kernels.launch_counts(), []
+        t_warm, res = _fenced(lambda: prog.run(es, completed=front,
+                                                segment_timings=seg_t))
+        after, expected = kernels.launch_counts(), _expected_launches(prog)
+        check(all(after[k] - before[k] == expected[k] for k in after),
+              f"window {len(windows) + 1}: the warm run launched each "
+              f"kernel once per kernel-lane op ({expected})")
+        cuda = [seg for seg in prog.segments if seg.target is not None
+                and seg.target.device.type == "cuda"]
+        windows.append(dict(
+            steps=len(steps), cold=t_cold, warm=t_warm,
+            segments=len(prog.segments), cuda=len(cuda),
+            jitted=sum(seg.mode == JIT for seg in cuda),
+            who="".join(names[slot[h]] for h in plan.handles)))
+        log(f"    window {len(windows)} ({windows[-1]['who']}): "
+            f"{len(steps)} steps, estimated {1e3 * (t - now):.3f} ms; "
+            f"{len(prog.segments)} segments, {windows[-1]['jitted']} of "
+            f"{len(cuda)} on CUDA lanes captured; cold (probe + capture) "
+            f"{1e3 * t_cold:.1f} ms, warm {1e3 * t_warm:.3f} ms")
+        for k, h in enumerate(plan.handles):
+            fresh = [i for i in res[k] if i not in done[h]]
+            done[h].update(res[k])
+            assign[h].update((st.ops[k], st.pus[k]) for st in steps
+                             if st.ops[k] is not None)
+            verdicts[h] += [seg.verified for seg in prog.segments
+                            if seg.items[0][0] == k
+                            and seg.verified is not None]
+            orch.advance(h, len(fresh))
+        prog.close()
+        now, cursor = t, end
+        fin = [h for h in plan.handles if len(done[h]) >= n_ops[h]]
+        if cursor >= len(plan.schedule.steps):
+            plan = None
+        for h in fin:
+            finished[h] = time.perf_counter()
+            plan, cursor = replan(f"retire {names[slot[h]]}", orch.retire,
+                                  h), 0
+    wall = time.perf_counter() - t_start
+    counts = kernels.launch_counts()
+    log(f"  {len(windows)} windows, {len(replans)} re-plans in "
+        f"{wall:.2f} s; launches over the phase: {counts}")
+
+    retires = [p for event, _, p in replans if event.startswith("retire")]
+    check(orch._active == {} and len(retires) == 3 and retires[-1] is None,
+          "the last retire returns None and leaves no active request")
+    n_warm = orch.stats["replans_warm"] - warm0
+    check(n_warm >= 1 and orch.stats["replans_cold"] == cold0,
+          f"{n_warm} warm re-plans, {orch.stats['replans_cold'] - cold0} "
+          "cold")
+    check(all(c >= 1 for c in counts.values()),
+          f"every kernel launched in the phase ({counts})")
+    for r, h in enumerate(hs):
+        graph, ext = graphs[r], exts[r]
+        check(sorted(done[h]) == list(range(n_ops[h])),
+              f"request {names[r]}: every op completed")
+        alone = orch.executor.compile_scheduled(graph, assign[h])
+        fence(list(alone.run(ext).values()))
+        got = alone.run(ext)
+        fence(list(got.values()))
+        check(results_bitwise_equal(done[h], got),
+              f"request {names[r]}: bitwise equal to its run alone with "
+              "the op -> lane assignment it was given")
+        alone.close()
+        oracle = orch.executor.run_scheduled(graph, assign[h], ext)
+        fence(list(oracle.values()))
+        route = tuple(assign[h][i] for i in range(n_ops[h]))
+        _route_matches(f"request {names[r]} (admission)", done[h], oracle,
+                       route, binding, verdicts[h], conc["spreads"][r])
+        lanes = {lane: route.count(lane) for lane in dict.fromkeys(route)}
+        log(f"  request {names[r]}: admission to completion "
+            f"{1e3 * (finished[h] - admitted[h]):.1f} ms; lanes {lanes}")
+    colds = [w["cold"] for w in windows]
+    log(f"  cold cost per window (compile, probe, capture): median "
+        f"{1e3 * _median(colds):.1f} ms, total {1e3 * sum(colds):.1f} ms; "
+        f"warm window runs total "
+        f"{1e3 * sum(w['warm'] for w in windows):.3f} ms; solve ms "
+        f"{[round(ms, 3) for _, ms, _ in replans]}")
+    return dict(windows=windows, replans=replans, counts=counts, wall=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -1299,6 +1617,7 @@ def main() -> int:
         main = phase_main_path(GRANITE_MAIN_PATH)
         conc = phase_concurrent(GRANITE_MAIN_PATH, main)
         phase_dag(GRANITE_MAIN_PATH, main, conc)
+        phase_admission(GRANITE_MAIN_PATH, main, conc)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

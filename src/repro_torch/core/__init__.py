@@ -1,11 +1,13 @@
 """BIDENT core on PyTorch: profile → plan → execute.
 
-Port of the main-path, parallel, DAG and concurrent part of
-``repro.core``: the NumPy planning layer (ops, cost tables, workloads,
-contention laws, the sequential, parallel, DAG and concurrent solvers,
-schedules, the paper's analytic zoo) copied as it is, and the execution
-layer (targets, measured profiler, lane programs, executor,
-orchestrator) rebuilt on torch tensors, devices and streams.
+Port of the main-path, parallel, DAG, concurrent and online-admission
+part of ``repro.core``: the NumPy planning layer (ops, cost tables,
+workloads, contention laws, the sequential, parallel, DAG and concurrent
+solvers with the warm and horizon re-planners, schedules, the paper's
+analytic zoo) copied as it is, and the execution layer (targets,
+measured profiler, lane programs captured as CUDA graphs, executor,
+orchestrator with online admission) rebuilt on torch tensors, devices
+and streams.
 """
 from .contention import (ContentionModel, DEFAULT_MM_SF, GroupCostCache,
                          PairCostCache, uses_default_coexec,
@@ -32,8 +34,9 @@ from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
                        DagSchedule, DagStep, ParallelSchedule, PhaseSchedule,
                        SeqSchedule, evaluate_sequential, schedule_from_dict,
                        schedule_to_dict, single_pu_cost)
-from .search import (DAG_ALGORITHMS, DEFAULT_MAX_STATES,
-                     DEFAULT_WINDOW_STATES, ConcurrentCaches,
+from .search import (DAG_ALGORITHMS, DEFAULT_HORIZON_STATES,
+                     DEFAULT_MAX_STATES, DEFAULT_WINDOW_STATES,
+                     ConcurrentCaches,
                      IncrementalConcurrentSolver, dijkstra, sequential_dp,
                      sequential_dp_reference,
                      solve_concurrent, solve_concurrent_aligned,

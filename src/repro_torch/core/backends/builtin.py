@@ -12,11 +12,15 @@ subclassing anything:
   op's variant table (falling back to the reference ``fn``, run on the
   host).  The paper's plain-CPU lane: minimal dispatch, no handoff.
 * ``torch-cpu``   — the reference payloads, PyTorch eager on the host.
-* ``cuda:<i>``    — the reference payloads, PyTorch eager on CUDA device
-  ``i`` (``cuda_target``).
+* ``cuda:<i>``    — the reference payloads on CUDA device ``i``
+  (``cuda_target``).
 * ``cuda-kernels`` — serves the ``"cuda"`` dialect (the hand-written
   kernels) on CUDA device 0 (``cuda_kernels``), probe-verified against
   the reference composition before it is served.
+
+The two host targets never jit (``jit=False``); the CUDA targets do:
+their warm segments replay as verified CUDA graphs, and their cells are
+timed so.
 
 The CUDA lanes are priced as accelerators: a lane switch to or from one
 charges ``handoff_s`` on each accelerator side.
@@ -43,7 +47,7 @@ def _cuda_device(index: int = 0) -> torch.device:
 
 def numpy_eager(**overrides: Any) -> Target:
     kw: dict[str, Any] = dict(
-        name="numpy-eager", kind="host", dialect="numpy",
+        name="numpy-eager", kind="host", dialect="numpy", jit=False,
         device=torch.device("cpu"), is_accelerator=False, dispatch_s=3e-6,
         handoff_s=0.0, power_compute=15.0, power_memory=11.0)
     kw.update(overrides)
@@ -52,7 +56,7 @@ def numpy_eager(**overrides: Any) -> Target:
 
 def torch_cpu(**overrides: Any) -> Target:
     kw: dict[str, Any] = dict(
-        name="torch-cpu", kind="cpu", dialect="ref",
+        name="torch-cpu", kind="cpu", dialect="ref", jit=False,
         device=torch.device("cpu"), is_accelerator=False, dispatch_s=1e-5,
         handoff_s=0.0, power_compute=17.0, power_memory=12.0)
     kw.update(overrides)
@@ -66,7 +70,8 @@ def cuda_target(index: int = 0, **overrides: Any) -> Target:
     device's."""
     dev = _cuda_device(index)
     kw: dict[str, Any] = dict(
-        name=f"cuda:{index}", kind="cuda", dialect="ref", device=dev,
+        name=f"cuda:{index}", kind="cuda", dialect="ref", jit=True,
+        device=dev,
         is_accelerator=True, dispatch_s=1e-5, handoff_s=CUDA_HANDOFF_S,
         power_compute=700.0, power_memory=400.0, atol=1e-5, rtol=1e-5)
     kw.update(overrides)
@@ -85,7 +90,8 @@ def cuda_kernels(index: int = 0, **overrides: Any) -> Target:
     stay held to the bucket itself."""
     dev = _cuda_device(index)
     kw: dict[str, Any] = dict(
-        name="cuda-kernels", kind="cuda", dialect="cuda", device=dev,
+        name="cuda-kernels", kind="cuda", dialect="cuda", jit=True,
+        device=dev,
         is_accelerator=True, dispatch_s=1e-5, handoff_s=CUDA_HANDOFF_S,
         power_compute=700.0, power_memory=400.0, atol_scaled=True)
     kw.update(overrides)

@@ -82,16 +82,20 @@ class ScheduleExecutor:
     # ------------------------------------------------------------------
     # assignment / schedule normalization (shared by both paths)
     # ------------------------------------------------------------------
-    def _normalize_assignment(self, graph: OpGraph, assignment
+    def _normalize_assignment(self, graph: OpGraph, assignment,
+                              completed: Mapping[int, Any] | None = None
                               ) -> dict[int, str]:
         """``{op index: PU name}`` from a mapping or any schedule object
         exposing one (``SeqSchedule`` — via its chain — or
-        ``ParallelSchedule.assignment``), with coverage validation."""
+        ``ParallelSchedule.assignment``), with coverage validation.
+        Ops already present in ``completed`` (a resume frontier) need no
+        assignment."""
         if hasattr(assignment, "chain") and hasattr(assignment, "assignment"):
             assignment = dict(zip(assignment.chain, assignment.assignment))
         elif hasattr(assignment, "assignment"):
             assignment = assignment.assignment
-        missing = [i for i in range(len(graph.ops)) if i not in assignment]
+        have = set(assignment) | set(completed or ())
+        missing = [i for i in range(len(graph.ops)) if i not in have]
         if missing:
             raise ValueError(
                 f"assignment does not cover the graph: {len(missing)} op(s) "
@@ -104,17 +108,24 @@ class ScheduleExecutor:
         return dict(assignment)
 
     def _scheduled_lane_queues(self, graph: OpGraph,
-                               assignment: Mapping[int, str]
+                               assignment: Mapping[int, str],
+                               completed: Mapping[int, Any] | None = None
                                ) -> dict[str, list[tuple[int, int]]]:
         """One FIFO lane per PU; ops enqueue in topological order as
-        ``(request 0, op)`` items."""
+        ``(request 0, op)`` items.  Completed (frontier) ops are not
+        re-enqueued."""
         lane_queues: dict[str, list[tuple[int, int]]] = {
             p: [] for p in self.pus}
+        done = completed or ()
         for i in graph.topo_order():
+            if i in done:
+                continue
             lane_queues[assignment[i]].append((0, i))
         return lane_queues
 
-    def _concurrent_lane_queues(self, graphs: Sequence[OpGraph], schedule
+    def _concurrent_lane_queues(self, graphs: Sequence[OpGraph], schedule,
+                                completed: Sequence[Mapping[int, Any]] | None
+                                = None, partial: bool = False
                                 ) -> tuple[dict[str, list[tuple[int, int]]],
                                            set[tuple[int, int]]]:
         """Lane queues in schedule-step order + the co-scheduled op set.
@@ -124,9 +135,13 @@ class ScheduleExecutor:
         Ops of a step where >= 2 requests advance together are returned
         as *barrier* ops: the compiled path keeps them individually
         dispatched so the co-execution granularity the contention laws
-        priced is preserved.  (The reference also takes a resume
-        frontier and schedule windows here, for PU-loss recovery and the
-        serving loop; they come with those slices.)
+        priced is preserved.  ``completed`` (a resume frontier) seeds the
+        per-request done sets: frontier ops need no schedule step and
+        satisfy dependency/coverage checks.  ``partial=True`` skips the
+        final full-coverage check — a *window* of a longer plan (the
+        serving loop runs plans window by window) is a valid unit of
+        execution as long as precedence holds; dependency validation is
+        never skipped.
         """
         m = len(graphs)
         if schedule.n_requests != m:
@@ -136,11 +151,14 @@ class ScheduleExecutor:
         lane_queues: dict[str, list[tuple[int, int]]] = {
             p: [] for p in self.pus}
         barriers: set[tuple[int, int]] = set()
-        seen: list[set[int]] = [set() for _ in range(m)]
+        seen: list[set[int]] = [set(completed[r]) if completed else set()
+                                for r in range(m)]
         for st in schedule.steps:
             active = [(r, oi, pu) for r, (oi, pu)
                       in enumerate(zip(st.ops, st.pus)) if oi is not None]
             for r, oi, pu in active:
+                if completed and oi in seen[r] and oi in completed[r]:
+                    continue  # frontier op re-listed by a stale schedule
                 missing_pred = [p for p in graphs[r].pred[oi]
                                 if p not in seen[r]]
                 if missing_pred:
@@ -157,15 +175,17 @@ class ScheduleExecutor:
                 seen[r].add(oi)
                 if len(active) > 1:
                     barriers.add((r, oi))
-        for r, g in enumerate(graphs):
-            if seen[r] != set(range(len(g.ops))):
-                missing = sorted(set(range(len(g.ops))) - seen[r])
-                raise ValueError(
-                    f"schedule does not cover request {r}: missing ops "
-                    f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
+        if not partial:
+            for r, g in enumerate(graphs):
+                if seen[r] != set(range(len(g.ops))):
+                    missing = sorted(set(range(len(g.ops))) - seen[r])
+                    raise ValueError(
+                        f"schedule does not cover request {r}: missing ops "
+                        f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
         return lane_queues, barriers
 
-    def _dag_lane_queues(self, graph: OpGraph, schedule
+    def _dag_lane_queues(self, graph: OpGraph, schedule,
+                         completed: Mapping[int, Any] | None = None
                          ) -> dict[str, list[tuple[int, int]]]:
         """Lane queues in DAG-schedule step order.
 
@@ -179,18 +199,20 @@ class ScheduleExecutor:
         not all been listed earlier (same step counts, in listed order)
         raises :class:`InfeasibleScheduleError` naming the node and its
         unmet predecessors instead of deadlocking the lane workers.
-        (The reference also takes a resume frontier here, for PU-loss
-        recovery; it comes with that slice.)
+        Frontier (``completed``) ops count as listed and are not
+        re-enqueued.
         """
         lane_queues: dict[str, list[tuple[int, int]]] = {
             p: [] for p in self.pus}
-        seen: set[int] = set()
+        seen: set[int] = set(completed or ())
 
         def _nm(i: int) -> str:
             return f"op {i} ({graph.ops[i].name})"
 
         for st in schedule.steps:
             for oi, pu in zip(st.ops, st.pus):
+                if completed and oi in seen and oi in completed:
+                    continue  # frontier op re-listed by a stale schedule
                 unmet = [p for p in graph.pred[oi] if p not in seen]
                 if unmet:
                     raise InfeasibleScheduleError(
@@ -218,6 +240,7 @@ class ScheduleExecutor:
                       external_inputs: Mapping[int, tuple] | None = None, *,
                       policy: ExecutionPolicy | None = None,
                       faults: FaultPlan | None = None,
+                      completed: Mapping[int, Any] | None = None,
                       estimate: float | None = None) -> dict[int, Any]:
         """Run under the schedule: one worker lane per PU, event-synced.
 
@@ -225,30 +248,36 @@ class ScheduleExecutor:
         schedule object exposing one (``SeqSchedule`` or
         ``ParallelSchedule``).  ``policy`` tunes the watchdog/retry
         runtime (``estimate`` — e.g. the plan's cost-model latency —
-        scales the watchdog budget) and ``faults`` injects a scripted
-        :class:`~repro_torch.core.faults.FaultPlan`.
+        scales the watchdog budget), ``faults`` injects a scripted
+        :class:`~repro_torch.core.faults.FaultPlan`, and ``completed``
+        resumes from an execution frontier: ops with a recorded result
+        are not re-run (their values seed the results dict).
         """
-        assignment = self._normalize_assignment(graph, assignment)
-        lane_queues = self._scheduled_lane_queues(graph, assignment)
+        assignment = self._normalize_assignment(graph, assignment, completed)
+        lane_queues = self._scheduled_lane_queues(graph, assignment,
+                                                  completed)
         return self._run_lanes([graph], lane_queues, [external_inputs],
                                policy=policy, faults=faults,
+                               completed=[completed] if completed else None,
                                estimate=estimate)[0]
 
     def run_dag(self, graph: OpGraph, schedule,
                 external_inputs: Mapping[int, tuple] | None = None, *,
                 policy: ExecutionPolicy | None = None,
                 faults: FaultPlan | None = None,
+                completed: Mapping[int, Any] | None = None,
                 estimate: float | None = None) -> dict[int, Any]:
         """Run a ``DagSchedule``: ops enqueue per-lane in step order and
         cross-lane synchronization happens only at true dependency edges,
         so a multi-op (antichain) step's ops really overlap across lanes.
 
-        ``policy`` / ``faults`` / ``estimate`` behave as in
-        :meth:`run_scheduled`.
+        ``policy`` / ``faults`` / ``completed`` / ``estimate`` behave as
+        in :meth:`run_scheduled`.
         """
-        lane_queues = self._dag_lane_queues(graph, schedule)
+        lane_queues = self._dag_lane_queues(graph, schedule, completed)
         return self._run_lanes([graph], lane_queues, [external_inputs],
                                policy=policy, faults=faults,
+                               completed=[completed] if completed else None,
                                estimate=estimate)[0]
 
     def run_concurrent(self, graphs: Sequence[OpGraph], schedule,
@@ -256,7 +285,10 @@ class ScheduleExecutor:
                        | None = None, *,
                        policy: ExecutionPolicy | None = None,
                        faults: FaultPlan | None = None,
-                       estimate: float | None = None
+                       completed: Sequence[Mapping[int, Any]] | None = None,
+                       estimate: float | None = None,
+                       partial: bool = False,
+                       op_timings: list | None = None
                        ) -> list[dict[int, Any]]:
         """Run an M-model ``ConcurrentSchedule`` across the PU lanes.
 
@@ -267,21 +299,31 @@ class ScheduleExecutor:
         are per-model (requests are independent); each model's results
         dict is returned in request order.
 
-        ``policy`` / ``faults`` / ``estimate`` behave as in
-        :meth:`run_scheduled`.
+        ``policy`` / ``faults`` / ``completed`` / ``estimate`` behave as
+        in :meth:`run_scheduled` (``completed`` is one frontier dict per
+        request).  ``partial=True`` accepts a schedule that covers only a
+        *window* of each request's remaining ops (precedence is still
+        validated against the frontier) — the unit the serving loop
+        advances by.  ``op_timings``, when a list, receives one ``(pu,
+        request, op, wall_seconds)`` tuple per completed op.
         """
-        lane_queues, _ = self._concurrent_lane_queues(graphs, schedule)
-        ext = list(external_inputs or [None] * len(graphs))
+        m = len(graphs)
+        lane_queues, _ = self._concurrent_lane_queues(graphs, schedule,
+                                                      completed, partial)
+        ext = list(external_inputs or [None] * m)
         return self._run_lanes(list(graphs), lane_queues, ext,
                                policy=policy, faults=faults,
-                               estimate=estimate)
+                               completed=completed, estimate=estimate,
+                               op_timings=op_timings)
 
     def _run_lanes(self, graphs: Sequence[OpGraph],
                    lane_queues: Mapping[str, Sequence[tuple[int, int]]],
                    ext: Sequence[Mapping[int, tuple] | None], *,
                    policy: ExecutionPolicy | None,
                    faults: FaultPlan | None,
-                   estimate: float | None) -> list[dict[int, Any]]:
+                   completed: Sequence[Mapping[int, Any]] | None,
+                   estimate: float | None,
+                   op_timings: list | None = None) -> list[dict[int, Any]]:
         """Shared lane runtime of both interpreter entry points.
 
         One daemon worker thread per non-empty lane; per-op events bound
@@ -290,11 +332,19 @@ class ScheduleExecutor:
         producer.  Every worker launches on its
         thread's default stream, which all threads of one device share,
         so CUDA work of the interpreter is ordered by that one stream.
+        Frontier (``completed``) results seed the results dicts with
+        their events pre-set.
         """
-        results: list[dict[int, Any]] = [{} for _ in graphs]
+        m = len(graphs)
+        results: list[dict[int, Any]] = [
+            dict(completed[r]) if completed and completed[r] else {}
+            for r in range(m)]
         done_ev: dict[tuple[int, int], threading.Event] = {
             (r, i): threading.Event()
             for r, g in enumerate(graphs) for i in range(len(g.ops))}
+        for r in range(m):
+            for i in results[r]:
+                done_ev[(r, i)].set()
 
         run = RunContext(policy, faults, estimate)
 
@@ -325,8 +375,11 @@ class ScheduleExecutor:
                 dep_vals = tuple(results[r][p] for p in g.pred[i])
                 return op.fn(*(tuple(e) + dep_vals))
 
+            t0 = time.monotonic() if op_timings is not None else 0.0
             results[r][i] = run_with_retries(run, attempt, what,
                                              lane=pu, request=r, op=i)
+            if op_timings is not None:
+                op_timings.append((pu, r, i, time.monotonic() - t0))
             run.current.pop(pu, None)
             done_ev[(r, i)].set()
 
@@ -365,36 +418,49 @@ class ScheduleExecutor:
     # ------------------------------------------------------------------
     # compiled path (laneprogram)
     # ------------------------------------------------------------------
-    def compile_scheduled(self, graph: OpGraph, assignment) -> LaneProgram:
+    def compile_scheduled(self, graph: OpGraph, assignment,
+                          completed: Mapping[int, Any] | None = None
+                          ) -> LaneProgram:
         """Compile a sequential/parallel plan into a :class:`LaneProgram`.
 
         Accepts the same ``assignment`` forms as ``run_scheduled``;
         ``program.run(external_inputs)`` then returns the same results
         dict, with per-op dispatch/event overhead collapsed to one
-        composed call + one event per segment.
+        composed call + one event per segment.  ``completed`` compiles
+        the program over the ops outside that frontier; run it with the
+        same frontier (``program.run(..., completed=...)``).
         """
-        assignment = self._normalize_assignment(graph, assignment)
-        queues = self._scheduled_lane_queues(graph, assignment)
+        assignment = self._normalize_assignment(graph, assignment, completed)
+        queues = self._scheduled_lane_queues(graph, assignment, completed)
         return compile_lane_program([graph], queues, single=True,
                                     targets=self.targets)
 
-    def compile_dag(self, graph: OpGraph, schedule) -> LaneProgram:
+    def compile_dag(self, graph: OpGraph, schedule,
+                    completed: Mapping[int, Any] | None = None
+                    ) -> LaneProgram:
         """Compile a ``DagSchedule`` into a :class:`LaneProgram`: each
         lane's queue (in step order) partitions into fused segments with
         events only at cross-lane dependency cuts, so independent
         subgraphs on different lanes overlap exactly as in :meth:`run_dag`;
-        ``program.run(external_inputs)`` matches it bitwise."""
-        lane_queues = self._dag_lane_queues(graph, schedule)
+        ``program.run(external_inputs)`` matches it bitwise.
+        ``completed`` behaves as in :meth:`compile_scheduled`."""
+        lane_queues = self._dag_lane_queues(graph, schedule, completed)
         return compile_lane_program([graph], lane_queues, single=True,
                                     targets=self.targets)
 
-    def compile_concurrent(self, graphs: Sequence[OpGraph], schedule
-                           ) -> LaneProgram:
+    def compile_concurrent(self, graphs: Sequence[OpGraph], schedule,
+                           completed: Sequence[Mapping[int, Any]] | None
+                           = None, partial: bool = False) -> LaneProgram:
         """Compile an M-model ``ConcurrentSchedule`` into a
         :class:`LaneProgram` (co-scheduled steps become single-op barrier
-        segments); ``program.run(inputs)`` matches ``run_concurrent``."""
-        lane_queues, barriers = self._concurrent_lane_queues(graphs,
-                                                             schedule)
+        segments); ``program.run(inputs)`` matches ``run_concurrent``.
+
+        ``completed``/``partial`` compile a *window* program over the
+        remaining ops of a partially-executed plan; run it with the same
+        frontier (``program.run(..., completed=...)``) so cross-window
+        inputs resolve from already-computed values."""
+        lane_queues, barriers = self._concurrent_lane_queues(
+            graphs, schedule, completed, partial)
         return compile_lane_program(list(graphs), lane_queues,
                                     barriers=barriers, single=False,
                                     targets=self.targets)

@@ -28,9 +28,24 @@ per-op interpreter's dispatch and event overhead in two moves:
   within the target's per-dtype or declared tolerance, else rejected
   (the segment then serves the reference for good).  A variant is never
   served unverified.  A kernel-dialect variant that fails to run raises
-  instead (:data:`KERNEL_DIALECTS`).  The port jits nothing:
-  the reference's ``jax.jit`` probe has no counterpart here (capturing
-  segments as CUDA graphs is later work, ``ROADMAP.md``).
+  instead (:data:`KERNEL_DIALECTS`).
+
+* **Segment capture: the counterpart of the reference's ``jax.jit``.**
+  On a lane whose target jits (``Target.jit``) and runs on a CUDA
+  device, the cold run then captures whichever composition the segment
+  serves as a CUDA graph (:mod:`repro_torch.core.capture`) and keeps it
+  by the reference's rule: its replay must match the eager composition
+  on the probe inputs and on a perturbed copy of them (:func:`_perturb`),
+  bitwise on both legs, or within the target's *declared* tolerance
+  (``atol``/``rtol``) on both.  ``jit_verified`` records which rule
+  admitted it and the segment's mode becomes ``JIT``: warm runs copy the
+  inputs into the graph's static buffers, replay it in one launch and
+  hand out copies of its outputs.  Anything else — a capture that
+  raises (a payload that syncs the host), outputs that are not tensors
+  on the device, a leg that disagrees — leaves the segment eager with
+  ``jit_verified = None`` and the reason in ``capture_error``; it changes
+  no device and no kernel.  A replay serves only the input signature
+  (shapes, dtypes, devices) it was captured at; other inputs run eagerly.
 
 **Devices and streams.**  Every segment of a device-bound target moves
 its inputs to the target's device before running — the reference
@@ -85,7 +100,10 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .errors import PULostError
+from ..fault.manager import RecoverableError
+from .capture import arg_signature as _arg_signature
+from .capture import capture_call
+from .errors import ExecutionError, PULostError
 from .faults import (_JOIN_GRACE, ExecutionPolicy, FaultPlan, RunContext,
                      _Aborted, run_with_retries)
 from .op import OpGraph
@@ -93,8 +111,9 @@ from .profiler import _tensors, place
 from .targets import KERNEL_DIALECTS, variant_tolerance
 
 # segment execution modes
-COLD = "cold"        # not yet run: the next run probes the variant
-WARM = "warm"        # settled: serves the verified variant or the reference
+COLD = "cold"        # not yet run: the next run probes, then captures
+WARM = "warm"        # settled, eager: the verified variant or the reference
+JIT = "jit"          # settled, captured: replays a verified CUDA graph
 
 _BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
@@ -119,6 +138,36 @@ def _bitwise_equal(a, b) -> bool:
         a = a.contiguous().view(bits)
         b = b.contiguous().view(bits)
     return bool(torch.equal(a, b))
+
+
+def _perturb(x):
+    """A same-shape/dtype input with different float values, for the
+    second leg of capture verification: ``x * 0.7371 + 0.1113`` in the
+    input's own dtype, bitwise as the reference computes it on a NumPy
+    array (non-floats pass through)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+        return x
+    a = torch.tensor(0.7371, dtype=x.dtype, device=x.device)
+    b = torch.tensor(0.1113, dtype=x.dtype, device=x.device)
+    return x * a + b
+
+
+def _capture_device(target) -> torch.device | None:
+    """The CUDA device a segment bound to ``target`` captures on, or None:
+    a target that does not jit, or has no CUDA device, never captures."""
+    device = None if target is None or not target.jit else target.device
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return torch.device(device)
+
+
+def _capture(fn: Callable, args: Sequence, device):
+    """The capture seam: ``fn(*args)`` captured on ``device``; returns
+    (a captured call with ``replay(args)`` and ``release()``, the eager
+    outputs of ``fn(*args)`` it ran first)."""
+    return capture_call(fn, args, device)
 
 
 def results_bitwise_equal(a: Mapping[int, Any], b: Mapping[int, Any]) -> bool:
@@ -186,6 +235,9 @@ class Segment:
     ``"rejected"`` / ``"error: ..."``, the last for non-kernel dialects
     only) and
     ``probe_errors`` the per-op ``probe_error`` of a non-bitwise probe.
+    ``jit_verified`` records which rule admitted the segment's captured
+    graph (``"bitwise"`` / ``"tolerance"``, None when it runs eagerly),
+    ``capture_error`` why a capture was not kept.
     """
 
     index: int
@@ -198,6 +250,8 @@ class Segment:
     use_variant: bool = False
     verified: str | None = None
     probe_errors: list[tuple[float, float, float]] | None = None
+    jit_verified: str | None = None
+    capture_error: str | None = None
     deps: list[int] = dataclasses.field(default_factory=list)
     # results of other segments this segment reads, in flat order
     flat_refs: list[tuple[int, int]] = dataclasses.field(default_factory=list)
@@ -208,6 +262,8 @@ class Segment:
     # one descriptive wait label per entry of ``deps`` (watchdog messages)
     dep_whats: list[str] = dataclasses.field(default_factory=list)
     mode: str = COLD
+    _graph: Any = dataclasses.field(default=None, repr=False)
+    _sig: tuple | None = dataclasses.field(default=None, repr=False)
 
     # -- composition --------------------------------------------------------
     def _compose(self, fns: Sequence[Callable | None], flat: tuple,
@@ -242,18 +298,122 @@ class Segment:
         ext_lists = tuple(tuple(ext[r].get(i, ())) for r, i in self.items)
         return flat, ext_lists
 
+    def _leaves(self, flat: tuple, ext_lists: tuple) -> list:
+        """The segment's inputs as one flat list (a captured graph's
+        arguments): the flat inputs, then each item's external ones."""
+        return list(flat) + [v for e in ext_lists for v in e]
+
     def execute(self, results: Sequence[dict], ext: Sequence[dict]) -> None:
-        flat, ext_lists = self._place(*self._gather(results, ext))
+        flat, ext_lists = self._gather(results, ext)
+        sig = None
+        if self.mode != WARM:
+            leaves = self._leaves(flat, ext_lists)
+            sig = (tuple(_arg_signature(v) for v in leaves)
+                   if all(isinstance(v, torch.Tensor) for v in leaves)
+                   else None)
+            if self.mode == JIT and sig == self._sig:
+                outs = self._graph.replay(leaves)
+                for (r, i), o in zip(self.items, outs):
+                    results[r][i] = o
+                return
+        flat, ext_lists = self._place(flat, ext_lists)
         if self.use_variant:
             outs = self._compose(self.var_fns, flat, ext_lists)
         else:
             outs = self._compose(self.fns, flat, ext_lists)
             if self.mode == COLD:
-                if self.var_fns is not None:
-                    self._verify_variant(flat, ext_lists, outs)
-                self.mode = WARM
+                self._settle(flat, ext_lists, outs, sig)
         for (r, i), o in zip(self.items, outs):
             results[r][i] = o
+
+    def _settle(self, flat, ext_lists, outs, sig) -> None:
+        """Cold-run settling.  ``outs`` are the eager *reference* outputs
+        (what this cold run serves — a variant is never served
+        unverified).  Order of business: probe the target variant
+        against them, then capture whichever composition survived,
+        honouring the target's jit policy."""
+        if self.var_fns is not None:
+            self._verify_variant(flat, ext_lists, outs)
+        self.mode = WARM
+        self._maybe_compile(flat, ext_lists, sig)
+
+    def _maybe_compile(self, flat, ext_lists, sig) -> None:
+        """Capture the served composition as a CUDA graph where the
+        target jits on a CUDA device and every input is a tensor, and
+        keep it only if :meth:`_jit_verify` admits it."""
+        device = _capture_device(self.target)
+        if device is None:
+            return
+        fns = self.var_fns if self.use_variant else self.fns
+        if sig is None or any(fn is None for fn in fns):
+            self.capture_error = "an input or a payload is not a tensor op"
+            return
+        self._jit_verify(fns, flat, ext_lists, sig, device)
+
+    def _jit_verify(self, fns, flat, ext_lists, sig, device) -> None:
+        """The reference's jit probe, for a captured graph: its replay
+        must match the eager composition on the probe inputs and on a
+        perturbed copy of them — bitwise on both legs, or within the
+        target's declared tolerance (``atol``/``rtol``) on both.  On
+        success the graph is kept for warm runs, ``mode`` flips to JIT
+        and ``jit_verified`` records which rule admitted it; anything
+        else (a capture that raises included) leaves the segment eager."""
+        tgt = self.target
+        declared = tgt is not None and bool(tgt.atol or tgt.rtol)
+
+        def admit(ref_o, got_o):
+            if len(got_o) != len(ref_o):
+                return None
+            if all(_bitwise_equal(a, b) for a, b in zip(ref_o, got_o)):
+                return "bitwise"
+            if declared and all(_within_tolerance(a, b, tgt)
+                                for a, b in zip(ref_o, got_o)):
+                return "tolerance"
+            return None
+
+        n_flat, sizes = len(flat), [len(e) for e in ext_lists]
+
+        def composed(*leaves):
+            rest = iter(leaves[n_flat:])
+            return self._compose(fns, tuple(leaves[:n_flat]), tuple(
+                tuple(next(rest) for _ in range(k)) for k in sizes))
+
+        leaves = self._leaves(flat, ext_lists)
+        cap, how = None, None
+        try:
+            cap, eager = _capture(composed, leaves, device)
+            how = admit(tuple(eager), tuple(cap.replay(leaves)))
+            if how is None:
+                self.capture_error = "the replay differs on the probe inputs"
+            else:
+                leaves2 = [_perturb(v) for v in leaves]
+                how2 = admit(composed(*leaves2), tuple(cap.replay(leaves2)))
+                if how2 is None:
+                    self.capture_error = ("the replay differs on the "
+                                          "perturbed inputs")
+                how = (None if how2 is None
+                       else ("bitwise" if how == how2 == "bitwise"
+                             else "tolerance"))
+        except Exception as e:
+            how = None
+            self.capture_error = f"{type(e).__name__}: {e}"
+        if how is None:
+            if cap is not None:
+                cap.release()
+            return
+        self._graph, self._sig = cap, sig
+        self.jit_verified = how
+        self.capture_error = None
+        self.mode = JIT
+
+    def _drop_capture(self) -> None:
+        """Release the captured graph; the segment runs eagerly from now
+        on (``jit_verified`` keeps what the probe found)."""
+        if self._graph is not None:
+            self._graph.release()
+            self._graph = None
+        if self.mode == JIT:
+            self.mode = WARM
 
     def _verify_variant(self, flat, ext_lists, ref_outs) -> None:
         """Probe the variants against the reference outputs (which this
@@ -446,12 +606,16 @@ class LaneProgram:
         return True
 
     def close(self) -> None:
-        """Release the persistent lane-worker pool (idempotent; a later
-        ``run`` lazily recreates it).  Called on cache eviction so idle
-        worker threads don't outlive the program's cache entry."""
+        """Release the persistent lane-worker pool and the segments'
+        captured graphs with their memory pools (idempotent; a later
+        ``run`` lazily recreates the pool and runs those segments
+        eagerly).  Called on cache eviction so idle worker threads and
+        graphs don't outlive the program's cache entry."""
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+        for seg in self.segments:
+            seg._drop_capture()
 
     def _serial_order(self) -> list[Segment] | None:
         n = len(self.segments)
@@ -500,6 +664,7 @@ class LaneProgram:
         return {
             "n_ops": sum(len(s.items) for s in self.segments),
             "n_segments": len(self.segments),
+            "n_jitted": sum(1 for s in self.segments if s.mode == JIT),
             "n_cold": sum(1 for s in self.segments if s.mode == COLD),
             "n_barrier": sum(1 for s in self.segments if s.barrier),
             "n_variant": sum(1 for s in self.segments if s.use_variant),
@@ -508,6 +673,11 @@ class LaneProgram:
             "variant_errors": {s.index: s.probe_errors
                                for s in self.segments
                                if s.probe_errors is not None},
+            "jit_verified": {s.index: s.jit_verified for s in self.segments
+                             if s.jit_verified is not None},
+            "capture_errors": {s.index: s.capture_error
+                               for s in self.segments
+                               if s.capture_error is not None},
             "lane_targets": {s.lane: s.target.name for s in self.segments
                              if s.target is not None},
             "max_segment_ops": max((len(s.items) for s in self.segments),
@@ -519,10 +689,13 @@ class LaneProgram:
     def _exec_segment(self, seg: Segment, results, ext,
                       run: RunContext | None) -> None:
         """Execute one segment under the fault runtime: injected faults
-        fire per (request, op) item and transient failures retry the
-        whole segment with backoff (payloads are pure on this path, and a
-        failed ``execute`` writes no results, so re-execution is clean).
-        ``run=None`` is the fault-free serial fast path."""
+        fire per (request, op) item, transient failures retry the whole
+        segment with backoff (payloads are pure on this path, and a
+        failed ``execute`` writes no results, so re-execution is clean),
+        and a captured segment whose replay fails with a non-transient
+        error falls back to its eager composition once — the capture
+        probe's fallback rule — before giving up.  ``run=None`` is the
+        fault-free serial fast path."""
         what = (f"segment {seg.index} on lane {seg.lane!r} "
                 f"(ops {seg.items[0]}..{seg.items[-1]})")
 
@@ -538,6 +711,14 @@ class LaneProgram:
         try:
             run_with_retries(run, attempt, what,
                              lane=seg.lane, request=r0, op=i0)
+        except (ExecutionError, RecoverableError):
+            raise
+        except Exception:
+            if seg.mode != JIT:
+                raise
+            seg._drop_capture()
+            run_with_retries(run, attempt, what,
+                             lane=seg.lane, request=r0, op=i0)
         finally:
             if run is not None:
                 run.current.pop(seg.lane, None)
@@ -546,7 +727,9 @@ class LaneProgram:
             policy: ExecutionPolicy | None = None,
             faults: FaultPlan | None = None,
             estimate: float | None = None,
-            trace: list | None = None):
+            trace: list | None = None,
+            completed=None,
+            segment_timings: list | None = None):
         """Execute the program; same results shape as the interpreter.
 
         ``policy`` tunes the watchdog/retry runtime (``estimate`` — e.g.
@@ -563,9 +746,20 @@ class LaneProgram:
         single-graph program and a sequence of them, one per request, for
         an M-request program.  ``trace``, when a list, receives one
         :class:`SegmentTime` per executed segment.
+
+        ``completed`` seeds the results with an execution frontier (one
+        ``{op: value}`` dict for single-graph programs, a sequence of
+        them for M-request programs): a program compiled over a *window*
+        of remaining ops (``compile_concurrent(..., completed=...)``)
+        reads its cross-window inputs from the frontier instead of
+        recomputing them, and returns them with its own results.
+        ``segment_timings``, when a list, receives one ``(lane, items,
+        wall_seconds)`` tuple per completed segment, as the reference
+        records them.
         """
         if self.single:
             ext = [dict(external_inputs or {})]
+            seeds = [dict(completed or {})]
         else:
             ext_seq = list(external_inputs or [None] * self.n_requests)
             if len(ext_seq) != self.n_requests:
@@ -573,16 +767,21 @@ class LaneProgram:
                     f"program covers {self.n_requests} requests, got "
                     f"{len(ext_seq)} input mapping(s)")
             ext = [dict(e or {}) for e in ext_seq]
-        results: list[dict[int, Any]] = [{} for _ in ext]
+            seeds = [dict(c or {}) for c in
+                     (completed or [None] * self.n_requests)]
+        results: list[dict[int, Any]] = seeds
         t_run = time.perf_counter()
 
         def exec_seg(seg: Segment, run: RunContext | None) -> None:
-            t0 = time.perf_counter() if trace is not None else 0.0
+            t0 = time.perf_counter()
             self._exec_segment(seg, results, ext, run)
+            t1 = time.perf_counter()
             if trace is not None:
-                t1 = time.perf_counter()
                 trace.append(SegmentTime(seg.lane, tuple(seg.items),
                                          t1 - t0, t0 - t_run))
+            if segment_timings is not None:
+                segment_timings.append((seg.lane, tuple(seg.items),
+                                        t1 - t0))
 
         if self.serial_order is not None:
             # inherently serial: no cross-lane waits exist, so fault-free
@@ -724,6 +923,11 @@ def compile_lane_program(graphs: Sequence[OpGraph],
 
     Same-lane predecessors never cut.  ``single`` marks a program over
     one graph (``run`` then takes and returns one mapping).
+
+    A predecessor absent from every lane queue is a *frontier* op (window
+    programs over a partially-executed plan): it cuts like a cross-lane
+    handoff and resolves as a flat input read from the ``completed``
+    seeds at run time, with no segment dependency.
 
     ``targets`` optionally binds lane names to
     :class:`~repro_torch.core.targets.Target`\\ s: a bound segment keeps

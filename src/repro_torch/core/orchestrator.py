@@ -19,13 +19,22 @@ of a serving system,
   antichain-frontier front door
   :func:`~repro_torch.core.search.solve_dag` for any single-handle
   shape).  Results are bitwise identical to the direct solver calls and
-  cached keyed by (workload signatures, objective, resolved mode, route
-  knobs); the objective-independent solver state (``ConcurrentCaches``)
-  is one pool per session.  The reference serves repeated concurrent
-  re-plans from a warm incremental solver whose schedules are bitwise
-  its cold ones; the port takes the cold route.  Runtime conditions,
-  online admission and PU-loss recovery raise ``NotImplementedError``
-  naming their ``ROADMAP.md`` item.
+  cached keyed by (workload signatures + progress, objective, resolved
+  mode, route knobs, condition); the objective-independent solver state
+  (``ConcurrentCaches``) is one pool per session.  Runtime conditions
+  and PU-loss recovery raise ``NotImplementedError`` naming their
+  ``ROADMAP.md`` item.
+* ``admit`` / ``advance`` / ``retire`` / ``replan_active`` maintain the
+  online serving set: each re-plan covers every active request's
+  *remaining* ops (``Workload.tail`` views), served by a warm
+  :class:`~repro_torch.core.search.IncrementalConcurrentSolver` per
+  workload tuple whose schedules are bitwise the cold
+  ``solve_concurrent`` ones (``stats["replans_warm"]`` /
+  ``stats["replans_cold"]`` count the split); ``horizon_states`` bounds
+  a re-plan to the next exact window
+  (:func:`~repro_torch.core.search.solve_concurrent_horizon`).
+  ``admit`` / ``retire`` / ``replan_active`` return ``None``, not a
+  ``Plan``, when nothing is left to schedule.
 * ``execute`` runs a plan through a compiled, cached
   :class:`~repro_torch.core.laneprogram.LaneProgram` by default — inline
   for a chain, on one worker thread and one CUDA stream per lane when
@@ -41,6 +50,7 @@ import hashlib
 import json
 from typing import Any, Mapping, Sequence
 
+from .capture import arg_signature as _arg_signature
 from .contention import ContentionModel
 from .costmodel import EDGE_PUS, CostTable, PUSpec
 from .executor import ScheduleExecutor
@@ -49,9 +59,11 @@ from .laneprogram import LaneProgram
 from .op import FusedOp, OpGraph, chain_graph
 from .schedule import (ConcurrentSchedule, DagSchedule, ParallelSchedule,
                        SeqSchedule, schedule_from_dict, schedule_to_dict)
-from .search import (DAG_ALGORITHMS, ConcurrentCaches, _not_ported,
-                     _pair_cache, solve_concurrent, solve_concurrent_aligned,
-                     solve_dag, solve_parallel, solve_sequential)
+from .search import (DAG_ALGORITHMS, ConcurrentCaches,
+                     IncrementalConcurrentSolver, _not_ported, _pair_cache,
+                     solve_concurrent, solve_concurrent_aligned,
+                     solve_concurrent_horizon, solve_dag, solve_parallel,
+                     solve_sequential)
 from .targets import pu_specs_for_targets, resolve_targets
 from .workload import Workload
 
@@ -120,11 +132,6 @@ class Plan:
                    mode=d.get("mode", ""))
 
 
-def _arg_signature(a) -> tuple:
-    """(shape, dtype) of one input, without copying it to the host."""
-    return (tuple(a.shape), str(a.dtype), str(getattr(a, "device", "")))
-
-
 def _inputs_signature(inputs) -> tuple | None:
     """Hashable shapes/dtypes/devices signature of ``execute`` inputs:
     one sorted ``(op, per-arg signature)`` tuple per request mapping."""
@@ -181,8 +188,8 @@ class Orchestrator:
 
     def __init__(self, cost, pus: Mapping[str, PUSpec] | None = None,
                  contention: ContentionModel | None = None,
-                 max_cached_plans: int = 256, max_cached_programs: int = 64,
-                 targets=None):
+                 max_cached_plans: int = 256, max_cache_pools: int = 32,
+                 max_cached_programs: int = 64, targets=None):
         if not (isinstance(cost, CostTable) or hasattr(cost, "build_table")
                 or hasattr(cost, "profile")):
             raise TypeError(
@@ -206,14 +213,19 @@ class Orchestrator:
                                          targets=self.targets)
         self.stats = {"hits": 0, "misses": 0,
                       "program_hits": 0, "program_misses": 0,
-                      "plan_evictions": 0, "program_evictions": 0}
+                      "replans_warm": 0, "replans_cold": 0,
+                      "plan_evictions": 0, "program_evictions": 0,
+                      "warm_evictions": 0}
         self._max_plans = max_cached_plans
+        self._max_pools = max_cache_pools
         self._max_programs = max_cached_programs
         self._programs: dict[tuple, LaneProgram] = {}  # insertion-ordered LRU
         self._regs: dict[int, _Registration] = {}
         self._by_graph: dict[int, int] = {}          # id(graph) -> handle
         self._plans: dict[tuple, Plan] = {}          # insertion-ordered LRU
         self._caches: ConcurrentCaches | None = None
+        self._warm: dict[tuple, IncrementalConcurrentSolver] = {}
+        self._active: dict[int, int] = {}            # handle -> ops done
 
     def _evict_lru(self, cache: dict, cap: int, stat: str,
                    close: bool = False) -> None:
@@ -355,23 +367,37 @@ class Orchestrator:
                     "algorithm=/max_states= route the M >= 2 concurrent "
                     "search; a single-request concurrent plan is a solo "
                     "best-PU walk with nothing to route")
-        return self._plan_cached(regs, hs, objective, mode, algorithm,
-                                 max_states)
+        return self._plan_cached(
+            [(reg, 0) for reg in regs], hs, objective, mode,
+            algorithm, max_states)
 
-    def _plan_cached(self, regs: list[_Registration], hs: tuple[int, ...],
-                     objective: str, mode: str, algorithm: str = "auto",
-                     max_states: int | None = None) -> Plan:
+    def _cond_key(self) -> tuple:
+        """The session condition's per-PU key, as the reference's
+        ``RuntimeCondition().key(pus)`` gives it for the nominal
+        condition (runtime conditions are not ported yet, ``ROADMAP.md``
+        item 7, so every key is the nominal one)."""
+        return tuple((p, 1.0) for p in sorted(self.pus))
+
+    def _plan_cached(self, regs_progress: list[tuple[_Registration, int]],
+                     hs: tuple[int, ...], objective: str, mode: str,
+                     algorithm: str = "auto",
+                     max_states: int | None = None,
+                     horizon_states: int | None = None) -> Plan:
         # the sequential/concurrent solvers consume only the chain + dense
         # cost views (covered by the workload signature); the parallel
         # and DAG solves also consume the graph's edge structure
         # (phases/branches — predecessor sets), so their keys include the
-        # structure hash.  algorithm/max_states are in the key: a
-        # forced-pairwise plan is never served a cached grid one.
+        # structure hash.  algorithm/max_states/horizon_states are in the
+        # key: a forced-pairwise plan is never served a cached grid one,
+        # nor a full plan a cached horizon window.  The condition stays
+        # the LAST element, as in the reference.
         if mode in ("parallel", "dag"):
-            wl_key = tuple((reg.sig, reg.struct_sig) for reg in regs)
+            wl_key = tuple((reg.sig, reg.struct_sig, prog)
+                           for reg, prog in regs_progress)
         else:
-            wl_key = tuple(reg.sig for reg in regs)
-        key = (wl_key, objective, mode, algorithm, max_states)
+            wl_key = tuple((reg.sig, prog) for reg, prog in regs_progress)
+        key = (wl_key, objective, mode, algorithm, max_states,
+               horizon_states, self._cond_key())
         plan = self._plans.get(key)
         if plan is not None:
             self.stats["hits"] += 1
@@ -383,7 +409,8 @@ class Orchestrator:
                 plan = dataclasses.replace(plan, handles=hs)
             return plan
         self.stats["misses"] += 1
-        plan = self._solve(regs, hs, objective, mode, algorithm, max_states)
+        plan = self._solve(regs_progress, hs, objective, mode,
+                           algorithm, max_states, horizon_states)
         plan.cache_key = key
         self._plans[key] = plan
         self._evict_lru(self._plans, self._max_plans, "plan_evictions")
@@ -400,22 +427,44 @@ class Orchestrator:
             self._caches = ConcurrentCaches()
         return self._caches
 
-    def _solve(self, regs: list[_Registration], hs: tuple[int, ...],
-               objective: str, mode: str, algorithm: str = "auto",
-               max_states: int | None = None) -> Plan:
-        wls = [reg.wl for reg in regs]
+    def _warm_solver(self, wls: list[Workload]
+                     ) -> IncrementalConcurrentSolver:
+        """Memoized warm re-planner for a (full-workload signatures,
+        condition) tuple, sharing the session's cache pool with the cold
+        path — cold solves warm the pool for later warm solves and vice
+        versa."""
+        key = (tuple(wl.signature() for wl in wls), self._cond_key())
+        inc = self._warm.get(key)
+        if inc is None:
+            inc = IncrementalConcurrentSolver(wls, self.contention,
+                                              caches=self._pool())
+            self._warm[key] = inc
+            self._evict_lru(self._warm, self._max_pools, "warm_evictions")
+        else:
+            self._warm[key] = self._warm.pop(key)     # LRU refresh
+        return inc
+
+    def _solve(self, regs_progress: list[tuple[_Registration, int]],
+               hs: tuple[int, ...], objective: str, mode: str,
+               algorithm: str = "auto",
+               max_states: int | None = None,
+               horizon_states: int | None = None) -> Plan:
+        wls_full = [reg.wl for reg, _ in regs_progress]
+        wls = [wl if prog == 0 else wl.tail(prog)
+               for wl, (_, prog) in zip(wls_full, regs_progress)]
         if mode == "sequential":
-            reg, wl = regs[0], wls[0]
+            reg, wl = regs_progress[0][0], wls[0]
             sched = solve_sequential(wl.chain, reg.graph.ops, reg.table,
                                      self.pus, objective, workload=wl)
             return Plan("sequential", sched, objective, hs, mode)
         if mode == "parallel":
-            reg, wl = regs[0], wls[0]
+            reg, wl = regs_progress[0][0], wls[0]
             sched = solve_parallel(reg.graph, reg.table, self.pus,
                                    self.contention, objective, workload=wl)
             return Plan("parallel", sched, objective, hs, mode)
         if mode == "dag":
-            reg = regs[0]
+            # DAG plans always cover the whole graph
+            reg = regs_progress[0][0]
             sched = solve_dag(
                 reg.graph, reg.table, self.pus, self.contention, objective,
                 algorithm=algorithm, workload=self._dag_wl(reg),
@@ -430,29 +479,91 @@ class Orchestrator:
                 self.contention, objective, dense0=w0.dense,
                 dense1=w1.dense, cache=cache)
             return Plan("concurrent", sched, objective, hs, mode)
+        if algorithm == "auto" and max_states is None:
+            # warm fast path: the persistent per-tuple incremental solver
+            # (bitwise the cold routes below; None on routes it cannot
+            # reproduce bitwise)
+            inc = self._warm_solver(wls_full)
+            sched = inc.solve([prog for _, prog in regs_progress],
+                              objective, horizon_states=horizon_states)
+            if sched is not None:
+                self.stats["replans_warm"] += 1
+                return Plan("concurrent", sched, objective, hs, mode)
+        self.stats["replans_cold"] += 1
+        if horizon_states is not None:
+            sched = solve_concurrent_horizon(
+                wls, self.contention, objective, caches=pool,
+                horizon_states=horizon_states)
+            return Plan("concurrent", sched, objective, hs, mode)
         kw = {} if max_states is None else {"max_states": max_states}
         sched = solve_concurrent(wls, self.contention, objective,
                                  algorithm=algorithm, caches=pool, **kw)
         return Plan("concurrent", sched, objective, hs, mode)
 
+    # -- online admission (the serving scenario) ----------------------------
+    def admit(self, h: int, objective: str = "latency",
+              horizon_states: int | None = None) -> Plan | None:
+        """Admit a registered request into the active concurrent set and
+        re-plan the set from every member's current progress — the
+        request-arriving-mid-flight case.
+
+        Returns ``None`` — never a ``Plan`` — exactly when no active
+        request (the admitted one included) has remaining ops.
+        ``horizon_states`` bounds the re-plan to the next exact window
+        (see :meth:`replan_active`)."""
+        self._reg(h)
+        self._active.setdefault(h, 0)
+        return self._replan_active(objective, horizon_states)
+
+    def retire(self, h: int, objective: str = "latency",
+               horizon_states: int | None = None) -> Plan | None:
+        """Remove a request from the active set (completed or cancelled)
+        and re-plan the remainder.  Returns ``None`` exactly when there
+        is nothing left to schedule: the set emptied, or every remaining
+        member is fully advanced.  A handle not in the active set raises
+        ``KeyError``."""
+        if h not in self._active:
+            raise KeyError(f"handle {h} is not in the active set "
+                           f"({sorted(self._active)})")
+        del self._active[h]
+        if not self._active:
+            return None
+        return self._replan_active(objective, horizon_states)
+
+    def advance(self, h: int, n_ops: int = 1) -> int:
+        """Record execution progress (completed op count) for an active
+        request; the next re-plan covers only the remaining tail."""
+        if h not in self._active:
+            raise KeyError(f"handle {h} is not in the active set")
+        if n_ops < 0:
+            raise ValueError(f"advance: n_ops must be >= 0, got {n_ops}")
+        reg = self._regs[h]
+        self._active[h] = min(self._active[h] + n_ops, reg.wl.n)
+        return self._active[h]
+
+    def replan_active(self, objective: str = "latency",
+                      horizon_states: int | None = None) -> Plan | None:
+        """Re-plan the active concurrent set from every member's current
+        progress without changing membership, warm whenever possible
+        (``stats["replans_warm"]``).  With ``horizon_states`` the plan
+        covers only the next exact window of ``<= horizon_states`` grid
+        states (``schedule.mode == "horizon"``), and the caller re-plans
+        again at the window frontier.  Returns ``None`` exactly when no
+        active request has remaining ops."""
+        return self._replan_active(objective, horizon_states)
+
+    def _replan_active(self, objective: str,
+                       horizon_states: int | None = None) -> Plan | None:
+        items = [(h, p) for h, p in sorted(self._active.items())
+                 if p < self._regs[h].wl.n]
+        if not items:
+            return None
+        regs_progress = [(self._regs[h], p) for h, p in items]
+        return self._plan_cached(regs_progress, tuple(h for h, _ in items),
+                                 objective, "concurrent",
+                                 horizon_states=horizon_states)
+
     # -- what later slices add ------------------------------------------------
-    def admit(self, h: int, *args, **kwargs):
-        """Online admission into the active concurrent set; not ported
-        yet."""
-        raise _not_ported("online admission (admit)", 5)
-
-    def advance(self, h: int, n_ops: int = 1):
-        """Execution progress of an active request; not ported yet."""
-        raise _not_ported("online admission (advance)", 5)
-
-    def retire(self, h: int, *args, **kwargs):
-        """Removal from the active concurrent set; not ported yet."""
-        raise _not_ported("online admission (retire)", 5)
-
-    def replan_active(self, *args, **kwargs):
-        """Re-plan of the active concurrent set; not ported yet."""
-        raise _not_ported("online admission (replan_active)", 5)
-
     def on_condition(self, cond):
         """Folding a runtime condition into the session; not ported
         yet."""

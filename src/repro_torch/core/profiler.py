@@ -11,7 +11,11 @@ Port of ``repro.core.profiler``.  Two complementary paths fill the same
 
 CUDA calls return before the card has finished, so every timed call is
 fenced with ``torch.cuda.synchronize`` on the devices its inputs and
-outputs lie on.  ``trace_fused_ops`` (a jaxpr walk in the reference) is
+outputs lie on.  A ``jit=True`` target's cell on a CUDA device is timed
+as the lane serves it: the op captured as a CUDA graph
+(:mod:`repro_torch.core.capture`) and replayed, inputs copied in and
+outputs copied out, as the reference times such a cell jitted.
+``trace_fused_ops`` (a jaxpr walk in the reference) is
 not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .capture import capture_call
 from .costmodel import CostEntry, CostTable, EdgeSoCCostModel
 from .op import FusedOp, OpGraph
 
@@ -40,6 +45,7 @@ class Measurement:
     median: float
     best: float
     times: tuple[float, ...]
+    captured: bool = False      # timed as a captured CUDA-graph replay
 
     @property
     def spread(self) -> float:
@@ -74,34 +80,61 @@ def place(args: Sequence[Any], device) -> tuple:
                  for a in args)
 
 
+def _captured(fn: Callable, args: tuple, device):
+    """``fn`` as a replay of its capture on ``device``'s CUDA device
+    (None where there is none, or the capture fails — the lane then
+    serves it eagerly too)."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return None
+    try:
+        cap, _ = capture_call(fn, args, device)
+    except Exception as e:
+        _log.info("measure_callable_stats: capture failed (%s: %s); "
+                  "timing eagerly", type(e).__name__, e)
+        return None
+    return cap
+
+
 def measure_callable_stats(fn: Callable, args: Sequence[Any], *,
                            warmup: int = 3, iters: int = 10,
+                           jit: bool = True,
                            device: Any = None) -> Measurement:
     """Wall-clock :class:`Measurement` of ``fn(*args)``.
 
     ``device`` moves the inputs there first (so transfers are not billed
-    to the payload).  Every warm-up and timed call is fenced on the
-    devices of its inputs and outputs: without the fence a CUDA payload
-    times as its launch cost alone."""
+    to the payload).  ``jit=True`` with a CUDA ``device`` times the call
+    captured as a CUDA graph and replayed (``captured`` in the result;
+    eagerly when the capture fails), ``jit=False`` eagerly.  Every
+    warm-up and timed call is fenced on the devices of its inputs and
+    outputs: without the fence a CUDA payload times as its launch cost
+    alone."""
     args = place(args, device)
-    for _ in range(max(warmup, 1)):   # at least once: first-use builds
-        fence(args, fn(*args))
-    ts = []
-    for _ in range(max(iters, 1)):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        fence(args, out)
-        ts.append(time.perf_counter() - t0)
+    cap = _captured(fn, args, device) if jit else None
+    run = fn if cap is None else (lambda *a: cap.replay(a))
+    try:
+        for _ in range(max(warmup, 1)):   # at least once: first-use builds
+            fence(args, run(*args))
+        ts = []
+        for _ in range(max(iters, 1)):
+            t0 = time.perf_counter()
+            out = run(*args)
+            fence(args, out)
+            ts.append(time.perf_counter() - t0)
+    finally:
+        if cap is not None:
+            cap.release()
     return Measurement(median=float(np.median(ts)), best=float(min(ts)),
-                       times=tuple(ts))
+                       times=tuple(ts), captured=cap is not None)
 
 
 def measure_callable(fn: Callable, args: Sequence[Any], *, warmup: int = 3,
-                     iters: int = 10, device: Any = None) -> float:
+                     iters: int = 10, jit: bool = True,
+                     device: Any = None) -> float:
     """Median wall-clock seconds of ``fn(*args)`` (fenced).  Scalar form
     of :func:`measure_callable_stats`."""
     return measure_callable_stats(fn, args, warmup=warmup, iters=iters,
-                                  device=device).median
+                                  jit=jit, device=device).median
 
 
 class AnalyticProfiler:
@@ -128,12 +161,14 @@ class MeasuredProfiler:
       is measured *on every bound backend*, its inputs moved to the
       target's device, and each measurement lands directly in that
       lane's column (``kernel`` = median; ``dispatch``/``h2d``/``d2h``/
-      ``power`` from the target's declared pricing).  Full distributions
+      ``power`` from the target's declared pricing), as a captured
+      replay on a ``jit`` target's CUDA device.  Full distributions
       go to ``table.meta["measurements"]``
-      (``{(op, lane): {"median", "best", "spread"}}``).  Payload-less
-      ops fall back to the analytic CPU estimate on every lane (noted in
-      ``table.meta["analytic_fallback"]``); an op a target declares in
-      ``meta["unsupported_on"]`` gets no cell on that lane.
+      (``{(op, lane): {"median", "best", "spread", "captured"}}``).
+      Payload-less ops fall back to the analytic CPU estimate on every
+      lane (noted in ``table.meta["analytic_fallback"]``); an op a
+      target declares in ``meta["unsupported_on"]`` gets no cell on
+      that lane.
 
     A measurement that *fails* is never silently swallowed: each failure
     is logged, collected into the returned table's
@@ -234,7 +269,7 @@ class MeasuredProfiler:
                     m = measure_callable_stats(
                         fn, op.meta["example_inputs"],
                         warmup=self.warmup, iters=self.iters,
-                        device=tgt.device)
+                        jit=tgt.jit, device=tgt.device)
                 except Exception as e:
                     if strict:
                         raise RuntimeError(
@@ -248,7 +283,8 @@ class MeasuredProfiler:
                         i, op.name, tgt.name, failures[(i, lane)])
                     continue
                 stats[(i, lane)] = {"median": m.median, "best": m.best,
-                                    "spread": m.spread}
+                                    "spread": m.spread,
+                                    "captured": m.captured}
                 table.set(i, lane, CostEntry(
                     kernel=m.median, dispatch=tgt.dispatch_s,
                     h2d=tgt.handoff_s, d2h=tgt.handoff_s,

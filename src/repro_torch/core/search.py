@@ -1,11 +1,9 @@
 """Search engine (Algorithm 1, Stage 3): the sequential, parallel, DAG
-and concurrent solvers.
+and concurrent solvers, and the serving-time re-planners.
 
-A copy of ``repro.core.search`` without the bounded-horizon solver and
-the warm incremental re-planner, which wait for a later slice
-(``ROADMAP.md``, "Modules to port", items 3-4).  What is here is the
-reference's code as it stands, so every route gives bitwise the
-reference's schedules, latencies and energies:
+A copy of ``repro.core.search``: the reference's code as it stands, so
+every route gives bitwise the reference's schedules, latencies, energies
+and error messages:
 
 * ``dijkstra`` — textbook Dijkstra over the explicit execution graph
   (node-weighted; node weights folded into incoming edges).
@@ -41,6 +39,11 @@ reference's schedules, latencies and energies:
   oracle), larger grids stitch a rolling-horizon merge
   (``_solve_concurrent_rolling``), and custom contention laws take the
   pairwise-merge fallback (``_solve_concurrent_pairwise``).
+* ``solve_concurrent_horizon`` — the exact bounded-lookahead window of a
+  concurrent schedule (the serving loop's bounded-latency re-plan), and
+  ``IncrementalConcurrentSolver`` — the warm re-planner of a fixed
+  workload tuple, whose schedules from any progress are bitwise the cold
+  ``solve_concurrent`` / ``solve_concurrent_horizon`` ones on the tails.
 """
 from __future__ import annotations
 
@@ -2138,19 +2141,331 @@ def _solve_concurrent_pairwise(
 
 
 # ---------------------------------------------------------------------------
-# Serving-time re-planners (later slices)
+# Warm-start incremental re-planning (the serving hot path)
 # ---------------------------------------------------------------------------
 
 
-def solve_concurrent_horizon(*args, **kwargs):
-    """The bounded-lookahead re-planner of ``repro.core.search``; not
-    ported yet."""
-    raise _not_ported("solve_concurrent_horizon", 3)
+def solve_concurrent_horizon(
+    workloads: Sequence[Workload],
+    contention: ContentionModel | None = None,
+    objective: str = "latency",
+    caches: ConcurrentCaches | None = None,
+    horizon_states: int = DEFAULT_HORIZON_STATES,
+) -> ConcurrentSchedule:
+    """Exact bounded-lookahead *prefix* of a concurrent schedule.
+
+    Co-schedules only the next window of ops across all M requests —
+    window lengths proportional to each request's remaining chain,
+    bounded to ``horizon_states`` grid states — with the exact
+    vectorized sweep, and returns that window (``mode="horizon"``).
+    This is the serving engine's bounded-latency re-plan primitive: the
+    cost of a re-plan is O(``horizon_states``) regardless of how much
+    work remains, so admission never stalls behind a full-grid solve.
+    The window is a feasible prefix of a full schedule (every unfinished
+    request advances ≥ 1 op); callers execute it and re-plan at the
+    window frontier.  Requires the default group co-execution laws
+    (custom laws have no windowed exact route — use
+    ``solve_concurrent(algorithm="pairwise")``).
+    """
+    contention = contention or ContentionModel()
+    wls = list(workloads)
+    m = len(wls)
+    if m == 0:
+        raise ValueError("solve_concurrent_horizon needs at least one "
+                         "workload")
+    if horizon_states < 2:
+        raise ValueError(
+            f"horizon_states must be >= 2 (one advanced op needs a "
+            f"2-state axis), got {horizon_states}")
+    if m == 1:
+        w = _window_lengths([wls[0].n], horizon_states)[0]
+        steps, lat, eng = _solo_step_walk(wls[0], 0, 1, objective, 0, w)
+        return ConcurrentSchedule(steps=steps, latency=lat, energy=eng,
+                                  objective=objective, mode="horizon")
+    if not uses_default_group(contention):
+        raise ValueError(
+            "solve_concurrent_horizon windows the exact grid sweep, which "
+            "requires the default group co-execution laws; "
+            f"{type(contention).__name__} overrides them — use "
+            "solve_concurrent(algorithm='pairwise') for a full solve")
+    ctx = _GridContext(wls, contention, objective, caches)
+    w = _window_lengths([wl.n for wl in wls], horizon_states)
+    steps, energy = ctx.sweep([0] * m, w)
+    return ConcurrentSchedule(steps=steps,
+                              latency=sum(st.cost for st in steps),
+                              energy=energy, objective=objective,
+                              mode="horizon")
+
+
+class _PairCacheView:
+    """A parent :class:`~repro_torch.core.contention.PairCostCache` re-exposed
+    over tail dense views that carry the *parent's* signature ids
+    (``_tail_sig_view``): table lookups by those ids return values
+    bitwise-identical to a tail-built cache's, because each entry
+    depends only on the signature's row content.  Internal to the warm
+    M = 2 re-plan path — the views must never be used to *build* a new
+    cache (their ``sig_row`` still indexes parent rows)."""
+
+    def __init__(self, cache: PairCostCache, d0: DenseCostTable,
+                 d1: DenseCostTable):
+        self._cache = cache
+        self.d0 = d0
+        self.d1 = d1
+
+    def edge_tables(self, objective: str):
+        return self._cache.edge_tables(objective)
+
+
+def _tail_sig_view(wl: Workload, pos: int) -> Workload:
+    """``wl.tail(pos)`` whose dense view keeps the parent's signature
+    ids (instead of lazily re-deriving a tail-local alphabet), so the
+    parent's signature-indexed edge tables stay directly addressable.
+    ``sig_row`` is inherited verbatim and indexes *parent* rows — valid
+    for table lookups only, never for building caches from the view."""
+    if pos == 0:
+        return wl
+    tl = wl.tail(pos)
+    d, pd = tl.dense, wl.dense
+    d._sig = pd.sig[pos:]
+    d._sig_row = pd.sig_row
+    return tl
 
 
 class IncrementalConcurrentSolver:
-    """The warm-start re-planner of ``repro.core.search``; not ported
-    yet."""
+    """Warm-start re-planner for a fixed concurrent workload tuple.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("IncrementalConcurrentSolver", 4)
+    Built once per (workload tuple, contention model, condition) — the
+    orchestrator keeps one per active handle set — it persists the
+    per-objective grid contexts (solo edges, signature arrays) and
+    shares the content-keyed pair/group edge tables of a
+    :class:`ConcurrentCaches` pool, so that every re-plan event of the
+    serving lifecycle prices only what changed:
+
+    * **advance** — the remaining sub-box is re-swept on the persistent
+      context; no tail views, no ``np.unique`` signature derivation, no
+      edge-table builds.
+    * **retire** (a member finishes) — the surviving subset's context is
+      assembled from the same memoized per-request pieces, and every
+      group table over surviving members is a pool hit.
+    * **admit** (a new member) — the orchestrator builds a solver for
+      the widened tuple; tables over previously-seen members (and over
+      re-admitted models, keyed by content) are pool hits, so only
+      subsets involving genuinely new content are priced.
+    * **condition fold-in** — condition-scaled workloads have new
+      content signatures, so their tables re-price exactly once into
+      the new condition's pool and every subsequent re-plan under that
+      condition is warm again.
+
+    ``solve(progress, objective)`` returns a schedule **bitwise
+    identical** to ``solve_concurrent([wl.tail(p) for unfinished], ...)``
+    on the same state — same auto routing (solo walk / pair A* /
+    grid sweep / rolling merge), same relaxation order, same tie
+    policy, same FP accumulation — the cold solver remains the oracle
+    (``tests/test_torch_admission.py`` replays random traces against
+    it, and against the reference package).  Routes the warm layer
+    cannot reproduce bit-for-bit (custom contention laws, the pairwise
+    fallback) return ``None`` so callers fall back to the cold solver.
+    ``horizon_states`` bounds a re-plan to the next window, mirroring
+    :func:`solve_concurrent_horizon`.
+    """
+
+    def __init__(self, workloads: Sequence[Workload],
+                 contention: ContentionModel | None = None,
+                 caches: ConcurrentCaches | None = None,
+                 max_states: int | None = None,
+                 window_states: int = DEFAULT_WINDOW_STATES):
+        self.wls = list(workloads)
+        self.m = len(self.wls)
+        if self.m == 0:
+            raise ValueError("IncrementalConcurrentSolver needs at least "
+                             "one workload")
+        self.cm = contention or ContentionModel()
+        self.caches = caches if caches is not None else ConcurrentCaches()
+        self.max_states = (DEFAULT_MAX_STATES if max_states is None
+                           else max_states)
+        self.window_states = window_states
+        self.ns = [wl.n for wl in self.wls]
+        self.stats = {"solves": 0, "delegated": 0}
+        self._ctx: dict[tuple, _GridContext] = {}
+        self._solo: dict[tuple[int, str], tuple] = {}
+        self._last_bad: dict[tuple[int, str], int] = {}
+
+    # -- memoized per-request pieces ----------------------------------------
+    def _solo_for(self, r: int, objective: str) -> tuple:
+        key = (r, objective)
+        solo = self._solo.get(key)
+        if solo is None:
+            solo = _solo_edges(self.wls[r].dense, objective)
+            self._solo[key] = solo
+        return solo
+
+    def _context(self, active: tuple[int, ...], objective: str
+                 ) -> _GridContext:
+        key = (active, objective)
+        ctx = self._ctx.get(key)
+        if ctx is None:
+            # feasibility is progress-dependent, so it is checked per
+            # solve over the remaining tail (mirroring the cold error),
+            # not once over the full chains here
+            ctx = _GridContext([self.wls[r] for r in active], self.cm,
+                               objective, self.caches,
+                               check_advanceable=False)
+            self._ctx[key] = ctx
+        return ctx
+
+    def _check_tails(self, active: tuple[int, ...], progress: Sequence[int],
+                     objective: str) -> None:
+        """Per-solve advanceability gate over the remaining tails —
+        message-identical to ``_require_all_advanceable`` on the cold
+        path's tail workloads (request indices are positions in the
+        active tuple; chain positions are tail-relative)."""
+        for idx, r in enumerate(active):
+            key = (r, objective)
+            last = self._last_bad.get(key)
+            if last is None:
+                bad = ~np.isfinite(np.asarray(self._solo_for(r, objective)[0]))
+                last = int(bad.nonzero()[0][-1]) if bad.any() else -1
+                self._last_bad[key] = last
+            p = progress[r]
+            if last >= p:
+                skey = np.asarray(self._solo_for(r, objective)[0])
+                pos = int(np.argmax(~np.isfinite(skey[p:])))
+                raise InfeasibleScheduleError(
+                    f"request {idx}: {self.wls[r].op_name(p + pos)} at "
+                    f"chain position {pos} is unsupported on every PU — "
+                    "no concurrent transition can advance it")
+
+    def _tail_n_sig(self, r: int, p: int) -> int:
+        return int(np.unique(self.wls[r].dense.sig[p:]).size)
+
+    # -- solve routes --------------------------------------------------------
+    def _solo_tail(self, r: int, lo: int, hi: int | None, objective: str,
+                   mode: str) -> ConcurrentSchedule:
+        steps, lat, eng = _solo_step_walk(self.wls[r], 0, 1, objective,
+                                          lo, hi,
+                                          solo=self._solo_for(r, objective))
+        return ConcurrentSchedule(steps=steps, latency=lat, energy=eng,
+                                  objective=objective, mode=mode)
+
+    def _solve_pair(self, active: tuple[int, ...], progress: Sequence[int],
+                    objective: str) -> ConcurrentSchedule:
+        a, b = active
+        wa, wb = self.wls[a], self.wls[b]
+        pa, pb = progress[a], progress[b]
+        base = _pair_cache(self.caches, self.cm, self.wls, a, b)
+        ta, tb = _tail_sig_view(wa, pa), _tail_sig_view(wb, pb)
+        cache = (base if pa == 0 and pb == 0
+                 else _PairCacheView(base, ta.dense, tb.dense))
+        return solve_concurrent_joint(
+            ta.chain, ta.table, tb.chain, tb.table, wa.pus, self.cm,
+            objective, algorithm="astar", cache=cache)
+
+    def _sweep_box(self, active: tuple[int, ...], progress: Sequence[int],
+                   hi: Sequence[int], objective: str, mode: str
+                   ) -> ConcurrentSchedule:
+        ctx = self._context(active, objective)
+        steps, energy = ctx.sweep([progress[r] for r in active], hi)
+        return ConcurrentSchedule(steps=steps,
+                                  latency=sum(st.cost for st in steps),
+                                  energy=energy, objective=objective,
+                                  mode=mode)
+
+    def _solve_rolling(self, active: tuple[int, ...],
+                       progress: Sequence[int], objective: str
+                       ) -> ConcurrentSchedule:
+        ctx = self._context(active, objective)
+        budget = min(self.window_states, self.max_states)
+        ns = [self.ns[r] for r in active]
+        done = [progress[r] for r in active]
+        steps: list[ConcurrentStep] = []
+        energy = 0.0
+        while any(d < n for d, n in zip(done, ns)):
+            rem = [n - d for d, n in zip(done, ns)]
+            w = _window_lengths(rem, budget)
+            hi = [d + wi for d, wi in zip(done, w)]
+            wsteps, weng = ctx.sweep(done, hi)
+            steps.extend(wsteps)
+            energy += weng
+            done = hi
+        return ConcurrentSchedule(steps=steps,
+                                  latency=sum(st.cost for st in steps),
+                                  energy=energy, objective=objective,
+                                  mode="rolling")
+
+    def solve(self, progress: Sequence[int], objective: str = "latency",
+              horizon_states: int | None = None) -> ConcurrentSchedule | None:
+        """Warm re-plan from ``progress`` (completed-op count per
+        request; fully-advanced requests drop out of the schedule, whose
+        step tuples cover only the unfinished ones, exactly like the
+        cold path's active-set filtering).  Returns ``None`` when the
+        state routes to a path the warm layer cannot reproduce bitwise
+        (custom contention laws / pairwise) — fall back to
+        :func:`solve_concurrent`."""
+        progress = list(progress)
+        if len(progress) != self.m:
+            raise ValueError(
+                f"progress has {len(progress)} entries for {self.m} "
+                "workloads")
+        for r, (p, n) in enumerate(zip(progress, self.ns)):
+            if not 0 <= p <= n:
+                raise ValueError(
+                    f"request {r}: progress {p} outside [0, {n}]")
+        active = tuple(r for r in range(self.m) if progress[r] < self.ns[r])
+        if not active:
+            raise ValueError("solve: every request is fully advanced — "
+                             "nothing left to schedule")
+        if horizon_states is not None:
+            return self._solve_horizon(active, progress, objective,
+                                       horizon_states)
+        if len(active) == 1:
+            self.stats["solves"] += 1
+            return self._solo_tail(active[0], progress[active[0]], None,
+                                   objective, "joint")
+        if not uses_default_coexec(self.cm):
+            self.stats["delegated"] += 1
+            return None
+        if len(active) == 2:
+            self.stats["solves"] += 1
+            return self._solve_pair(active, progress, objective)
+        if not uses_default_group(self.cm):
+            self.stats["delegated"] += 1
+            return None
+        rem = [self.ns[r] - progress[r] for r in active]
+        n_states = math.prod(x + 1 for x in rem)
+        if n_states <= self.max_states:
+            self._check_tails(active, progress, objective)
+            self.stats["solves"] += 1
+            return self._sweep_box(active, progress,
+                                   [self.ns[r] for r in active],
+                                   objective, "joint-grid")
+        sig_states = math.prod(self._tail_n_sig(r, progress[r])
+                               for r in active)
+        if sig_states <= _ROLLING_TABLE_CAP:
+            self._check_tails(active, progress, objective)
+            self.stats["solves"] += 1
+            return self._solve_rolling(active, progress, objective)
+        self.stats["delegated"] += 1
+        return None
+
+    def _solve_horizon(self, active: tuple[int, ...],
+                       progress: Sequence[int], objective: str,
+                       horizon_states: int) -> ConcurrentSchedule | None:
+        if horizon_states < 2:
+            raise ValueError(
+                f"horizon_states must be >= 2 (one advanced op needs a "
+                f"2-state axis), got {horizon_states}")
+        if len(active) == 1:
+            r = active[0]
+            p = progress[r]
+            w = _window_lengths([self.ns[r] - p], horizon_states)[0]
+            self.stats["solves"] += 1
+            return self._solo_tail(r, p, p + w, objective, "horizon")
+        if not uses_default_group(self.cm):
+            self.stats["delegated"] += 1
+            return None      # cold solve_concurrent_horizon raises for this
+        self._check_tails(active, progress, objective)
+        rem = [self.ns[r] - progress[r] for r in active]
+        w = _window_lengths(rem, horizon_states)
+        hi = [progress[r] + wi for r, wi in zip(active, w)]
+        self.stats["solves"] += 1
+        return self._sweep_box(active, progress, hi, objective, "horizon")

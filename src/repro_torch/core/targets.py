@@ -6,7 +6,10 @@ declaration of how a lane executes —
 * which torch device the payloads run on (``device``; segment inputs
   are moved there before the segment runs),
 * which entry of an op's variant table is served (``dialect``; ``"ref"``
-  is the op's own ``fn``, the oracle payload), and
+  is the op's own ``fn``, the oracle payload),
+* whether its segments are captured as CUDA graphs and its cells timed
+  as captured replays (``jit``, the reference's jit policy; only a lane
+  on a CUDA device captures), and
 * how the planner should price its dispatch and cross-lane handoffs
   (``dispatch_s``, ``handoff_s``, ``is_accelerator``).
 
@@ -15,8 +18,8 @@ or planner code changes.  :class:`TargetRegistry` holds them by name;
 ``backends.default_registry()`` provides the builtin set (`numpy-eager`,
 `torch-cpu`, plus, per CUDA device, an eager reference lane and a
 hand-written-kernel lane) and ``Orchestrator(targets=...)`` binds lane
-names to registered targets.  The port jits nothing, so the reference's
-``jit`` and ``interpret`` fields are gone.
+names to registered targets.  The reference's ``interpret`` field (the
+Pallas interpret-mode knob) has no counterpart here.
 
 Verification contract: a non-``ref`` dialect variant is served by the
 compiled path only after a cold-run probe against the reference
@@ -86,6 +89,10 @@ class Target:
     ``op.fn``.  ``device`` (a ``torch.device``) is where the lane runs:
     the compiled path and the profiler move every segment input there
     first, so a lane never computes on another device by accident.
+    ``jit=True`` on a CUDA device captures the lane's warm segments as
+    CUDA graphs (kept only when verified, see
+    :mod:`repro_torch.core.laneprogram`) and has the profiler time its
+    cells as captured replays; elsewhere it changes nothing.
 
     The pricing fields feed :meth:`pu_spec`: ``handoff_s`` becomes the
     cost-table H2D/D2H column (charged by ``transition_cost`` on lane
@@ -98,6 +105,7 @@ class Target:
     name: str
     kind: str = "host"             # device-class label ("host", "cpu", "cuda")
     dialect: str = "ref"           # variant-table key; "ref" = op.fn oracle
+    jit: bool = True               # capture warm segments / profile captured
     device: Any = None             # a torch.device, or None = wherever-is
     is_accelerator: bool = False   # gate handoff pricing + boundary H2D/D2H
     dispatch_s: float = 2e-5       # per-op dispatch charged in the table
@@ -148,7 +156,8 @@ class Target:
 
     def __repr__(self) -> str:  # keep registry dumps readable
         return (f"Target({self.name!r}, kind={self.kind!r}, "
-                f"dialect={self.dialect!r}, device={self.device})")
+                f"dialect={self.dialect!r}, jit={self.jit}, "
+                f"device={self.device})")
 
 
 class TargetRegistry:

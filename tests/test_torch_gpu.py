@@ -340,3 +340,171 @@ def test_union_dag_with_two_card_inputs_caches_its_program(cuda):
     assert results_bitwise_equal(out, orch.execute(plan, other,
                                                    compile=False))
     assert not orch.program_for(plan, ins).stats["serial"]
+
+
+# ---------------------------------------------------------------------------
+# segments captured as CUDA graphs (the counterpart of the jit leg)
+# ---------------------------------------------------------------------------
+
+
+def _small_kernel_chain(seed=0, seq=128):
+    from repro_torch.core import kernel_chain
+    return kernel_chain(seed=seed, blocks=2, seq=seq, heads=4, head_dim=32,
+                        state=16, experts=8, top_k=2, moe_ff=32, chunk=32)
+
+
+def _kernel_lane_program(graph):
+    from repro_torch.core import ScheduleExecutor
+    from repro_torch.core.backends import cuda_kernels
+    lane = cuda_kernels(0)
+    ex = ScheduleExecutor([lane.name], targets={lane.name: lane})
+    return ex.compile_scheduled(graph, {i: lane.name
+                                        for i in range(len(graph))})
+
+
+@pytest.mark.gpu
+def test_kernel_lane_segment_captures_and_replays_bitwise_as_eager(cuda):
+    """A small chain on ``cuda-kernels``: the cold run probes and
+    captures the segment (``JIT``, ``"bitwise"``), and a warm replay
+    gives bitwise what the same program gives eagerly."""
+    from repro_torch.core import laneprogram as lp
+    from repro_torch.core import results_bitwise_equal
+    graph, ext = _small_kernel_chain()
+    prog = _kernel_lane_program(graph)
+    prog.run(ext)
+    seg = prog.segments[0]
+    assert seg.use_variant and seg.verified in ("bitwise", "tolerance")
+    assert (seg.mode, seg.jit_verified) == (lp.JIT, "bitwise"), \
+        seg.capture_error
+    replayed = prog.run(ext)
+    seg.mode = lp.WARM                  # the same program, eagerly
+    eager = prog.run(ext)
+    torch.cuda.synchronize()
+    assert results_bitwise_equal(replayed, eager)
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_warm_runs_on_other_inputs_leave_earlier_outputs_alone(cuda):
+    """A replay writes into the graph's fixed buffers; the outputs a run
+    hands out are copies, so a later run on other inputs changes none of
+    them."""
+    from repro_torch.core import laneprogram as lp
+    from repro_torch.core import results_bitwise_equal
+    graph, ext = _small_kernel_chain()
+    prog = _kernel_lane_program(graph)
+    prog.run(ext)
+    assert prog.segments[0].mode == lp.JIT
+    first = prog.run(ext)
+    keep = {i: t.clone() for i, t in first.items()}
+    other = {0: (ext[0][0] * 0.5 + 0.25,)}
+    second = prog.run(other)
+    torch.cuda.synchronize()
+    assert results_bitwise_equal(first, keep)
+    assert not torch.equal(second[0], first[0])
+    assert all(first[i].data_ptr() != second[i].data_ptr() for i in first)
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_threaded_program_captures_on_the_lanes_own_streams(cuda):
+    """Two small chains side by side on ``cuda:0`` and ``cuda-kernels``
+    (one thread and one stream a lane): every CUDA segment is captured
+    in its lane's worker, on its lane's stream, and the warm replays are
+    bitwise each request alone with the same assignment."""
+    from repro_torch.core import (CostEntry, CostTable, Orchestrator,
+                                  laneprogram as lp, results_bitwise_equal)
+    from repro_torch.core.backends import default_registry
+    from repro_torch.core.profiler import fence
+
+    reg = default_registry()
+    lanes = {n: reg.get(n) for n in ("cuda:0", "cuda-kernels")}
+    chains = [_small_kernel_chain(seed=s) for s in (0, 1)]
+    orch = Orchestrator(CostTable(list(lanes)), targets=lanes)
+    hs = []
+    for k, (graph, _) in enumerate(chains):
+        table = CostTable(list(lanes))
+        for i in range(len(graph)):
+            for lane in lanes:
+                fast = lane == ("cuda-kernels", "cuda:0")[k]
+                table.set(i, lane, CostEntry(kernel=1e-4 if fast else 5e-3,
+                                             dispatch=1e-5, h2d=0.0,
+                                             d2h=0.0, power=100.0))
+        hs.append(orch.register(graph, table=table))
+    plan = orch.plan(hs)
+    exts = [ext for _, ext in chains]
+    prog = orch.program_for(plan, exts)
+    assert not prog.stats["serial"]
+    captured_on = set()
+    real = lp._capture
+
+    def spy(fn, args, device):
+        captured_on.add(torch.cuda.current_stream(device).stream_id)
+        return real(fn, args, device)
+    lp._capture = spy
+    try:
+        fence([list(o.values()) for o in orch.execute(plan, exts)])
+    finally:
+        lp._capture = real
+    streams = {s.stream_id for _, s in prog.lane_streams().values()}
+    assert captured_on and captured_on <= streams
+    assert all(seg.mode == lp.JIT for seg in prog.segments), \
+        prog.stats["capture_errors"]
+    first = orch.execute(plan, exts)
+    second = orch.execute(plan, exts)
+    fence([list(o.values()) for o in first + second])
+    for r, (graph, ext) in enumerate(chains):
+        assert results_bitwise_equal(first[r], second[r])
+        alone = orch.executor.compile_scheduled(
+            graph, dict(plan.schedule.assignment_of(r)))
+        alone.run(ext)
+        got = alone.run(ext)
+        fence(list(got.values()))
+        assert results_bitwise_equal(first[r], got), r
+        alone.close()
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_a_payload_that_syncs_the_host_stays_eager(cuda):
+    """``.item()`` cannot be captured: the segment falls back to eager
+    with ``jit_verified is None`` and the reason recorded, and runs."""
+    from repro_torch.core import (FusedOp, ScheduleExecutor, chain_graph,
+                                  laneprogram as lp)
+    from repro_torch.core.backends import cuda_target
+    lane = cuda_target(0)
+    graph = chain_graph([
+        FusedOp("scale", "other", fn=lambda x: x * float(x.abs().max())),
+        FusedOp("tanh", "other", fn=torch.tanh)])
+    ex = ScheduleExecutor([lane.name], targets={lane.name: lane})
+    prog = ex.compile_scheduled(graph, {0: lane.name, 1: lane.name})
+    x = torch.linspace(-1, 1, 4096, device=cuda)
+    cold = prog.run({0: (x,)})
+    seg = prog.segments[0]
+    assert seg.mode == lp.WARM and seg.jit_verified is None
+    assert seg.capture_error
+    warm = prog.run({0: (x,)})
+    torch.cuda.synchronize()
+    assert torch.equal(warm[1], cold[1])
+
+
+@pytest.mark.gpu
+def test_launch_counts_of_a_replay_equal_the_eager_counts(cuda):
+    """A kernel replayed in a graph counts its launches as an eager run
+    does: one per kernel op, none while the graph is captured."""
+    from repro_torch.core import laneprogram as lp
+    graph, ext = _small_kernel_chain()
+    prog = _kernel_lane_program(graph)
+    prog.run(ext)
+    assert prog.segments[0].mode == lp.JIT
+    kernels.reset_launch_counts()
+    prog.run(ext)
+    torch.cuda.synchronize()
+    replayed = kernels.launch_counts()
+    prog.segments[0].mode = lp.WARM
+    kernels.reset_launch_counts()
+    prog.run(ext)
+    torch.cuda.synchronize()
+    assert replayed == kernels.launch_counts() == {
+        "flash_attention": 2, "ssd_scan": 2, "expert_glu": 2}
+    prog.close()
