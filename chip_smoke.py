@@ -69,7 +69,28 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    its run alone with the op -> lane assignment it was given and within
    the route bound of the interpreter; windows, re-plans with their solve
    ms, the cold cost per window and each request's time from admission
-   to completion are printed.
+   to completion are printed;
+7. serving under faults — (a) phase 3's planned route of A, and the same
+   route cut by one op on ``cuda:0``, lose ``cuda-kernels`` at an early
+   and a late kernel op under ``Orchestrator.execute`` (``recover=True``,
+   the default): one recovery each, the completed prefix bitwise the
+   fault-free run's, the result bitwise the interpreter's resume from
+   that frontier on the stitched assignment and within the route bound
+   of the oracle; ``on_condition`` on an active A re-stitches it
+   bitwise as ``DynamicScheduler.on_condition`` does; the nominal
+   condition is restored.  (b) ``ServingEngine(execution="real",
+   compile_exec=True)`` serves A, B and C (phases 3-4's graphs and
+   measured tables, on a fresh session) from a Poisson trace of 8
+   requests at 1.5 per A's predicted latency under bench_chaos's four
+   scenarios aimed at the card's lanes (a transient storm; a straggler
+   and a stall on ``cuda-kernels``, the stall's watchdog budget set
+   from phase 6's cold window costs; ``cuda-kernels`` lost and
+   restored): each run drains, no completion is a wrong answer (bitwise
+   its solo run with the assignment it was given, within the route
+   bound of the interpreter), every scripted event fired, and after the
+   loss the kernel lane's breaker opens, half-opens and closes.  The
+   reports, breaker transitions with their reasons, cache deltas and
+   window costs are printed; every kernel launched in the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -1592,6 +1613,336 @@ def phase_admission(main_cfg: dict, main: dict, conc: dict) -> dict:
     return dict(windows=windows, replans=replans, counts=counts, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving under faults at the Granite widths
+# ---------------------------------------------------------------------------
+
+KERNEL_LANE = "cuda-kernels"
+N_SERVED = 8                 # requests per chaos scenario
+SCENARIO_LIMIT_S = 240.0     # hard wall-clock limit of one scenario
+
+
+def _kernel_ops(graph, route) -> list[int]:
+    """Ops of ``graph`` that launch a hand-written kernel on the kernel
+    lane under ``route``."""
+    return [i for i, op in enumerate(graph.ops)
+            if op.name.rsplit(".", 1)[-1] in KERNEL_OF_OP
+            and route[i] == KERNEL_LANE]
+
+
+def _recover_once(label, orch, plan, h, graph, ext, k, oracle, spread):
+    """One ``pu_lost`` on the kernel lane at op ``k`` of ``plan`` (whose
+    program is warm): the frontier at the loss (``recover=False``), then
+    the default ``execute`` recovering from it.  Checks the recovery
+    count, the prefix bitwise the fault-free run's, the whole result
+    bitwise the interpreter's resume of the stitched assignment and
+    within the route bound of the oracle; restores the nominal
+    condition."""
+    from repro_torch.core import (FaultPlan, PULostError, RuntimeCondition,
+                                  results_bitwise_equal, solve_sequential)
+    from repro_torch.core.profiler import fence
+    n = len(graph)
+    clean = orch.execute(plan, ext)
+    fence(list(clean.values()))
+    faults = FaultPlan.single("pu_lost", lane=KERNEL_LANE, op=k)
+    try:
+        orch.execute(plan, ext, recover=False, faults=faults)
+        check(False, f"{label}: the pu_lost at op {k} fired")
+    except PULostError as e:
+        prefix = dict(e.partial[0])
+    fence(list(prefix.values()))
+    check(results_bitwise_equal(prefix, {i: clean[i] for i in prefix}),
+          f"{label}: the completed prefix at the loss (ops "
+          f"{sorted(prefix)}) is bitwise the fault-free run's")
+    faults.reset()
+    r0 = orch.stats["recoveries"]
+    t0 = time.perf_counter()
+    got = orch.execute(plan, ext, faults=faults)
+    fence(list(got.values()))
+    wall = time.perf_counter() - t0
+    check(orch.stats["recoveries"] == r0 + 1
+          and orch.condition.unavailable == {KERNEL_LANE},
+          f"{label}: stats['recoveries'] {r0} -> "
+          f"{orch.stats['recoveries']}, {KERNEL_LANE} unavailable")
+    p = len(prefix)
+    wl = orch.workload(h).under_condition(orch.condition.slowdown,
+                                          orch.condition.unavailable)
+    tail = solve_sequential(wl.chain[p:], graph.ops, None, orch.pus,
+                            workload=wl.tail(p))
+    stitched = dict(zip(tail.chain, tail.assignment))
+    want = orch.executor.run_scheduled(graph, stitched, ext,
+                                       completed=prefix)
+    fence(list(want.values()))
+    check(results_bitwise_equal(got, want),
+          f"{label}: the result is bitwise the interpreter's resume from "
+          f"the frontier on the stitched assignment (tail on "
+          f"{sorted(set(stitched.values()))})")
+    check(results_bitwise_equal({i: got[i] for i in prefix}, prefix),
+          f"{label}: the recovered result keeps the prefix as it was")
+    _drift_ok(f"{label}: recovered result against the interpreter oracle",
+              got, oracle, spread)
+    log(f"    {label}: loss at op {k} ({graph.ops[k].name}), prefix "
+        f"{p} of {n} ops, recovered execute {1e3 * wall:.1f} ms "
+        f"(re-plan + interpreter resume)")
+    orch.on_condition(RuntimeCondition())
+    check(orch.condition.nominal, f"{label}: nominal condition restored")
+    return wall
+
+
+def _recovery_on_main_path(main) -> dict:
+    """(a) Recovery of phase 3's planned route of A, and of the same
+    route cut by one op on ``cuda:0`` (so that the compiled frontier at
+    the loss is not empty), from a kernel-lane loss at an early and a
+    late kernel op; then ``on_condition``'s re-stitched plan against the
+    dynamic scheduler's."""
+    from repro_torch.core import (DynamicScheduler, Plan, RuntimeCondition,
+                                  SeqSchedule)
+    from repro_torch.core.profiler import fence
+    orch, h, graph, ext = main["orch"], main["h"], main["graph"], main["ext"]
+    spread = main["spread"]
+    n = len(graph)
+    plan = orch.plan(h)
+    route0 = [lane for _, lane in plan.route[0]]
+    oracle = orch.execute(plan, ext, compile=False)
+    fence(list(oracle.values()))
+    kops = _kernel_ops(graph, route0)
+    check(len(kops) >= 2, f"the planned route runs {len(kops)} kernel ops "
+                          f"on {KERNEL_LANE}")
+    early, late = kops[1], kops[-1]      # kops[0] may be op 0: no cut
+    walls = {}
+    for k in (early, late):
+        walls[("planned", k)] = _recover_once(
+            f"planned route, loss at op {k}", orch, plan, h, graph, ext,
+            k, oracle, spread)
+        route = list(route0)
+        route[k - 1] = "cuda:0"
+        lat, eng = orch.workload(h).evaluate(route)
+        cut = Plan("sequential", SeqSchedule(list(range(n)), route, lat,
+                                             eng, "latency"),
+                   "latency", (h,), "sequential")
+        fence(list(orch.execute(cut, ext).values()))     # cold: capture
+        walls[("cut", k)] = _recover_once(
+            f"route cut at op {k - 1}, loss at op {k}", orch, cut, h, graph,
+            ext, k, oracle, spread)
+        orch.program_for(cut, ext).close()
+    check(orch.plan(h).route == plan.route,
+          "after the recoveries the nominal plan is phase 3's route again")
+
+    # on_condition re-stitches an active chain as the dynamic scheduler
+    # does, bitwise
+    mid = n // 2
+    orch.admit(h)
+    orch.advance(h, mid)
+    cond = RuntimeCondition(slowdown={KERNEL_LANE: 8.0})
+    got = orch.on_condition(cond)
+    reg = orch._reg(h)
+    dyn = DynamicScheduler(reg.chain, graph.ops, reg.table, orch.pus,
+                           workload=reg.wl)
+    want = dyn.on_condition(mid, cond)
+    sched = got[(h, "latency")].schedule
+    check(list(got) == [(h, "latency")]
+          and sched.assignment == want.assignment
+          and sched.latency.hex() == want.latency.hex(),
+          f"on_condition({KERNEL_LANE} x8) at op {mid}: the re-stitched "
+          f"plan is bitwise DynamicScheduler.on_condition's "
+          f"({sched.latency.hex()}, tail {sched.assignment[mid:]})")
+    orch.retire(h)
+    orch.on_condition(RuntimeCondition())
+    check(orch.condition.nominal and orch.plan(h).route == plan.route,
+          "nominal condition restored; phase 3's plan again")
+    return walls
+
+
+class _Measured:
+    """Cost provider over tables measured in phases 3 and 4: a graph's
+    table by the graph's identity (nothing is profiled again)."""
+
+    def __init__(self, tables: dict):
+        self.tables = tables
+
+    def profile(self, graph):
+        return self.tables[id(graph)]
+
+
+def _scenario(name, trace, stall_budget):
+    """bench_chaos's four scenarios, aimed at the card's lanes: (chaos
+    trace, engine keywords)."""
+    from repro_torch.core import (ChaosEvent, ChaosTrace, ExecutionPolicy,
+                                  HealthPolicy)
+    t = [a.time for a in trace.arrivals]
+    if name == "transient_storm":
+        return [ChaosEvent(time=0.0, kind="transient", count=4)], {}
+    if name == "straggler":
+        return ([ChaosEvent(time=0.0, kind="straggler", lane=KERNEL_LANE,
+                            delay=0.005, count=-1)],
+                dict(calibration=4))
+    if name == "stall":
+        return ([ChaosEvent(time=0.0, kind="stall", lane=KERNEL_LANE,
+                            delay=30.0, count=-1)],
+                dict(exec_policy=ExecutionPolicy(
+                    timeout=stall_budget, min_timeout=stall_budget,
+                    max_retries=0), max_window_retries=1))
+    return ([ChaosEvent(time=t[3], kind="pu_lost", lane=KERNEL_LANE),
+             ChaosEvent(time=t[6], kind="pu_restored", lane=KERNEL_LANE)],
+            dict(cooldown_backoff=1.0))
+
+
+def _hard_limit(seconds):
+    """A context that fails the check if its body runs past ``seconds``
+    of wall clock (SIGALRM in the main thread)."""
+    import contextlib
+    import signal
+
+    @contextlib.contextmanager
+    def limit():
+        def on_alarm(signum, frame):
+            raise CheckFailed(f"a serving scenario ran past {seconds:.0f} s")
+        old = signal.signal(signal.SIGALRM, on_alarm)
+        signal.setitimer(signal.ITIMER_REAL, seconds)
+        try:
+            yield
+        finally:
+            signal.setitimer(signal.ITIMER_REAL, 0.0)
+            signal.signal(signal.SIGALRM, old)
+    return limit()
+
+
+def _serve_scenario(name, main, conc, lat_a, stall_budget) -> dict:
+    """One chaos scenario through ``ServingEngine(execution="real",
+    compile_exec=True)`` on a fresh session over phases 3-4's lanes and
+    tables; checks and prints its report."""
+    from repro_torch.core import (ArrivalTrace, ChaosTrace, HealthPolicy,
+                                  Orchestrator, SHED_REASONS, ServingEngine)
+    from repro_torch.core.profiler import fence
+    orch0, binding = main["orch"], main["binding"]
+    graphs, exts, hs = conc["graphs"], conc["exts"], conc["hs"]
+    names = "ABC"
+    tables = {id(g): orch0._reg(h).table for g, h in zip(graphs, hs)}
+    orch = Orchestrator(_Measured(tables), targets=binding)
+    trace = ArrivalTrace.poisson(list(names), rate=1.5 / lat_a,
+                                 n=N_SERVED, seed=7)
+    events, kw = _scenario(name, trace, stall_budget)
+    health = dict(cooldown=0.25 * lat_a)
+    for key in ("calibration", "cooldown_backoff"):
+        if key in kw:
+            health[key] = kw.pop(key)
+    eng = ServingEngine(orch, dict(zip(names, graphs)), execution="real",
+                        compile_exec=True, max_concurrent=3,
+                        inputs=dict(zip(names, exts)),
+                        health_policy=HealthPolicy(**health), **kw)
+    chaos = ChaosTrace(events, kind=name, seed=7)
+    t0 = time.perf_counter()
+    with _hard_limit(SCENARIO_LIMIT_S):
+        rep = eng.serve(trace, chaos=chaos)
+    wall = time.perf_counter() - t0
+    log(f"  scenario {name}: {len(chaos)} scripted event(s) "
+        f"{[(e.kind, e.lane, round(1e3 * e.time, 3)) for e in events]} "
+        f"(ms on the serving clock); served in {wall:.1f} s wall")
+    log(f"    completed {rep.completed}, shed {rep.shed} "
+        f"{rep.shed_reasons}; throughput {rep.throughput:.1f} req/s and "
+        f"request p50 / p99 {1e3 * rep.latency_p50:.3f} / "
+        f"{1e3 * rep.latency_p99:.3f} ms (serving clock); plan ms p50 / "
+        f"p99 {rep.plan_ms_p50:.3f} / {rep.plan_ms_p99:.3f} over "
+        f"{rep.plan_events} re-plans ({rep.replans_warm} warm, "
+        f"{rep.replans_cold} cold)")
+    ws = eng.window_seconds
+    log(f"    recoveries {rep.recoveries} (ms p50 / p99 "
+        f"{rep.recovery_ms_p50:.1f} / {rep.recovery_ms_p99:.1f}), "
+        f"recovered {rep.recovered}, retried {rep.retried}; exec_wall_s "
+        f"{rep.exec_wall_s:.3f} over {len(ws)} window runs (cold each: "
+        f"median {1e3 * _median(ws):.1f} ms, max {1e3 * max(ws):.1f} ms)")
+    log(f"    breaker: opens {rep.breaker['opens']}, probes "
+        f"{rep.breaker['probes']}, readmits {rep.breaker['readmits']}, "
+        f"rescales {rep.breaker['rescales']}")
+    for t in rep.breaker["transitions"]:
+        log(f"      {1e3 * t['time']:9.3f} ms  {t['pu']:13s} {t['frm']:9s}"
+            f" -> {t['to']:9s} {t['reason']}")
+    log(f"    cache_stats delta {rep.cache}")
+    fired = eng.faults.fired
+    log(f"    fired: {len(fired)} ({sorted({f[:2] for f in fired})})")
+
+    check(rep.completed + rep.shed == rep.n_requests == N_SERVED
+          and all(r.shed_reason in SHED_REASONS for r in rep.requests
+                  if r.shed),
+          f"{name}: completed + shed == n ({rep.completed} + {rep.shed})")
+    check(rep.bitwise_failures == 0 and rep.bitwise_checked ==
+          rep.completed, f"{name}: bitwise_failures 0 of "
+          f"{rep.bitwise_checked} completions (each against its solo run "
+          f"with the assignment it was given)")
+    check(orch._active == {}, f"{name}: no request left active")
+    for ev in events:
+        if ev.kind == "pu_restored":
+            continue
+        n_fired = sum(1 for f in fired if f[0] == ev.kind
+                      and (ev.lane is None or f[1] == ev.lane))
+        check(n_fired >= 1 and (ev.count <= 0 or n_fired == ev.count),
+              f"{name}: the scripted {ev.kind} on {ev.lane or 'any lane'} "
+              f"fired {n_fired} time(s)")
+    model_of = dict(zip(names, range(3)))
+    two_lanes = 0
+    for rec in rep.requests:
+        if rec.shed:
+            continue
+        r = model_of[rec.model]
+        route = tuple(rec.assignment[i] for i in range(rec.ops_total))
+        two_lanes += len(set(route)) > 1
+        oracle = orch.executor.run_scheduled(graphs[r], rec.assignment,
+                                             exts[r])
+        fence(list(oracle.values()))
+        misplaced = [i for i in range(rec.ops_total)
+                     if rec.results[i].device != binding[route[i]].device]
+        check(not misplaced, f"{name}: request {rec.rid} ({rec.model}): "
+                             f"every op's output on its lane's device")
+        _drift_ok(f"{name}: request {rec.rid} ({rec.model}, lanes "
+                  f"{sorted(set(route))}) against the interpreter oracle",
+                  rec.results, oracle, conc["spreads"][r])
+    if name == "pu_lost_return":
+        seq = [(t["frm"], t["to"]) for t in rep.breaker["transitions"]
+               if t["pu"] == KERNEL_LANE and t["frm"] != t["to"]]
+        opened = seq.index(("closed", "open")) if ("closed", "open") in \
+            seq else None
+        check(rep.recoveries >= 1, f"{name}: recoveries "
+                                   f"{rep.recoveries} >= 1")
+        check(opened is not None and ("open", "half_open") in
+              seq[opened:] and seq[-1] == ("half_open", "closed")
+              and rep.breaker["targets"][KERNEL_LANE]["state"] ==
+              "closed", f"{name}: the {KERNEL_LANE} breaker went open -> "
+                        f"half_open -> closed ({seq})")
+        check(two_lanes >= 1, f"{name}: {two_lanes} request(s) ran on two "
+                              "lanes or more")
+    return dict(report=rep, wall=wall, windows=ws)
+
+
+def phase_serving(main_cfg: dict, main: dict, conc: dict,
+                  adm: dict) -> dict:
+    """(a) recovery of the main path from a kernel-lane loss, and (b) the
+    serving engine under bench_chaos's four scenarios."""
+    from repro_torch import kernels
+    log("== phase 7: serving under faults at the Granite widths")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    walls = _recovery_on_main_path(main)
+    log(f"  (a) done in {time.perf_counter() - t0:.1f} s; recovered "
+        f"execute ms {[round(1e3 * w, 1) for w in walls.values()]}")
+    lat_a = conc["seq_plans"][0].latency
+    colds = [w["cold"] for w in adm["windows"]]
+    warms = [w["warm"] for w in adm["windows"]]
+    stall_budget = max(2.0, 4.0 * max(colds))
+    log(f"  (b) A's predicted latency {1e3 * lat_a:.3f} ms; arrivals at "
+        f"{1.5 / lat_a:.1f} req/s; phase 6's window costs: cold median "
+        f"{1e3 * _median(colds):.1f} ms, max {1e3 * max(colds):.1f} ms, "
+        f"warm median {1e3 * _median(warms):.3f} ms; the stall scenario's "
+        f"watchdog budget {stall_budget:.2f} s")
+    out = {}
+    for name in ("transient_storm", "straggler", "stall", "pu_lost_return"):
+        out[name] = _serve_scenario(name, main, conc, lat_a, stall_budget)
+    counts = kernels.launch_counts()
+    check(all(c >= 1 for c in counts.values()),
+          f"every kernel launched in the phase ({counts})")
+    log(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
+    return dict(recovery=walls, scenarios=out, counts=counts)
+
+
 def main() -> int:
     try:
         import torch
@@ -1617,7 +1968,8 @@ def main() -> int:
         main = phase_main_path(GRANITE_MAIN_PATH)
         conc = phase_concurrent(GRANITE_MAIN_PATH, main)
         phase_dag(GRANITE_MAIN_PATH, main, conc)
-        phase_admission(GRANITE_MAIN_PATH, main, conc)
+        adm = phase_admission(GRANITE_MAIN_PATH, main, conc)
+        phase_serving(GRANITE_MAIN_PATH, main, conc, adm)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

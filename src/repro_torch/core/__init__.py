@@ -1,13 +1,15 @@
 """BIDENT core on PyTorch: profile → plan → execute.
 
-Port of the main-path, parallel, DAG, concurrent and online-admission
-part of ``repro.core``: the NumPy planning layer (ops, cost tables,
-workloads, contention laws, the sequential, parallel, DAG and concurrent
-solvers with the warm and horizon re-planners, schedules, the paper's
-analytic zoo) copied as it is, and the execution layer (targets,
-measured profiler, lane programs captured as CUDA graphs, executor,
-orchestrator with online admission) rebuilt on torch tensors, devices
-and streams.
+Port of ``repro.core`` but its TPU autoshard cost provider and
+``trace_fused_ops``: the host layer (ops, cost tables, workloads,
+contention laws, the sequential, parallel, DAG and concurrent solvers
+with the warm and horizon re-planners, runtime conditions and the
+dynamic scheduler, schedules, the paper's analytic zoo, per-target
+health and circuit breakers, arrival and chaos traces, the serving
+loop) copied as it is, and the execution layer (targets, measured
+profiler, lane programs captured as CUDA graphs, executor, orchestrator
+with online admission and PU-loss recovery) rebuilt on torch tensors,
+devices and streams.
 """
 from .contention import (ContentionModel, DEFAULT_MM_SF, GroupCostCache,
                          PairCostCache, uses_default_coexec,
@@ -15,12 +17,15 @@ from .contention import (ContentionModel, DEFAULT_MM_SF, GroupCostCache,
 from .costmodel import (CPU, DEFAULT_SF, EDGE_PUS, GPU, NPU, CostEntry,
                         CostTable, DenseCostTable, EdgeSoCCostModel, PUSpec,
                         transition_cost)
+from .dynamic import DynamicScheduler, RuntimeCondition
 from .errors import (ExecutionError, ExecutionTimeoutError,
                      FaultRetryExceededError, InfeasibleScheduleError,
                      PULostError)
 from .executor import ScheduleExecutor
-from .faults import (DEFAULT_POLICY, ExecutionPolicy, FaultPlan, FaultSpec,
-                     TransientFault)
+from .faults import (CHAOS_KINDS, DEFAULT_POLICY, ChaosEvent, ChaosTrace,
+                     ExecutionPolicy, FaultPlan, FaultSpec, TransientFault)
+from .health import (BreakerTransition, HealthMonitor, HealthPolicy,
+                     TargetHealth)
 from .graph import build_dense_chain, build_sequential_graph
 from .laneprogram import (LanePool, LaneProgram, SegmentTime,
                           compile_lane_program, results_bitwise_equal)
@@ -44,6 +49,8 @@ from .search import (DAG_ALGORITHMS, DEFAULT_HORIZON_STATES,
                      solve_concurrent_horizon, solve_concurrent_joint,
                      solve_concurrent_joint_reference, solve_dag,
                      solve_parallel, solve_sequential)
+from .serve import (SHED_REASONS, Arrival, ArrivalTrace, RequestRecord,
+                    ServeReport, ServingEngine)
 from .targets import (KERNEL_DIALECTS, Target, TargetRegistry, VARIANT_TOL,
                       resolve_targets, variant_tolerance)
 from .workload import Workload

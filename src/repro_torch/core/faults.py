@@ -1,5 +1,5 @@
 """Fault model & degraded-mode semantics of the execution runtime (a copy
-of ``repro.core.faults`` up to ``FaultPlan``).
+of ``repro.core.faults``).
 
 Edge SoCs are shared, thermally-limited, contended machines: PUs stall,
 throttle, and drop out *mid-inference*, not just between requests.  The
@@ -80,8 +80,33 @@ every dispatch point — per op on the interpreter, per fused segment
 (covering each of its items) on the compiled path — so a fault can be
 placed at any (lane, op/segment) point of either path.
 
-The serving-scope chaos scripts (``ChaosEvent``, ``ChaosTrace``) of
-``repro_torch.core.faults`` wait for the serving slice (``ROADMAP.md``).
+**Serving-scope injection.**  A single execution is one fault surface;
+a *serving run* (``ServingEngine(execution="real")``) is many chunked
+executions sharing one persistent ``FaultPlan``, which extends the
+semantics three ways:
+
+* **Time-indexed arming** — a :class:`ChaosTrace` scripts faults on the
+  serving run's *virtual clock*: each :class:`ChaosEvent` carries a
+  ``time`` and is folded into the live plan (:meth:`FaultPlan.add`) only
+  once the serving loop's clock reaches it.  The executor never sees the
+  trace, only the armed specs — the serving loop cannot peek ahead at
+  the script, which keeps chaos tests honest.
+* **Request-indexed targeting** — a ``ChaosEvent.rid`` names a *serving
+  request id* (stable across the run), not an execution slot.  Execution
+  slots are positional and shift as requests admit/retire, so the
+  serving loop re-translates rid → current slot immediately before each
+  chunked execution (an event whose rid is not in flight arms against a
+  sentinel slot that matches nothing until it is).
+* **Lane revival** — ``kind="pu_restored"`` events model a PU coming
+  back (a device reset, thermal recovery): :meth:`FaultPlan.revive` drops
+  the lane from ``lost``.  Revival is *ground truth only* — the serving
+  loop does not learn of it from the plan; the health layer's half-open
+  circuit-breaker probe (:mod:`repro_torch.core.health`) must re-discover the
+  lane by dispatching to it and observing success.
+
+Fired counts stay global across the chunks of a serving run (same
+statefulness as across retry/resume of a single run), so a bounded storm
+is bounded over the whole run, not per chunk.
 """
 from __future__ import annotations
 
@@ -457,3 +482,92 @@ class FaultPlan:
         # stall resolves as a typed timeout on this very lane
         run.stall(spec.delay, f"injected {spec.kind} ({spec.delay}s) at "
                               f"{point}")
+
+
+# ---------------------------------------------------------------------------
+# serving-scope chaos scripting
+# ---------------------------------------------------------------------------
+
+# ChaosEvent kinds = FAULT_KINDS plus lane revival (serving-scope only)
+CHAOS_KINDS = FAULT_KINDS + ("pu_restored",)
+
+
+@dataclasses.dataclass
+class ChaosEvent:
+    """One scripted serving-run fault: at virtual time ``time``, arm a
+    fault (or revive a lane).
+
+    ``kind`` is a :data:`FAULT_KINDS` member — armed as a
+    :class:`FaultSpec` with the event's (lane, op, count, delay) match
+    fields — or ``"pu_restored"``, which calls :meth:`FaultPlan.revive`
+    instead.  ``rid`` targets a *serving request id* (translated to an
+    execution slot per chunk by the serving loop); ``lane``/``op`` match
+    as in :class:`FaultSpec`; ``count`` bounds total fires across the
+    rest of the run.
+    """
+
+    time: float
+    kind: str
+    lane: str | None = None
+    rid: int | None = None
+    op: int | None = None
+    count: int = 1
+    delay: float = 0.05
+
+    def __post_init__(self) -> None:
+        if self.kind not in CHAOS_KINDS:
+            raise ValueError(
+                f"unknown chaos kind {self.kind!r}; one of {CHAOS_KINDS}")
+        if not (self.time >= 0.0):
+            raise ValueError(
+                f"chaos events live on the serving clock; time must be "
+                f">= 0, got {self.time!r}")
+        if self.kind in ("pu_lost", "pu_restored") and self.lane is None:
+            raise ValueError(f"{self.kind} events must name a lane")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ChaosEvent":
+        return cls(**d)
+
+    def spec(self) -> FaultSpec:
+        """The :class:`FaultSpec` this event arms (``request`` is left
+        ``None``; the serving loop re-binds rid-targeted specs to the
+        live execution slot before each chunk)."""
+        if self.kind == "pu_restored":
+            raise ValueError("pu_restored events arm no FaultSpec")
+        return FaultSpec(kind=self.kind, lane=self.lane, op=self.op,
+                         count=self.count, delay=self.delay)
+
+
+@dataclasses.dataclass
+class ChaosTrace:
+    """A time-ordered script of :class:`ChaosEvent` for one serving run.
+
+    The JSON round-trip (:meth:`to_json` / :meth:`from_json`) makes a
+    failing chaos run a replayable artifact — ship the trace, not the
+    seed.  ``kind`` is a free-form scenario label carried through to
+    reports (``"transient_storm"``, ``"pu_lost_return"``, ...).
+    """
+
+    events: list[ChaosEvent] = dataclasses.field(default_factory=list)
+    kind: str = "custom"
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        self.events = sorted(self.events, key=lambda e: e.time)
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def to_json(self) -> str:
+        return json.dumps({"kind": self.kind, "seed": self.seed,
+                           "events": [e.to_dict() for e in self.events]})
+
+    @classmethod
+    def from_json(cls, s: str) -> "ChaosTrace":
+        d = json.loads(s)
+        return cls(events=[ChaosEvent.from_dict(e) for e in d["events"]],
+                   kind=d.get("kind", "custom"), seed=d.get("seed", 0))

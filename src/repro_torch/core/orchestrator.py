@@ -20,10 +20,16 @@ of a serving system,
   :func:`~repro_torch.core.search.solve_dag` for any single-handle
   shape).  Results are bitwise identical to the direct solver calls and
   cached keyed by (workload signatures + progress, objective, resolved
-  mode, route knobs, condition); the objective-independent solver state
-  (``ConcurrentCaches``) is one pool per session.  Runtime conditions
-  and PU-loss recovery raise ``NotImplementedError`` naming their
-  ``ROADMAP.md`` item.
+  mode, route knobs, runtime-condition scaling); the
+  objective-independent solver state (``ConcurrentCaches``) is one pool
+  per condition.
+* ``on_condition`` folds in a
+  :class:`~repro_torch.core.dynamic.RuntimeCondition` (per-PU column
+  scalings on the dense views, unavailable PUs dropped).  Cached plans,
+  pools, condition views and warm solvers priced under a now-stale
+  assumption about a changed PU are invalidated; active chain handles
+  re-plan through their :class:`~repro_torch.core.dynamic.DynamicScheduler`
+  from their current progress (hysteresis and plan stitching included).
 * ``admit`` / ``advance`` / ``retire`` / ``replan_active`` maintain the
   online serving set: each re-plan covers every active request's
   *remaining* ops (``Workload.tail`` views), served by a warm
@@ -41,7 +47,12 @@ of a serving system,
   segments can co-execute; ``compile=False`` runs the per-op
   interpreter, the bitwise oracle.  DAG plans synchronise lanes only at
   the graph's true dependency edges.  Concurrent plans take one input
-  mapping per request and return one results dict per request.
+  mapping per request and return one results dict per request.  A
+  permanent PU loss mid-run is recovered by default
+  (``recover=True``): the loss folds into the session condition, the
+  ops missing from the frontier are re-planned onto the surviving PUs,
+  and the run resumes on the interpreter seeded with the completed
+  results.
 """
 from __future__ import annotations
 
@@ -53,14 +64,17 @@ from typing import Any, Mapping, Sequence
 from .capture import arg_signature as _arg_signature
 from .contention import ContentionModel
 from .costmodel import EDGE_PUS, CostTable, PUSpec
+from .dynamic import DynamicScheduler, RuntimeCondition
+from .errors import PULostError
 from .executor import ScheduleExecutor
 from .faults import ExecutionPolicy, FaultPlan
 from .laneprogram import LaneProgram
 from .op import FusedOp, OpGraph, chain_graph
-from .schedule import (ConcurrentSchedule, DagSchedule, ParallelSchedule,
-                       SeqSchedule, schedule_from_dict, schedule_to_dict)
+from .schedule import (ConcurrentSchedule, ConcurrentStep, DagSchedule,
+                       ParallelSchedule, SeqSchedule, schedule_from_dict,
+                       schedule_to_dict)
 from .search import (DAG_ALGORITHMS, ConcurrentCaches,
-                     IncrementalConcurrentSolver, _not_ported, _pair_cache,
+                     IncrementalConcurrentSolver, _pair_cache,
                      solve_concurrent, solve_concurrent_aligned,
                      solve_concurrent_horizon, solve_dag, solve_parallel,
                      solve_sequential)
@@ -169,8 +183,9 @@ class _Registration:
 
 
 class Orchestrator:
-    """Session front door: register inference graphs once, plan with
-    caching, and execute plans on the multi-lane executor.
+    """Session front door: register inference graphs once, plan under any
+    objective/regime with caching, react to runtime conditions, and
+    execute plans on the multi-lane executor.
 
     ``cost`` is the cost provider: an ``EdgeSoCCostModel``-like object
     (``build_table(graph)``), a profiler (``profile(graph)``), or a
@@ -211,10 +226,13 @@ class Orchestrator:
         self.contention = contention or ContentionModel()
         self.executor = ScheduleExecutor(list(self.pus),
                                          targets=self.targets)
-        self.stats = {"hits": 0, "misses": 0,
+        self.condition = RuntimeCondition()
+        self.stats = {"hits": 0, "misses": 0, "invalidated": 0,
                       "program_hits": 0, "program_misses": 0,
+                      "recoveries": 0,
                       "replans_warm": 0, "replans_cold": 0,
-                      "plan_evictions": 0, "program_evictions": 0,
+                      "plan_evictions": 0, "pool_evictions": 0,
+                      "cond_view_evictions": 0, "program_evictions": 0,
                       "warm_evictions": 0}
         self._max_plans = max_cached_plans
         self._max_pools = max_cache_pools
@@ -223,9 +241,11 @@ class Orchestrator:
         self._regs: dict[int, _Registration] = {}
         self._by_graph: dict[int, int] = {}          # id(graph) -> handle
         self._plans: dict[tuple, Plan] = {}          # insertion-ordered LRU
-        self._caches: ConcurrentCaches | None = None
+        self._pools: dict[tuple, ConcurrentCaches] = {}
+        self._cond_views: dict[tuple, Workload] = {}
         self._warm: dict[tuple, IncrementalConcurrentSolver] = {}
         self._active: dict[int, int] = {}            # handle -> ops done
+        self._dyn: dict[tuple[int, str], DynamicScheduler] = {}
 
     def _evict_lru(self, cache: dict, cap: int, stat: str,
                    close: bool = False) -> None:
@@ -236,6 +256,28 @@ class Orchestrator:
             if close:
                 victim.close()
             self.stats[stat] += 1
+
+    def cache_stats(self) -> dict:
+        """Bounded-cache pressure snapshot: the session's LRU eviction
+        counters plus the live pools' ``ConcurrentCaches`` trim counters
+        and current cache sizes.  ``ServeReport.cache`` surfaces the
+        over-a-run delta of the counters.  (Trim counters cover the
+        *live* pools; a pool evicted whole takes its counts with it —
+        the eviction itself shows up in ``pool_evictions``.)"""
+        counters = {k: self.stats[k] for k in (
+            "plan_evictions", "pool_evictions", "cond_view_evictions",
+            "program_evictions", "warm_evictions", "invalidated")}
+        trims = {"pair_trims": 0, "group_table_trims": 0,
+                 "group_scope_trims": 0}
+        for pool in self._pools.values():
+            for k in trims:
+                trims[k] += pool.stats[k]
+        return {**counters, **trims,
+                "sizes": {"plans": len(self._plans),
+                          "pools": len(self._pools),
+                          "cond_views": len(self._cond_views),
+                          "warm_solvers": len(self._warm),
+                          "programs": len(self._programs)}}
 
     # -- register -----------------------------------------------------------
     def register(self, graph: OpGraph | Sequence[FusedOp],
@@ -279,7 +321,8 @@ class Orchestrator:
         return h
 
     def workload(self, h: int) -> Workload:
-        """The memoized dense Workload of a registered handle."""
+        """The memoized dense Workload of a registered handle (nominal
+        profile; conditions are applied per plan, not destructively)."""
         return self._reg(h).wl
 
     def _reg(self, h: int) -> _Registration:
@@ -290,13 +333,118 @@ class Orchestrator:
                 f"unknown handle {h!r}; register(graph) first "
                 f"(valid handles: {sorted(self._regs)})") from None
 
+    # -- runtime condition ---------------------------------------------------
+    def _cond_key(self, cond: RuntimeCondition | None = None) -> tuple:
+        return (cond if cond is not None else self.condition).key(self.pus)
+
+    def _cond_view(self, key: tuple, base: Workload) -> Workload:
+        """``base`` under the active condition, memoized in the
+        ``_cond_views`` LRU under ``key`` (the condition key last)."""
+        wl = self._cond_views.get(key)
+        if wl is None:
+            wl = base.under_condition(self.condition.slowdown,
+                                      self.condition.unavailable)
+            self._cond_views[key] = wl
+            self._evict_lru(self._cond_views, self._max_pools,
+                            "cond_view_evictions")
+        else:
+            self._cond_views[key] = self._cond_views.pop(key)  # LRU refresh
+        return wl
+
+    def _wl(self, reg: _Registration) -> Workload:
+        """Registration workload under the active condition (memoized
+        derived view; the nominal workload itself when no condition)."""
+        if self.condition.nominal:
+            return reg.wl
+        return self._cond_view((reg.handle, self._cond_key()), reg.wl)
+
     def _dag_wl(self, reg: _Registration) -> Workload:
         """Registration DAG workload (``Workload.from_graph``, built
-        lazily).  The reference also derives it under the session's
-        runtime condition; conditions come with a later slice."""
+        lazily) under the active condition.  ``under_condition`` carries
+        the predecessor sets, so the derived view keeps its DAG shape;
+        views share the ``_cond_views`` LRU under a dag-tagged key."""
         if reg.dag_wl is None:
             reg.dag_wl = Workload.from_graph(reg.graph, reg.table, self.pus)
-        return reg.dag_wl
+        if self.condition.nominal:
+            return reg.dag_wl
+        return self._cond_view(((reg.handle, "dag"), self._cond_key()),
+                               reg.dag_wl)
+
+    def on_condition(self, cond: RuntimeCondition
+                     ) -> dict[tuple[int, str], Plan]:
+        """Fold a runtime condition into the session.
+
+        Cached plans, solver pools, condition views and warm solvers are
+        invalidated *per changed PU*: an entry priced under an assumption
+        about a changed PU that disagrees with the new condition is
+        dropped (keys fully encode the condition, so this is staleness
+        hygiene, not hit-correctness; entries that already agree with
+        the new factors on every changed PU survive).  Active chain
+        handles re-plan through their ``DynamicScheduler`` trackers from
+        current progress — hysteresis and prefix/tail stitching apply —
+        and the re-stitched sequential plans are returned keyed by
+        ``(handle, objective)``, one entry per tracker (a
+        latency-objective tracker is created for active chain handles
+        that have none).
+
+        PU names the session doesn't know are rejected loudly — a typo'd
+        ``slowdown`` key would otherwise silently leave the real PU
+        unthrottled in every re-plan.
+        """
+        unknown = sorted(p for p in set(cond.slowdown) | set(cond.unavailable)
+                         if p not in self.pus)
+        if unknown:
+            raise ValueError(
+                f"on_condition: unknown PU name(s) {unknown}; this "
+                f"session's PUs are {sorted(self.pus)}")
+        old, new = self._cond_key(), self._cond_key(cond)
+        changed = {p for (p, f0), (_, f1) in zip(old, new) if f0 != f1}
+        if changed:
+            new_f = dict(new)
+            for cache in (self._plans, self._pools, self._cond_views,
+                          self._warm):
+                for key in list(cache):
+                    entry_cond = key[-1]
+                    if any(p in changed and f != new_f[p]
+                           for p, f in entry_cond):
+                        del cache[key]
+                        if cache is self._plans:
+                            self.stats["invalidated"] += 1
+        self.condition = cond
+        out: dict[tuple[int, str], Plan] = {}
+        for h, progress in self._active.items():
+            reg = self._regs[h]
+            if not reg.graph.is_chain():
+                continue
+            if not any(dh == h for dh, _ in self._dyn):
+                self.dynamic(h)        # default latency-objective tracker
+            for (dh, objective), dyn in list(self._dyn.items()):
+                if dh != h:
+                    continue
+                sched = dyn.on_condition(progress, cond)
+                out[(h, objective)] = Plan(kind="sequential", schedule=sched,
+                                           objective=objective, handles=(h,),
+                                           mode="sequential")
+        return out
+
+    def dynamic(self, h: int, objective: str = "latency",
+                replan_threshold: float = 0.05) -> DynamicScheduler:
+        """The handle's ``DynamicScheduler`` (created lazily, sharing the
+        memoized workload); ``on_condition`` re-plans through it."""
+        reg = self._reg(h)
+        if not reg.graph.is_chain():
+            raise ValueError(
+                f"handle {h}: dynamic re-planning needs a chain graph "
+                "(the DAG regimes re-plan via plan() under a condition)")
+        key = (h, objective)
+        dyn = self._dyn.get(key)
+        if dyn is None:
+            dyn = DynamicScheduler(reg.chain, reg.graph.ops, reg.table,
+                                   self.pus, objective,
+                                   replan_threshold=replan_threshold,
+                                   workload=reg.wl)
+            self._dyn[key] = dyn
+        return dyn
 
     # -- plan ---------------------------------------------------------------
     def plan(self, handles: int | Sequence[int], objective: str = "latency",
@@ -371,13 +519,6 @@ class Orchestrator:
             [(reg, 0) for reg in regs], hs, objective, mode,
             algorithm, max_states)
 
-    def _cond_key(self) -> tuple:
-        """The session condition's per-PU key, as the reference's
-        ``RuntimeCondition().key(pus)`` gives it for the nominal
-        condition (runtime conditions are not ported yet, ``ROADMAP.md``
-        item 7, so every key is the nominal one)."""
-        return tuple((p, 1.0) for p in sorted(self.pus))
-
     def _plan_cached(self, regs_progress: list[tuple[_Registration, int]],
                      hs: tuple[int, ...], objective: str, mode: str,
                      algorithm: str = "auto",
@@ -418,21 +559,28 @@ class Orchestrator:
 
     def _pool(self) -> ConcurrentCaches:
         """Objective-independent solver state (pair-cost matrices, group
-        edge tables) shared across every concurrent solve of the session.
-        ``ConcurrentCaches`` keys everything by content signature, so
-        overlapping handle sets hit the same tables.  (The reference
-        keeps one pool per runtime condition; the port has no conditions
-        yet, so it keeps one.)"""
-        if self._caches is None:
-            self._caches = ConcurrentCaches()
-        return self._caches
+        edge tables) shared across every concurrent solve under the same
+        condition.  ``ConcurrentCaches`` keys everything by content
+        signature, so overlapping handle sets, re-admitted models and
+        tail re-plans all hit the same tables.  A pool never spans
+        conditions: condition-scaled workloads get new signatures, so a
+        per-condition pool is re-priced exactly once per change."""
+        key = (self._cond_key(),)    # condition last: on_condition reads it
+        pool = self._pools.get(key)
+        if pool is None:
+            pool = ConcurrentCaches()
+            self._pools[key] = pool
+            self._evict_lru(self._pools, self._max_pools, "pool_evictions")
+        else:
+            self._pools[key] = self._pools.pop(key)   # LRU refresh
+        return pool
 
     def _warm_solver(self, wls: list[Workload]
                      ) -> IncrementalConcurrentSolver:
         """Memoized warm re-planner for a (full-workload signatures,
-        condition) tuple, sharing the session's cache pool with the cold
-        path — cold solves warm the pool for later warm solves and vice
-        versa."""
+        condition) tuple, sharing the per-condition cache pool with the
+        cold path — cold solves warm the pool for later warm solves and
+        vice versa."""
         key = (tuple(wl.signature() for wl in wls), self._cond_key())
         inc = self._warm.get(key)
         if inc is None:
@@ -449,26 +597,32 @@ class Orchestrator:
                algorithm: str = "auto",
                max_states: int | None = None,
                horizon_states: int | None = None) -> Plan:
-        wls_full = [reg.wl for reg, _ in regs_progress]
+        nominal = self.condition.nominal
+        wls_full = [self._wl(reg) for reg, _ in regs_progress]
         wls = [wl if prog == 0 else wl.tail(prog)
                for wl, (_, prog) in zip(wls_full, regs_progress)]
         if mode == "sequential":
             reg, wl = regs_progress[0][0], wls[0]
-            sched = solve_sequential(wl.chain, reg.graph.ops, reg.table,
-                                     self.pus, objective, workload=wl)
+            sched = solve_sequential(
+                wl.chain, reg.graph.ops, reg.table if nominal else None,
+                self.pus, objective, workload=wl)
             return Plan("sequential", sched, objective, hs, mode)
         if mode == "parallel":
             reg, wl = regs_progress[0][0], wls[0]
-            sched = solve_parallel(reg.graph, reg.table, self.pus,
-                                   self.contention, objective, workload=wl)
+            sched = solve_parallel(
+                reg.graph, reg.table if nominal else None, self.pus,
+                self.contention, objective, workload=wl)
             return Plan("parallel", sched, objective, hs, mode)
         if mode == "dag":
-            # DAG plans always cover the whole graph
+            # DAG plans always cover the whole graph (progress tails drop
+            # predecessor sets; recovery re-plans from 0 and skips the
+            # completed frontier at execution time, like parallel plans)
             reg = regs_progress[0][0]
             sched = solve_dag(
-                reg.graph, reg.table, self.pus, self.contention, objective,
-                algorithm=algorithm, workload=self._dag_wl(reg),
-                caches=self._pool(), max_states=max_states)
+                reg.graph, reg.table if nominal else None, self.pus,
+                self.contention, objective, algorithm=algorithm,
+                workload=self._dag_wl(reg), caches=self._pool(),
+                max_states=max_states)
             return Plan("dag", sched, objective, hs, mode)
         pool = self._pool()
         if mode == "aligned":
@@ -563,17 +717,11 @@ class Orchestrator:
                                  objective, "concurrent",
                                  horizon_states=horizon_states)
 
-    # -- what later slices add ------------------------------------------------
-    def on_condition(self, cond):
-        """Folding a runtime condition into the session; not ported
-        yet."""
-        raise _not_ported("runtime conditions (on_condition)", 7)
-
     # -- execute ------------------------------------------------------------
     def execute(self, plan: Plan, inputs=None, *, compile: bool = True,
                 policy: ExecutionPolicy | None = None,
                 faults: FaultPlan | None = None,
-                recover: bool = False,
+                recover: bool = True,
                 trace: list | None = None) -> Any:
         """Run a plan on the multi-lane executor.
 
@@ -586,14 +734,32 @@ class Orchestrator:
         program (:meth:`program_for`); ``compile=False`` runs the per-op
         interpreter, the bitwise oracle.  ``trace`` (compiled path)
         receives one :class:`~repro_torch.core.laneprogram.SegmentTime`
-        per segment.  ``policy``/``faults`` drive the fault runtime as in
-        the reference; a PU loss propagates as
-        :class:`~repro_torch.core.errors.PULostError`: re-planning onto
-        the surviving PUs (``recover=True``, the reference's default)
-        needs runtime conditions, which are not ported yet.
+        per segment.  ``policy`` tunes the watchdog/retry knobs and
+        ``faults`` injects a scripted
+        :class:`~repro_torch.core.faults.FaultPlan`, as in the reference.
+
+        With ``recover=True`` (the default) a permanent mid-run PU loss
+        is handled here: the loss is folded into the session condition
+        (:meth:`on_condition` — invalidating stale cached plans), the ops
+        missing from the frontier are re-planned onto the surviving PUs,
+        and execution resumes on the interpreter seeded with the
+        completed results, which are reused as they are.  The frontier of
+        a compiled run is per segment: a loss inside a segment loses the
+        whole segment's ops.  ``recover=False`` propagates the
+        :class:`~repro_torch.core.errors.PULostError` (frontier attached
+        as ``err.partial``) to the caller.
         """
-        if recover:
-            raise _not_ported("PU-loss recovery (execute(recover=True))", 7)
+        try:
+            return self._execute_once(plan, inputs, compile, policy, faults,
+                                      trace)
+        except PULostError as err:
+            if not recover:
+                raise
+            return self._recover(plan, inputs, err, policy, faults)
+
+    def _execute_once(self, plan: Plan, inputs, compile: bool,
+                      policy: ExecutionPolicy | None,
+                      faults: FaultPlan | None, trace: list | None) -> Any:
         if not compile:
             regs = self._execute_regs(plan)
             graphs = [reg.graph for reg in regs]
@@ -611,6 +777,123 @@ class Orchestrator:
         return self.program_for(plan, inputs).run(
             inputs, policy=policy, faults=faults, estimate=plan.latency,
             trace=trace)
+
+    # -- mid-run recovery ---------------------------------------------------
+    @staticmethod
+    def _chain_progress(chain: Sequence[int],
+                        done: Mapping[int, Any]) -> int:
+        """Completed-prefix length of a chain under a frontier (results
+        record in chain order, so the frontier is always a prefix)."""
+        k = 0
+        while k < len(chain) and chain[k] in done:
+            k += 1
+        return k
+
+    def _recover(self, plan: Plan, inputs, err: PULostError,
+                 policy: ExecutionPolicy | None,
+                 faults: FaultPlan | None) -> Any:
+        """Re-plan-and-resume after a permanent mid-run PU loss.
+
+        Folds each lost PU into the session :class:`RuntimeCondition`
+        (``on_condition`` invalidates cached plans priced with it and
+        re-stitches active trackers), re-plans the ops still missing
+        from the frontier onto the surviving PUs, and resumes on the
+        interpreter path seeded with the completed results.  Loops if
+        another PU dies during the resume; raises
+        :class:`~repro_torch.core.errors.InfeasibleScheduleError` when no
+        surviving PU can run a remaining op, and re-raises the loss when
+        it carries no usable PU identity.
+        """
+        m = len(plan.handles)
+        partials: list[dict[int, Any]] = [{} for _ in range(m)]
+        lost_seen: set[str] = set()
+        while True:
+            if err.pu is None or err.pu in lost_seen:
+                raise err   # no identity to exclude / no progress possible
+            lost_seen.add(err.pu)
+            for d, p in zip(partials, err.partial or []):
+                d.update(p)
+            self.on_condition(self.condition.lose(err.pu))
+            self.stats["recoveries"] += 1
+            try:
+                return self._resume(plan, inputs, partials, policy, faults)
+            except PULostError as e2:
+                err = e2
+
+    def _resume(self, plan: Plan, inputs,
+                partials: list[dict[int, Any]],
+                policy: ExecutionPolicy | None,
+                faults: FaultPlan | None) -> Any:
+        """Re-plan the non-frontier ops under the current (degraded)
+        condition and run them on the interpreter path, seeded with the
+        frontier results."""
+        regs = self._execute_regs(plan)
+        graphs = [reg.graph for reg in regs]
+        objective = plan.objective
+
+        if plan.kind == "parallel":
+            # branch/phase structure is condition-independent: re-plan the
+            # whole DAG under the degraded condition; the frontier seed
+            # skips every already-completed op at execution time
+            sub = self._plan_cached([(regs[0], 0)], plan.handles, objective,
+                                    "parallel")
+            return self.executor.run_scheduled(
+                graphs[0], sub.schedule, inputs, policy=policy,
+                faults=faults, completed=partials[0],
+                estimate=sub.latency)
+
+        if plan.kind == "dag":
+            # same shape as parallel: precedence structure survives the
+            # condition change, so re-plan the whole DAG onto the
+            # surviving PUs and let the lane queues skip the frontier
+            sub = self._plan_cached([(regs[0], 0)], plan.handles, objective,
+                                    "dag")
+            return self.executor.run_dag(
+                graphs[0], sub.schedule, inputs, policy=policy,
+                faults=faults, completed=partials[0],
+                estimate=sub.latency)
+
+        if plan.kind == "sequential":
+            done = partials[0]
+            prog = self._chain_progress(regs[0].chain, done)
+            if prog == len(regs[0].chain):
+                return dict(done)          # the loss hit after the last op
+            sub = self._plan_cached([(regs[0], prog)], plan.handles,
+                                    objective, "sequential")
+            amap = dict(zip(sub.schedule.chain, sub.schedule.assignment))
+            return self.executor.run_scheduled(
+                graphs[0], amap, inputs, policy=policy, faults=faults,
+                completed=done, estimate=sub.latency)
+
+        # concurrent: re-plan only the requests with remaining ops, then
+        # widen the sub-schedule back to all M request slots
+        items = [(r, reg, self._chain_progress(reg.chain, partials[r]))
+                 for r, reg in enumerate(regs)]
+        remaining = [(r, reg, prog) for r, reg, prog in items
+                     if prog < len(reg.chain)]
+        if not remaining:
+            return [dict(d) for d in partials]
+        sub = self._plan_cached(
+            [(reg, prog) for _, reg, prog in remaining],
+            tuple(plan.handles[r] for r, _, _ in remaining),
+            objective, "concurrent")
+        slot = {k: r for k, (r, _, _) in enumerate(remaining)}
+
+        def widen(vals: tuple) -> tuple:
+            out: list = [None] * len(regs)
+            for k, v in enumerate(vals):
+                out[slot[k]] = v
+            return tuple(out)
+
+        ssched = sub.schedule
+        full = ConcurrentSchedule(
+            steps=[ConcurrentStep(ops=widen(st.ops), pus=widen(st.pus),
+                                  cost=st.cost) for st in ssched.steps],
+            latency=ssched.latency, energy=ssched.energy,
+            objective=ssched.objective, mode=ssched.mode)
+        return self.executor.run_concurrent(
+            graphs, full, inputs, policy=policy, faults=faults,
+            completed=partials, estimate=full.latency)
 
     def program_for(self, plan: Plan, inputs=None) -> LaneProgram:
         """The compiled :class:`LaneProgram` for a plan (cached).

@@ -66,13 +66,6 @@ from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
                        SeqSchedule)
 from .workload import Workload
 
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP.md, 'Modules to port', "
-               "item {item})")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(_NOT_PORTED.format(what=what, item=item))
-
 # ---------------------------------------------------------------------------
 # Shortest path on the explicit graph
 # ---------------------------------------------------------------------------

@@ -11,8 +11,8 @@ advance / retire traces, windowed re-plans, the shrinking set, the
 caches) and hold every plan the port hands out bitwise to the port's
 cold solve *and* to the reference orchestrator driven through the same
 events: schedules, plan JSON, latencies' bits and the warm/cold counters.
-Runtime conditions are not ported (``ROADMAP.md`` item 7), so the
-reference's condition events are plain re-plans here.
+The traces' condition events fold a slowdown into both sessions
+(``on_condition``), as the reference's trace does.
 """
 import json
 
@@ -101,13 +101,19 @@ class Twin:
 
 def cold_reference(orch, objective, horizon_states=None):
     """Independent cold solve of the port orchestrator's active state:
-    tails from progress, sorted handle order, fresh caches."""
+    condition-scaled workloads, tails from progress, sorted handle
+    order, fresh caches."""
     items = [(h, p) for h, p in sorted(orch._active.items())
              if p < orch.workload(h).n]
     if not items:
         return None
-    wls = [orch.workload(h) if p == 0 else orch.workload(h).tail(p)
-           for h, p in items]
+    wls = []
+    for h, p in items:
+        wl = orch.workload(h)
+        if not orch.condition.nominal:
+            wl = wl.under_condition(orch.condition.slowdown,
+                                    orch.condition.unavailable)
+        wls.append(wl if p == 0 else wl.tail(p))
     if horizon_states is not None:
         return P.solve_concurrent_horizon(wls, orch.contention, objective,
                                           caches=P.ConcurrentCaches(),
@@ -127,9 +133,9 @@ def assert_bitwise(plan, cold):
 
 
 def replay_trace(seed, horizon_states=None, n_events=15):
-    """A random admission / advance / retire trace (the reference test's
-    draw order; its condition events become plain re-plans), every plan
-    held to the cold solve and to the reference session."""
+    """A random admission / advance / retire / condition trace (the
+    reference test's draw order), every plan held to the cold solve and
+    to the reference session."""
     rng = np.random.default_rng(seed)
     twin = Twin(seed)
     orch = twin.orch[P]
@@ -152,8 +158,14 @@ def replay_trace(seed, horizon_states=None, n_events=15):
             pool.append(h)
             plan = twin("replan_active", objective,
                         horizon_states=horizon_states)
-        else:                                        # a plain re-plan
-            rng.integers(len(PUS)), rng.uniform(1.0, 2.0)
+        else:                                        # condition fold-in
+            pu = PUS[int(rng.integers(len(PUS)))]
+            factor = float(rng.uniform(1.0, 2.0))
+            got, want = (twin.orch[pkg].on_condition(
+                pkg.RuntimeCondition(slowdown={pu: factor}))
+                for pkg in (P, J))
+            assert {k: v.to_json() for k, v in got.items()} == \
+                {k: v.to_json() for k, v in want.items()}
             plan = twin("replan_active", objective,
                         horizon_states=horizon_states)
         assert_bitwise(plan, cold_reference(orch, objective, horizon_states))
@@ -223,11 +235,10 @@ def test_retire_to_empty_returns_none():
 
 
 def test_infeasible_error_message_matches_cold():
-    """A request with an op no PU can run (built directly: the
-    reference strands it with a lost PU, a runtime condition the port
-    does not have yet) raises the same InfeasibleScheduleError from the
-    warm solver as from the cold solve, in both packages, from any
-    progress before the stranded op."""
+    """A request with an op no PU can run (built directly, as the
+    reference's test builds it) raises the same InfeasibleScheduleError
+    from the warm solver as from the cold solve, in both packages, from
+    any progress before the stranded op."""
     rng = np.random.default_rng(17)
     rows = [_rows(rng, 4, 0.0), _rows(rng, 5, 0.0), _rows(rng, 4, 0.0)]
     rows[0][2] = {}                 # op 2 of request 0: no PU runs it

@@ -159,13 +159,31 @@ def test_shared_caches_serve_both_objectives_bitwise():
 
 
 def test_unported_routes_name_their_roadmap_item():
-    """What is still unported is PU-loss recovery and runtime conditions
-    (item 7); each route to it raises naming the item."""
-    po, ph, _ = _orch(P, _rows(0, [3, 3]))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        po.on_condition(None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        po.execute(po.plan(ph[0]), recover=True)
+    """The routes that once raised naming item 7 — ``on_condition`` and
+    ``execute(recover=True)``, now the default — behave as the
+    reference's: a lane lost mid-run is folded into the session
+    condition, the rest re-planned onto the survivors and resumed, with
+    the same counters and plan JSON, for a chain and a concurrent
+    plan."""
+    rows = _rows(0, [3, 3], drop_frac=0.0)
+    out = []
+    for pkg in (P, J):
+        orch, hs, _ = _orch(pkg, rows)
+        res = []
+        for handles in (hs[0], hs):
+            plan = orch.plan(handles)
+            lane = plan.route[0][1][1]
+            faults = pkg.FaultPlan.single("pu_lost", lane=lane, op=1)
+            got = orch.execute(plan, None if handles is hs[0]
+                               else [None, None], faults=faults)
+            got = got if isinstance(got, list) else [got]
+            res.append(([sorted(d) for d in got], lane,
+                        sorted(orch.condition.unavailable),
+                        orch.plan(handles).to_json()))
+            orch.on_condition(pkg.RuntimeCondition())
+        out.append((res, orch.stats["recoveries"], orch.cache_stats()))
+    assert out[0] == out[1]
+    assert out[0][1] == 2
 
 
 @pytest.mark.parametrize("objective", ["latency", "energy"])
@@ -401,9 +419,29 @@ def test_orchestrator_argument_checks_match():
 
 
 def test_session_calls_of_later_slices_name_their_items():
-    po, ph, _ = _orch(P, _rows(91, [3, 3]))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        po.on_condition(None)
+    """``on_condition`` (item 7, once asserted missing here) inside the
+    admission loop: the same calls give the same re-stitched plans, plan
+    JSON and counters in both packages."""
+    jo, jh, _ = _orch(J, _rows(91, [3, 3], drop_frac=0.0))
+    po, ph, _ = _orch(P, _rows(91, [3, 3], drop_frac=0.0))
+    conds = [dict(slowdown={"GPU": 8.0}), dict(unavailable={"NPU"}),
+             dict(slowdown={"CPU": 2.0}, unavailable={"GPU"}), dict()]
+    for h in ph:
+        assert po.admit(h).to_json() == jo.admit(h).to_json()
+    po.advance(ph[0], 1)
+    jo.advance(jh[0], 1)
+    for kw in conds:
+        want = jo.on_condition(J.RuntimeCondition(
+            slowdown=kw.get("slowdown", {}),
+            unavailable=frozenset(kw.get("unavailable", ()))))
+        got = po.on_condition(P.RuntimeCondition(
+            slowdown=kw.get("slowdown", {}),
+            unavailable=frozenset(kw.get("unavailable", ()))))
+        assert {k: v.to_json() for k, v in got.items()} == \
+            {k: v.to_json() for k, v in want.items()}, kw
+        assert po.replan_active().to_json() == \
+            jo.replan_active().to_json(), kw
+    assert po.stats == jo.stats and po.stats["invalidated"] > 0
 
 
 def test_session_admission_calls_match_the_reference():

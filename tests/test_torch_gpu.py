@@ -508,3 +508,108 @@ def test_launch_counts_of_a_replay_equal_the_eager_counts(cuda):
     assert replayed == kernels.launch_counts() == {
         "flash_attention": 2, "ssd_scan": 2, "expert_glu": 2}
     prog.close()
+
+
+# ---------------------------------------------------------------------------
+# PU-loss recovery and serving under chaos on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_lanes_and_table(graph):
+    """``cuda:0`` and ``cuda-kernels``, with every op cheaper on the
+    kernel lane."""
+    from repro_torch.core import CostEntry, CostTable
+    from repro_torch.core.backends import default_registry
+    reg = default_registry()
+    lanes = {n: reg.get(n) for n in ("cuda:0", "cuda-kernels")}
+    table = CostTable(list(lanes))
+    for i in range(len(graph)):
+        for lane in lanes:
+            table.set(i, lane, CostEntry(
+                kernel=1e-4 if lane == "cuda-kernels" else 4e-4,
+                dispatch=1e-5, h2d=0.0, d2h=0.0, power=100.0))
+    return lanes, table
+
+
+@pytest.mark.gpu
+def test_recovery_of_a_captured_route(cuda):
+    """A kernel-lane route cut by one op on ``cuda:0`` runs as two
+    captured segments; a loss of ``cuda-kernels`` at a late kernel op
+    keeps the first segments' results bitwise, re-plans the rest onto
+    ``cuda:0`` and resumes on the interpreter from that frontier."""
+    from repro_torch.core import (FaultPlan, Orchestrator, Plan,
+                                  PULostError, SeqSchedule,
+                                  laneprogram as lp, results_bitwise_equal)
+    from repro_torch.core.profiler import fence
+    graph, ext = _small_kernel_chain()
+    lanes, table = _card_lanes_and_table(graph)
+    orch = Orchestrator(table, targets=lanes)
+    h = orch.register(graph)
+    n, cut, late = len(graph), 5, 10          # moe of block 1 is op 10
+    route = ["cuda-kernels"] * n
+    route[cut] = "cuda:0"
+    lat, eng = orch.workload(h).evaluate(route)
+    plan = Plan("sequential", SeqSchedule(list(range(n)), route, lat, eng,
+                                          "latency"), "latency", (h,),
+                "sequential")
+    orch.execute(plan, ext)                   # cold: probe and capture
+    clean = orch.execute(plan, ext)
+    fence(list(clean.values()))
+    prog = orch.program_for(plan, ext)
+    assert [seg.mode for seg in prog.segments] == [lp.JIT] * 3
+    faults = FaultPlan.single("pu_lost", lane="cuda-kernels", op=late)
+    with pytest.raises(PULostError) as lost:
+        orch.execute(plan, ext, recover=False, faults=faults)
+    prefix = lost.value.partial[0]
+    assert sorted(prefix) == list(range(cut + 1))
+    assert results_bitwise_equal(prefix, {i: clean[i] for i in prefix})
+    faults.reset()
+    got = orch.execute(plan, ext, faults=faults)
+    fence(list(got.values()))
+    assert orch.stats["recoveries"] == 1
+    assert orch.condition.unavailable == {"cuda-kernels"}
+    assert orch.plan(h).route[0] == [(i, "cuda:0") for i in range(n)]
+    assert results_bitwise_equal({i: got[i] for i in prefix}, prefix)
+    stitched = {i: "cuda:0" for i in range(cut + 1, n)}
+    want = orch.executor.run_scheduled(graph, stitched, ext,
+                                       completed=prefix)
+    assert results_bitwise_equal(got, want)
+    oracle = orch.execute(plan, ext, compile=False)
+    for i in range(n):
+        scale = float(oracle[i].abs().max())
+        assert float((got[i] - oracle[i]).abs().max()) <= 1e-3 * scale, i
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_serving_recovers_from_a_lost_kernel_lane(cuda):
+    """Real-mode serving with compiled windows over two two-block
+    chains: ``cuda-kernels`` is lost at the third arrival and returns at
+    the fifth; the run drains with no wrong answer, recovers, and the
+    kernel lane's breaker closes again after a probe."""
+    from repro_torch.core import (ArrivalTrace, ChaosEvent, ChaosTrace,
+                                  HealthPolicy, Orchestrator, ServingEngine)
+    chains = {m: _small_kernel_chain(seed=s) for m, s in (("A", 0),
+                                                          ("B", 1))}
+    lanes, table = _card_lanes_and_table(chains["A"][0])
+    orch = Orchestrator(table, targets=lanes)
+    lat = orch.plan(orch.register(chains["A"][0])).latency
+    eng = ServingEngine(orch, {m: c[0] for m, c in chains.items()},
+                        execution="real", compile_exec=True,
+                        max_concurrent=2,
+                        inputs={m: c[1] for m, c in chains.items()},
+                        health_policy=HealthPolicy(cooldown=0.25 * lat,
+                                                   cooldown_backoff=1.0))
+    trace = ArrivalTrace.poisson(["A", "B"], rate=1.5 / lat, n=6, seed=2)
+    t = [a.time for a in trace.arrivals]
+    kernels.reset_launch_counts()
+    rep = eng.serve(trace, chaos=ChaosTrace([
+        ChaosEvent(time=t[2], kind="pu_lost", lane="cuda-kernels"),
+        ChaosEvent(time=t[4], kind="pu_restored", lane="cuda-kernels")]))
+    assert rep.completed + rep.shed == 6 and rep.bitwise_failures == 0
+    assert rep.bitwise_checked == rep.completed >= 1
+    assert rep.recoveries >= 1
+    assert [f[:2] for f in eng.faults.fired] == [("pu_lost", "cuda-kernels")]
+    assert rep.breaker["targets"]["cuda-kernels"]["state"] == "closed"
+    assert all(c >= 1 for c in kernels.launch_counts().values())
+    assert orch._active == {}
