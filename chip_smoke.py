@@ -90,7 +90,31 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    bound of the interpreter), every scripted event fired, and after the
    loss the kernel lane's breaker opens, half-opens and closes.  The
    reports, breaker transitions with their reasons, cache deltas and
-   window costs are printed; every kernel launched in the phase.
+   window costs are printed; every kernel launched in the phase;
+8. model zoo serving — (a) Llama-3.2-1B and Zamba2-2.7B at their
+   published widths and depths in bf16 with ``use_kernels=True``
+   (weights from ``init_params`` with a seeded generator on the card)
+   serve 4 prompts of 1024 tokens through ``Engine.generate(max_new=
+   32)``: one prefill launches ``flash_attention`` 16 times (Llama) or
+   ``ssd_scan`` 54 times (Zamba2), counted from zero, and decode none;
+   the kernel prefill's logits and every cache leaf against the plain
+   path's (``use_kernels=False``) within the bf16 bucket of the largest
+   value, or within ZOO_SPREAD times the spread between two correct
+   plain paths where one is given (Zamba2: the scan at chunk 128),
+   whichever is larger; each kernel call of the prefill within the
+   bucket of the layer's plain math on the same inputs; in f32 at full
+   width, the same comparison within 2e-4 at cut depth (Llama 2 layers,
+   Zamba2 6) and at full depth; every captured decode step's logits and
+   cache bitwise the eager ``decode_step``'s; two generates capture once
+   and give the checked loop's tokens.  Prefill and decode times
+   (captured and eager, in turns), tokens per second, peak memory, a
+   device trace of a prefill and of captured steps, and each kernel at
+   these shapes beside SDPA and its bound are printed.  (b) every arch
+   reduced, prefill and 4 decode steps with the kernels against
+   without, in f32 within 2e-4, each launching the kernels its pattern
+   calls.  (c) the shapes the kernels cannot take (xLSTM-125M's mLSTM
+   scan, StableLM-12B's D = 160 attention) raise ``ValueError`` on the
+   card and launch nothing.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -603,18 +627,25 @@ def _route_matches(label, outs, oracle, route, binding, verdicts, spread):
 
 
 def _trace(prog, ext, label) -> float | None:
-    """One traced warm run of a compiled program: device time by kernel
-    name and the device's busy share of the run's wall time (tracing
-    slows the host, so the idle share it gives is an upper bound).
-    Returns the busy share, None when the trace holds no device time."""
+    """One traced warm run of a compiled program (see
+    :func:`_trace_call`)."""
+    from repro_torch.core.profiler import fence
+    return _trace_call(label, lambda: fence(list(prog.run(ext).values())))
+
+
+def _trace_call(label, run, top: int = 12) -> float | None:
+    """One traced warm ``run()`` (which waits for its device work): device
+    time by kernel name and the device's busy share of the run's wall
+    time (tracing slows the host, so the idle share it gives is an upper
+    bound).  Returns the busy share, None when the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.profiler import fence
-    fence(list(prog.run(ext).values()))
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fence(list(prog.run(ext).values()))
+        run()
         wall = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
@@ -633,7 +664,7 @@ def _trace(prog, ext, label) -> float | None:
     log(f"  traced {label}: wall {1e3 * wall:.3f} ms, device busy "
         f"{1e3 * busy:.3f} ms ({100 * busy / wall:.1f}%), "
         f"{sum(n for _, n, _ in rows)} device ops")
-    for us, n, key in rows[:12]:
+    for us, n, key in rows[:top]:
         log(f"    {us / 1e3:9.3f} ms  x{n:<4d} {key[:90]}")
     return busy / wall
 
@@ -1943,6 +1974,490 @@ def phase_serving(main_cfg: dict, main: dict, conc: dict,
     return dict(recovery=walls, scenarios=out, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the model zoo served at full width
+# ---------------------------------------------------------------------------
+
+N_PROMPTS, PROMPT_LEN, MAX_NEW = 4, 1024, 32
+# Llama-3.2-1B's attention and Zamba2-2.7B's Mamba-2 scans go through the
+# kernels (the reference's use_kernels prefill): (arch, kernel, launches
+# per prefill, a second correct plain path: the config fields it changes)
+ZOO_FULL = (("llama3.2-1b", "flash_attention", 16, None),
+            ("zamba2-2.7b", "ssd_scan", 54, {"ssm_chunk": 128}))
+# The whole bf16 model is held to the plain path within the bf16 bucket,
+# or within ZOO_SPREAD times the spread between two correct plain paths
+# (the scan at chunk 256 and at 128), whichever is larger: over Zamba2's
+# 54 layers bf16 rounding alone moves the leaves by ~6e-2 of their
+# largest value (PERF.md, zoo serving).  Each kernel call is held to the
+# layer's plain math on the same inputs within the bucket, and the f32
+# model within ZOO_F32_TOL at full depth.
+ZOO_SPREAD = 2.0
+# the comparison in f32 at full width: cut depth, and full depth
+ZOO_F32_DEPTH = {"llama3.2-1b": (2, 16), "zamba2-2.7b": (6, 54)}
+ZOO_F32_TOL = 2e-4     # tests/test_kernel_integration_compress.py's bound
+ZOO_DECODE_STEPS = 4   # phase 8 (b): decode steps after each prefill
+
+
+def _leaves_err(got, want) -> tuple[bool, float, int]:
+    """(every leaf of ``got`` finite and its int leaves equal to
+    ``want``'s, the worst leaf error over the largest |value| of the
+    same leaf of ``want``, the number of leaves)."""
+    import torch
+    from repro_torch.models import model as M
+    g_leaves, w_leaves = M.tree_leaves(got), M.tree_leaves(want)
+    ok = len(g_leaves) == len(w_leaves)
+    worst = 0.0
+    for g, w in zip(g_leaves, w_leaves):
+        if g.is_floating_point():
+            ok = ok and bool(torch.isfinite(g.float()).all())
+            worst = max(worst, norm_err(g, w)[1])
+        else:
+            ok = ok and torch.equal(g, w)
+    return ok, worst, len(g_leaves)
+
+
+def _leaves_close(label, got, want, tol) -> float:
+    """Every leaf of ``got`` within ``tol`` of the largest |value| of the
+    same leaf of ``want``; returns the worst ratio."""
+    ok, worst, n = _leaves_err(got, want)
+    check(ok and worst <= tol,
+          f"{label}: {n} leaves, finite, int leaves equal, worst error / "
+          f"max|value| {worst:.3e} <= {tol:g}")
+    return worst
+
+
+def _zoo_prompts(vocab: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(
+        0, vocab, (N_PROMPTS, PROMPT_LEN), dtype=np.int32)).to("cuda")
+
+
+def _wall(fn) -> float:
+    """Wall seconds of ``fn()``, synchronised with the card on both
+    sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after (once the card is done)."""
+    import torch
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def _zoo_kernel_times(arch, cfg) -> dict:
+    """The kernel of ``arch``'s prefill at its shapes (bf16, random inputs
+    of those shapes): kernel, plain version, library call and bound."""
+    import torch
+    import torch.nn.functional as F_
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    import numpy as np
+    rng = np.random.default_rng(1)
+    bf16 = torch.bfloat16
+    B, T = N_PROMPTS, PROMPT_LEN
+    if arch == "llama3.2-1b":
+        Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        q = rand(rng, (B, T, Hq, D), bf16)
+        k = rand(rng, (B, T, Hk, D), bf16)
+        v = rand(rng, (B, T, Hk, D), bf16)
+        err, rel = norm_err(fa.flash_attention_cuda(q, k, v),
+                            fa.flash_attention_plain(q, k, v))
+        check(rel <= BF16_TOL, f"flash_attention at Llama's prefill shapes "
+                               f"bf16: /max|plain| {rel:.3e} <= {BF16_TOL}")
+        pairs = Hq * B * T * (T + 1) // 2
+        # q, k, v read once and o written once, bf16
+        b_ms, b_by = bound(4 * D * pairs, 2 * (2 * q.numel() + k.numel()
+                                               + v.numel()), PEAK_BF16)
+        G = Hq // Hk
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        return dict(name="flash_attention", shapes=f"q {tuple(q.shape)}, "
+                    f"k/v {tuple(k.shape)} bf16 causal",
+                    ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+                    plain_ms=time_ms(lambda: fa.flash_attention_plain(
+                        q, k, v), iters=2, warmup=1),
+                    library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True)),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    H, N, P, C = cfg.ssm_heads, cfg.ssm_state, \
+        cfg.ssm_d_inner // cfg.ssm_heads, cfg.ssm_chunk
+    c = rand(rng, (B, T, H, N), bf16, 0.5)
+    b = rand(rng, (B, T, H, N), bf16, 0.5)
+    v = rand(rng, (B, T, H, P), bf16)
+    la = -torch.nn.functional.softplus(rand(rng, (B, T, H), torch.float32))
+    (y, s), (yp, sp) = (f(c, b, v, la, chunk=C) for f in
+                        (ss.ssd_scan_cuda, ss.ssd_scan_plain))
+    err, rel = norm_err(y, yp)
+    check(rel <= BF16_TOL and norm_err(s, sp)[1] <= BF16_TOL,
+          f"ssd_scan at Zamba2's prefill shapes bf16: /max|plain| "
+          f"{rel:.3e} <= {BF16_TOL}")
+    flops = B * H * (-(-T // C)) * (2 * C * C * (N + P) + 4 * C * N * P)
+    nbytes = 2 * (c.numel() + b.numel() + 2 * v.numel()) + 4 * la.numel() \
+        + 4 * B * H * N * P
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+    return dict(name="ssd_scan", shapes=f"c/b {tuple(c.shape)}, v "
+                f"{tuple(v.shape)} bf16, chunk {C}",
+                ms=time_ms(lambda: ss.ssd_scan_cuda(c, b, v, la, chunk=C)),
+                plain_ms=time_ms(lambda: ss.ssd_scan_plain(c, b, v, la,
+                                                           chunk=C),
+                                 iters=2, warmup=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def _held_kernel_calls(run) -> list:
+    """``run()`` with every ``ops.flash_attention``/``ops.ssd_scan`` call
+    also computed by the layer's plain math (``plain_attention``,
+    ``chunked_linear_recurrence``) on the same inputs; returns (kernel,
+    error / max|plain|) per call.  The kernel's result is what the model
+    goes on with."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    real_fa, real_ssd = ops.flash_attention, ops.ssd_scan
+    errs = []
+
+    def fa(q, k, v, *, causal=True, q_offset=0):
+        o = real_fa(q, k, v, causal=causal, q_offset=q_offset)
+        want = L.plain_attention(q, k, v, causal=causal, q_offset=q_offset)
+        errs.append(("flash_attention", norm_err(o, want)[1]))
+        return o
+
+    def ssd(c, b, v, log_a, *, initial_state=None, chunk=256):
+        y, s = real_ssd(c, b, v, log_a, initial_state=initial_state,
+                        chunk=chunk)
+        yw, sw = L.chunked_linear_recurrence(c, b, v, log_a, chunk=chunk,
+                                             initial_state=initial_state)
+        errs.append(("ssd_scan", max(norm_err(y, yw)[1],
+                                     norm_err(s, sw)[1])))
+        return y, s
+    ops.flash_attention, ops.ssd_scan = fa, ssd
+    try:
+        run()
+    finally:
+        ops.flash_attention, ops.ssd_scan = real_fa, real_ssd
+    return errs
+
+
+def _serve_full_width(arch, kernel, n_launch, second) -> dict:
+    """(a) ``arch`` at its published widths and depth in bf16 with the
+    kernels: prefill against the plain path, captured decode against the
+    eager step, two generates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in M.tree_leaves(params))
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_par / 1e9:.3f} B parameters ({cfg.dtype}), initialised on the "
+        f"card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = _zoo_prompts(cfg.vocab)
+    max_len = PROMPT_LEN + MAX_NEW
+    batch = {"tokens": prompts}
+
+    def prefill(c):
+        return M.prefill(c, params, batch, max_len=max_len)
+    (logits, cache), counts = _counted(lambda: prefill(cfg))
+    want = {name: 0 for name in counts}
+    want[kernel] = n_launch
+    check(counts == want, f"{arch}: one prefill with the kernels launched "
+                          f"{counts} (expected {want})")
+    (logits_p, cache_p), counts_p = _counted(lambda: prefill(plain_cfg))
+    check(not any(counts_p.values()),
+          f"{arch}: the plain prefill launched no kernel ({counts_p})")
+    tol, spread = BF16_TOL, None
+    if second is not None:
+        _, spread, _ = _leaves_err(
+            list(prefill(dataclasses.replace(plain_cfg, **second))),
+            [logits_p, cache_p])
+        tol = max(BF16_TOL, ZOO_SPREAD * spread)
+        log(f"  {arch}: two correct plain prefills ({second} against the "
+            f"config's) differ by {spread:.3e} of the largest value; bound "
+            f"max({BF16_TOL}, {ZOO_SPREAD} x that) = {tol:.3e}")
+    worst = _leaves_close(f"{arch} bf16 prefill, kernels against plain",
+                          [logits, cache], [logits_p, cache_p], tol)
+    del logits_p, cache_p
+    held = _held_kernel_calls(lambda: prefill(cfg))
+    check(len(held) == n_launch and all(e <= BF16_TOL for _, e in held),
+          f"{arch}: each of the prefill's {len(held)} {kernel} calls within "
+          f"{BF16_TOL} of the layer's plain math on the same inputs (worst "
+          f"{max(e for _, e in held):.3e})")
+    t_pre = [_wall(lambda: prefill(cfg)) for _ in range(3)]
+    t_pre_plain = [_wall(lambda: prefill(plain_cfg)) for _ in range(2)]
+
+    # captured decode, step by step against the eager step on the same
+    # cache; no kernel launches in decode
+    eng = Engine(cfg=cfg, params=params)
+    step = eng.decode_step_fn()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    toks, all_bitwise = [], True
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    for i in range(MAX_NEW):
+        toks.append(tok)
+        e_logits, e_cache = M.decode_step(cfg, params, cache, {"tokens": tok})
+        logits, cache = step(params, cache, {"tokens": tok})
+        same = bitwise_equal(logits, e_logits) and all(
+            bitwise_equal(a, b) for a, b in zip(M.tree_leaves(cache),
+                                                M.tree_leaves(e_cache)))
+        all_bitwise = all_bitwise and same
+        if not same:
+            log(f"    step {i}: captured differs from eager "
+                f"(logits {norm_err(logits, e_logits)})")
+        del e_logits, e_cache
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    dec_counts = kernels.launch_counts()
+    manual = torch.cat(toks, dim=1)
+    check(all_bitwise, f"{arch}: all {MAX_NEW} captured decode steps' logits "
+                       "and caches bitwise the eager decode_step's")
+    check(not any(dec_counts.values()),
+          f"{arch}: decode launched no kernel ({dec_counts})")
+    check(sum(eng.decode_trace_counts.values()) == 1,
+          f"{arch}: one capture for the signature "
+          f"({list(eng.decode_trace_counts.values())})")
+
+    # decode per token: captured replays against eager steps, in turns
+    def decode_loop(captured: bool):
+        _, c = prefill(cfg)
+        t = tok.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MAX_NEW):
+            if captured:
+                lg, c = step(params, c, {"tokens": t})
+            else:
+                lg, c = M.decode_step(cfg, params, c, {"tokens": t},
+                                      donate=True)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / MAX_NEW
+    d_cap, d_eager = [], []
+    for captured in (True, False, False, True):
+        (d_cap if captured else d_eager).append(decode_loop(captured))
+
+    # where the device time goes: one prefill, then captured steps from
+    # the prompt's cache (copied into the graph's on the first)
+    _, c0 = prefill(cfg)
+    n_traced = min(8, MAX_NEW)
+
+    def decode_steps():
+        c = c0
+        for _ in range(n_traced):
+            _, c = step(params, c, {"tokens": tok})
+        torch.cuda.synchronize()
+    busy = (_trace_call(f"{arch} prefill (kernels)",
+                        lambda: (prefill(cfg), torch.cuda.synchronize()),
+                        top=8),
+            _trace_call(f"{arch} {n_traced} captured decode steps",
+                        decode_steps, top=8))
+    del c0
+
+    # the user's entry point: two same-shape generates
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(prompts, max_new=MAX_NEW))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], manual),
+          f"{arch}: two generates give the same {tuple(outs[0].shape)} "
+          "tokens as the checked loop")
+    check(sum(eng.decode_trace_counts.values()) == 1
+          and len(eng.decode_trace_counts) == 1,
+          f"{arch}: two same-shape generates captured once "
+          f"({eng.decode_trace_counts and list(eng.decode_trace_counts.values())})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng.release()
+    times = _zoo_kernel_times(arch, cfg)
+    res = dict(arch=arch, prefill_ms=[1e3 * t for t in t_pre],
+               plain_prefill_ms=[1e3 * t for t in t_pre_plain],
+               decode_ms_captured=d_cap, decode_ms_eager=d_eager,
+               generate_s=walls,
+               tok_per_s=[N_PROMPTS * MAX_NEW / w for w in walls],
+               peak_gib=peak, prefill_err=worst, spread=spread, busy=busy,
+               call_err=max(e for _, e in held), kernel=times,
+               first_tokens=outs[0][0, :8].tolist())
+    log(f"  {arch}: prefill ms (kernels) {[round(t, 2) for t in res['prefill_ms']]}, "
+        f"plain {[round(t, 2) for t in res['plain_prefill_ms']]}; decode "
+        f"ms/token captured {[round(t, 3) for t in d_cap]}, eager "
+        f"{[round(t, 3) for t in d_eager]}; generate({N_PROMPTS} x "
+        f"{PROMPT_LEN}, {MAX_NEW} new) {[round(w, 3) for w in walls]} s = "
+        f"{[round(x, 1) for x in res['tok_per_s']]} tok/s; peak "
+        f"{peak:.2f} GiB; first tokens {res['first_tokens']}")
+    lib = "n/a" if times["library_ms"] is None else \
+        f"{times['library_ms']:.4f}"
+    log(f"  {arch}: {times['name']} at {times['shapes']}: kernel "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
+        f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
+        f"bf16 peak), launches per prefill {n_launch}")
+    del params, cache, eng, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _f32_prefill(arch, depth) -> float:
+    """(a) f32 at full width and ``depth`` layers: the kernel prefill
+    against the plain one within the reference's f32 bound."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                              dtype="float32", use_kernels=True)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = {"tokens": _zoo_prompts(cfg.vocab)}
+    got = M.prefill(cfg, params, batch, max_len=PROMPT_LEN + MAX_NEW)
+    want = M.prefill(dataclasses.replace(cfg, use_kernels=False), params,
+                     batch, max_len=PROMPT_LEN + MAX_NEW)
+    worst = _leaves_close(f"{arch} f32, {depth} layers, prefill kernels "
+                          "against plain", list(got), list(want), ZOO_F32_TOL)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _zoo_batch(cfg, B, T, rng):
+    import torch
+    b = {}
+    if cfg.block_pattern == "encdec" or cfg.modality_stub:
+        b["embeds"] = rand(rng, (B, T, cfg.d_model), torch.float32, 0.1)
+    if cfg.block_pattern == "encdec" or not cfg.modality_stub:
+        b["tokens"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, T), dtype="int32")).to("cuda")
+    return b
+
+
+def _reduced_arch(arch) -> dict:
+    """(b) ``arch`` reduced on the card: prefill and decode steps with the
+    kernels against without, in f32."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_kernels=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    B, T = 2, 64
+    b = _zoo_batch(cfg, B, T + ZOO_DECODE_STEPS, rng)
+    if cfg.block_pattern == "encdec":
+        pre = {"embeds": b["embeds"], "tokens": b["tokens"][:, :T]}
+    else:
+        pre = {k: v[:, :T] for k, v in b.items()}
+    max_len = T + ZOO_DECODE_STEPS
+    (lk, ck), counts = _counted(lambda: M.prefill(cfg, params, pre, max_len))
+    lp, cp = M.prefill(plain, params, pre, max_len)
+    bp = cfg.block_pattern
+    want = {name: 0 for name in counts}
+    if bp in ("dense", "moe"):
+        want["flash_attention"] = cfg.n_layers
+    elif bp == "zamba2":
+        want["ssd_scan"] = cfg.n_layers
+    elif bp == "xlstm":
+        want["ssd_scan"] = cfg.n_layers // 2
+    check(counts == want, f"{arch} reduced: prefill launched {counts}")
+    ok, worst, n = _leaves_err([lk, ck], [lp, cp])
+    for t in range(T, T + ZOO_DECODE_STEPS):
+        if cfg.modality_stub and bp != "encdec":
+            step = {"embeds": b["embeds"][:, t:t + 1]}
+        else:
+            step = {"tokens": b["tokens"][:, t:t + 1]}
+        lk, ck = M.decode_step(cfg, params, ck, step, donate=True)
+        lp, cp = M.decode_step(plain, params, cp, step, donate=True)
+        ok_t, worst_t, _ = _leaves_err([lk, ck], [lp, cp])
+        ok, worst = ok and ok_t, max(worst, worst_t)
+    check(ok and worst <= ZOO_F32_TOL,
+          f"{arch} reduced: prefill and {ZOO_DECODE_STEPS} decode steps "
+          f"with kernels against without, {n} leaves each, finite, worst "
+          f"error / max|value| {worst:.3e} <= {ZOO_F32_TOL:g}")
+    return dict(counts=counts, worst=worst)
+
+
+def _no_fallback() -> None:
+    """(c) shapes the kernels cannot take raise on the card: xLSTM-125M's
+    full-width mLSTM scan (N = 384, P = 385) and StableLM-12B's attention
+    (D = 160)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    import numpy as np
+    rng = np.random.default_rng(2)
+    x = get_config("xlstm-125m")
+    H = x.n_heads
+    dh = x.xlstm_d_inner // H
+    s = get_config("stablelm-12b")
+    cases = {
+        f"ssd_scan at xLSTM-125M's mLSTM (N={dh}, P={dh + 1})":
+            lambda: ops.ssd_scan(
+                rand(rng, (1, 64, H, dh), torch.bfloat16),
+                rand(rng, (1, 64, H, dh), torch.bfloat16),
+                rand(rng, (1, 64, H, dh + 1), torch.bfloat16),
+                -torch.ones((1, 64, H), device="cuda"), chunk=x.ssm_chunk),
+        f"flash_attention at StableLM-12B's D={s.d_head}":
+            lambda: ops.flash_attention(
+                rand(rng, (1, 64, s.n_heads, s.d_head), torch.bfloat16),
+                rand(rng, (1, 64, s.n_kv_heads, s.d_head), torch.bfloat16),
+                rand(rng, (1, 64, s.n_kv_heads, s.d_head), torch.bfloat16)),
+    }
+    for label, fn in cases.items():
+        kernels.reset_launch_counts()
+        try:
+            fn()
+            raised = None
+        except ValueError as e:
+            raised = e
+        torch.cuda.synchronize()
+        check(raised is not None and not any(kernels.launch_counts().values()),
+              f"no fallback: {label} raises ValueError ({raised})")
+
+
+def phase_zoo(env: dict) -> dict:
+    """The model zoo: Llama-3.2-1B and Zamba2-2.7B served at full width
+    (a), every arch reduced (b), and no fallback (c)."""
+    from repro_torch.configs import ALL_ARCHS
+    log("== phase 8: model zoo serving on the card")
+    log(env["card"])
+    t0 = time.perf_counter()
+    full = {arch: _serve_full_width(arch, kernel, n, second)
+            for arch, kernel, n, second in ZOO_FULL}
+    f32 = {(arch, d): _f32_prefill(arch, d)
+           for arch, depths in ZOO_F32_DEPTH.items() for d in depths}
+    log(f"  (a) done in {time.perf_counter() - t0:.1f} s; f32 worst errors "
+        + ", ".join(f"{a} {d} layers {e:.2e}" for (a, d), e in f32.items()))
+    t1 = time.perf_counter()
+    reduced = {arch: _reduced_arch(arch) for arch in ALL_ARCHS}
+    log(f"  (b) every arch reduced in {time.perf_counter() - t1:.1f} s: "
+        + ", ".join(f"{a} {r['worst']:.1e}" for a, r in reduced.items()))
+    _no_fallback()
+    log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
+    return dict(full=full, f32=f32, reduced=reduced)
+
+
 def main() -> int:
     try:
         import torch
@@ -1970,6 +2485,7 @@ def main() -> int:
         phase_dag(GRANITE_MAIN_PATH, main, conc)
         adm = phase_admission(GRANITE_MAIN_PATH, main, conc)
         phase_serving(GRANITE_MAIN_PATH, main, conc, adm)
+        phase_zoo(env)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

@@ -21,7 +21,9 @@ CUDA device:
 * **Static buffers.**  The graph reads fixed input tensors (clones of
   the arguments it was captured with) and writes fixed output tensors.
   :meth:`CapturedCall.replay` copies new arguments into the inputs on
-  the current stream (from the host too), replays the graph there and
+  the current stream (from the host too; an argument that *is* its
+  static input is not copied, so state the graph updates in place, like
+  a decode step's cache, stays where it is), replays the graph there and
   returns *clones* of the outputs, so no run's outputs are overwritten by
   a later run.  A replay is valid only for the arguments' signature at
   capture (shapes, dtypes, devices: :func:`arg_signature`); the caller
@@ -97,7 +99,8 @@ class CapturedCall:
             for t in self.static_in + self.static_out:
                 t.record_stream(stream)
         for buf, a in zip(self.static_in, args):
-            buf.copy_(a)
+            if a is not buf:            # a static input handed back as is
+                buf.copy_(a)
         self.graph.replay()
         _build.add_launches(self.launches)
         outs = tuple(o.clone() for o in self.static_out)

@@ -1,17 +1,243 @@
-"""The kernel-backed chain: a runnable OpGraph whose ops carry real
-payload variant tables.
+"""Analytic fused-operator graphs of the model zoo, and the kernel-backed
+chain: a runnable OpGraph whose ops carry real payload variant tables.
 
-Port of ``repro.core.modelgraph.kernel_chain`` (the analytic
-``model_op_graph`` of the model zoo waits for the zoo, ``ROADMAP.md``).
+Port of ``repro.core.modelgraph``.  ``model_op_graph(cfg, ...)`` is a
+NumPy copy of the reference's and gives the same graph bit for bit: one
+op per GEMM / attention / recurrence / router / norm-act cluster of a
+``repro_torch.configs`` model, with exact operand shapes.  MoE layers
+emit a fork/join phase (the shared-expert branch beside the routed one).
+``kernel_chain`` builds the chain of the three kernels on torch tensors.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from .op import FusedOp, OpGraph
+
+
+def _mm(name: str, batch_tokens: int, d_in: int, d_out: int, dtb: int) -> FusedOp:
+    return FusedOp(name=name, kind="matmul",
+                   in_shapes=((batch_tokens, d_in), (d_in, d_out)),
+                   out_shape=(batch_tokens, d_out), dtype_bytes=dtb)
+
+
+def _norm(name: str, batch_tokens: int, d: int, dtb: int) -> FusedOp:
+    return FusedOp(name=name, kind="norm", in_shapes=((batch_tokens, d),),
+                   out_shape=(batch_tokens, d), dtype_bytes=dtb)
+
+
+def _act(name: str, batch_tokens: int, d: int, dtb: int) -> FusedOp:
+    return FusedOp(name=name, kind="act", in_shapes=((batch_tokens, d),),
+                   out_shape=(batch_tokens, d), dtype_bytes=dtb)
+
+
+def _attn(name: str, B: int, H: int, Tq: int, Tk: int, dh: int, dtb: int) -> FusedOp:
+    op = FusedOp(name=name, kind="attention",
+                 in_shapes=((B, H, Tq, dh), (B, H, Tk, dh)),
+                 out_shape=(B, H, Tq, dh), dtype_bytes=dtb)
+    # q read + K AND V read (the KV-cache stream that dominates decode) + out
+    op.bytes_moved = float(dtb * B * H * (Tq * dh + 2 * Tk * dh + Tq * dh))
+    return op
+
+
+def _scan(name: str, B: int, T: int, H: int, N: int, P: int, dtb: int) -> FusedOp:
+    # recurrent state update: flops ~ T x H x N x P MACs (x2) + gating
+    op = FusedOp(name=name, kind="scan",
+                 in_shapes=((B, T, H, N), (B, T, H, P)),
+                 out_shape=(B, T, H, P), dtype_bytes=dtb)
+    op.flops = 4.0 * B * T * H * N * P
+    return op
+
+
+def model_op_graph(cfg, *, kind: str = "train", batch: int = 8,
+                   seq: int = 2048) -> OpGraph:
+    """Fused-op DAG for one forward pass of ``cfg`` at (batch, seq).
+
+    kind: "train"/"prefill" = full-sequence forward; "decode" = one token
+    against a cache of ``seq`` (Tk = seq, Tq = 1).
+    """
+    dtb = 2 if cfg.dtype == "bfloat16" else 4
+    B = batch
+    Tq = 1 if kind == "decode" else seq
+    Tk = seq
+    NT = B * Tq                       # tokens processed this step
+    d = cfg.d_model
+
+    ops: list[FusedOp] = []
+    edges: list[tuple[int, int]] = []
+    tail: int | None = None           # index of the op new ops chain onto
+
+    def add(op: FusedOp, after: int | Sequence[int] | None = "tail") -> int:
+        nonlocal tail
+        idx = len(ops)
+        ops.append(op)
+        if after == "tail":
+            if tail is not None:
+                edges.append((tail, idx))
+        elif after is None:
+            pass
+        else:
+            for a in (after if isinstance(after, (list, tuple)) else [after]):
+                edges.append((a, idx))
+        tail = idx
+        return idx
+
+    # embedding lookup
+    add(FusedOp(name="embed", kind="embed",
+                in_shapes=((cfg.vocab, d), (NT,)), out_shape=(NT, d),
+                dtype_bytes=dtb))
+
+    def gqa_layer(i: int, prefix: str = "") -> None:
+        nonlocal tail
+        add(_norm(f"{prefix}L{i}.ln1", NT, d, dtb))
+        qkv = cfg.n_heads * cfg.d_head + 2 * cfg.n_kv_heads * cfg.d_head
+        add(_mm(f"{prefix}L{i}.qkv", NT, d, qkv, dtb))
+        add(_attn(f"{prefix}L{i}.attn", B, cfg.n_heads, Tq, Tk, cfg.d_head, dtb))
+        add(_mm(f"{prefix}L{i}.o", NT, cfg.n_heads * cfg.d_head, d, dtb))
+
+    def mla_layer(i: int) -> None:
+        add(_norm(f"L{i}.ln1", NT, d, dtb))
+        add(_mm(f"L{i}.q_a", NT, d, cfg.q_lora_rank, dtb))
+        add(_mm(f"L{i}.q_b", NT, cfg.q_lora_rank,
+                cfg.n_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim), dtb))
+        add(_mm(f"L{i}.kv_a", NT, d, cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtb))
+        add(_mm(f"L{i}.kv_b", NT, cfg.kv_lora_rank,
+                cfg.n_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim), dtb))
+        add(_attn(f"L{i}.attn", B, cfg.n_heads, Tq, Tk,
+                  cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, dtb))
+        add(_mm(f"L{i}.o", NT, cfg.n_heads * cfg.v_head_dim, d, dtb))
+
+    def dense_mlp(i: int, prefix: str = "") -> None:
+        add(_norm(f"{prefix}L{i}.ln2", NT, d, dtb))
+        add(_mm(f"{prefix}L{i}.mlp_up", NT, d, 2 * cfg.d_ff, dtb))
+        add(_act(f"{prefix}L{i}.mlp_act", NT, cfg.d_ff, dtb))
+        add(_mm(f"{prefix}L{i}.mlp_down", NT, cfg.d_ff, d, dtb))
+
+    def moe_mlp(i: int) -> None:
+        """Router -> fork(routed branch || shared branch) -> join."""
+        nonlocal tail
+        add(_norm(f"L{i}.ln2", NT, d, dtb))
+        fork = add(_mm(f"L{i}.router", NT, d, cfg.n_experts, 4))
+        # routed branch: dispatch gather, expert GEMMs (active experts
+        # only: top-k of tokens), combine scatter
+        ff = cfg.moe_d_ff
+        tok_k = NT * cfg.moe_top_k
+        disp = add(FusedOp(name=f"L{i}.dispatch", kind="gather",
+                           in_shapes=((NT, d), (tok_k,)),
+                           out_shape=(tok_k, d), dtype_bytes=dtb), after=fork)
+        add(_mm(f"L{i}.exp_up", tok_k, d, 2 * ff, dtb))
+        add(_act(f"L{i}.exp_act", tok_k, ff, dtb))
+        add(_mm(f"L{i}.exp_down", tok_k, ff, d, dtb))
+        comb = add(FusedOp(name=f"L{i}.combine", kind="scatter",
+                           in_shapes=((tok_k, d), (tok_k,)),
+                           out_shape=(NT, d), dtype_bytes=dtb))
+        join_srcs = [comb]
+        if cfg.n_shared_experts:
+            sh_up = add(_mm(f"L{i}.shared_up", NT, d,
+                            2 * ff * cfg.n_shared_experts, dtb), after=fork)
+            add(_act(f"L{i}.shared_act", NT, ff * cfg.n_shared_experts, dtb))
+            sh_dn = add(_mm(f"L{i}.shared_down", NT,
+                            ff * cfg.n_shared_experts, d, dtb))
+            join_srcs.append(sh_dn)
+        add(FusedOp(name=f"L{i}.moe_add", kind="add",
+                    in_shapes=((NT, d),) * 2, out_shape=(NT, d),
+                    dtype_bytes=dtb), after=join_srcs)
+
+    def mamba_layer(i: int) -> None:
+        di, H, N = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
+        P = di // H
+        conv_dim = di + 2 * N * cfg.ssm_groups
+        add(_norm(f"L{i}.ln1", NT, d, dtb))
+        add(_mm(f"L{i}.in_proj", NT, d, 2 * di + 2 * N * cfg.ssm_groups
+                + cfg.ssm_heads, dtb))
+        add(FusedOp(name=f"L{i}.conv", kind="dwconv",
+                    in_shapes=((B, Tq, conv_dim), (conv_dim, 1, cfg.ssm_conv, 1)),
+                    out_shape=(B, Tq, conv_dim), dtype_bytes=dtb))
+        add(_scan(f"L{i}.ssd", B, Tq, H, N, P, dtb))
+        add(_norm(f"L{i}.gate_norm", NT, di, dtb))
+        add(_mm(f"L{i}.out_proj", NT, di, d, dtb))
+
+    def xlstm_pair(i: int) -> None:
+        di = cfg.xlstm_d_inner
+        H = cfg.n_heads
+        dh = di // H
+        add(_norm(f"L{i}.ln_m", NT, d, dtb))
+        add(_mm(f"L{i}.m_up", NT, d, 2 * di, dtb))
+        add(_mm(f"L{i}.m_qkv", NT, di, 3 * di, dtb))
+        add(_scan(f"L{i}.mlstm", B, Tq, H, dh, dh + 1, dtb))
+        add(_mm(f"L{i}.m_down", NT, di, d, dtb))
+        add(_norm(f"L{i}.ln_s", NT, d, dtb))
+        add(_mm(f"L{i}.s_in", NT, d, 4 * d, dtb))
+        add(_scan(f"L{i}.slstm", B, Tq, H, d // H, d // H, dtb))
+        add(_mm(f"L{i}.s_ff_up", NT, d, 2 * cfg.slstm_ff, dtb))
+        add(_mm(f"L{i}.s_ff_down", NT, cfg.slstm_ff, d, dtb))
+
+    bp = cfg.block_pattern
+    if bp in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            gqa_layer(i)
+            if bp == "moe":
+                moe_mlp(i)
+            else:
+                dense_mlp(i)
+    elif bp == "mla_moe":
+        for i in range(cfg.n_layers):
+            mla_layer(i)
+            if i < cfg.first_k_dense:
+                dense_mlp(i)
+            else:
+                moe_mlp(i)
+    elif bp == "encdec":
+        # encoder tower feeds decoder cross-attention; decoder self-attn
+        # and encoder run as two towers joined at cross-attn (fork at embed)
+        enc_T = seq
+        enc_NT = B * enc_T
+        root = tail
+        enc_tail = root
+        for i in range(cfg.n_enc_layers):
+            tail_save = tail
+            # encoder ops chain from enc_tail
+            if i == 0:
+                pass
+            gqa_layer(i, prefix="enc.")
+            dense_mlp(i, prefix="enc.")
+        enc_end = tail
+        for i in range(cfg.n_dec_layers):
+            gqa_layer(i, prefix="dec.")
+            add(_mm(f"dec.L{i}.xq", NT, d, cfg.n_heads * cfg.d_head, dtb))
+            add(_attn(f"dec.L{i}.xattn", B, cfg.n_heads, Tq, enc_T,
+                      cfg.d_head, dtb))
+            add(_mm(f"dec.L{i}.xo", NT, cfg.n_heads * cfg.d_head, d, dtb))
+            dense_mlp(i, prefix="dec.")
+    elif bp == "xlstm":
+        for i in range(cfg.n_layers // 2):
+            xlstm_pair(i)
+    elif bp == "zamba2":
+        for i in range(cfg.n_layers):
+            mamba_layer(i)
+            if (i + 1) % cfg.zamba_attn_every == 0:
+                gqa_layer(i, prefix="shared.")
+    else:
+        raise ValueError(bp)
+
+    add(_norm("final_norm", NT, d, dtb))
+    # prefill emits last-position logits only (cf. models.model.prefill)
+    head_tokens = B if kind == "prefill" else NT
+    add(_mm("lm_head", head_tokens, d, cfg.vocab, dtb))
+    # terminal fused reduction: the CE loss (train) / argmax sample (decode)
+    # fuses with the head matmul in XLA, so the inter-op tensor leaving the
+    # head is (tokens, 1) — per-token NLL or sampled ids — NOT the full
+    # logits.  Modeling it as a separate op with the fused-away input keeps
+    # the exit D2H physical (gathering 260 GB of logits is not a thing any
+    # real system does).
+    add(FusedOp(name="loss" if kind == "train" else "sample", kind="add",
+                in_shapes=((head_tokens, 1),), out_shape=(head_tokens, 1),
+                dtype_bytes=4))
+    return OpGraph(ops, edges=edges)
+
 
 # The main path's full width: Granite-3.0-1B-A400M
 # (src/repro/configs/granite_moe_1b.py: d_model 1024 = 16 heads x 64,

@@ -613,3 +613,72 @@ def test_serving_recovers_from_a_lost_kernel_lane(cuda):
     assert rep.breaker["targets"]["cuda-kernels"]["state"] == "closed"
     assert all(c >= 1 for c in kernels.launch_counts().values())
     assert orch._active == {}
+
+
+# ---------------------------------------------------------------------------
+# the model zoo on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,depth", [("llama3.2-1b", 2),
+                                        ("zamba2-2.7b", 6)])
+def test_zoo_captured_decode_is_bitwise_the_eager_step(cuda, arch, depth):
+    """At full width and cut depth in bf16 with the kernels: every step
+    of the engine's captured decode gives the eager ``decode_step``'s
+    logits and cache bit for bit, one capture serves two generates, and
+    the prefill launched its kernel once a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                              use_kernels=True)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128),
+                                            dtype=np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    logits, cache = M.prefill(cfg, params, {"tokens": prompts}, max_len=136)
+    torch.cuda.synchronize()
+    kernel = "flash_attention" if arch == "llama3.2-1b" else "ssd_scan"
+    assert kernels.launch_counts()[kernel] == depth
+    eng = Engine(cfg=cfg, params=params)
+    step = eng.decode_step_fn()
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    for _ in range(6):
+        want_logits, want_cache = M.decode_step(cfg, params, cache,
+                                                {"tokens": tok})
+        logits, cache = step(params, cache, {"tokens": tok})
+        assert torch.equal(logits.view(torch.int16),
+                           want_logits.view(torch.int16))
+        for a, b in zip(M.tree_leaves(cache), M.tree_leaves(want_cache)):
+            assert torch.equal(a, b)
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    out1 = eng.generate(prompts, max_new=8)
+    out2 = eng.generate(prompts, max_new=8)
+    assert torch.equal(out1, out2) and tuple(out1.shape) == (2, 8)
+    assert sum(eng.decode_trace_counts.values()) == 1
+    eng.release()
+
+
+@pytest.mark.gpu
+def test_zoo_kernel_paths_raise_on_shapes_the_kernels_cannot_take(cuda):
+    """No fallback: xLSTM-125M's full-width mLSTM scan (N = 384, P = 385)
+    and StableLM-12B's attention (D = 160) raise on the card."""
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(3)
+    x = get_config("xlstm-125m")
+    dh = x.xlstm_d_inner // x.n_heads
+    qk = _rand(rng, (1, 64, x.n_heads, dh), cuda, torch.bfloat16)
+    v = _rand(rng, (1, 64, x.n_heads, dh + 1), cuda, torch.bfloat16)
+    la = -torch.ones((1, 64, x.n_heads), device=cuda)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="N, P <="):
+        ops.ssd_scan(qk, qk, v, la, chunk=x.ssm_chunk)
+    s = get_config("stablelm-12b")
+    q = _rand(rng, (1, 64, s.n_heads, s.d_head), cuda, torch.bfloat16)
+    kv = _rand(rng, (1, 64, s.n_kv_heads, s.d_head), cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="D == Dv in"):
+        ops.flash_attention(q, kv, kv)
+    assert not any(kernels.launch_counts().values())

@@ -35,7 +35,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     modules = _modules()
     assert {"repro_torch.core.orchestrator", "repro_torch.kernels.ops",
             "repro_torch.fault.manager",
-            "repro_torch.core.contention"} <= set(modules)
+            "repro_torch.core.contention", "repro_torch.sharding",
+            "repro_torch.configs.base", "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.models.layers", "repro_torch.models.model",
+            "repro_torch.serving.engine",
+            "repro_torch.launch.serve"} <= set(modules)
     code = "\n".join([
         "import sys",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
