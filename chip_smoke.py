@@ -91,30 +91,50 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    loss the kernel lane's breaker opens, half-opens and closes.  The
    reports, breaker transitions with their reasons, cache deltas and
    window costs are printed; every kernel launched in the phase;
-8. model zoo serving — (a) Llama-3.2-1B and Zamba2-2.7B at their
-   published widths and depths in bf16 with ``use_kernels=True``
+8. model zoo serving — (a) Llama-3.2-1B, Zamba2-2.7B and xLSTM-125M at
+   their published widths and depths in bf16 with ``use_kernels=True``
    (weights from ``init_params`` with a seeded generator on the card)
    serve 4 prompts of 1024 tokens through ``Engine.generate(max_new=
    32)``: one prefill launches ``flash_attention`` 16 times (Llama) or
-   ``ssd_scan`` 54 times (Zamba2), counted from zero, and decode none;
-   the kernel prefill's logits and every cache leaf against the plain
-   path's (``use_kernels=False``) within the bf16 bucket of the largest
-   value, or within ZOO_SPREAD times the spread between two correct
-   plain paths where one is given (Zamba2: the scan at chunk 128),
-   whichever is larger; each kernel call of the prefill within the
-   bucket of the layer's plain math on the same inputs; in f32 at full
-   width, the same comparison within 2e-4 at cut depth (Llama 2 layers,
-   Zamba2 6) and at full depth; every captured decode step's logits and
-   cache bitwise the eager ``decode_step``'s; two generates capture once
-   and give the checked loop's tokens.  Prefill and decode times
+   ``ssd_scan`` 54 times (Zamba2) or 6 times (xLSTM's mLSTM at N = 384,
+   P = 385), counted from zero, and decode none; the kernel prefill's
+   logits and every cache leaf against the plain path's
+   (``use_kernels=False``) within the bf16 bucket of the largest value,
+   or within ZOO_SPREAD times the spread between two correct plain paths
+   where one is given (the scan at chunk 128), whichever is larger; each
+   kernel call of the prefill within the bucket of the layer's plain
+   math on the same inputs; in f32 at full width, the same comparison
+   within 2e-4 at cut depth (Llama 2 layers, Zamba2 6, xLSTM 4) and at
+   full depth; every captured decode step's logits and cache bitwise the
+   eager ``decode_step``'s; two generates capture once and give the
+   checked loop's tokens.  StableLM-12B (d_head 160) at full width, cut
+   to 4 of its 40 layers: the kernel prefill against the plain one in
+   bf16 and f32, each attention call held.  Prefill and decode times
    (captured and eager, in turns), tokens per second, peak memory, a
    device trace of a prefill and of captured steps, and each kernel at
    these shapes beside SDPA and its bound are printed.  (b) every arch
    reduced, prefill and 4 decode steps with the kernels against
    without, in f32 within 2e-4, each launching the kernels its pattern
-   calls.  (c) the shapes the kernels cannot take (xLSTM-125M's mLSTM
-   scan, StableLM-12B's D = 160 attention) raise ``ValueError`` on the
-   card and launch nothing.
+   calls.  (c) the zoo's widest kernel shapes — StableLM-12B's prefill
+   attention (q (4, 1024, 32, 160), k/v 8 heads, causal) and
+   xLSTM-125M's mLSTM scan (c/b (4, 1024, 4, 384), v (4, 1024, 4, 385),
+   chunk 256) — in bf16 and f32 against the plain versions, bitwise run
+   to run, with kernel, plain, SDPA and bound times; shapes beyond the
+   kernels (N > ``MAX_STATE``, D = 96) raise ``ValueError`` and launch
+   nothing;
+9. training — Llama-3.2-1B at its published widths and depth (bf16
+   params, f32 AdamW state, remat on), ``SyntheticTokenSource`` batches
+   of 8 x 1024, under ``deterministic_training``: (a) 6 steps
+   uninterrupted; (b) the same 6 steps through ``launch.train.main``
+   with a checkpoint every 3 steps and a ``RecoverableError`` injected
+   at step 4, so ``run_with_recovery`` restores step 3's checkpoint and
+   goes on: the losses bitwise (a)'s, the final checkpoint restoring
+   (a)'s params bitwise, one restart; (c) one step with top-k
+   compression and one with 2 microbatches.  Step time (median of the
+   warm steps), tokens a second, the bf16-peak share (6 x params x
+   tokens / step time / 989 TFLOP/s), peak memory, checkpoint save and
+   restore seconds and a traced step's device-busy share are printed;
+   the phase has a time budget.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -123,6 +143,7 @@ line ``{"ok": true, "device": {...}}``.  A full log goes to
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1983,7 +2004,8 @@ N_PROMPTS, PROMPT_LEN, MAX_NEW = 4, 1024, 32
 # kernels (the reference's use_kernels prefill): (arch, kernel, launches
 # per prefill, a second correct plain path: the config fields it changes)
 ZOO_FULL = (("llama3.2-1b", "flash_attention", 16, None),
-            ("zamba2-2.7b", "ssd_scan", 54, {"ssm_chunk": 128}))
+            ("zamba2-2.7b", "ssd_scan", 54, {"ssm_chunk": 128}),
+            ("xlstm-125m", "ssd_scan", 6, {"ssm_chunk": 128}))
 # The whole bf16 model is held to the plain path within the bf16 bucket,
 # or within ZOO_SPREAD times the spread between two correct plain paths
 # (the scan at chunk 256 and at 128), whichever is larger: over Zamba2's
@@ -1993,8 +2015,15 @@ ZOO_FULL = (("llama3.2-1b", "flash_attention", 16, None),
 # model within ZOO_F32_TOL at full depth.
 ZOO_SPREAD = 2.0
 # the comparison in f32 at full width: cut depth, and full depth
-ZOO_F32_DEPTH = {"llama3.2-1b": (2, 16), "zamba2-2.7b": (6, 54)}
+ZOO_F32_DEPTH = {"llama3.2-1b": (2, 16), "zamba2-2.7b": (6, 54),
+                 "xlstm-125m": (4, 12)}
 ZOO_F32_TOL = 2e-4     # tests/test_kernel_integration_compress.py's bound
+# xLSTM-125M's sLSTM half steps through the prompt one token at a time: a
+# prefill is a host-bound loop of ~150k small device ops (2-3 s, 6.4%
+# device-busy in a trace on an H100 80GB HBM3 at 700 W, PERF.md), so its
+# prefill is timed once each way, its decode loops run once each way, and
+# its prefill is not traced
+ZOO_HOST_BOUND = ("xlstm-125m",)
 ZOO_DECODE_STEPS = 4   # phase 8 (b): decode steps after each prefill
 
 
@@ -2056,66 +2085,113 @@ def _counted(fn):
     return out, kernels.launch_counts()
 
 
-def _zoo_kernel_times(arch, cfg) -> dict:
-    """The kernel of ``arch``'s prefill at its shapes (bf16, random inputs
-    of those shapes): kernel, plain version, library call and bound."""
+def _zoo_call_shapes(arch, cfg) -> tuple[str, dict]:
+    """The kernel ``arch``'s prefill calls, and its operands' shapes at
+    phase 8's batch (N_PROMPTS x PROMPT_LEN)."""
+    B, T = N_PROMPTS, PROMPT_LEN
+    if cfg.block_pattern in ("dense", "moe"):
+        return "flash_attention", dict(
+            q=(B, T, cfg.n_heads, cfg.d_head),
+            kv=(B, T, cfg.n_kv_heads, cfg.d_head))
+    if cfg.block_pattern == "xlstm":       # the mLSTM: v and a ones column
+        H = cfg.n_heads
+        dh = cfg.xlstm_d_inner // H
+        return "ssd_scan", dict(cb=(B, T, H, dh), v=(B, T, H, dh + 1),
+                                chunk=cfg.ssm_chunk, ones=True)
+    H = cfg.ssm_heads
+    return "ssd_scan", dict(cb=(B, T, H, cfg.ssm_state),
+                            v=(B, T, H, cfg.ssm_d_inner // H),
+                            chunk=cfg.ssm_chunk, ones=False)
+
+
+def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
+    """The kernel of ``arch``'s prefill at its shapes (random inputs of
+    those shapes, in ``dtype``, default bf16): held against its plain
+    version within the dtype's bucket (and, with ``repeat``, bitwise
+    between two runs); kernel, plain version, library call and bound."""
     import torch
     import torch.nn.functional as F_
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     import numpy as np
     rng = np.random.default_rng(1)
-    bf16 = torch.bfloat16
-    B, T = N_PROMPTS, PROMPT_LEN
-    if arch == "llama3.2-1b":
-        Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        q = rand(rng, (B, T, Hq, D), bf16)
-        k = rand(rng, (B, T, Hk, D), bf16)
-        v = rand(rng, (B, T, Hk, D), bf16)
+    dtype = dtype or torch.bfloat16
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    name = f"{arch} {str(dtype)[6:]}"
+    kernel, sh = _zoo_call_shapes(arch, cfg)
+    if kernel == "flash_attention":
+        q = rand(rng, sh["q"], dtype)
+        k = rand(rng, sh["kv"], dtype)
+        v = rand(rng, sh["kv"], dtype)
+        B, T, Hq, D = sh["q"]
+        Hk = sh["kv"][2]
         err, rel = norm_err(fa.flash_attention_cuda(q, k, v),
                             fa.flash_attention_plain(q, k, v))
-        check(rel <= BF16_TOL, f"flash_attention at Llama's prefill shapes "
-                               f"bf16: /max|plain| {rel:.3e} <= {BF16_TOL}")
+        check(rel <= tol, f"flash_attention at {name}'s prefill shapes: "
+                          f"/max|plain| {rel:.3e} <= {tol}")
+        if repeat:
+            check_repeatable("flash_attention", f"at {arch}'s shapes",
+                             fa.flash_attention_cuda, (q, k, v))
         pairs = Hq * B * T * (T + 1) // 2
-        # q, k, v read once and o written once, bf16
-        b_ms, b_by = bound(4 * D * pairs, 2 * (2 * q.numel() + k.numel()
-                                               + v.numel()), PEAK_BF16)
+        # q, k, v read once and o written once
+        b_ms, b_by = tc_bound(4 * D * pairs, q.element_size() * (
+            2 * q.numel() + k.numel() + v.numel()), dtype)
         G = Hq // Hk
         qh = q.transpose(1, 2).contiguous()
         kh, vh = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
                   for x in (k, v))
         return dict(name="flash_attention", shapes=f"q {tuple(q.shape)}, "
-                    f"k/v {tuple(k.shape)} bf16 causal",
+                    f"k/v {tuple(k.shape)} {str(dtype)[6:]} causal",
                     ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
                     plain_ms=time_ms(lambda: fa.flash_attention_plain(
                         q, k, v), iters=2, warmup=1),
                     library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=True)),
-                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    H, N, P, C = cfg.ssm_heads, cfg.ssm_state, \
-        cfg.ssm_d_inner // cfg.ssm_heads, cfg.ssm_chunk
-    c = rand(rng, (B, T, H, N), bf16, 0.5)
-    b = rand(rng, (B, T, H, N), bf16, 0.5)
-    v = rand(rng, (B, T, H, P), bf16)
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                    rel_err=rel)
+    B, T, H, N = sh["cb"]
+    P, C = sh["v"][-1], sh["chunk"]
+    c = rand(rng, sh["cb"], dtype, 0.5)
+    b = rand(rng, sh["cb"], dtype, 0.5)
+    if sh["ones"]:
+        v = torch.cat([rand(rng, sh["v"][:-1] + (P - 1,), dtype),
+                       torch.ones(sh["v"][:-1] + (1,), device="cuda",
+                                  dtype=dtype)], dim=-1)
+    else:
+        v = rand(rng, sh["v"], dtype)
     la = -torch.nn.functional.softplus(rand(rng, (B, T, H), torch.float32))
     (y, s), (yp, sp) = (f(c, b, v, la, chunk=C) for f in
                         (ss.ssd_scan_cuda, ss.ssd_scan_plain))
     err, rel = norm_err(y, yp)
-    check(rel <= BF16_TOL and norm_err(s, sp)[1] <= BF16_TOL,
-          f"ssd_scan at Zamba2's prefill shapes bf16: /max|plain| "
-          f"{rel:.3e} <= {BF16_TOL}")
+    s_rel = norm_err(s, sp)[1]
+    check(rel <= tol and s_rel <= tol,
+          f"ssd_scan at {name}'s prefill shapes: /max|plain| y {rel:.3e}, "
+          f"state {s_rel:.3e} <= {tol}")
+    if repeat:
+        check_repeatable("ssd_scan", f"at {arch}'s shapes",
+                         lambda *a: ss.ssd_scan_cuda(*a, chunk=C),
+                         (c, b, v, la))
     flops = B * H * (-(-T // C)) * (2 * C * C * (N + P) + 4 * C * N * P)
-    nbytes = 2 * (c.numel() + b.numel() + 2 * v.numel()) + 4 * la.numel() \
-        + 4 * B * H * N * P
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+    nbytes = c.element_size() * (c.numel() + b.numel() + 2 * v.numel()) \
+        + 4 * la.numel() + 4 * B * H * N * P
+    b_ms, b_by = tc_bound(flops, nbytes, dtype)
     return dict(name="ssd_scan", shapes=f"c/b {tuple(c.shape)}, v "
-                f"{tuple(v.shape)} bf16, chunk {C}",
+                f"{tuple(v.shape)} {str(dtype)[6:]}, chunk {C}",
                 ms=time_ms(lambda: ss.ssd_scan_cuda(c, b, v, la, chunk=C)),
                 plain_ms=time_ms(lambda: ss.ssd_scan_plain(c, b, v, la,
                                                            chunk=C),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err)
+                max_abs_err=err, rel_err=rel)
+
+
+def _log_kernel_times(arch, times, n_launch) -> None:
+    lib = "n/a" if times["library_ms"] is None else \
+        f"{times['library_ms']:.4f}"
+    log(f"  {arch}: {times['name']} at {times['shapes']}: kernel "
+        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
+        f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}), "
+        f"launches per prefill {n_launch}")
 
 
 def _held_kernel_calls(run) -> list:
@@ -2204,8 +2280,10 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
           f"{arch}: each of the prefill's {len(held)} {kernel} calls within "
           f"{BF16_TOL} of the layer's plain math on the same inputs (worst "
           f"{max(e for _, e in held):.3e})")
-    t_pre = [_wall(lambda: prefill(cfg)) for _ in range(3)]
-    t_pre_plain = [_wall(lambda: prefill(plain_cfg)) for _ in range(2)]
+    light = arch in ZOO_HOST_BOUND
+    t_pre = [_wall(lambda: prefill(cfg)) for _ in range(1 if light else 3)]
+    t_pre_plain = [_wall(lambda: prefill(plain_cfg))
+                   for _ in range(1 if light else 2)]
 
     # captured decode, step by step against the eager step on the same
     # cache; no kernel launches in decode
@@ -2254,7 +2332,7 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / MAX_NEW
     d_cap, d_eager = [], []
-    for captured in (True, False, False, True):
+    for captured in (True, False) if light else (True, False, False, True):
         (d_cap if captured else d_eager).append(decode_loop(captured))
 
     # where the device time goes: one prefill, then captured steps from
@@ -2267,9 +2345,9 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
         for _ in range(n_traced):
             _, c = step(params, c, {"tokens": tok})
         torch.cuda.synchronize()
-    busy = (_trace_call(f"{arch} prefill (kernels)",
-                        lambda: (prefill(cfg), torch.cuda.synchronize()),
-                        top=8),
+    busy = (None if light else _trace_call(
+                f"{arch} prefill (kernels)",
+                lambda: (prefill(cfg), torch.cuda.synchronize()), top=8),
             _trace_call(f"{arch} {n_traced} captured decode steps",
                         decode_steps, top=8))
     del c0
@@ -2307,12 +2385,7 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
         f"{PROMPT_LEN}, {MAX_NEW} new) {[round(w, 3) for w in walls]} s = "
         f"{[round(x, 1) for x in res['tok_per_s']]} tok/s; peak "
         f"{peak:.2f} GiB; first tokens {res['first_tokens']}")
-    lib = "n/a" if times["library_ms"] is None else \
-        f"{times['library_ms']:.4f}"
-    log(f"  {arch}: {times['name']} at {times['shapes']}: kernel "
-        f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
-        f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}, "
-        f"bf16 peak), launches per prefill {n_launch}")
+    _log_kernel_times(arch, times, n_launch)
     del params, cache, eng, step
     torch.cuda.empty_cache()
     return res
@@ -2397,32 +2470,47 @@ def _reduced_arch(arch) -> dict:
     return dict(counts=counts, worst=worst)
 
 
-def _no_fallback() -> None:
-    """(c) shapes the kernels cannot take raise on the card: xLSTM-125M's
-    full-width mLSTM scan (N = 384, P = 385) and StableLM-12B's attention
-    (D = 160)."""
+# The zoo's kernel shapes the kernels took last (phase 8 (c)): StableLM-12B's
+# attention at d_head 160 and xLSTM-125M's mLSTM scan at N 384 / P 385, in
+# bf16 and f32, at each arch's prefill shapes
+ZOO_SHAPES = ("stablelm-12b", "xlstm-125m")
+# StableLM-12B's kernel prefill against its plain one at full width, cut
+# to this many of its 40 layers (the phase's time)
+STABLELM_DEPTH = 4
+
+
+def _zoo_kernel_shapes() -> list:
+    """(c) each kernel at the zoo's widest call shapes against its plain
+    version, bitwise run to run, with its times; a shape beyond the
+    kernels still raises and launches nothing."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
     import numpy as np
+    rows = []
+    for arch in ZOO_SHAPES:
+        cfg = get_config(arch)
+        for dtype in (torch.bfloat16, torch.float32):
+            kernels.reset_launch_counts()
+            t = _zoo_kernel_times(arch, cfg, dtype, repeat=True)
+            torch.cuda.synchronize()
+            t["launches"] = kernels.launch_counts()[t["name"]]
+            t["arch"], t["dtype"] = arch, str(dtype)[6:]
+            _log_kernel_times(arch, t, "-")
+            rows.append(t)
     rng = np.random.default_rng(2)
-    x = get_config("xlstm-125m")
-    H = x.n_heads
-    dh = x.xlstm_d_inner // H
-    s = get_config("stablelm-12b")
+    wide = rand(rng, (1, 64, 1, ss.MAX_STATE + 16), torch.bfloat16)
     cases = {
-        f"ssd_scan at xLSTM-125M's mLSTM (N={dh}, P={dh + 1})":
-            lambda: ops.ssd_scan(
-                rand(rng, (1, 64, H, dh), torch.bfloat16),
-                rand(rng, (1, 64, H, dh), torch.bfloat16),
-                rand(rng, (1, 64, H, dh + 1), torch.bfloat16),
-                -torch.ones((1, 64, H), device="cuda"), chunk=x.ssm_chunk),
-        f"flash_attention at StableLM-12B's D={s.d_head}":
+        f"ssd_scan at N = {ss.MAX_STATE + 16} (> {ss.MAX_STATE})":
+            lambda: ops.ssd_scan(wide, wide, wide,
+                                 -torch.ones((1, 64, 1), device="cuda")),
+        "flash_attention at D = 96 (no kernel instantiation)":
             lambda: ops.flash_attention(
-                rand(rng, (1, 64, s.n_heads, s.d_head), torch.bfloat16),
-                rand(rng, (1, 64, s.n_kv_heads, s.d_head), torch.bfloat16),
-                rand(rng, (1, 64, s.n_kv_heads, s.d_head), torch.bfloat16)),
+                rand(rng, (1, 64, 4, 96), torch.bfloat16),
+                rand(rng, (1, 64, 2, 96), torch.bfloat16),
+                rand(rng, (1, 64, 2, 96), torch.bfloat16)),
     }
     for label, fn in cases.items():
         kernels.reset_launch_counts()
@@ -2434,11 +2522,62 @@ def _no_fallback() -> None:
         torch.cuda.synchronize()
         check(raised is not None and not any(kernels.launch_counts().values()),
               f"no fallback: {label} raises ValueError ({raised})")
+    return rows
+
+
+def _stablelm_prefill() -> dict:
+    """(a) StableLM-12B at full width, cut to STABLELM_DEPTH layers: the
+    kernel prefill (d_head 160 attention) against the plain one, in bf16
+    within the bucket (each kernel call too) and in f32 within
+    ZOO_F32_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config("stablelm-12b")
+    out = {}
+    for dtype, tol in (("bfloat16", BF16_TOL), ("float32", ZOO_F32_TOL)):
+        cfg = dataclasses.replace(full, n_layers=STABLELM_DEPTH, dtype=dtype,
+                                  use_kernels=True)
+        log(f"  stablelm-12b {dtype}: full width (d_model {cfg.d_model}, "
+            f"d_head {cfg.d_head}, {cfg.n_heads}/{cfg.n_kv_heads} heads), "
+            f"depth cut to {STABLELM_DEPTH} of {full.n_layers} layers")
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        batch = {"tokens": _zoo_prompts(cfg.vocab)}
+
+        def prefill(c):
+            return M.prefill(c, params, batch, max_len=PROMPT_LEN + MAX_NEW)
+        got, counts = _counted(lambda: prefill(cfg))
+        check(counts["flash_attention"] == STABLELM_DEPTH
+              and not counts["ssd_scan"] and not counts["expert_glu"],
+              f"stablelm-12b {dtype}: one prefill launched {counts}")
+        want = prefill(dataclasses.replace(cfg, use_kernels=False))
+        worst = _leaves_close(f"stablelm-12b {dtype}, {STABLELM_DEPTH} "
+                              "layers, prefill kernels against plain",
+                              list(got), list(want), tol)
+        del got, want
+        held = _held_kernel_calls(lambda: prefill(cfg))
+        call_tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+        check(len(held) == STABLELM_DEPTH
+              and all(e <= call_tol for _, e in held),
+              f"stablelm-12b {dtype}: each of the prefill's {len(held)} "
+              f"flash_attention calls within {call_tol} of the layer's plain "
+              f"math (worst {max(e for _, e in held):.3e})")
+        out[dtype] = dict(worst=worst, call_err=max(e for _, e in held),
+                          prefill_ms=[1e3 * _wall(lambda: prefill(cfg))
+                                      for _ in range(2)])
+        del params
+        torch.cuda.empty_cache()
+    log(f"  stablelm-12b: prefill ms (kernels, {STABLELM_DEPTH} layers) "
+        f"bf16 {[round(t, 2) for t in out['bfloat16']['prefill_ms']]}, "
+        f"f32 {[round(t, 2) for t in out['float32']['prefill_ms']]}")
+    return out
 
 
 def phase_zoo(env: dict) -> dict:
-    """The model zoo: Llama-3.2-1B and Zamba2-2.7B served at full width
-    (a), every arch reduced (b), and no fallback (c)."""
+    """The model zoo: Llama-3.2-1B, Zamba2-2.7B and xLSTM-125M served at
+    full width, StableLM-12B's prefill at full width and cut depth (a),
+    every arch reduced (b), and the zoo's widest kernel shapes (c)."""
     from repro_torch.configs import ALL_ARCHS
     log("== phase 8: model zoo serving on the card")
     log(env["card"])
@@ -2447,15 +2586,218 @@ def phase_zoo(env: dict) -> dict:
             for arch, kernel, n, second in ZOO_FULL}
     f32 = {(arch, d): _f32_prefill(arch, d)
            for arch, depths in ZOO_F32_DEPTH.items() for d in depths}
+    stablelm = _stablelm_prefill()
     log(f"  (a) done in {time.perf_counter() - t0:.1f} s; f32 worst errors "
-        + ", ".join(f"{a} {d} layers {e:.2e}" for (a, d), e in f32.items()))
+        + ", ".join(f"{a} {d} layers {e:.2e}" for (a, d), e in f32.items())
+        + f"; stablelm-12b ({STABLELM_DEPTH} layers) bf16 "
+        f"{stablelm['bfloat16']['worst']:.2e}, f32 "
+        f"{stablelm['float32']['worst']:.2e}")
     t1 = time.perf_counter()
     reduced = {arch: _reduced_arch(arch) for arch in ALL_ARCHS}
     log(f"  (b) every arch reduced in {time.perf_counter() - t1:.1f} s: "
         + ", ".join(f"{a} {r['worst']:.1e}" for a, r in reduced.items()))
-    _no_fallback()
+    t2 = time.perf_counter()
+    shapes = _zoo_kernel_shapes()
+    log(f"  (c) the zoo's widest kernel shapes in "
+        f"{time.perf_counter() - t2:.1f} s")
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
-    return dict(full=full, f32=f32, reduced=reduced)
+    return dict(full=full, f32=f32, reduced=reduced, stablelm=stablelm,
+                shapes=shapes)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, 4
+TRAIN_BUDGET_S = 300.0       # phase 9's share of the script's time limit
+TRAIN_CKPT_DIR = ROOT / "build" / "ckpt" / "chip_smoke"
+
+
+def _train_args(ckpt_dir) -> list:
+    """``launch.train``'s arguments for phase 9's run (its defaults: lr
+    1e-3, warmup 10, seed 0)."""
+    return ["--device", "cuda", "--reduced", "0", "--arch", TRAIN_ARCH,
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--ckpt-dir", str(ckpt_dir), "--log-every", "1"]
+
+
+def _train_batch(source, i) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to("cuda") for k, v in source(i).items()}
+
+
+def phase_train(env: dict) -> dict:
+    """Llama-3.2-1B trained at its published widths and depth (bf16
+    params, f32 AdamW state, remat on, batch 8 x 1024): (a) 6 steps
+    uninterrupted; (b) the same 6 steps through ``launch.train.main``
+    with a checkpoint every 3 and a ``RecoverableError`` injected at step
+    4, which restores step 3's checkpoint and goes on: its losses and
+    final checkpoint bitwise (a)'s; (c) one step with top-k compression
+    and one with 2 microbatches."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource
+    from repro_torch.fault.manager import RecoverableError
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import CompressionConfig, init_residual
+    from repro_torch.train import trainer as T
+
+    log("== phase 9: training at full width on the card")
+    log(env["card"])
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    source = SyntheticTokenSource(DataConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=0))
+    # launch.train's optimizer for --steps TRAIN_STEPS, --lr 1e-3
+    tc = T.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                             total_steps=TRAIN_STEPS))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_par = sum(x.numel() for x in M.tree_leaves(params))
+    opt = adamw.init_state(tc.opt, params)
+    log(f"  {TRAIN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_par / 1e9:.3f} B parameters ({cfg.dtype}), AdamW state "
+        f"{tc.opt.state_dtype}, remat {cfg.remat}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}")
+    step = T.make_train_step(cfg, tc)
+
+    # (a) uninterrupted
+    losses, step_s = [], []
+    with T.deterministic_training():
+        for i in range(TRAIN_STEPS):
+            batch = _train_batch(source, i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))        # waits for the card
+            step_s.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = _trace_call(f"{TRAIN_ARCH} train step",
+                           lambda: (step(params, opt, batch),
+                                    torch.cuda.synchronize()), top=10)
+    check(all(map(math.isfinite, losses)),
+          f"(a) {TRAIN_STEPS} steps uninterrupted: losses finite "
+          f"{[round(x, 4) for x in losses]}")
+    warm = sorted(step_s[1:])
+    med = warm[len(warm) // 2]
+    share = 6 * n_par * tokens / med / PEAK_BF16
+    log(f"  (a) step s {[round(x, 3) for x in step_s]}; median warm "
+        f"{1e3 * med:.1f} ms = {tokens / med:.0f} tokens/s; 6 x params x "
+        f"tokens / step time = {100 * share:.1f}% of the bf16 peak "
+        f"(989 TFLOP/s); peak memory {peak:.2f} GiB")
+    want_params = M.tree_map(lambda x: x.detach().clone(), params)
+    del opt, params, batch, met
+    torch.cuda.empty_cache()
+
+    # (b) the train driver, a fault injected at step TRAIN_FAIL_AT
+    fired, io = [], {"save": [], "restore": []}
+
+    class FailsOnce(SyntheticTokenSource):
+        def __call__(self, i):
+            if i == TRAIN_FAIL_AT and not fired:
+                fired.append(i)
+                raise RecoverableError(f"injected at step {i}")
+            return super().__call__(i)
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            io[kind].append(time.perf_counter() - t)
+            return out
+        return run
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    real = (launch_train.SyntheticTokenSource, ckpt.save, ckpt.restore)
+    launch_train.SyntheticTokenSource = FailsOnce
+    ckpt.save, ckpt.restore = timed("save", ckpt.save), \
+        timed("restore", ckpt.restore)
+    try:
+        res = launch_train.main(_train_args(TRAIN_CKPT_DIR))
+    finally:
+        launch_train.SyntheticTokenSource, ckpt.save, ckpt.restore = real
+    stats = res["stats"]
+    got = res["losses"]
+    check(fired == [TRAIN_FAIL_AT] and stats.restarts == 1
+          and stats.failures_detected == 1 and len(got) == TRAIN_STEPS + 1,
+          f"(b) launch.train: the fault at step {TRAIN_FAIL_AT} fired once, "
+          f"one restart ({stats}), {len(got)} steps run")
+    redo = TRAIN_CKPT_EVERY          # the step the restart resumed at
+    check(got[:redo + 1] + got[redo + 2:] == losses
+          and got[redo + 1] == losses[redo],
+          f"(b) the resumed run's losses are bitwise the uninterrupted "
+          f"run's (step {redo} run twice: {got[redo]!r}, {got[redo + 1]!r})")
+    kept = sorted(os.listdir(TRAIN_CKPT_DIR))
+    check(kept == [f"step_{TRAIN_CKPT_EVERY:08d}", f"step_{TRAIN_STEPS:08d}"],
+          f"(b) checkpoints {kept}")
+    target = {"params": M.param_shapes(cfg)}
+    target["opt"] = adamw.init_state(tc.opt, target["params"])
+    final, extra = ckpt.restore(str(TRAIN_CKPT_DIR), target, device="cuda")
+    check(extra == {"data": {"step": TRAIN_STEPS, "seed": 0}}
+          and all(bitwise_equal(a, b) for a, b in zip(
+              M.tree_leaves(final["params"]), M.tree_leaves(want_params)))
+          and int(final["opt"]["step"]) == TRAIN_STEPS,
+          f"(b) the final checkpoint round-trips to the uninterrupted run's "
+          f"params, bitwise ({len(M.tree_leaves(want_params))} leaves), "
+          f"step {int(final['opt']['step'])}")
+    log(f"  (b) checkpoint save s {[round(x, 2) for x in io['save']]}, "
+        f"restore s {[round(x, 2) for x in io['restore']]} "
+        f"({sum(x.numel() * x.element_size() for x in M.tree_leaves(final)) / 2**30:.2f} GiB)")
+    del final, want_params
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) one step with top-k compression (the loss is taken before the
+    # gradient is compressed: the plain step's, bitwise), one with 2
+    # microbatches (the mean of the halves' losses)
+    other = {}
+    for label, tc2, tol in (
+            ("compress k_frac 0.1", dataclasses.replace(
+                tc, compress=CompressionConfig(k_frac=0.1)), 0.0),
+            ("2 microbatches", dataclasses.replace(tc, microbatches=2),
+             1e-3)):
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        opt = adamw.init_state(tc2.opt, params)
+        if tc2.compress is not None:
+            opt = {"opt": opt, "residual": init_residual(params)}
+        step2 = T.make_train_step(cfg, tc2)
+        with T.deterministic_training():
+            batch = _train_batch(source, 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, met = step2(params, opt, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            dt = time.perf_counter() - t
+        check(math.isfinite(loss) and math.isfinite(gnorm)
+              and abs(loss - losses[0]) <= tol * abs(losses[0]),
+              f"(c) one step with {label}: loss {loss!r} (grad norm "
+              f"{gnorm:.4f}) finite, within {tol:g} of the plain step's "
+              f"{losses[0]!r}, {dt:.2f} s")
+        other[label] = dict(loss=loss, s=dt)
+        del params, opt, batch, met
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    check(wall <= TRAIN_BUDGET_S,
+          f"phase 9 in {wall:.1f} s (budget {TRAIN_BUDGET_S:.0f} s)")
+    return dict(losses=losses, step_s=step_s, median_s=med,
+                tok_per_s=tokens / med, share=share, peak_gib=peak,
+                busy=busy, save_s=io["save"], restore_s=io["restore"],
+                other=other, wall=wall)
 
 
 def main() -> int:
@@ -2486,6 +2828,7 @@ def main() -> int:
         adm = phase_admission(GRANITE_MAIN_PATH, main, conc)
         phase_serving(GRANITE_MAIN_PATH, main, conc, adm)
         phase_zoo(env)
+        phase_train(env)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1

@@ -40,6 +40,19 @@
 // `causal` the query tiles run heaviest first, so the last wave of
 // blocks is the lightest.
 //
+// D = 160 (StableLM-12B's head).  In f32 the split q (2 x 64 x 164 x 4 B
+// = 82 KB) and the double-buffered K and V tiles (4 x 64 x 164 x 4 B =
+// 164 KB) come to 246 KB, over the 227 KB a block may have.  There q is
+// kept once, scaled, as f32 (41 KB; 205 KB in all) and each `ldmatrix`
+// fragment is split into hi and lo in registers: the same bits as the
+// stored split, for 12 more integer and float operations per 8-deep step
+// of 24 products.  (bf16 K and V tiles halve, so bf16 keeps the stored
+// split: 170 KB.)  O's accumulator grows to 20 n8 tiles a warp; P V is
+// then summed in two passes of 10 tiles each, so the fresh accumulator
+// `pv` holds 40 registers rather than 80.  Each output tile's sum over kv
+// runs in the same order in either pass, so the result is the one-pass
+// result, bit for bit.
+//
 // Bound: at the main-path shape (1 x 1024 x 16 x 64, causal) the work is
 // 2.15 GFLOP of products against ~17 MB of traffic; f32-accurate products
 // cost three TF32 ones: 3 x 2.15 GFLOP / 495 TFLOP/s = 13 us on the
@@ -63,9 +76,15 @@ struct Layout {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int QS = D + 4;    // row stride of the Q hi / lo tiles
   static constexpr int KS = D + VEC;  // row stride of the K and V tiles
-  static constexpr size_t Q_BYTES = 2 * sizeof(uint32_t) * BQ * QS;
   static constexpr size_t KV_BYTES = sizeof(T) * BK * KS;   // one tile
+  // q as its split (hi and lo tiles), or as one f32 tile split at each
+  // fragment load where the split does not fit beside 2 x (K, V)
+  static constexpr bool Q_SPLIT =
+      2 * sizeof(uint32_t) * BQ * QS + 4 * KV_BYTES <= 232448;
+  static constexpr size_t Q_BYTES =
+      (Q_SPLIT ? 2 : 1) * sizeof(uint32_t) * BQ * QS;
   static constexpr size_t SMEM = Q_BYTES + 4 * KV_BYTES;    // 2 x (K, V)
+  static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
 };
 
 // The TF32 operand(s) of one K or V value: hi and lo for f32; for bf16
@@ -99,8 +118,12 @@ __global__ void __launch_bounds__(NT)
   using L = Layout<T, D>;
   constexpr int VEC = L::VEC, QS = L::QS, KS = L::KS;
   constexpr int DJ = D / 8;   // n8 tiles of O per warp
+  // n8 tiles of O per pass of P V (two passes above 16 tiles)
+  constexpr int DH = DJ > 16 ? DJ / 2 : DJ;
+  static_assert(DJ % DH == 0, "P V passes must cover O");
   extern __shared__ float4 smem4[];
-  uint32_t* Qh = reinterpret_cast<uint32_t*>(smem4);   // TF32 hi parts of q
+  // TF32 hi parts of q (without Q_SPLIT: q itself, scaled, as f32 bits)
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(smem4);
   uint32_t* Ql = Qh + BQ * QS;                         // ... and lo parts
   T* KV = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + L::Q_BYTES);
 
@@ -119,7 +142,10 @@ __global__ void __launch_bounds__(NT)
         tq < Tq ? bident::to_f32(q[((size_t)(b * Tq + tq) * Hq + h) * D + c]) *
                       scale
                 : 0.f;
-    bident::split_tf32(qv, Qh[r * QS + c], Ql[r * QS + c]);
+    if constexpr (L::Q_SPLIT)
+      bident::split_tf32(qv, Qh[r * QS + c], Ql[r * QS + c]);
+    else
+      Qh[r * QS + c] = __float_as_uint(qv);
   }
 
   // K and V of kv tile kt into buffer s (zero past Tk)
@@ -173,7 +199,13 @@ __global__ void __launch_bounds__(NT)
     for (int kk = 0; kk < D / 8; ++kk) {
       uint32_t ah[4], al[4];
       bident::ldmatrix_x4(ah, Qh + q_off + kk * 8);
-      bident::ldmatrix_x4(al, Ql + q_off + kk * 8);
+      if constexpr (L::Q_SPLIT) {
+        bident::ldmatrix_x4(al, Ql + q_off + kk * 8);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          bident::split_tf32(__uint_as_float(ah[x]), ah[x], al[x]);
+      }
 #pragma unroll
       for (int j = 0; j < SJ; ++j) {
         const T* kr = Ks + (j * 8 + g) * KS + kk * 8 + t;   // B(k, n) = K[n][k]
@@ -220,33 +252,37 @@ __global__ void __launch_bounds__(NT)
     }
 
     // pv = P V, P from registers with each 8-column slice's kv order
-    // permuted (A's k index t <-> kv 2t, t + 4 <-> kv 2t + 1)
-    float pv[DJ][4];
+    // permuted (A's k index t <-> kv 2t, t + 4 <-> kv 2t + 1); O's tiles
+    // d0 .. d0 + DH per pass
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
+    for (int d0 = 0; d0 < DJ; d0 += DH) {
+      float pv[DH][4];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) pv[j][x] = 0.f;
+      for (int j = 0; j < DH; ++j)
 #pragma unroll
-    for (int j = 0; j < SJ; ++j) {
-      uint32_t ph[4], pl[4];
-      bident::split_tf32(s[j][0], ph[0], pl[0]);   // (g,     kv 2t)
-      bident::split_tf32(s[j][2], ph[1], pl[1]);   // (g + 8, kv 2t)
-      bident::split_tf32(s[j][1], ph[2], pl[2]);   // (g,     kv 2t + 1)
-      bident::split_tf32(s[j][3], ph[3], pl[3]);   // (g + 8, kv 2t + 1)
-      const T* vr = Vs + (j * 8 + 2 * t) * KS + g;
+        for (int x = 0; x < 4; ++x) pv[j][x] = 0.f;
 #pragma unroll
-      for (int dj = 0; dj < DJ; ++dj) {
-        uint32_t bh[2], bl[2];
-        operand(vr[dj * 8], bh[0], bl[0]);        // V[8j + 2t][8dj + g]
-        operand(vr[KS + dj * 8], bh[1], bl[1]);   // V[8j + 2t + 1][...]
-        mma3<T>(pv[dj], ph, pl, bh, bl);
+      for (int j = 0; j < SJ; ++j) {
+        uint32_t ph[4], pl[4];
+        bident::split_tf32(s[j][0], ph[0], pl[0]);   // (g,     kv 2t)
+        bident::split_tf32(s[j][2], ph[1], pl[1]);   // (g + 8, kv 2t)
+        bident::split_tf32(s[j][1], ph[2], pl[2]);   // (g,     kv 2t + 1)
+        bident::split_tf32(s[j][3], ph[3], pl[3]);   // (g + 8, kv 2t + 1)
+        const T* vr = Vs + (j * 8 + 2 * t) * KS + g + d0 * 8;
+#pragma unroll
+        for (int dj = 0; dj < DH; ++dj) {
+          uint32_t bh[2], bl[2];
+          operand(vr[dj * 8], bh[0], bl[0]);        // V[8j + 2t][8dj + g]
+          operand(vr[KS + dj * 8], bh[1], bl[1]);   // V[8j + 2t + 1][...]
+          mma3<T>(pv[dj], ph, pl, bh, bl);
+        }
       }
+#pragma unroll
+      for (int dj = 0; dj < DH; ++dj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          acc[d0 + dj][x] = acc[d0 + dj][x] * alpha[x >> 1] + pv[dj][x];
     }
-#pragma unroll
-    for (int dj = 0; dj < DJ; ++dj)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        acc[dj][x] = acc[dj][x] * alpha[x >> 1] + pv[dj][x];
     __syncthreads();   // buffer kt & 1 is free for tile kt + 2
   }
 
@@ -301,6 +337,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
     case 32: return launch_aligned<T, 32>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     case 64: return launch_aligned<T, 64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     case 128: return launch_aligned<T, 128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 160: return launch_aligned<T, 160>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }

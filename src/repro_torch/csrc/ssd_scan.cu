@@ -20,11 +20,12 @@
 // chunks, in three kernels launched by one C call (Mamba-2's own GPU
 // structure):
 //
-//   1. chunk states: one block per (b, h, chunk, 64 state columns)
-//      computes the chunk's cum and tot and its own contribution
-//      (b o exp(tot - cum))^T v, an (N, P) f32 tile, into a scratch
-//      buffer (B, H, nc, N, P) that the wrapper allocates, and tot into
-//      a (B, H, nc) one;
+//   1. chunk states: one block per (b, h, chunk, 64 state columns, 128
+//      state rows) computes the chunk's cum and tot and its own
+//      contribution (b o exp(tot - cum))^T v, a (128, 64) f32 tile of
+//      the (N, P) one, into a scratch buffer (B, H, nc, N, P) that the
+//      wrapper allocates, and tot into a (B, H, nc) one (rows of the
+//      state are independent, so slicing N sums nothing across blocks);
 //   2. state pass: one thread per (b, h, n, p) walks the chunks in order,
 //      S = S exp(tot) + chunk_state from s0 (the Pallas carry, the same
 //      operations in the same order), overwriting each chunk state with
@@ -35,11 +36,28 @@
 //      tile c b^T of each 64-row kv tile is masked, scaled by
 //      exp(cum_i - cum_j) and kept in registers with the kv order
 //      permuted within each 8-wide slice, so its product with v needs no
-//      shared-memory trip; b and v tiles are double-buffered by
-//      `cp.async`, and the block's c rows and S_in arrive in the first
-//      tile's group; the inter term is c S_in with each row scaled by
-//      exp(cum_i).  No C x C tile is held anywhere, so the chunk goes up
-//      to the Pallas kernel's 256.
+//      shared-memory trip; the inter term is c S_in with each row scaled
+//      by exp(cum_i).  No C x C tile is held anywhere, so the chunk goes
+//      up to the Pallas kernel's 256.
+//
+// Kernel 3 and large states.  Its contractions run over N (c S_in and
+// c b^T).  The block keeps its 64 c rows (64 x N) in shared memory and
+// streams the rest through two buffers by `cp.async`, in stages of 128
+// state rows: first S_in's slices (128 x 64 f32), then for each kv tile
+// its b slices (64 x 128), the last with the tile's v (64 x 64).  Each
+// slice's products are summed into the same register accumulators, in
+// the order of N, with the fresh-accumulator stages of FOLD_K8 below at
+// the same boundaries as one unsliced pass: for N <= 128 there is one
+// slice, and for any N the result is that of a pass over all of N, bit
+// for bit, with no atomics and no split across blocks.  At N = 384 in
+// f32 that is 97 KB of c rows and 2 x 50 KB of buffers (xLSTM-125M's
+// mLSTM, N = 384, P = 385); the c rows bound N at 496 in f32.
+//
+// Unaligned rows.  `cp.async` copies 16 bytes from a 16-byte boundary, so
+// rows of b, v (and S_in) whose length is not a multiple of 16 bytes (v
+// of P = 385: the mLSTM's v with its column of ones) take plain loads
+// and 16-byte stores into shared memory instead (ASYNC = false), and the
+// last 64-column tile of P masks its dead columns.
 //
 // The prefix sum is one warp's shuffle scan in a fixed order, the same
 // function in kernels 1 and 3, so both see the same bits of cum.  The
@@ -70,7 +88,8 @@ namespace {
 
 constexpr int NT = 128;       // 4 warps
 constexpr int CMAX = 256;     // longest chunk
-constexpr int SMAX = 128;     // largest N and P
+constexpr int SL = 128;       // state rows per slice (kernels 1 and 3)
+constexpr int MAX_N = 496;    // largest N (kernel 3's c rows in f32)
 constexpr int PT = 64;        // state columns per block (kernels 1 and 3)
 constexpr int KS = 32;        // chunk rows per stage of kernel 1
 constexpr int BQ = 64;        // q rows per block of kernel 3 (16 per warp)
@@ -82,6 +101,9 @@ constexpr int PASS_BATCH = 8; // chunk states loaded ahead in the pass
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
+
+// rows of N in one slice: at most SL
+__host__ __device__ inline int slice_rows(int N) { return N < SL ? N : SL; }
 
 // The TF32 operand(s) of one value: hi and lo for f32; for an exact value
 // (a bf16 operand) the value itself and no lo.
@@ -177,16 +199,18 @@ template <typename T>
 struct StateLayout {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int VS = PT + 8;   // row stride of the v stages
-  // row stride of the b stages: NP16 + 8, so the column reads of a warp
-  // (rows t, columns g) hit distinct banks
-  static __host__ __device__ int bs(int N) { return round_up(N, 16) + 8; }
+  // row stride of the b stages: a slice's NP16 + 8, so the column reads
+  // of a warp (rows t, columns g) hit distinct banks
+  static __host__ __device__ int bs(int N) {
+    return round_up(slice_rows(N), 16) + 8;
+  }
   static size_t smem(int N) {
     return 2 * CMAX * sizeof(float) +
            2 * KS * (size_t)(bs(N) + VS) * sizeof(T);
   }
 };
 
-// MT: m16 tiles of N per warp (1 for N <= 64, 2 for N <= 128)
+// MT: m16 tiles of the slice's rows per warp (1 for N <= 64, else 2)
 template <typename T, bool ASYNC, int MT>
 __global__ void __launch_bounds__(NT)
     state_kernel(const T* __restrict__ b, const T* __restrict__ v,
@@ -196,13 +220,16 @@ __global__ void __launch_bounds__(NT)
   using L = StateLayout<T>;
   constexpr int VEC = L::VEC, VS = L::VS;
   constexpr bool EXACT = sizeof(T) == 2;
-  const int BS = L::bs(N), NP16 = round_up(N, 16);
+  // blockIdx.z: the 64-column tile of P, then the 128-row slice of N
+  const int pt = (P + PT - 1) / PT;
+  const int p0 = blockIdx.z % pt * PT, n0 = blockIdx.z / pt * SL;
+  const int BS = L::bs(N), NP16 = round_up(slice_rows(N - n0), 16);
   extern __shared__ float4 smem4[];
   float* cum = reinterpret_cast<float*>(smem4);   // CMAX
   float* w = cum + CMAX;                          // CMAX, exp(tot - cum)
   T* stage = reinterpret_cast<T*>(w + CMAX);      // 2 x (b KS x BS, v KS x VS)
 
-  const int ci = blockIdx.x, bh = blockIdx.y, p0 = blockIdx.z * PT;
+  const int ci = blockIdx.x, bh = blockIdx.y;
   const int bb = bh / H, h = bh % H;
   const int t0 = ci * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -218,8 +245,8 @@ __global__ void __launch_bounds__(NT)
       const bool ok = i < C && tt < T_len;
       load_row_chunk<ASYNC>(
           bs_ + r * BS,
-          ok ? b + ((size_t)(bb * T_len + tt) * H + h) * N : b, cc,
-          ok ? N : 0);
+          ok ? b + ((size_t)(bb * T_len + tt) * H + h) * N + n0 : b, cc,
+          ok ? N - n0 : 0);
     }
     for (int e = tid; e < KS * (PT / VEC); e += NT) {
       const int r = e / (PT / VEC), cc = e % (PT / VEC) * VEC;
@@ -303,7 +330,8 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < PT / 8; ++j)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int n = m0 + g + 8 * (x >> 1), p = p0 + j * 8 + 2 * t + (x & 1);
+        const int n = n0 + m0 + g + 8 * (x >> 1),
+                  p = p0 + j * 8 + 2 * t + (x & 1);
         if (n < N && p < P) out[(size_t)n * P + p] = acc[mi][j][x];
       }
   }
@@ -351,14 +379,21 @@ template <typename T>
 struct OutLayout {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int VS = PT + VEC;   // row stride of the v tiles
-  static constexpr int SS = PT + 8;     // row stride of the state tile
-  // row stride of the c and b tiles: NP8 + VEC, so a warp's fragment
-  // loads (rows g, columns t) hit distinct banks
+  static constexpr int SS = PT + 8;     // row stride of the S_in slices
+  // row stride of the c rows: NP8 + VEC, so a warp's fragment loads
+  // (rows g, columns t) hit distinct banks; of the b slices the same for
+  // a slice's width
   static __host__ __device__ int cs(int N) { return round_up(N, 8) + VEC; }
+  static __host__ __device__ int bs(int N) { return cs(slice_rows(N)); }
+  // one stage buffer: a b slice (and v tile), or an S_in slice
+  static __host__ __device__ size_t buf(int N) {
+    const size_t kv = sizeof(T) * BK * (size_t)(bs(N) + VS);
+    const size_t st = sizeof(float) * (size_t)slice_rows(round_up(N, 8)) * SS;
+    return kv > st ? kv : st;
+  }
   static size_t smem(int N) {
-    const int NP8 = round_up(N, 8);
-    return sizeof(float) * ((size_t)CMAX + NP8 * SS) +
-           sizeof(T) * ((size_t)BQ * cs(N) + 2 * BK * (size_t)(cs(N) + VS));
+    return sizeof(float) * CMAX + sizeof(T) * (size_t)BQ * cs(N) +
+           2 * buf(N);
   }
 };
 
@@ -372,14 +407,17 @@ __global__ void __launch_bounds__(NT, 2)
   constexpr int VEC = L::VEC, VS = L::VS, SS = L::SS;
   constexpr int DJ = PT / 8;          // n8 tiles of y per warp
   constexpr int SJ = BK / 8;          // n8 tiles of the score per warp
+  constexpr int SK8 = SL / 8;         // k8 steps per slice of N
+  static_assert(SK8 % FOLD_K8 == 0, "slices must end on a fold");
   constexpr bool EXACT = sizeof(T) == 2;
-  const int CS = L::cs(N), NP8 = round_up(N, 8);
+  const int CS = L::cs(N), BS = L::bs(N), NP8 = round_up(N, 8);
   const int NK8 = NP8 / 8;
+  const int NSL = (NP8 + SL - 1) / SL;            // slices of N
+  const size_t BUF = L::buf(N);
   extern __shared__ float4 smem4[];
   float* cum = reinterpret_cast<float*>(smem4);   // CMAX
-  float* Ss = cum + CMAX;                         // NP8 x SS, S_in
-  T* cs = reinterpret_cast<T*>(Ss + NP8 * SS);    // BQ x CS, c
-  T* KV = cs + BQ * CS;                           // 2 x (b BK x CS, v BK x VS)
+  T* cs = reinterpret_cast<T*>(cum + CMAX);       // BQ x CS, c
+  char* bufs = reinterpret_cast<char*>(cs + BQ * CS);   // 2 x BUF
 
   const int QT = (C + BQ - 1) / BQ;
   const int qt = QT - 1 - blockIdx.x / nc;        // heaviest q tiles first
@@ -405,24 +443,32 @@ __global__ void __launch_bounds__(NT, 2)
           ok ? min(n - col0, width) : 0);
     }
   };
-  // b and v of kv tile kt into buffer s
-  auto load_tile = [&](int kt, int s) {
-    T* bs_ = KV + s * BK * (CS + VS);
-    load_rows(bs_, b, kt * BK, N, CS, NP8, 0);
-    load_rows(bs_ + BK * CS, v, kt * BK, P, VS, PT, p0);
+  const float* s_in = states + ((size_t)bh * nc + ci) * N * P;
+  // stage st into buffer sb: for st < NSL slice st of S_in (f32, P % 4
+  // == 0 where ASYNC); then kv tile (st - NSL) / NSL's b slice
+  // (st - NSL) % NSL, the last slice with the tile's v
+  auto load_stage = [&](int st, int sb) {
+    char* base = bufs + sb * BUF;
+    if (st < NSL) {
+      float* Ss = reinterpret_cast<float*>(base);
+      const int n0 = st * SL, rows = slice_rows(NP8 - n0);
+      for (int e = tid; e < rows * (PT / 4); e += NT) {
+        const int r = e / (PT / 4), cc = e % (PT / 4) * 4, n = n0 + r;
+        load_row_chunk<ASYNC>(Ss + r * SS,
+                              n < N ? s_in + (size_t)n * P + p0 : s_in, cc,
+                              n < N ? min(P - p0, PT) : 0);
+      }
+    } else {
+      const int kt = (st - NSL) / NSL, ns = (st - NSL) % NSL;
+      T* bs_ = reinterpret_cast<T*>(base);
+      load_rows(bs_, b, kt * BK, N, BS, slice_rows(NP8 - ns * SL), ns * SL);
+      if (ns == NSL - 1) load_rows(bs_ + BK * BS, v, kt * BK, P, VS, PT, p0);
+    }
   };
 
-  // the first group in flight: this q tile's c rows, the state entering
-  // the chunk (f32, P % 4 == 0 where ASYNC) and kv tile 0
+  // the first group in flight: this q tile's c rows and S_in's first slice
   load_rows(cs, c, q0, N, CS, NP8, 0);
-  const float* s_in = states + ((size_t)bh * nc + ci) * N * P;
-  for (int e = tid; e < NP8 * (PT / 4); e += NT) {
-    const int n = e / (PT / 4), cc = e % (PT / 4) * 4;
-    load_row_chunk<ASYNC>(Ss + n * SS, n < N ? s_in + (size_t)n * P + p0
-                                             : s_in, cc,
-                          n < N ? min(P - p0, PT) : 0);
-  }
-  load_tile(0, 0);
+  load_stage(0, 0);
   bident::cp_async_commit();
   if (warp == 0) chunk_cumsum(log_a, cum, bb, h, t0, T_len, H, C, lane);
   __syncthreads();
@@ -450,99 +496,109 @@ __global__ void __launch_bounds__(NT, 2)
   float acc[DJ][4], part[DJ][4];
   zero(acc);
   zero(part);
+  // s = c b^T for the warp's 16 rows x 64 kv columns, over the slices
+  float s[SJ][4], sp[SJ][4];
+  zero(s);
+  zero(sp);
 
-  // inter: y = exp(cum_i) (c S_in)_i, one fresh sum per FOLD_K8 k8 steps
-  auto inter = [&]() {
-    for (int k8 = 0; k8 < NK8; k8 += FOLD_K8) {
-      for (int kk = k8; kk < min(k8 + FOLD_K8, NK8); ++kk) {
-        uint32_t ah[4], al[4];
-        c_frag(kk, ah, al);
-        const float* sr = Ss + (kk * 8 + t) * SS + g;
-#pragma unroll
-        for (int dj = 0; dj < DJ; ++dj) {
-          uint32_t bh[2], bl[2];
-          bident::split_tf32(sr[dj * 8], bh[0], bl[0]);
-          bident::split_tf32(sr[4 * SS + dj * 8], bh[1], bl[1]);
-          mma3<EXACT, false>(part[dj], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int dj = 0; dj < DJ; ++dj)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          acc[dj][x] += e_i[x >> 1] * part[dj][x];
-          part[dj][x] = 0.f;
-        }
-    }
-  };
-
-  // intra: y += ((c b^T) o L) v over the kv tiles up to the diagonal
-  const int nk = qt + 1;
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile(kt + 1, (kt + 1) & 1);
+  const int nk = qt + 1;   // kv tiles up to the diagonal
+  const int n_st = NSL * (1 + nk);
+  for (int st = 0; st < n_st; ++st) {
+    if (st + 1 < n_st) load_stage(st + 1, (st + 1) & 1);
     bident::cp_async_commit();
-    bident::cp_async_wait<1>();   // tile kt (and c, S_in) has landed
+    bident::cp_async_wait<1>();   // stage st (and c) has landed
     __syncthreads();
-    if (kt == 0) inter();
-    const T* bs_ = KV + (kt & 1) * BK * (CS + VS);
-    const T* vs_ = bs_ + BK * CS;
+    const char* base = bufs + (st & 1) * BUF;
 
-    // s = c b^T for the warp's 16 rows x 64 kv columns
-    float s[SJ][4], sp[SJ][4];
-    zero(s);
-    zero(sp);
-    for (int k8 = 0; k8 < NK8; k8 += FOLD_K8) {
-      for (int kk = k8; kk < min(k8 + FOLD_K8, NK8); ++kk) {
-        uint32_t ah[4], al[4];
-        c_frag(kk, ah, al);
+    if (st < NSL) {
+      // inter: y = exp(cum_i) (c S_in)_i over this slice's k8 steps, one
+      // fresh sum per FOLD_K8 of them
+      const float* Ss = reinterpret_cast<const float*>(base);
+      const int k0 = st * SK8, k1 = min(k0 + SK8, NK8);
+      for (int k8 = k0; k8 < k1; k8 += FOLD_K8) {
+        for (int kk = k8; kk < min(k8 + FOLD_K8, k1); ++kk) {
+          uint32_t ah[4], al[4];
+          c_frag(kk, ah, al);
+          const float* sr = Ss + ((kk - k0) * 8 + t) * SS + g;
 #pragma unroll
-        for (int j = 0; j < SJ; ++j) {
-          const T* br = bs_ + (j * 8 + g) * CS + kk * 8 + t;  // B(k, n) = b[n][k]
-          uint32_t bh[2], bl[2];
-          operand<EXACT>(bident::to_f32(br[0]), bh[0], bl[0]);
-          operand<EXACT>(bident::to_f32(br[4]), bh[1], bl[1]);
-          mma3<EXACT, EXACT>(sp[j], ah, al, bh, bl);
+          for (int dj = 0; dj < DJ; ++dj) {
+            uint32_t bh[2], bl[2];
+            bident::split_tf32(sr[dj * 8], bh[0], bl[0]);
+            bident::split_tf32(sr[4 * SS + dj * 8], bh[1], bl[1]);
+            mma3<EXACT, false>(part[dj], ah, al, bh, bl);
+          }
         }
+#pragma unroll
+        for (int dj = 0; dj < DJ; ++dj)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            acc[dj][x] += e_i[x >> 1] * part[dj][x];
+            part[dj][x] = 0.f;
+          }
       }
-      fold(s, sp);
-    }
-
-    // G = s o L: element x of tile j is row g + 8 (x / 2), kv column
-    // 8j + 2t + x % 2 of the chunk's tile kt; zero above the diagonal
+    } else {
+      // intra: y += ((c b^T) o L) v, kv tile kt, b slice ns
+      const int kt = (st - NSL) / NSL, ns = (st - NSL) % NSL;
+      const T* bs_ = reinterpret_cast<const T*>(base);
+      const int k0 = ns * SK8, k1 = min(k0 + SK8, NK8);
+      for (int k8 = k0; k8 < k1; k8 += FOLD_K8) {
+        for (int kk = k8; kk < min(k8 + FOLD_K8, k1); ++kk) {
+          uint32_t ah[4], al[4];
+          c_frag(kk, ah, al);
 #pragma unroll
-    for (int j = 0; j < SJ; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int hr = x >> 1, jc = kt * BK + j * 8 + 2 * t + (x & 1);
-        s[j][x] = (jc <= i_row[hr] && i_row[hr] < C)
-                      ? s[j][x] * expf(cum_i[hr] - cum[jc])
-                      : 0.f;
-      }
-
-    // y += G v, G from registers with each 8-column slice's kv order
-    // permuted (A's k index t <-> kv 2t, t + 4 <-> kv 2t + 1); one fresh
-    // sum per FOLD_K8 slices
-#pragma unroll
-    for (int j0 = 0; j0 < SJ; j0 += FOLD_K8) {
-#pragma unroll
-      for (int j = j0; j < j0 + FOLD_K8 && j < SJ; ++j) {
-        uint32_t gh[4], gl[4];
-        bident::split_tf32(s[j][0], gh[0], gl[0]);   // (g,     kv 2t)
-        bident::split_tf32(s[j][2], gh[1], gl[1]);   // (g + 8, kv 2t)
-        bident::split_tf32(s[j][1], gh[2], gl[2]);   // (g,     kv 2t + 1)
-        bident::split_tf32(s[j][3], gh[3], gl[3]);   // (g + 8, kv 2t + 1)
-        const T* vr = vs_ + (j * 8 + 2 * t) * VS + g;
-#pragma unroll
-        for (int dj = 0; dj < DJ; ++dj) {
-          uint32_t bh[2], bl[2];
-          operand<EXACT>(bident::to_f32(vr[dj * 8]), bh[0], bl[0]);
-          operand<EXACT>(bident::to_f32(vr[VS + dj * 8]), bh[1], bl[1]);
-          mma3<false, EXACT>(part[dj], gh, gl, bh, bl);
+          for (int j = 0; j < SJ; ++j) {
+            // B(k, n) = b[n][k]
+            const T* br = bs_ + (j * 8 + g) * BS + (kk - k0) * 8 + t;
+            uint32_t bh[2], bl[2];
+            operand<EXACT>(bident::to_f32(br[0]), bh[0], bl[0]);
+            operand<EXACT>(bident::to_f32(br[4]), bh[1], bl[1]);
+            mma3<EXACT, EXACT>(sp[j], ah, al, bh, bl);
+          }
         }
+        fold(s, sp);
       }
-      fold(acc, part);
+
+      if (ns == NSL - 1) {
+        const T* vs_ = bs_ + BK * BS;
+        // G = s o L: element x of tile j is row g + 8 (x / 2), kv column
+        // 8j + 2t + x % 2 of the chunk's tile kt; zero above the diagonal
+#pragma unroll
+        for (int j = 0; j < SJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int hr = x >> 1, jc = kt * BK + j * 8 + 2 * t + (x & 1);
+            s[j][x] = (jc <= i_row[hr] && i_row[hr] < C)
+                          ? s[j][x] * expf(cum_i[hr] - cum[jc])
+                          : 0.f;
+          }
+
+        // y += G v, G from registers with each 8-column slice's kv order
+        // permuted (A's k index t <-> kv 2t, t + 4 <-> kv 2t + 1); one
+        // fresh sum per FOLD_K8 slices
+#pragma unroll
+        for (int j0 = 0; j0 < SJ; j0 += FOLD_K8) {
+#pragma unroll
+          for (int j = j0; j < j0 + FOLD_K8 && j < SJ; ++j) {
+            uint32_t gh[4], gl[4];
+            bident::split_tf32(s[j][0], gh[0], gl[0]);   // (g,     kv 2t)
+            bident::split_tf32(s[j][2], gh[1], gl[1]);   // (g + 8, kv 2t)
+            bident::split_tf32(s[j][1], gh[2], gl[2]);   // (g,     kv 2t + 1)
+            bident::split_tf32(s[j][3], gh[3], gl[3]);   // (g + 8, kv 2t + 1)
+            const T* vr = vs_ + (j * 8 + 2 * t) * VS + g;
+#pragma unroll
+            for (int dj = 0; dj < DJ; ++dj) {
+              uint32_t bh[2], bl[2];
+              operand<EXACT>(bident::to_f32(vr[dj * 8]), bh[0], bl[0]);
+              operand<EXACT>(bident::to_f32(vr[VS + dj * 8]), bh[1], bl[1]);
+              mma3<false, EXACT>(part[dj], gh, gl, bh, bl);
+            }
+          }
+          fold(acc, part);
+        }
+        zero(s);   // the next kv tile's score starts afresh
+      }
     }
-    __syncthreads();   // buffer kt & 1 is free for tile kt + 2
+    __syncthreads();   // buffer st & 1 is free for stage st + 2
   }
 
 #pragma unroll
@@ -570,7 +626,7 @@ cudaError_t launch(const void* c, const void* b, const void* v,
                    float* s_final, float* work, int B, int T_len, int H,
                    int N, int P, int C, cudaStream_t stream) {
   const int nc = (T_len + C - 1) / C, BH = B * H;
-  const int pt = (P + PT - 1) / PT;
+  const int pt = (P + PT - 1) / PT, nsl = (N + SL - 1) / SL;
   float* states = work;                          // BH x nc x N x P
   float* tot = work + (size_t)BH * nc * N * P;   // BH x nc
   const T* ct = static_cast<const T*>(c);
@@ -582,12 +638,12 @@ cudaError_t launch(const void* c, const void* b, const void* v,
   if (N <= 64) {
     err = bident::allow_smem(state_kernel<T, ASYNC, 1>, smem1);
     if (err != cudaSuccess) return err;
-    state_kernel<T, ASYNC, 1><<<dim3(nc, BH, pt), NT, smem1, stream>>>(
+    state_kernel<T, ASYNC, 1><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
         bt, vt, log_a, states, tot, T_len, H, N, P, C, nc);
   } else {
     err = bident::allow_smem(state_kernel<T, ASYNC, 2>, smem1);
     if (err != cudaSuccess) return err;
-    state_kernel<T, ASYNC, 2><<<dim3(nc, BH, pt), NT, smem1, stream>>>(
+    state_kernel<T, ASYNC, 2><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
         bt, vt, log_a, states, tot, T_len, H, N, P, C, nc);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -613,9 +669,9 @@ cudaError_t launch_aligned(const void* c, const void* b, const void* v,
                            float* s_final, float* work, int B, int T_len,
                            int H, int N, int P, int C, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
-  // cp.async needs every row of b and v to start on a 16-byte boundary
-  return bident::aligned16(b) && bident::aligned16(v) && N % VEC == 0 &&
-                 P % VEC == 0
+  // cp.async needs every row of c, b and v to start on a 16-byte boundary
+  return bident::aligned16(c) && bident::aligned16(b) &&
+                 bident::aligned16(v) && N % VEC == 0 && P % VEC == 0
              ? launch<T, true>(c, b, v, log_a, s0, y, s_final, work, B,
                                T_len, H, N, P, C, stream)
              : launch<T, false>(c, b, v, log_a, s0, y, s_final, work, B,
@@ -629,15 +685,18 @@ cudaError_t launch_aligned(const void* c, const void* b, const void* v,
 // float32 or NULL for a zero initial state; y (B,T,H,P) in v's dtype;
 // s_final (B,H,N,P) float32; work, float32 scratch of B*H*nc*(N*P + 1)
 // elements with nc = ceil(T / C).  All contiguous device buffers.  The
-// chunk length C is at most 256 and N, P at most 128.  Runs the three
-// kernels on `stream`; returns the first cudaError_t (0 on success).
+// chunk length C is at most 256 and N at most 496; P is tiled 64 columns
+// a block (at most 65535 blocks of grid z in kernel 1: ceil(P / 64)
+// times ceil(N / 128)).  Runs the three kernels on `stream`; returns the
+// first cudaError_t (0 on success).
 extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
                                const void* log_a, const void* s0, void* y,
                                void* s_final, void* work, int B, int T_len,
                                int H, int N, int P, int C, int bf16,
                                void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0 || C <= 0 || C > CMAX || N <= 0 ||
-      N > SMAX || P <= 0 || P > SMAX || B * H > 65535)
+      N > MAX_N || P <= 0 || B * H > 65535 ||
+      (long long)((P + PT - 1) / PT) * ((N + SL - 1) / SL) > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* la = static_cast<const float*>(log_a);

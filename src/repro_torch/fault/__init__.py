@@ -1,1 +1,1 @@
-"""Fault vocabulary of the port (see ``manager``)."""
+"""Fault vocabulary and the train loop's fault manager (see ``manager``)."""

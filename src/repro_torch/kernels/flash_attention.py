@@ -22,7 +22,7 @@ from . import _build
 BLOCK_Q = 64
 BLOCK_K = 64
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160)
 
 
 def _shapes(q, k, v):

@@ -19,7 +19,10 @@ import torch
 from . import _build
 
 MAX_CHUNK = 256
-MAX_STATE = 128
+# largest N: the output kernel keeps a block's 64 rows of c (64 x N) in
+# shared memory beside its stage buffers (227 KB in f32 at N = 496); P is
+# tiled 64 columns a block and has no such limit
+MAX_STATE = 496
 
 
 def _chunk(chunk: int, T: int) -> int:
@@ -73,8 +76,7 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
     """Launch the CUDA kernel on the current stream of v's device.  c, b,
     v share one dtype (f32 or bf16); log_a and initial_state are f32;
     the effective chunk is at most ``MAX_CHUNK`` (the Pallas kernel's
-    default, 256, and the default here) and N, P at most
-    ``MAX_STATE``."""
+    default, 256, and the default here) and N at most ``MAX_STATE``."""
     B, T, H, N = b.shape
     P = v.shape[-1]
     if c.shape != b.shape or v.shape[:3] != b.shape[:3] \
@@ -83,10 +85,9 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
                          f"{tuple(b.shape)}, v {tuple(v.shape)}, log_a "
                          f"{tuple(log_a.shape)} disagree")
     C = _chunk(chunk, T)
-    if C > MAX_CHUNK or N > MAX_STATE or P > MAX_STATE:
+    if C > MAX_CHUNK or N > MAX_STATE:
         raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK} "
-                         f"and N, P <= {MAX_STATE}; got chunk={C}, N={N}, "
-                         f"P={P}")
+                         f"and N <= {MAX_STATE}; got chunk={C}, N={N}")
     operands = dict(c=(c, _build.FLOATS), b=(b, (c.dtype,)),
                     v=(v, (c.dtype,)), log_a=(log_a, (torch.float32,)))
     if initial_state is not None:

@@ -1,2 +1,2 @@
-"""Command-line drivers (``python -m repro_torch.launch.serve``).  Port of
-``repro.launch``."""
+"""Command-line drivers (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``).  Port of ``repro.launch``."""

@@ -19,7 +19,9 @@ Parameters are the reference's tree (dicts of tensors, with each block
 stack's layers stored along a leading dimension); where the reference
 scans over that dimension the port loops over it.  :func:`params_from_numpy`
 turns the reference's parameter tree, as NumPy arrays, into the port's.
-Remat is a training concern and is not applied here.
+With ``cfg.remat`` each per-layer body of :func:`forward` is recomputed in
+the backward pass (``torch.utils.checkpoint``), as the reference wraps
+each scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..sharding import NO_POLICY, Policy
 from . import layers as L
@@ -37,23 +40,56 @@ from . import layers as L
 # trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn: Callable, tree):
-    """``fn`` on every tensor leaf of a tree of dicts, lists and tuples."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` on every tensor leaf of a tree of dicts, lists and tuples
+    (with ``rest``: on the leaves at the same place of each tree)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     """The leaves in the reference's (``jax.tree.leaves``) order: dict
-    keys sorted, sequences in order."""
+    keys sorted, sequences in order, ``None`` an empty subtree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def unzip(tree, k: int):
+    """Element ``k`` of every tuple at a leaf's place of ``tree`` (a tree
+    whose leaves were mapped to tuples, as the reference unzips with
+    ``is_leaf=lambda t: isinstance(t, tuple)``).  The parameter trees hold
+    dicts and lists only, so every tuple is such a leaf."""
+    if isinstance(tree, tuple):
+        return tree[k]
+    if isinstance(tree, dict):
+        return {n: unzip(v, k) for n, v in tree.items()}
+    return [unzip(v, k) for v in tree]
+
+
+def tree_flatten_with_path(tree, path=()) -> list:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order; a path is the
+    tuple of dict keys (str) and sequence indices (int) down to the leaf
+    (``jax.tree_util.tree_flatten_with_path``'s keys).  ``None`` is an
+    empty subtree, as in JAX."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_flatten_with_path(v, path + (i,))]
+    return [(path, tree)]
 
 
 def tree_unflatten(like, leaves):
@@ -62,6 +98,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}
@@ -74,6 +112,26 @@ def tree_unflatten(like, leaves):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter (or cache) tree: views."""
     return tree_map(lambda x: x[i], tree)
+
+
+def _unstack(tree) -> list:
+    """Every layer of a stacked parameter tree, as views (``unbind``, so a
+    backward pass stacks the layers' gradients once rather than adding a
+    full-size gradient per layer)."""
+    paths = tree_flatten_with_path(tree)
+    per_leaf = [torch.unbind(x) for _, x in paths]
+    return [tree_unflatten(tree, [u[i] for u in per_leaf])
+            for i in range(len(per_leaf[0]))]
+
+
+def _maybe_remat(fn: Callable, cfg) -> Callable:
+    """``fn`` recomputed in the backward pass when ``cfg.remat`` (the
+    reference's ``jax.checkpoint``); its inputs and outputs are kept.
+    Without autograd (serving) there is no backward pass, and ``fn`` runs
+    as it is."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _stack_init(init_fn, n: int):
@@ -254,8 +312,7 @@ def forward(cfg, params, batch, shd: Policy = NO_POLICY,
     aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     if bp in ("dense", "moe"):
-        for i in range(_n(params["blocks"])):
-            lp = _layer(params["blocks"], i)
+        def body(h, aux, lp):
             a, _ = L.gqa_attention(lp["attn"], L.rms_norm(h, lp["ln1"], eps),
                                    cfg, shd, positions=pos)
             h = h + a
@@ -265,23 +322,27 @@ def forward(cfg, params, batch, shd: Policy = NO_POLICY,
                 aux = aux + a_l
             else:
                 m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps), shd)
-            h = h + m
+            return h + m, aux
+        body = _maybe_remat(body, cfg)
+        for lp in _unstack(params["blocks"]):
+            h, aux = body(h, aux, lp)
 
     elif bp == "mla_moe":
+        def mla_body(h, aux, lp, is_moe):
+            a, _ = L.mla_attention(lp["attn"], L.rms_norm(h, lp["ln1"], eps),
+                                   cfg, shd, positions=pos)
+            h = h + a
+            if is_moe:
+                m, a_l = L.moe_block(lp["moe"], L.rms_norm(h, lp["ln2"], eps),
+                                     cfg, shd)
+                aux = aux + a_l
+            else:
+                m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps), shd)
+            return h + m, aux
+        mla_body = _maybe_remat(mla_body, cfg)
         for key, is_moe in (("dense_blocks", False), ("moe_blocks", True)):
-            for i in range(_n(params[key])):
-                lp = _layer(params[key], i)
-                a, _ = L.mla_attention(lp["attn"], L.rms_norm(h, lp["ln1"], eps),
-                                       cfg, shd, positions=pos)
-                h = h + a
-                if is_moe:
-                    m, a_l = L.moe_block(lp["moe"],
-                                         L.rms_norm(h, lp["ln2"], eps), cfg, shd)
-                    aux = aux + a_l
-                else:
-                    m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps),
-                                     shd)
-                h = h + m
+            for lp in _unstack(params[key]):
+                h, aux = mla_body(h, aux, lp, is_moe)
 
     elif bp == "encdec":
         # batch: embeds (encoder input, stub frontend) + tokens (decoder)
@@ -290,8 +351,8 @@ def forward(cfg, params, batch, shd: Policy = NO_POLICY,
         h = shd.constrain(h, "batch", "seq_act", "embed", name="dec_in")
         T = h.shape[1]
         dpos = _arange_bt(h.shape[0], T, dev)
-        for i in range(_n(params["dec_blocks"])):
-            lp = _layer(params["dec_blocks"], i)
+
+        def dec_body(h, lp):
             a, _ = L.gqa_attention(lp["attn"], L.rms_norm(h, lp["ln1"], eps),
                                    cfg, shd, positions=dpos)
             h = h + a
@@ -299,30 +360,44 @@ def forward(cfg, params, batch, shd: Policy = NO_POLICY,
                                   memory, cfg, shd)
             h = h + x
             m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps), shd)
-            h = h + m
+            return h + m
+        dec_body = _maybe_remat(dec_body, cfg)
+        for lp in _unstack(params["dec_blocks"]):
+            h = dec_body(h, lp)
 
     elif bp == "xlstm":
-        for i in range(_n(params["blocks"])):
-            lp = _layer(params["blocks"], i)
+        def body(h, lp):
             a, _ = L.mlstm_block(lp["mlstm"], L.rms_norm(h, lp["ln_m"], eps),
                                  cfg, shd)
             h = h + a
             s, _ = L.slstm_block(lp["slstm"], L.rms_norm(h, lp["ln_s"], eps),
                                  cfg, shd)
-            h = h + s
+            return h + s
+        body = _maybe_remat(body, cfg)
+        for lp in _unstack(params["blocks"]):
+            h = body(h, lp)
 
     elif bp == "zamba2":
+        # groups of ``every`` Mamba-2 layers, each group closed by the
+        # shared attention block (the reference's grouped scan body)
         every = cfg.zamba_attn_every
         sa = params["shared_attn"]
-        for i in range(cfg.n_layers):
-            lp = _layer(params["blocks"], i)
-            m, _ = L.mamba2_block(lp["mamba"], L.rms_norm(h, lp["ln1"], eps),
-                                  cfg, shd)
-            h = h + m
-            if (i + 1) % every == 0:
+
+        def group_body(h, lps, attend):
+            for lp in lps:
+                m, _ = L.mamba2_block(lp["mamba"],
+                                      L.rms_norm(h, lp["ln1"], eps), cfg, shd)
+                h = h + m
+            if attend:
                 a, _ = L.gqa_attention(sa["attn"], L.rms_norm(h, sa["ln"], eps),
                                        cfg, shd, positions=pos)
                 h = h + a
+            return h
+        group_body = _maybe_remat(group_body, cfg)
+        layers = _unstack(params["blocks"])[:cfg.n_layers]
+        for g0 in range(0, len(layers), every):
+            lps = layers[g0:g0 + every]
+            h = group_body(h, lps, len(lps) == every)
     else:
         raise ValueError(bp)
 
@@ -339,18 +414,21 @@ def _encode(cfg, params, batch, shd: Policy):
     e = batch["embeds"].to(cfg.torch_dtype)
     e = shd.constrain(e, "batch", "seq_act", "embed", name="enc_in")
     epos = _arange_bt(e.shape[0], e.shape[1], e.device)
-    for i in range(_n(params["enc_blocks"])):
-        lp = _layer(params["enc_blocks"], i)
+
+    def enc_body(e, lp):
         a, _ = L.gqa_attention(lp["attn"], L.rms_norm(e, lp["ln1"], eps),
                                enc_cfg, shd, positions=epos)
         e = e + a
         m = L.swiglu_mlp(lp["mlp"], L.rms_norm(e, lp["ln2"], eps), shd)
-        e = e + m
+        return e + m
+    enc_body = _maybe_remat(enc_body, cfg)
+    for lp in _unstack(params["enc_blocks"]):
+        e = enc_body(e, lp)
     return L.rms_norm(e, params["enc_norm"], eps)
 
 
 # ---------------------------------------------------------------------------
-# loss (its value: the backward is the training slice's)
+# loss (differentiable: ``train.trainer`` takes its gradient by autograd)
 # ---------------------------------------------------------------------------
 
 def _ce(logits, labels):

@@ -663,22 +663,47 @@ def test_zoo_captured_decode_is_bitwise_the_eager_step(cuda, arch, depth):
 
 
 @pytest.mark.gpu
-def test_zoo_kernel_paths_raise_on_shapes_the_kernels_cannot_take(cuda):
-    """No fallback: xLSTM-125M's full-width mLSTM scan (N = 384, P = 385)
-    and StableLM-12B's attention (D = 160) raise on the card."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zoo_kernel_shapes_d160_and_n384_match_plain(cuda, dtype):
+    """StableLM-12B's attention (D = 160, 32 query heads over 8) and
+    xLSTM-125M's mLSTM scan (N = 384, P = 385: v and a column of ones,
+    chunk 256) run the kernels within the bucket of their plain versions,
+    bitwise run to run; a state beyond the kernel (N = 512) still raises
+    and launches nothing."""
     from repro_torch.configs import get_config
     rng = np.random.default_rng(3)
+    s = get_config("stablelm-12b")
+    q = _rand(rng, (1, 200, s.n_heads, s.d_head), cuda, dtype)
+    k, v = (_rand(rng, (1, 200, s.n_kv_heads, s.d_head), cuda, dtype)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    o = ops.flash_attention(q, k, v)
+    assert torch.equal(o, ops.flash_attention(q, k, v))
+    torch.testing.assert_close(o, fa.flash_attention_plain(q, k, v),
+                               **TOL[dtype])
     x = get_config("xlstm-125m")
     dh = x.xlstm_d_inner // x.n_heads
-    qk = _rand(rng, (1, 64, x.n_heads, dh), cuda, torch.bfloat16)
-    v = _rand(rng, (1, 64, x.n_heads, dh + 1), cuda, torch.bfloat16)
-    la = -torch.ones((1, 64, x.n_heads), device=cuda)
+    c, b = (_rand(rng, (1, 300, x.n_heads, dh), cuda, dtype, 0.1)
+            for _ in range(2))
+    vv = torch.cat([_rand(rng, (1, 300, x.n_heads, dh), cuda, dtype),
+                    torch.ones((1, 300, x.n_heads, 1), device=cuda,
+                               dtype=dtype)], dim=-1)
+    la = -torch.nn.functional.softplus(_rand(rng, (1, 300, x.n_heads), cuda,
+                                             torch.float32))
+    y, st = ops.ssd_scan(c, b, vv, la, chunk=x.ssm_chunk)
+    y2, st2 = ops.ssd_scan(c, b, vv, la, chunk=x.ssm_chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    yp, sp = ss.ssd_scan_plain(c, b, vv, la, chunk=x.ssm_chunk)
+    for got, want, tol in ((y, yp, TOL[dtype]["rtol"]),
+                           (st, sp, TOL[torch.float32]["rtol"])):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        got, want = got.double(), want.double()
+        assert float((got - want).abs().max() / want.abs().max()) <= tol
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"flash_attention": 2, "ssd_scan": 2,
+                                       "expert_glu": 0}
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="N, P <="):
-        ops.ssd_scan(qk, qk, v, la, chunk=x.ssm_chunk)
-    s = get_config("stablelm-12b")
-    q = _rand(rng, (1, 64, s.n_heads, s.d_head), cuda, torch.bfloat16)
-    kv = _rand(rng, (1, 64, s.n_kv_heads, s.d_head), cuda, torch.bfloat16)
-    with pytest.raises(ValueError, match="D == Dv in"):
-        ops.flash_attention(q, kv, kv)
+    wide = _rand(rng, (1, 64, 1, ss.MAX_STATE + 16), cuda, dtype)
+    with pytest.raises(ValueError, match="N <="):
+        ops.ssd_scan(wide, wide, vv[:, :64, :1], la[:, :64, :1])
     assert not any(kernels.launch_counts().values())

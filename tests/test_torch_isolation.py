@@ -39,7 +39,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.base", "repro_torch.configs.zamba2_2_7b",
             "repro_torch.models.layers", "repro_torch.models.model",
             "repro_torch.serving.engine",
-            "repro_torch.launch.serve"} <= set(modules)
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+            "repro_torch.train.trainer"} <= set(modules)
     code = "\n".join([
         "import sys",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",

@@ -141,6 +141,44 @@ def test_ssd_scan_long_chunks_match_jax(B, T, H, N, P, chunk, with_s0,
     _ssd_matches_jax(B, T, H, N, P, chunk, with_s0, dtype, scale=0.5)
 
 
+# The zoo's two widest kernel shapes, at reduced T: StableLM-12B's
+# attention (d_head 160, 32 query heads over 8, here 8 over 2) and
+# xLSTM-125M's mLSTM scan (N = 384, P = 385: v and a column of ones,
+# chunk 256).  c and b are drawn at 1/sqrt(N)-like scale, as the mLSTM
+# scales k by 1/sqrt(d_head).
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_at_d_head_160_matches_jax(dtype):
+    rng = np.random.default_rng(14)
+    (jq, q), (jk, k), (jv, v) = (
+        pair(rng.standard_normal(sh, dtype=np.float32), dtype)
+        for sh in ((1, 130, 8, 160), (1, 130, 2, 160), (1, 130, 2, 160)))
+    want = jops.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                                block_k=64, interpret=True)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert got.shape == (1, 130, 8, 160) and got.dtype == TDT[dtype]
+    close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_at_the_mlstm_state_matches_jax(dtype):
+    rng = np.random.default_rng(15)
+    B, T, H, N = 1, 300, 2, 384
+    (jc, c), (jb, b) = (pair(np.float32(0.1) * rng.standard_normal(
+        (B, T, H, N), dtype=np.float32), dtype) for _ in range(2))
+    v_np = np.concatenate([rng.standard_normal((B, T, H, N),
+                                               dtype=np.float32),
+                           np.ones((B, T, H, 1), np.float32)], axis=-1)
+    jv, v = pair(v_np, dtype)
+    la_np = -np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(
+        np.float32)
+    jla, la = pair(la_np, "float32")
+    yk, Sk = jops.ssd_scan(jc, jb, jv, jla, chunk=256, interpret=True)
+    y, S = ops.ssd_scan(c, b, v, la, chunk=256)
+    assert y.shape == (B, T, H, N + 1) and S.shape == (B, H, N, N + 1)
+    close(y, yk, TOL[dtype])
+    close(S, Sk, dict(atol=5e-4, rtol=5e-4))
+
+
 def test_ssd_scan_default_chunk_is_the_pallas_kernels():
     """Without a ``chunk`` argument both packages chunk at 256, so the
     same call computes the same chunked algebra: T = 300 runs as one full
