@@ -134,7 +134,31 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    warm steps), tokens a second, the bf16-peak share (6 x params x
    tokens / step time / 989 TFLOP/s), peak memory, checkpoint save and
    restore seconds and a traced step's device-busy share are printed;
-   the phase has a time budget.
+   the phase has a time budget;
+10. the mesh — on ``make_host_mesh()``, a (1, 1) mesh over one NCCL
+   rank: (a) Llama-3.2-1B's phase 9 step through ``jit_train_step`` with
+   ``Policy(mesh, fsdp=True)`` for 3 steps on phase 9's batches, losses
+   and params bitwise phase 9's unsharded steps (else the largest
+   difference is printed and held within 1e-6 relative), step time
+   beside phase 9's; (b) ``jit_prefill`` and 4 ``jit_decode_step``s of
+   Llama-3.2-1B and Zamba2-2.7B at full width in bf16 with the kernels:
+   ``flash_attention`` / ``ssd_scan`` launch as in phase 8's prefill
+   (through the kernels' mesh entry), counted from zero, and logits and
+   every cache leaf are bitwise the meshless ``prefill`` /
+   ``decode_step``'s, prefill ms beside phase 8's and a traced mesh
+   prefill's device-busy share; (c) ``autoshard`` and
+   ``autoshard_parallel`` on ``model_op_graph`` of Granite-3.0-1B
+   (train, 256 x 4096) and DeepSeek-V3 (decode, 128 x 32768) at
+   (16, 16) on the H100 constants (speedup and route printed),
+   ``emit_overrides`` applied to Granite's ``loss_fn`` at full width,
+   1 x 1024, on the card's mesh (bitwise the meshless loss), and the
+   measurements behind the constants (a launch's host time, a one-rank
+   NCCL all-reduce, a bf16 GEMM's and the bf16 flash attention's share of
+   the peak); (d) ``launch.dryrun`` in a child process on the host for
+   ``llama3.2-1b|train_4k|16x16`` and ``deepseek-v3-671b|decode_32k|
+   2x16x16`` (fake groups of 256 and 512 ranks): per-device GiB against
+   the card's 80, FLOPs, bytes, collective bytes by kind and the
+   dominant term, each cell within 60 s.  The phase has a time budget.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -2674,7 +2698,8 @@ def phase_train(env: dict) -> dict:
         f"{TRAIN_SEQ}")
     step = T.make_train_step(cfg, tc)
 
-    # (a) uninterrupted
+    # (a) uninterrupted; the params after MESH_TRAIN_STEPS steps are kept
+    # for phase 10's step on the mesh
     losses, step_s = [], []
     with T.deterministic_training():
         for i in range(TRAIN_STEPS):
@@ -2684,6 +2709,8 @@ def phase_train(env: dict) -> dict:
             params, opt, met = step(params, opt, batch)
             losses.append(float(met["loss"]))        # waits for the card
             step_s.append(time.perf_counter() - t)
+            if i + 1 == MESH_TRAIN_STEPS:
+                params_at = M.tree_map(lambda x: x.detach().clone(), params)
         peak = torch.cuda.max_memory_allocated() / 2**30
         busy = _trace_call(f"{TRAIN_ARCH} train step",
                            lambda: (step(params, opt, batch),
@@ -2797,7 +2824,367 @@ def phase_train(env: dict) -> dict:
     return dict(losses=losses, step_s=step_s, median_s=med,
                 tok_per_s=tokens / med, share=share, peak_gib=peak,
                 busy=busy, save_s=io["save"], restore_s=io["restore"],
-                other=other, wall=wall)
+                other=other, wall=wall, params_at=params_at)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+MESH_DECODE_STEPS = 4
+MESH_BUDGET_S = 360.0        # phase 10's share of the script's time limit
+# (arch, graph kind, batch, seq) of the autoshard runs: the reference's
+# example cell and a decode cell of the largest config
+AUTOSHARD_CELLS = (("granite-moe-1b-a400m", "train", 256, 4096),
+                   ("deepseek-v3-671b", "decode", 128, 32768))
+# the spread of HOP_LAT's readings (a one-rank NCCL all-reduce, seconds)
+# behind core/autoshard.py's median: autoshard is solved at both ends too
+HOP_SPREAD = (2.61e-5, 8.95e-5)
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k", False),
+                ("deepseek-v3-671b", "decode_32k", True))
+DRYRUN_BUDGET_S = 60.0       # wall seconds of one dry-run cell
+CARD_GIB = 80.0
+
+
+def _local_leaves(tree) -> list:
+    from repro_torch.models import model as M
+    return [x.full_tensor() if hasattr(x, "full_tensor") else x
+            for x in M.tree_leaves(tree)]
+
+
+def _mesh_against(label, got, want) -> bool:
+    """Every leaf of ``got`` (a tree on the mesh) bitwise ``want``'s;
+    logs the largest difference where one is not."""
+    g, w = _local_leaves(got), _local_leaves(want)
+    same = len(g) == len(w) and all(bitwise_equal(a, b) for a, b in zip(g, w))
+    if not same:
+        worst = max((norm_err(a, b)[1], i) for i, (a, b) in
+                    enumerate(zip(g, w)) if a.shape == b.shape)
+        log(f"    {label}: not bitwise; largest difference over the "
+            f"largest value {worst[0]:.3e} at leaf {worst[1]}")
+    return same
+
+
+def _mesh_train(train: dict, mesh) -> dict:
+    """(a) Llama-3.2-1B's phase 9 step through ``jit_train_step`` with
+    ``Policy(mesh, fsdp=True)`` for MESH_TRAIN_STEPS steps on phase 9's
+    batches: losses and params against phase 9's unsharded steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenSource
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import Policy
+    from repro_torch.train import trainer as T
+
+    cfg = get_config(TRAIN_ARCH)
+    source = SyntheticTokenSource(DataConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab=cfg.vocab,
+        seed=0))
+    tc = T.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                             total_steps=TRAIN_STEPS))
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    opt = adamw.init_state(tc.opt, params)
+    step = T.jit_train_step(cfg, tc, Policy(mesh=mesh, fsdp=True),
+                            M.param_shapes(cfg), _train_batch(source, 0))
+    losses, step_s = [], []
+    with T.deterministic_training():
+        for i in range(MESH_TRAIN_STEPS):
+            batch = _train_batch(source, i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"].full_tensor()))
+            step_s.append(time.perf_counter() - t)
+    want = train["losses"][:MESH_TRAIN_STEPS]
+    bitwise = losses == want and _mesh_against(
+        "(a) params", params, train["params_at"])
+    if bitwise:
+        check(True, f"(a) {MESH_TRAIN_STEPS} steps of jit_train_step on the "
+                    f"{tuple(mesh.shape)} mesh: losses {losses} and every "
+                    "param bitwise phase 9's unsharded steps")
+    else:
+        rel = max(norm_err(a, b)[1] for a, b in zip(
+            _local_leaves(params), M.tree_leaves(train["params_at"])))
+        log(f"    (a) losses {losses} against phase 9's {want}")
+        check(rel <= 1e-6 and all(abs(a - b) <= 1e-6 * abs(b)
+                                  for a, b in zip(losses, want)),
+              f"(a) not bitwise (above); losses and params within 1e-6 "
+              f"relative of phase 9's (params {rel:.3e})")
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    log(f"  (a) step s on the mesh {[round(x, 3) for x in step_s]}, median "
+        f"warm {1e3 * med:.1f} ms against phase 9's unsharded "
+        f"{1e3 * train['median_s']:.1f} ms")
+    del params, opt, met, train["params_at"]
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=step_s, median_s=med, bitwise=bitwise)
+
+
+def _mesh_serve(zoo: dict, mesh) -> dict:
+    """(b) ``jit_prefill`` and MESH_DECODE_STEPS ``jit_decode_step``s of
+    Llama-3.2-1B and Zamba2-2.7B at full width in bf16 with the kernels:
+    launches counted from zero, logits and caches bitwise the meshless
+    ``prefill`` / ``decode_step``'s."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.sharding import Policy
+
+    launches, res = {}, {}
+    for arch, kernel, n_launch, _ in ZOO_FULL[:2]:
+        cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        batch = {"tokens": _zoo_prompts(cfg.vocab)}
+        max_len = PROMPT_LEN + MAX_NEW
+        policy = Policy(mesh=mesh)
+        pre = E.jit_prefill(cfg, policy, M.param_shapes(cfg), batch, max_len)
+        (logits, cache), counts = _counted(lambda: pre(params, batch))
+        want = {name: 0 for name in counts}
+        want[kernel] = n_launch
+        check(counts == want, f"(b) {arch}: one prefill on the mesh launched "
+                              f"{counts} (phase 8's: {want})")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        l0, c0 = M.prefill(cfg, params, batch, max_len=max_len)
+        check(_mesh_against(f"(b) {arch} prefill", [logits, cache],
+                            [l0, c0]),
+              f"(b) {arch}: prefill logits and all "
+              f"{len(M.tree_leaves(c0))} cache leaves on the mesh bitwise "
+              "the meshless prefill's")
+        tok = torch.argmax(l0[:, -1], dim=-1)[:, None].to(torch.int32)
+        dec = E.jit_decode_step(cfg, policy, M.param_shapes(cfg), c0,
+                                {"tokens": tok})
+        same, dec_counts = True, {}
+        for _ in range(MESH_DECODE_STEPS):
+            l0, c0 = M.decode_step(cfg, params, c0, {"tokens": tok})
+            (logits, cache), n = _counted(
+                lambda: dec(params, cache, {"tokens": tok}))
+            dec_counts = {k: dec_counts.get(k, 0) + v for k, v in n.items()}
+            same = _mesh_against(f"(b) {arch} decode", [logits, cache],
+                                 [l0, c0]) and same
+            tok = torch.argmax(l0[:, -1], dim=-1)[:, None].to(torch.int32)
+        check(same and not any(dec_counts.values()),
+              f"(b) {arch}: {MESH_DECODE_STEPS} decode steps on the mesh, "
+              "logits and cache bitwise the meshless decode_step's, no "
+              f"kernel launched ({dec_counts})")
+        t_pre = [1e3 * _wall(lambda: pre(params, batch)) for _ in range(3)]
+        log(f"  (b) {arch}: prefill ms on the mesh "
+            f"{[round(t, 2) for t in t_pre]} against phase 8's meshless "
+            f"{[round(t, 2) for t in zoo['full'][arch]['prefill_ms']]}")
+        busy = _trace_call(f"{arch} prefill on the mesh",
+                           lambda: (pre(params, batch),
+                                    torch.cuda.synchronize()), top=6)
+        res[arch] = dict(prefill_ms=t_pre, busy=busy)
+        del params, logits, cache, l0, c0, pre, dec
+        torch.cuda.empty_cache()
+    return dict(launches=launches, serve=res)
+
+
+def _card_constants() -> dict:
+    """The measurements behind ``core/autoshard.py``'s H100 constants:
+    the host time of one kernel launch (DISPATCH_S), a one-rank NCCL
+    all-reduce of 4 bytes (HOP_LAT, a guess for a hop), a bf16 GEMM's
+    and the port's bf16 flash_attention's share of the bf16 peak
+    (KIND_EFF)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import autoshard as A
+    from repro_torch.kernels import ops
+    x = torch.zeros(1, device="cuda")
+    n = 2000
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    launch = (time.perf_counter() - t0) / n
+    y = torch.ones(1, device="cuda")
+    for _ in range(20):
+        dist.all_reduce(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(y)
+    torch.cuda.synchronize()
+    hop = (time.perf_counter() - t0) / 200
+    rng = np.random.default_rng(0)
+    m = 8192
+    a, b = (rand(rng, (m, m), torch.bfloat16) for _ in range(2))
+    gemm_ms = time_ms(lambda: a @ b, iters=20)
+    gemm = 2 * m ** 3 / (gemm_ms / 1e3) / PEAK_BF16
+    B, T, Hq, Hk, D = N_PROMPTS, PROMPT_LEN, 32, 8, 64
+    q = rand(rng, (B, T, Hq, D), torch.bfloat16)
+    k, v = (rand(rng, (B, T, Hk, D), torch.bfloat16) for _ in range(2))
+    attn_ms = time_ms(lambda: ops.flash_attention(q, k, v), iters=20)
+    attn = 2 * B * Hq * T * T * D / (attn_ms / 1e3) / PEAK_BF16
+    log(f"  (c) measured on this card: one kernel launch {1e6 * launch:.2f} "
+        f"us (DISPATCH_S {1e6 * A.DISPATCH_S:.2f} us); a one-rank NCCL "
+        f"all-reduce of 4 B {1e6 * hop:.2f} us (HOP_LAT "
+        f"{1e6 * A.HOP_LAT:.2f} us); bf16 GEMM {m}^3 {gemm_ms:.3f} ms = "
+        f"{100 * gemm:.1f}% of the bf16 peak (KIND_EFF matmul "
+        f"{A.KIND_EFF['matmul']}); bf16 flash_attention at Llama's prefill "
+        f"shape {attn_ms:.3f} ms = {100 * attn:.1f}% (KIND_EFF attention "
+        f"{A.KIND_EFF['attention']})")
+    return dict(launch_s=launch, hop_s=hop, gemm_share=gemm,
+                attention_share=attn)
+
+
+def _mesh_autoshard(mesh) -> dict:
+    """(c) the autoshard pass at (16, 16) on the H100 constants, its
+    overrides applied to Granite-3.0-1B's loss on the card's mesh, and
+    the measurements behind the constants."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.core import autoshard as A
+    from repro_torch.core.modelgraph import model_op_graph
+    from repro_torch.models import model as M
+    from repro_torch.sharding import NamedSharding, Policy
+    from repro_torch.train import trainer as T
+
+    out = {"constants": _card_constants()}
+    hop_lat = A.HOP_LAT
+    for arch, kind, B, S in AUTOSHARD_CELLS:
+        g = model_op_graph(get_config(arch), kind=kind, batch=B, seq=S)
+        t0 = time.perf_counter()
+        r = A.autoshard(g, d_data=16, d_model=16)
+        par = A.autoshard_parallel(g, d_data=16, d_model=16)
+        dt = time.perf_counter() - t0
+        feas = {k: v for k, v in r.single.items() if v is not None}
+        routes = {}
+        for a in r.schedule.assignment:
+            routes[a] = routes.get(a, 0) + 1
+        par_speedup = feas[r.best_single] / par.latency
+        log(f"  (c) autoshard {arch} {kind} batch {B} seq {S} at (16, 16), "
+            f"{len(g.ops)} ops, solved in {dt:.2f} s: sequential "
+            f"{1e3 * r.schedule.latency:.3f} ms = {r.speedup:.3f}x the best "
+            f"single strategy ({r.best_single} "
+            f"{1e3 * feas[r.best_single]:.3f} ms); phase-parallel "
+            f"{1e3 * par.latency:.3f} ms = {par_speedup:.3f}x; route "
+            f"{routes}")
+        # HOP_LAT is a guess (one card shows no hop): the same solve at
+        # the ends of its readings' spread and at this run's reading
+        sweep = {}
+        try:
+            for hop in HOP_SPREAD + (out["constants"]["hop_s"],):
+                A.HOP_LAT = hop
+                rh = A.autoshard(g, d_data=16, d_model=16)
+                ph = A.autoshard_parallel(g, d_data=16, d_model=16)
+                best = rh.single[rh.best_single]
+                sweep[f"{1e6 * hop:.1f}"] = (rh.speedup, best / ph.latency)
+        finally:
+            A.HOP_LAT = hop_lat
+        log(f"  (c) autoshard {arch} {kind} at HOP_LAT (us): sequential, "
+            f"phase-parallel speedup " + "; ".join(
+                f"{k}: {a:.3f}x, {b:.3f}x" for k, (a, b) in sweep.items()))
+        out[arch] = dict(speedup=r.speedup, par_speedup=par_speedup,
+                         routes=routes, hop_sweep=sweep, result=r)
+    granite = out["granite-moe-1b-a400m"]["result"]
+    overrides = A.emit_overrides({
+        "moe_xe": "EP" if "EP" in granite.schedule.assignment else "DP_TP",
+        "mlp_h": "DP_TP", "attn_q": "DP_TP"})
+    cfg = get_config("granite-moe-1b-a400m")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1025),
+                                        dtype="int32")).to("cuda")
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    policy = Policy(mesh=mesh, fsdp=True, overrides=overrides)
+    with torch.no_grad():
+        want = float(M.loss_fn(cfg, params, batch)[0])
+        with implicit_replication():
+            pd = T.distribute_tree(params, T.param_shardings(policy, params))
+            bd = T.distribute_tree(batch, M.tree_map(
+                lambda s: NamedSharding(mesh, s),
+                T.batch_pspecs(policy, batch)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = float(M.loss_fn(cfg, pd, bd, policy)[0].full_tensor())
+            dt = time.perf_counter() - t0
+    check(got == want, f"(c) granite-moe-1b-a400m loss_fn (full width, 1 x "
+                       f"1024) under the emitted overrides {overrides} on the "
+                       f"card's mesh: {got!r}, bitwise the meshless loss "
+                       f"{want!r} ({dt:.2f} s)")
+    del params, pd
+    torch.cuda.empty_cache()
+    for arch in (a for a, *_ in AUTOSHARD_CELLS):
+        out[arch].pop("result")
+    return out
+
+
+def _mesh_dryrun() -> dict:
+    """(d) the dry-run of two production cells in a child process on the
+    host (a fake process group, no device)."""
+    dest = ROOT / "chiprun_out" / "dryrun_phase10.json"
+    dest.parent.mkdir(exist_ok=True)
+    if dest.exists():
+        dest.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", PYTHONWARNINGS="ignore")
+    out = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        key = f"{arch}|{shape}|{'2x16x16' if multi_pod else '16x16'}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(dest), "--force"] + \
+            (["--multi-pod"] if multi_pod else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=4 * DRYRUN_BUDGET_S, env=env)
+        wall = time.perf_counter() - t0
+        rec = json.loads(dest.read_text()).get(key, {}) \
+            if dest.exists() else {}
+        check(proc.returncode == 0 and rec.get("status") == "ok",
+              f"(d) dry-run {key}: {rec.get('status')} "
+              f"{rec.get('error', proc.stderr[-500:])}")
+        r = rec["roofline"]
+        coll = {k: v for k, v in rec["collectives"].items() if v}
+        log(f"  (d) {key}: {rec['n_chips']} ranks, "
+            f"{rec['bytes_per_device'] / 2**30:.2f} GiB per device (the "
+            f"card holds {CARD_GIB:.0f} GiB), {rec['flops_per_chip']:.4g} "
+            f"FLOPs and {rec['bytes_per_chip']:.4g} B per chip, collective "
+            f"B per chip {coll}; compute {1e3 * r['compute_s']:.3f} ms, "
+            f"memory {1e3 * r['memory_s']:.3f} ms, collective "
+            f"{1e3 * r['collective_s']:.3f} ms: {r['dominant']} dominates; "
+            f"useful FLOP ratio {rec['useful_flop_ratio']:.3f}; step run "
+            f"{rec['lower_s']} s + count {rec['count_s']} s, wall "
+            f"{wall:.1f} s")
+        check(wall <= DRYRUN_BUDGET_S,
+              f"(d) {key} in {wall:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)")
+        out[key] = dict(rec, wall=wall)
+    return out
+
+
+def phase_mesh(env: dict, zoo: dict, train: dict) -> dict:
+    """The mesh: (a) training, (b) serving with the kernels, (c) autoshard
+    and its overrides, on a (1, 1) NCCL mesh over the card; (d) the
+    dry-run of two production cells on the host."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    log("== phase 10: the mesh")
+    log(env["card"])
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    log(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+        f"{dist.get_world_size()} rank ({dist.get_backend()})")
+    try:
+        tr = _mesh_train(train, mesh)
+        sv = _mesh_serve(zoo, mesh)
+        au = _mesh_autoshard(mesh)
+    finally:
+        dist.destroy_process_group()
+    dr = _mesh_dryrun()
+    wall = time.perf_counter() - t0
+    check(wall <= MESH_BUDGET_S,
+          f"phase 10 in {wall:.1f} s (budget {MESH_BUDGET_S:.0f} s)")
+    return dict(train=tr, launches=sv["launches"], serve=sv["serve"],
+                autoshard=au, dryrun=dr, wall=wall)
 
 
 def main() -> int:
@@ -2827,8 +3214,9 @@ def main() -> int:
         phase_dag(GRANITE_MAIN_PATH, main, conc)
         adm = phase_admission(GRANITE_MAIN_PATH, main, conc)
         phase_serving(GRANITE_MAIN_PATH, main, conc, adm)
-        phase_zoo(env)
-        phase_train(env)
+        zoo = phase_zoo(env)
+        train = phase_train(env)
+        mesh = phase_mesh(env, zoo, train)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1
@@ -2836,7 +3224,7 @@ def main() -> int:
         LOG.parent.mkdir(exist_ok=True)
         LOG.write_text("\n".join(_log_lines) + "\n")
     for name, row in rows.items():
-        row["launches"] = main["counts"][name]
+        row["launches"] = main["counts"][name] + mesh["launches"].get(name, 0)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(env["card"])
     print(json.dumps({"kernels": [

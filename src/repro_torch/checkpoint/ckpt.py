@@ -16,8 +16,14 @@ checkpoint written by either package restores in the other:
 bf16 leaves: NumPy has no bfloat16, so a bf16 leaf is saved as its bits
 in a ``uint16`` array, with ``"dtype": "bfloat16"`` in the manifest, and
 restored by the manifest's dtype (which also reads the reference's bf16
-files, whose 2-byte elements carry the same bits).  ``restore(...,
-device=)`` takes the place of the reference's ``shardings=``.
+files, whose 2-byte elements carry the same bits).
+
+On a mesh: a DTensor leaf is saved whole (every rank gathers it, rank 0
+writes, and all wait for the write), and ``restore(..., shardings=)``
+(a tree of :class:`repro_torch.sharding.NamedSharding` matching the
+target) puts each leaf straight into its placements on the new mesh,
+each rank keeping its shard — the elastic-rescale path.  Without
+``shardings``, ``device=`` places plain tensors.
 """
 from __future__ import annotations
 
@@ -30,7 +36,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.model import tree_flatten_with_path, tree_unflatten
+from ..models.model import (tree_flatten_with_path, tree_leaves,
+                            tree_unflatten)
+from ..sharding import distribute
 
 
 def _key(path) -> str:
@@ -42,8 +50,19 @@ def _flatten(tree) -> list[tuple[str, Any]]:
     return [(_key(path), leaf) for path, leaf in tree_flatten_with_path(tree)]
 
 
+def _is_writer() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
-    """(array to save, manifest dtype) of one leaf."""
+    """(array to save, manifest dtype) of one gathered leaf."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -57,17 +76,35 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3,
          extra: dict | None = None) -> str:
-    """Atomic checkpoint save; returns the checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic checkpoint save; returns the checkpoint path.  Under a
+    process group every rank calls it (DTensor leaves are gathered) and
+    rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    writer = _is_writer()
+    arrays = []
+    for key, leaf in _flatten(tree):
+        # gathering a DTensor whole is a collective, so every rank calls
+        # it; only the writer copies it to the host
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        if writer:
+            arrays.append((key, *_to_numpy(leaf)))
+    if writer:
+        _write(ckpt_dir, step, final, arrays, keep_last, extra)
+    _barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, final: str, arrays, keep_last: int,
+           extra: dict | None) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "time": time.time(), "extra": extra or {},
                 "leaves": []}
-    for key, leaf in _flatten(tree):
-        arr, dtype = _to_numpy(leaf)
+    for key, arr, dtype in arrays:
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({
@@ -80,7 +117,6 @@ def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3,
         shutil.rmtree(final)
     os.rename(tmp, final)
     _gc(ckpt_dir, keep_last)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -103,11 +139,13 @@ def _load(path: str, meta: dict) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
-            device=None) -> tuple[Any, dict]:
+            device=None, shardings=None) -> tuple[Any, dict]:
     """Restore into the structure of ``target_tree`` (tensors, or tensors
     on the ``meta`` device for shapes and dtypes only), each leaf in its
     target's dtype, on ``device`` (default: the target leaf's device, the
-    CPU for a ``meta`` one).  Returns (tree, extra)."""
+    CPU for a ``meta`` one).  ``shardings`` (a tree of NamedSharding
+    matching the target) puts each leaf straight into its placements on
+    that mesh instead.  Returns (tree, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -117,8 +155,10 @@ def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
         manifest = json.load(f)
     by_key = {m["key"]: m for m in manifest["leaves"]}
 
+    shard_leaves = (tree_leaves(shardings) if shardings is not None
+                    else [None] * len(_flatten(target_tree)))
     out = []
-    for key, ref in _flatten(target_tree):
+    for (key, ref), shd in zip(_flatten(target_tree), shard_leaves):
         meta = by_key.get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -128,13 +168,23 @@ def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
         if tuple(t.shape) != want_shape:
             raise ValueError(f"{key}: shape {tuple(t.shape)} != target "
                              f"{want_shape}")
+        dtype = ref.dtype if isinstance(ref, torch.Tensor) else t.dtype
+        if shd is not None:
+            dev = _mesh_device(shd.mesh)
+            out.append(distribute(t.to(device=dev, dtype=dtype), shd))
+            continue
         dev = device
         if dev is None:
             dev = ref.device if isinstance(ref, torch.Tensor) \
                 and ref.device.type != "meta" else "cpu"
-        dtype = ref.dtype if isinstance(ref, torch.Tensor) else t.dtype
         out.append(t.to(device=dev, dtype=dtype))
     return tree_unflatten(target_tree, out), manifest.get("extra", {})
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def _gc(ckpt_dir: str, keep_last: int) -> None:

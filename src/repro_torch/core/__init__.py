@@ -1,7 +1,7 @@
 """BIDENT core on PyTorch: profile → plan → execute.
 
-Port of ``repro.core`` but its TPU autoshard cost provider and
-``trace_fused_ops``: the host layer (ops, cost tables, workloads,
+Port of ``repro.core``, with the autoshard cost provider on the H100's
+constants (``repro_torch.core.autoshard``): the host layer (ops, cost tables, workloads,
 contention laws, the sequential, parallel, DAG and concurrent solvers
 with the warm and horizon re-planners, runtime conditions and the
 dynamic scheduler, schedules, the paper's analytic zoo, per-target
@@ -34,7 +34,8 @@ from .modelgraph import (GRANITE_MAIN_PATH, arrays_to_device, chain_arrays,
 from .op import Branch, FusedOp, OpGraph, Phase, chain_graph
 from .orchestrator import Orchestrator, Plan
 from .profiler import (AnalyticProfiler, MeasuredProfiler, Measurement,
-                       measure_callable, measure_callable_stats)
+                       measure_callable, measure_callable_stats,
+                       trace_fused_ops)
 from .schedule import (BranchSchedule, ConcurrentSchedule, ConcurrentStep,
                        DagSchedule, DagStep, ParallelSchedule, PhaseSchedule,
                        SeqSchedule, evaluate_sequential, schedule_from_dict,
@@ -54,4 +55,4 @@ from .serve import (SHED_REASONS, Arrival, ArrivalTrace, RequestRecord,
 from .targets import (KERNEL_DIALECTS, Target, TargetRegistry, VARIANT_TOL,
                       resolve_targets, variant_tolerance)
 from .workload import Workload
-from . import backends, paperzoo  # noqa: F401
+from . import autoshard, backends, paperzoo  # noqa: F401

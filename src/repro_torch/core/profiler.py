@@ -15,8 +15,12 @@ outputs lie on.  A ``jit=True`` target's cell on a CUDA device is timed
 as the lane serves it: the op captured as a CUDA graph
 (:mod:`repro_torch.core.capture`) and replayed, inputs copied in and
 outputs copied out, as the reference times such a cell jitted.
-``trace_fused_ops`` (a jaxpr walk in the reference) is
-not ported yet (``ROADMAP.md``).
+
+``trace_fused_ops`` extracts a fused-operator graph from an arbitrary
+PyTorch callable via its aten graph (``make_fx``; the reference walks a
+jaxpr), applying a backend-compiler-like fusion rule (elementwise /
+reduction / layout ops fuse into the preceding anchor op, the paper's
+"Conv-BN-ReLU" granularity).
 """
 from __future__ import annotations
 
@@ -33,6 +37,127 @@ from .costmodel import CostEntry, CostTable, EdgeSoCCostModel
 from .op import FusedOp, OpGraph
 
 _log = logging.getLogger(__name__)
+
+# aten op (overload packet name) -> op kind: the reference's jaxpr
+# primitive classes, named as aten names them
+_ANCHOR_KINDS: dict[str, str] = {
+    "mm": "matmul", "bmm": "matmul", "addmm": "matmul",
+    "baddbmm": "matmul", "addbmm": "matmul", "mv": "matmul",
+    "addmv": "matmul", "dot": "matmul", "matmul": "matmul",
+    "convolution": "conv2d",
+    "cumsum": "cumsum", "logcumsumexp": "cumsum",
+    "scan": "scan", "while_loop": "scan",
+    "gather": "gather", "index": "gather", "index_select": "gather",
+    "embedding": "gather", "take_along_dim": "gather",
+    "scatter": "scatter", "scatter_add": "scatter", "scatter_reduce": "scatter",
+    "index_put": "scatter", "index_add": "scatter", "index_copy": "scatter",
+    "_fft_r2c": "rdft", "_fft_c2r": "rdft", "_fft_c2c": "rdft",
+    "sort": "gather", "argmax": "gather", "topk": "gather",
+    "slice_scatter": "scatter", "select_scatter": "scatter",
+}
+_ELTWISE = {
+    "add", "sub", "mul", "div", "maximum", "minimum", "exp", "log", "tanh",
+    "sigmoid", "rsqrt", "sqrt", "pow", "neg", "sign", "abs", "erf", "where",
+    "clamp", "clamp_min", "clamp_max", "_to_copy", "logical_and",
+    "logical_or", "logical_xor", "logical_not", "bitwise_and", "bitwise_or",
+    "bitwise_xor", "bitwise_not", "lt", "le", "gt", "ge", "eq", "ne",
+    "squeeze", "unsqueeze", "cos", "sin", "floor", "ceil", "round",
+    "detach", "clone", "copy", "copy_", "real", "imag", "complex", "conj",
+    "silu", "gelu", "relu", "softplus", "reciprocal", "log_sigmoid_forward",
+    "exp2", "expm1", "log1p", "fill", "masked_fill", "lift_fresh_copy",
+}
+_REDUCE = {"sum", "amax", "amin", "max", "min", "prod", "mean", "argmin",
+           "any", "all", "_softmax", "_log_softmax", "logsumexp", "var",
+           "std", "norm", "linalg_vector_norm"}
+_LAYOUT = {"view", "reshape", "_unsafe_view", "permute", "transpose", "t",
+           "expand", "cat", "stack", "slice", "flip", "constant_pad_nd",
+           "arange", "split", "split_with_sizes", "chunk", "unbind",
+           "select", "alias", "contiguous", "zeros", "ones", "full",
+           "empty", "zeros_like", "ones_like", "full_like", "empty_like",
+           "new_zeros", "new_ones", "new_empty", "scalar_tensor",
+           "repeat", "roll", "narrow", "diagonal", "unfold", "as_strided"}
+
+
+def _aten_name(target) -> str:
+    """The aten op's name without its overload ("mm" of aten.mm.default),
+    or a higher-order op's ("scan")."""
+    packet = getattr(target, "_overloadpacket", None)
+    if packet is not None:
+        return packet.__name__
+    name = getattr(target, "name", None)
+    if callable(name):
+        return name()
+    return getattr(target, "__name__", str(target))
+
+
+def _classify(op_name: str) -> str | None:
+    if op_name in _ANCHOR_KINDS:
+        return _ANCHOR_KINDS[op_name]
+    if op_name in _ELTWISE:
+        return "eltwise"
+    if op_name in _REDUCE:
+        return "reduce"
+    if op_name in _LAYOUT:
+        return "layout"
+    return None
+
+
+def trace_fused_ops(fn: Callable, *example_args, name: str = "model") -> OpGraph:
+    """Extract a fused-operator chain from a PyTorch callable.
+
+    Fusion rule: anchor ops (GEMM/conv/scan/gather/fft/...) start a new
+    fused operator; elementwise / reduction / layout ops fuse into the
+    current one.  The result is a sequential chain in program order.
+    The graph is the aten graph ``make_fx`` records from one call on
+    ``example_args``: Python loops are unrolled (the reference's
+    ``lax.scan`` over layers is one ``scan`` op; the port's loop over
+    layers gives each layer's ops), and a higher-order ``scan`` stays one
+    anchor op — it is the fused recurrence kernel.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+    gm = make_fx(fn)(*example_args)
+    fused: list[FusedOp] = []
+    extra_flops = 0.0
+    extra_bytes = 0.0
+
+    def meta_of(node) -> tuple[tuple[int, ...], int]:
+        v = node.meta.get("val") if hasattr(node, "meta") else None
+        if isinstance(v, (tuple, list)):
+            v = v[0] if v else None
+        if isinstance(v, torch.Tensor):
+            return tuple(int(d) for d in v.shape), int(v.element_size())
+        return (), 2
+
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        op_name = _aten_name(node.target)
+        if op_name == "getitem":
+            continue
+        kind = _classify(op_name)
+        out_shape, dtb = meta_of(node)
+        in_shapes = tuple(meta_of(a)[0] for a in node.all_input_nodes
+                          if a.op != "get_attr")
+        if kind in ("eltwise", "reduce", "layout", None):
+            # fuse into the current op
+            n_out = float(np.prod(out_shape)) if out_shape else 0.0
+            extra_flops += n_out
+            extra_bytes += n_out * dtb
+            continue
+        op = FusedOp(name=f"{name}.{len(fused)}.{op_name}", kind=kind,
+                     in_shapes=in_shapes, out_shape=out_shape,
+                     dtype_bytes=dtb)
+        if fused and (extra_flops or extra_bytes):
+            fused[-1].flops += extra_flops
+            fused[-1].bytes_moved += extra_bytes
+        extra_flops = extra_bytes = 0.0
+        fused.append(op)
+    if fused and (extra_flops or extra_bytes):
+        fused[-1].flops += extra_flops
+        fused[-1].bytes_moved += extra_bytes
+    if not fused:
+        fused = [FusedOp(name=f"{name}.all", kind="other", out_shape=(1,))]
+    return OpGraph(fused, edges=None)
 
 
 @dataclasses.dataclass(frozen=True)

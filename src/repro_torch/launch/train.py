@@ -9,8 +9,12 @@ unless ``--device cpu``; the run uses deterministic kernels
 run repeats the uninterrupted one bit for bit.
 
 ``--reduced 1`` (the default) trains the reduced config of the same
-family.  The reference's ``--model-axis`` shapes a device mesh, which the
-port does not have yet: it is refused.
+family.  ``--model-axis N`` trains on a (ranks / N, N) mesh
+(:func:`repro_torch.launch.mesh.make_host_mesh` over the ranks of the
+process group, a one-rank group if there is none) through
+``jit_train_step`` with ``Policy(mesh, fsdp=True)``, as the reference
+always does; checkpoints then restore straight into the mesh's
+placements.  Without it the step runs on one device.
 """
 from __future__ import annotations
 
@@ -27,9 +31,16 @@ from ..data.pipeline import DataConfig, SyntheticTokenSource
 from ..fault.manager import FaultConfig, StragglerDetector, run_with_recovery
 from ..models import model as M
 from ..optim import adamw
+from ..sharding import NamedSharding, P, Policy
 from ..train import trainer as T
+from .mesh import make_host_mesh
 
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "ckpt"
+
+
+def _whole(x):
+    """A metric as a plain value (a DTensor metric gathered)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def main(argv=None) -> dict:
@@ -45,15 +56,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--model-axis", type=int, default=None,
-                    help="not supported: the port trains on one device")
+                    help="train on a (ranks/N, N) data x model mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.model_axis is not None:
-        ap.error("--model-axis shapes a device mesh, which the port does "
-                 "not have: it trains on one device (--device)")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -77,13 +85,25 @@ def main(argv=None) -> dict:
                               total_steps=args.steps))
     params = M.init_params(cfg, torch.Generator(device).manual_seed(args.seed))
     opt_state = adamw.init_state(tc.opt, params)
-    step_fn = T.make_train_step(cfg, tc)
+    shardings = None
+    if args.model_axis is None:
+        step_fn = T.make_train_step(cfg, tc)
+    else:
+        mesh = make_host_mesh(args.model_axis, device=str(device))
+        policy = Policy(mesh=mesh, fsdp=True)
+        print(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        step_fn = T.jit_train_step(cfg, tc, policy, M.param_shapes(cfg),
+                                   source(0))
+        pshard = T.param_shardings(policy, params)
+        shardings = {"params": pshard,
+                     "opt": {"mu": pshard, "nu": pshard,
+                             "step": NamedSharding(mesh, P())}}
 
     state = {"params": params, "opt": opt_state}
     start = 0
     last = ckpt.latest_step(args.ckpt_dir)
     if last is not None:
-        state, extra = ckpt.restore(args.ckpt_dir, state)
+        state, extra = ckpt.restore(args.ckpt_dir, state, shardings=shardings)
         start = SyntheticTokenSource.resume_step(extra["data"])
         print(f"resumed from checkpoint step {start}")
 
@@ -95,10 +115,10 @@ def main(argv=None) -> dict:
                  for k, v in source(i).items()}
         p, o, met = step_fn(state["params"], state["opt"], batch)
         state["params"], state["opt"] = p, o
-        losses.append(float(met["loss"]))
+        losses.append(float(_whole(met["loss"])))
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d} loss {losses[-1]:.4f} "
-                  f"lr {float(met.get('lr', 0)):.2e}")
+                  f"lr {float(_whole(met.get('lr', 0))):.2e}")
 
     def save_fn(i: int) -> None:
         ckpt.save(args.ckpt_dir, i, state,
@@ -106,7 +126,7 @@ def main(argv=None) -> dict:
 
     def restore_fn() -> int:
         nonlocal state
-        state, extra = ckpt.restore(args.ckpt_dir, state)
+        state, extra = ckpt.restore(args.ckpt_dir, state, shardings=shardings)
         return SyntheticTokenSource.resume_step(extra["data"])
 
     t0 = time.time()

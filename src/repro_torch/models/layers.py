@@ -6,6 +6,12 @@ Conventions:
 * activations are (batch, seq, ...) laid out as ``B T H D`` for attention;
 * every layer is ``fn(params, x, cfg, shd, ...)`` with ``shd`` a
   ``repro_torch.sharding.Policy`` (the identity on one device);
+* on a mesh the same code runs on DTensors.  Where DTensor has no rule
+  for a view or contraction the reference's GSPMD would take (a split
+  the view cannot carry, the decode scores' strided batch), the split is
+  gathered at that site (``sharding.reshape``, ``_groupable``,
+  ``_latent_scores``, the MoE combine); the cache is written on each
+  rank's shard;
 * params are plain dicts of tensors; init functions live next to apply
   functions and draw from a ``torch.Generator`` on the tensors' device;
 * a decode cache (``cache=`` / ``state=``) is written in place: the
@@ -25,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding import Policy
+from ..sharding import (Policy, gather_dim, is_dtensor, local_shape_and_offset,
+                        place, reshape, split_ways)
 
 F32 = torch.float32
 
@@ -134,6 +141,15 @@ def _pad_seq(x, n: int):
     return torch.cat([x, x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))], 1)
 
 
+def _groupable(q, Hk: int):
+    """``q`` ready to view its heads as (Hk, G): on a mesh whose split of
+    the q heads does not divide the kv heads, the heads are gathered
+    first (DTensor cannot split one mesh axis over the (Hk, G) pair)."""
+    if Hk % split_ways(q, 2):
+        return gather_dim(q, 2)
+    return q
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         q_chunk: int = 512, kv_chunk: int = 512,
                         q_offset: int = 0):
@@ -154,12 +170,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     nq = -(-Tq // q_chunk)
     nk = -(-Tk // kv_chunk)
     dev = q.device
-    qp = _pad_seq(q, nq * q_chunk - Tq)
+    qp = _pad_seq(_groupable(q, Hk), nq * q_chunk - Tq)
     kp = _pad_seq(k, nk * kv_chunk - Tk)
     vp = _pad_seq(v, nk * kv_chunk - Tk)
-    qs = qp.reshape(B, nq, q_chunk, Hk, G, D)
-    ks = kp.reshape(B, nk, kv_chunk, Hk, D)
-    vs = vp.reshape(B, nk, kv_chunk, Hk, Dv)
+    qs = reshape(qp, B, nq, q_chunk, Hk, G, D)
+    ks = reshape(kp, B, nk, kv_chunk, Hk, D)
+    vs = reshape(vp, B, nk, kv_chunk, Hk, Dv)
     kv_valid = (torch.arange(nk * kv_chunk, device=dev) < Tk).reshape(nk, kv_chunk)
 
     outs = []
@@ -186,7 +202,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                 "bchgk,bkhd->bchgd", p, vs[:, ki].float())
             m = m_new
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
-    out = torch.stack(outs, 1).reshape(B, nq * q_chunk, Hq, Dv)
+    out = reshape(torch.stack(outs, 1), B, nq * q_chunk, Hq, Dv)
     return out[:, :Tq].to(q.dtype)
 
 
@@ -199,7 +215,7 @@ def plain_attention(q, k, v, *, causal: bool, q_offset: int = 0):
     G = Hq // Hk
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qg = q.reshape(B, Tq, Hk, G, D).float() * scale
+    qg = reshape(_groupable(q, Hk), B, Tq, Hk, G, D).float() * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     if causal:
         q_pos = q_offset + torch.arange(Tq, device=dev)
@@ -208,7 +224,7 @@ def plain_attention(q, k, v, *, causal: bool, q_offset: int = 0):
                         torch.full((), -1e30, device=dev))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Tq, Hq, Dv).to(q.dtype)
+    return reshape(o, B, Tq, Hq, Dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +249,38 @@ def cache_insert(buf, x, idx):
     """Write ``x`` (B, T, ...) into ``buf`` (B, L, ...) at rows ``idx +
     arange(T)``, in place; ``idx`` is a device scalar, so nothing syncs
     the host (the reference's ``dynamic_update_slice_in_dim``)."""
+    if is_dtensor(buf):
+        return _cache_insert_mesh(buf, x, idx)
     rows = idx.long() + torch.arange(x.shape[1], device=buf.device)
     buf.index_copy_(1, rows, x.to(buf.dtype))
+    return buf
+
+
+def _cache_insert_mesh(buf, x, idx):
+    """:func:`cache_insert` into a DTensor cache, on each rank's shard
+    (DTensor's in-place rule may re-place the buffer's spec without
+    moving its data).  ``x`` takes the buffer's placements but for the
+    seq dim, which it holds whole on every rank: where the mesh splits
+    the cache's seq dim, each token is written only by the rank that
+    holds its row, one token at a time."""
+    from torch.distributed.tensor import Replicate
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    x_pl = tuple(Replicate() if p.is_shard(1) else p for p in pl)
+    x_loc = place(x.to(buf.dtype), mesh, x_pl).to_local()
+    loc = buf.to_local()
+    i = idx.to_local() if is_dtensor(idx) else idx
+    shape, off = local_shape_and_offset(buf.shape, mesh, pl)
+    rows = i.long() + torch.arange(x_loc.shape[1], device=loc.device) - off[1]
+    if shape[1] == buf.shape[1]:
+        loc.index_copy_(1, rows, x_loc)
+        return buf
+    n = shape[1]
+    for t in range(x_loc.shape[1]):
+        r = rows[t:t + 1]
+        inside = ((r >= 0) & (r < n)).reshape((1, 1) + (1,) * (loc.dim() - 2))
+        r = r.clamp(0, n - 1)
+        loc.index_copy_(1, r, torch.where(inside, x_loc[:, t:t + 1],
+                                          loc.index_select(1, r)))
     return buf
 
 
@@ -244,9 +290,9 @@ def gqa_attention(p, x, cfg, shd: Policy, *, positions, cache=None,
     k/v tensors are written in place."""
     B, T, d = x.shape
     dh = cfg.d_head
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh)
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, dh)
+    q = reshape(x @ p["wq"], B, T, cfg.n_heads, dh)
+    k = reshape(x @ p["wk"], B, T, cfg.n_kv_heads, dh)
+    v = reshape(x @ p["wv"], B, T, cfg.n_kv_heads, dh)
     q = shd.constrain(q, "batch", "seq", "heads", None, name="attn_q")
     k = shd.constrain(k, "batch", "seq", "kv_heads", None, name="attn_k")
     v = shd.constrain(v, "batch", "seq", "kv_heads", None, name="attn_v")
@@ -288,7 +334,7 @@ def gqa_attention(p, x, cfg, shd: Policy, *, positions, cache=None,
         else:
             o = plain_attention(q, k, v, causal=cfg.causal, q_offset=q_off)
     o = shd.constrain(o, "batch", "seq", "heads", None, name="attn_o")
-    of = o.reshape(B, T, cfg.n_heads * dh)
+    of = reshape(o, B, T, cfg.n_heads * dh)
     of = shd.constrain(of, "batch", "seq", "attn_o_feat", name="attn_o_flat")
     out = of @ p["wo"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="attn_out"), new_cache
@@ -302,7 +348,7 @@ def _decode_attention(q, k, v, valid, q_offset):
     G = Hq // Hk
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qg = q.reshape(B, Tq, Hk, G, D).float() * scale
+    qg = reshape(_groupable(q, Hk), B, Tq, Hk, G, D).float() * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     q_pos = q_offset + torch.arange(Tq, device=dev)
     causal = q_pos[:, None] >= torch.arange(Tk, device=dev)[None, :]
@@ -312,7 +358,7 @@ def _decode_attention(q, k, v, valid, q_offset):
     # contraction (as the reference does)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    return o.reshape(B, Tq, Hq, Dv).to(q.dtype)
+    return reshape(o, B, Tq, Hq, Dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +381,16 @@ def mla_init(gen, cfg, dtype, device) -> dict:
     }
 
 
+def _latent_scores(q, c):
+    """``einsum("bthr,bsr->bhts")`` as one batched matmul of the (small,
+    heads gathered) decode queries against the latent cache: on a mesh
+    DTensor's einsum loses the cache's batch split in its views."""
+    B, T, H, R = q.shape
+    q = reshape(gather_dim(q, 2).float(), B, T * H, R)
+    s = torch.bmm(q, c.float().transpose(1, 2))             # (B, T*H, S)
+    return reshape(s, B, T, H, c.shape[1]).permute(0, 2, 1, 3)
+
+
 def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
     """DeepSeek-V3 Multi-head Latent Attention.
 
@@ -348,7 +404,7 @@ def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
     kvr = cfg.kv_lora_rank
     dev = x.device
     q = rms_norm(x @ p["wq_a"], p["q_a_norm"]) @ p["wq_b"]
-    q = q.reshape(B, T, H, dn + dr)
+    q = reshape(q, B, T, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     kv_a = x @ p["wkv_a"]
     c_kv, k_pe = kv_a[..., :kvr], kv_a[..., kvr:]
@@ -359,7 +415,7 @@ def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
     k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)[:, :, 0]  # shared across heads
     scale = 1.0 / math.sqrt(dn + dr)
 
-    w_kv_b = p["wkv_b"].reshape(kvr, H, dn + dv)
+    w_kv_b = reshape(p["wkv_b"], kvr, H, dn + dv)
     w_uk, w_uv = w_kv_b[..., :dn], w_kv_b[..., dn:]
 
     if cache is not None:
@@ -373,8 +429,7 @@ def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
         q_pe = shd.constrain(q_pe, "batch", None, "decode_q_heads", None,
                              name="mla_decode_qpe")
         q_abs = torch.einsum("bthn,rhn->bthr", q_nope.float(), w_uk.float())
-        s = torch.einsum("bthr,bsr->bhts", q_abs, cc.float())
-        s = s + torch.einsum("bthr,bsr->bhts", q_pe.float(), cp.float())
+        s = _latent_scores(q_abs, cc) + _latent_scores(q_pe, cp)
         s = s * scale
         kv_pos = torch.arange(cc.shape[1], device=dev)
         q_pos = idx + torch.arange(T, device=dev)
@@ -397,7 +452,7 @@ def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
                                     q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         else:
             o = plain_attention(qf, k, v, causal=True)
-    of = o.reshape(B, T, H * dv)
+    of = reshape(o, B, T, H * dv)
     of = shd.constrain(of, "batch", "seq", "attn_o_feat", name="mla_o_flat")
     out = of @ p["wo"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="mla_out"), new_cache
@@ -459,7 +514,7 @@ def moe_block(p, x, cfg, shd: Policy):
     if N % gs:
         gs = N
     G = N // gs
-    xg = x.reshape(G, gs, d)
+    xg = reshape(x, G, gs, d)
     xg = shd.constrain(xg, "batch", None, None, name="moe_groups")
     logits = xg.float() @ p["router"]                        # (G, Ng, E)
     probs = torch.softmax(logits, dim=-1)
@@ -474,9 +529,9 @@ def moe_block(p, x, cfg, shd: Policy):
     cap = max(int(cfg.moe_capacity_factor * gs * K / E), 1)
     # position of each (token, k) within its (group, expert) queue
     onehot = one_hot(gate_idx, E, torch.int32)               # (G, Ng, K, E)
-    flat = onehot.reshape(G, gs * K, E)
+    flat = reshape(onehot, G, gs * K, E)
     pos_in_e = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat
-    pos = (pos_in_e * flat).sum(-1, dtype=torch.int32).reshape(G, gs, K)
+    pos = reshape((pos_in_e * flat).sum(-1, dtype=torch.int32), G, gs, K)
     keep = pos < cap
     # dispatch (G, Ng, E, cap) one-hot
     slot = torch.where(keep, pos, torch.full_like(pos, cap))
@@ -494,8 +549,13 @@ def moe_block(p, x, cfg, shd: Policy):
     # combine: weight each token's expert outputs by its gate value
     gate_full = (one_hot(gate_idx, E, x.dtype)
                  * gate_vals.to(x.dtype)[..., None]).sum(2)  # (G, Ng, E)
-    y = torch.einsum("gnec,gecd,gne->gnd", disp, ye, gate_full)
-    out = y.reshape(B, T, d)
+    # weight the dispatch first and contract over (experts, capacity),
+    # experts major, in one bmm (the three-operand einsum on a mesh views
+    # the split experts in a strided layout that DTensor takes seconds a
+    # call to plan)
+    w = reshape(disp * gate_full[..., None], G, gs, E * cap)
+    y = torch.bmm(w, reshape(ye, G, E * cap, d))
+    out = reshape(y, B, T, d)
     if "shared" in p:
         out = out + swiglu_mlp(p["shared"], x, shd)
     # aux losses for training: load-balance (Switch) in fp32
@@ -524,10 +584,10 @@ def chunked_linear_recurrence(c, b, v, log_a, *, chunk: int,
     nc = -(-T // chunk)
     pad = nc * chunk - T
     c, b, v, log_a = (_pad_seq(t, pad) for t in (c, b, v, log_a))
-    cc = c.reshape(B, nc, chunk, H, N).float()
-    bb = b.reshape(B, nc, chunk, H, N).float()
-    vv = v.reshape(B, nc, chunk, H, P).float()
-    la = log_a.reshape(B, nc, chunk, H).float()
+    cc = reshape(c, B, nc, chunk, H, N).float()
+    bb = reshape(b, B, nc, chunk, H, N).float()
+    vv = reshape(v, B, nc, chunk, H, P).float()
+    la = reshape(log_a, B, nc, chunk, H).float()
     cum = torch.cumsum(la, dim=2)                   # (B, nc, C, H)
     tot = cum[:, :, -1]                             # (B, nc, H)
 
@@ -555,7 +615,7 @@ def chunked_linear_recurrence(c, b, v, log_a, *, chunk: int,
     states_in = torch.stack(states_in, 1)                   # (B,nc,H,N,P)
     y_inter = torch.einsum("bgihn,bghnp,bgih->bgihp", cc, states_in,
                            torch.exp(cum))
-    y = (y_intra + y_inter).reshape(B, nc * chunk, H, P)[:, :T]
+    y = reshape(y_intra + y_inter, B, nc * chunk, H, P)[:, :T]
     return y.to(v.dtype), S
 
 
@@ -596,7 +656,8 @@ def _repeat_groups(x, rep: int):
     """(B, T, G, N) -> (B, T, G*rep, N), each group repeated ``rep``
     times in place (``jnp.repeat`` on dim 2)."""
     B, T, G, N = x.shape
-    return x[:, :, :, None, :].expand(B, T, G, rep, N).reshape(B, T, G * rep, N)
+    return reshape(x[:, :, :, None, :].expand(B, T, G, rep, N),
+                   B, T, G * rep, N)
 
 
 def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
@@ -626,9 +687,9 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
     xbc = F.silu(xbc)
     xs, Bc, Cc = xbc.split([di, N * G, xbc.shape[-1] - di - N * G], dim=-1)
     Tx = xs.shape[1]
-    xs = xs.reshape(B, Tx, H, P)
-    Bc = Bc.reshape(B, Tx, G, N)
-    Cc = Cc.reshape(B, Tx, G, N)
+    xs = reshape(xs, B, Tx, H, P)
+    Bc = reshape(Bc, B, Tx, G, N)
+    Cc = reshape(Cc, B, Tx, G, N)
     rep = H // G
     Bh = _repeat_groups(Bc, rep)
     Ch = _repeat_groups(Cc, rep)
@@ -650,7 +711,7 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
                                          chunk=cfg.ssm_chunk)
         new_state = {"ssm": S, "conv": None}
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = y.reshape(B, y.shape[1], di)
+    y = reshape(y, B, y.shape[1], di)
     y = rms_norm(y * F.silu(z[:, :y.shape[1]]), p["norm_w"])
     out = y @ p["out_proj"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="ssm_out"), new_state
@@ -685,9 +746,9 @@ def mlstm_block(p, x, cfg, shd: Policy, *, state=None,
     dh = di // H
     h = x @ p["up"]
     hx, hg = h.chunk(2, dim=-1)
-    q = (hx @ p["wq"]).reshape(B, T, H, dh)
-    k = (hx @ p["wk"]).reshape(B, T, H, dh) / math.sqrt(dh)
-    v = (hx @ p["wv"]).reshape(B, T, H, dh)
+    q = reshape(hx @ p["wq"], B, T, H, dh)
+    k = reshape(hx @ p["wk"], B, T, H, dh) / math.sqrt(dh)
+    v = reshape(hx @ p["wv"], B, T, H, dh)
     gates = (hx @ p["wif"]).float()
     i_g, f_g = gates.chunk(2, dim=-1)                         # (B,T,H)
     log_f = -F.softplus(-f_g)                                 # log sigmoid
@@ -708,7 +769,7 @@ def mlstm_block(p, x, cfg, shd: Policy, *, state=None,
     new_state = {"ssm": S}
     y, nrm = y_aug[..., :dh], y_aug[..., dh:]
     y = y / torch.clamp_min(nrm.abs(), 1.0).to(y.dtype)
-    y = y.reshape(B, y.shape[1], di)
+    y = reshape(y, B, y.shape[1], di)
     y = rms_norm(y, p["norm_w"]) * F.silu(hg[:, :y.shape[1]])
     out = y @ p["down"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="mlstm_out"), new_state
@@ -746,7 +807,7 @@ def slstm_block(p, x, cfg, shd: Policy, *, state=None):
     for t in range(T):
         c, n, hprev, m = carry                               # (B,H,dh) each
         rec = torch.einsum("bhe,hef->bhf", hprev, r)
-        pre = pre_all[:, t].reshape(B, H, 4 * dh).float() + rec
+        pre = reshape(pre_all[:, t], B, H, 4 * dh).float() + rec
         z, i, f, o = pre.chunk(4, dim=-1)
         z = torch.tanh(z)
         o = torch.sigmoid(o)
@@ -759,7 +820,7 @@ def slstm_block(p, x, cfg, shd: Policy, *, state=None):
         h_new = o * c_new / torch.clamp_min(n_new.abs(), 1.0)
         carry = (c_new, n_new, h_new, m_new)
         hs.append(h_new)
-    h = torch.stack(hs, 1).reshape(B, T, d).to(x.dtype)
+    h = reshape(torch.stack(hs, 1), B, T, d).to(x.dtype)
     h = rms_norm(h, p["norm_w"])
     out = h + swiglu_mlp(p["ff"], h, shd)
     return shd.constrain(out, "batch", "seq_act", "embed", name="slstm_out"), \
@@ -784,16 +845,16 @@ def cross_attention(p, x, memory, cfg, shd: Policy):
     B, T, d = x.shape
     S = memory.shape[1]
     dh = cfg.d_head
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, dh)
-    k = (memory @ p["wk"]).reshape(B, S, cfg.n_kv_heads, dh)
-    v = (memory @ p["wv"]).reshape(B, S, cfg.n_kv_heads, dh)
+    q = reshape(x @ p["wq"], B, T, cfg.n_heads, dh)
+    k = reshape(memory @ p["wk"], B, S, cfg.n_kv_heads, dh)
+    v = reshape(memory @ p["wv"], B, S, cfg.n_kv_heads, dh)
     q = shd.constrain(q, "batch", "seq", "heads", None, name="xattn_q")
     if S > 2048:
         o = flash_attention_ref(q, k, v, causal=False,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     else:
         o = plain_attention(q, k, v, causal=False)
-    of = o.reshape(B, T, cfg.n_heads * dh)
+    of = reshape(o, B, T, cfg.n_heads * dh)
     of = shd.constrain(of, "batch", "seq", "attn_o_feat", name="xattn_o_flat")
     out = of @ p["wo"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="xattn_out")

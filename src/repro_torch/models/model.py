@@ -32,7 +32,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding import NO_POLICY, Policy
+from ..sharding import (NO_POLICY, NamedSharding, Policy, hold_grad, lookup,
+                        reshape, rows_of, select_layer, sharded_on,
+                        sharded_zeros, split_ways, take_last)
 from . import layers as L
 
 
@@ -109,17 +111,25 @@ def tree_unflatten(like, leaves):
     return build(like)
 
 
+def _take(x, i: int):
+    """``x[i]``; of a DTensor split along its layer dim, layer ``i``
+    gathered alone (:func:`repro_torch.sharding.select_layer`)."""
+    return select_layer(x, i) if sharded_on(x, 0) else x[i]
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter (or cache) tree: views."""
-    return tree_map(lambda x: x[i], tree)
+    return tree_map(lambda x: _take(x, i), tree)
 
 
 def _unstack(tree) -> list:
     """Every layer of a stacked parameter tree, as views (``unbind``, so a
     backward pass stacks the layers' gradients once rather than adding a
-    full-size gradient per layer)."""
+    full-size gradient per layer).  A stack whose layer dim is split over
+    a mesh gives each layer gathered alone."""
     paths = tree_flatten_with_path(tree)
-    per_leaf = [torch.unbind(x) for _, x in paths]
+    per_leaf = [[select_layer(x, i) for i in range(x.shape[0])]
+                if sharded_on(x, 0) else torch.unbind(x) for _, x in paths]
     return [tree_unflatten(tree, [u[i] for u in per_leaf])
             for i in range(len(per_leaf[0]))]
 
@@ -270,7 +280,7 @@ def _embed_in(cfg, params, batch, shd: Policy):
     if "embeds" in batch:
         h = batch["embeds"].to(cfg.torch_dtype)
     else:
-        h = params["embed"][batch["tokens"].long()]
+        h = lookup(params["embed"], batch["tokens"])
     return shd.constrain(h, "batch", "seq_act", "embed", name="embed_out")
 
 
@@ -347,7 +357,7 @@ def forward(cfg, params, batch, shd: Policy = NO_POLICY,
     elif bp == "encdec":
         # batch: embeds (encoder input, stub frontend) + tokens (decoder)
         memory = _encode(cfg, params, batch, shd)
-        h = params["embed"][batch["tokens"].long()]
+        h = lookup(params["embed"], batch["tokens"])
         h = shd.constrain(h, "batch", "seq_act", "embed", name="dec_in")
         T = h.shape[1]
         dpos = _arange_bt(h.shape[0], T, dev)
@@ -433,8 +443,15 @@ def _encode(cfg, params, batch, shd: Policy):
 
 def _ce(logits, labels):
     lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    if split_ways(lg, lg.dim() - 1) > 1:
+        # vocab split over a mesh: max and sum reduce across the shards
+        # (DTensor gathers the whole vocab for logsumexp)
+        m = rows_of(lg.amax(dim=-1, keepdim=True).detach(), lg)
+        s = rows_of(torch.exp(lg - m).sum(dim=-1, keepdim=True), lg)
+        lse = hold_grad((torch.log(s) + m).squeeze(-1))
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+    gold = take_last(lg, labels.long().clamp_min(0))
     mask = (labels >= 0).float()
     n = torch.clamp_min(mask.sum(), 1.0)
     nll = ((lse - gold) * mask).sum() / n
@@ -460,7 +477,7 @@ def loss_fn(cfg, params, batch, shd: Policy = NO_POLICY):
         eps = cfg.norm_eps
         mtp = params["mtp"]
         tok_next = batch["tokens"][:, 1:]
-        e_next = params["embed"][tok_next.long()]
+        e_next = lookup(params["embed"], tok_next)
         hin = torch.cat([h[:, :-1], e_next], dim=-1) @ mtp["proj"]
         pos = _arange_bt(hin.shape[0], hin.shape[1], hin.device)
         lp = mtp["block"]
@@ -484,13 +501,53 @@ def loss_fn(cfg, params, batch, shd: Policy = NO_POLICY):
 # KV / state caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+# cache leaf name -> logical axes for its *last* dims (leading stack dims
+# padded with None).  kv-head and state-head dims shard over the model
+# axis (guarded by divisibility), batch over data(+pod).
+_CACHE_AXES: dict[str, tuple] = {
+    "k": ("batch", "kv_len", "heads", None),
+    "v": ("batch", "kv_len", "heads", None),
+    "xk": ("batch", "kv_len", "heads", None),
+    "xv": ("batch", "kv_len", "heads", None),
+    "c_kv": ("batch", "kv_len", None),
+    "k_pe": ("batch", "kv_len", None),
+    "ssm": ("batch", "heads", None, None),
+    "conv": ("batch", None, "ff"),
+    "mlstm": ("batch", "heads", None, None),
+    "slstm": ("batch", "heads", None),
+    "len": (),
+}
+
+
+def cache_pspecs(policy: Policy, cache_tree):
+    """Tree of PartitionSpec matching a cache (``meta`` tensors do)."""
+    out = []
+    for path, leaf in tree_flatten_with_path(cache_tree):
+        name = next((p for p in reversed(path) if isinstance(p, str)), None)
+        axes = _CACHE_AXES.get(name, ())
+        ndim = len(leaf.shape)
+        ax = axes[-ndim:] if len(axes) > ndim else axes
+        ax = (None,) * (ndim - len(ax)) + tuple(ax)
+        out.append(policy.param_spec(tuple(leaf.shape), ax))
+    return tree_unflatten(cache_tree, out)
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None,
+               shd: Policy = NO_POLICY) -> dict:
     """Zeroed caches on ``device`` (default: the card).  ``len`` is a
-    device int32 scalar."""
+    device int32 scalar.  With a mesh in ``shd`` every leaf is a DTensor
+    with the placements of :func:`cache_pspecs`, each rank allocating
+    its shard only."""
     if device is None:
         from ..core.modelgraph import chain_device
         device = chain_device(None)
     device = torch.device(device)
+    if shd.mesh is not None:
+        meta = init_cache(cfg, batch, max_len, "meta")
+        return tree_map(
+            lambda m, s: sharded_zeros(m.shape, m.dtype, device,
+                                       NamedSharding(shd.mesh, s)),
+            meta, cache_pspecs(shd, meta))
     dt = cfg.torch_dtype
     bp = cfg.block_pattern
     Lc = cfg.n_layers
@@ -560,7 +617,7 @@ def decode_step(cfg, params, cache, batch, shd: Policy = NO_POLICY, *,
     B, T = h.shape[:2]
     eps = cfg.norm_eps
     idx = cache["len"]
-    p = idx.reshape(1, 1).expand(B, T)
+    p = reshape(idx, 1, 1).expand(B, T)
     pos = torch.stack([p, p, p]) if cfg.mrope else p
     bp = cfg.block_pattern
 
@@ -611,10 +668,10 @@ def decode_step(cfg, params, cache, batch, shd: Policy = NO_POLICY, *,
             # cross-attention against cached encoder K/V
             xk, xv = cache["xk"][i], cache["xv"][i]
             xq = L.rms_norm(h, lp["lnx"], eps) @ lp["xattn"]["wq"]
-            xq = xq.reshape(B, T, cfg.n_heads, cfg.d_head)
+            xq = reshape(xq, B, T, cfg.n_heads, cfg.d_head)
             valid = torch.ones((xk.shape[1],), dtype=torch.bool, device=h.device)
             xo = L._decode_attention(xq, xk, xv, valid, q_offset=xk.shape[1])
-            h = h + xo.reshape(B, T, -1) @ lp["xattn"]["wo"]
+            h = h + reshape(xo, B, T, -1) @ lp["xattn"]["wo"]
             m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps), shd)
             h = h + m
 
@@ -664,10 +721,11 @@ def decode_step(cfg, params, cache, batch, shd: Policy = NO_POLICY, *,
 
 def _prefill_kv(cfg, lp_attn, x, pos, ck, cv):
     """Write the layer's roped K and V for positions [0, T) into the cache
-    slices ``ck``/``cv`` (B, max_len, Hk, dh), in place."""
+    slices ``ck``/``cv`` (B, max_len, Hk, dh), in place (through
+    :func:`cache_insert`, which a cache split over its seq dim needs)."""
     B, T = x.shape[:2]
-    k = (x @ lp_attn["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ lp_attn["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    k = reshape(x @ lp_attn["wk"], B, T, cfg.n_kv_heads, cfg.d_head)
+    v = reshape(x @ lp_attn["wv"], B, T, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         k = L.rms_norm(k, lp_attn["k_norm"])
     cs, sn = L.rope_cos_sin(pos[0] if pos.dim() == 3 else pos,
@@ -676,8 +734,9 @@ def _prefill_kv(cfg, lp_attn, x, pos, ck, cv):
         cs, sn = L.mrope_cos_sin(pos, cfg.d_head, cfg.rope_theta,
                                  cfg.mrope_sections)
     k = L.apply_rope(k, cs, sn)
-    ck[:, :T] = k
-    cv[:, :T] = v
+    start = torch.zeros((), dtype=torch.int32, device=x.device)
+    L.cache_insert(ck, k, start)
+    L.cache_insert(cv, v, start)
 
 
 def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
@@ -695,7 +754,7 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
     eps = cfg.norm_eps
     pos = _positions(cfg, batch, T, dev)
     bp = cfg.block_pattern
-    cache = init_cache(cfg, B, max_len, dev)
+    cache = init_cache(cfg, B, max_len, dev, shd)
 
     def length(n):
         return torch.full((), n, dtype=torch.int32, device=dev)
@@ -732,8 +791,9 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
                 cs, sn = L.rope_cos_sin(pos, cfg.qk_rope_head_dim,
                                         cfg.rope_theta)
                 k_pe = L.apply_rope(k_pe[:, :, None, :], cs, sn)[:, :, 0]
-                cm["c_kv"][i][:, :T] = c_kv
-                cm["k_pe"][i][:, :T] = k_pe
+                start = torch.zeros((), dtype=torch.int32, device=dev)
+                L.cache_insert(cm["c_kv"][i], c_kv, start)
+                L.cache_insert(cm["k_pe"][i], k_pe, start)
                 a, _ = L.mla_attention(lp["attn"], x, cfg, shd, positions=pos)
                 h = h + a
                 if is_moe:
@@ -749,7 +809,7 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
         # encode, then prefill the decoder prompt + cross K/V
         memory = _encode(cfg, params, batch, shd)
         S = memory.shape[1]
-        h = params["embed"][batch["tokens"].long()]
+        h = lookup(params["embed"], batch["tokens"])
         T2 = h.shape[1]
         dpos = _arange_bt(B, T2, dev)
         ca = cache["attn"]
@@ -762,9 +822,9 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
             h = h + a
             xh = L.rms_norm(h, lp["lnx"], eps)
             h = h + L.cross_attention(lp["xattn"], xh, memory, cfg, shd)
-            xks.append((memory @ lp["xattn"]["wk"]).reshape(
+            xks.append(reshape(memory @ lp["xattn"]["wk"],
                 B, S, cfg.n_kv_heads, cfg.d_head))
-            xvs.append((memory @ lp["xattn"]["wv"]).reshape(
+            xvs.append(reshape(memory @ lp["xattn"]["wv"],
                 B, S, cfg.n_kv_heads, cfg.d_head))
             m = L.swiglu_mlp(lp["mlp"], L.rms_norm(h, lp["ln2"], eps), shd)
             h = h + m

@@ -11,8 +11,17 @@ the logits are copied out.  On the CPU the step runs eagerly.
 ``decode_trace_counts`` keeps the reference's meaning: one entry per
 signature, counted once each time the step is prepared for it (captured
 on the card, first run on the CPU), so two same-shape ``generate`` calls
-show one.  The mesh-sharded ``jit_decode_step``/``jit_prefill`` and the
-cache shardings come with the sharding slice.
+show one.
+
+On a mesh, :func:`jit_prefill` and :func:`jit_decode_step` are the
+reference's jitted steps with explicit in/out shardings: the arguments
+are distributed to the placements of :func:`cache_pspecs` and the
+trainer's parameter and batch specs (DTensors), the step runs on them
+eagerly, and the logits and cache are redistributed to the output
+placements.  The reference donates the cache to its decode step; here
+the step updates the cache's shards in place (``decode_step(...,
+donate=True)``) and returns them: the cache passed in is consumed, as a
+donated one is.
 """
 from __future__ import annotations
 
@@ -23,7 +32,72 @@ import torch
 
 from ..core.capture import CapturedCall, capture_call
 from ..models import model as M
-from ..sharding import Policy
+from ..models.model import _CACHE_AXES, cache_pspecs  # noqa: F401
+from ..sharding import NamedSharding, Policy, distribute
+from ..train.trainer import batch_pspecs, distribute_tree, param_shardings
+
+
+def cache_shardings(policy: Policy, cache_tree):
+    return M.tree_map(lambda s: NamedSharding(policy.mesh, s),
+                      cache_pspecs(policy, cache_tree))
+
+
+def _batch_of(batch_shapes) -> int:
+    return M.tree_leaves(batch_shapes)[0].shape[0]
+
+
+def _batch_shardings(policy: Policy, batch_shapes):
+    return M.tree_map(lambda s: NamedSharding(policy.mesh, s),
+                      batch_pspecs(policy, batch_shapes))
+
+
+def _logits_sharding(cfg, policy: Policy, B: int) -> NamedSharding:
+    return NamedSharding(policy.mesh, policy.guarded_spec(
+        (B, 1, cfg.vocab), "batch", None, "vocab"))
+
+
+def jit_decode_step(cfg, policy: Policy, params_shapes, cache_shapes,
+                    batch_shapes):
+    """serve_step: one new token against an existing cache, on the
+    policy's mesh.  ``step(params, cache, batch) -> (logits, cache)``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    pshard = param_shardings(policy, params_shapes)
+    cshard = cache_shardings(policy, cache_shapes)
+    bshard = _batch_shardings(policy, batch_shapes)
+    lshard = _logits_sharding(cfg, policy, _batch_of(batch_shapes))
+
+    def step(params, cache, batch):
+        with implicit_replication():
+            params = distribute_tree(params, pshard)
+            cache = distribute_tree(cache, cshard)
+            batch = distribute_tree(batch, bshard)
+            logits, cache = M.decode_step(cfg, params, cache, batch, policy,
+                                          donate=True)
+            return distribute(logits, lshard), distribute_tree(cache, cshard)
+
+    return step
+
+
+def jit_prefill(cfg, policy: Policy, params_shapes, batch_shapes,
+                max_len: int):
+    """The prompt's prefill on the policy's mesh: ``pre(params, batch) ->
+    (last-position logits, cache)``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    pshard = param_shardings(policy, params_shapes)
+    bshard = _batch_shardings(policy, batch_shapes)
+    B = _batch_of(batch_shapes)
+    cshard = cache_shardings(policy, M.init_cache(cfg, B, max_len, "meta"))
+    lshard = _logits_sharding(cfg, policy, B)
+
+    def pre(params, batch):
+        with implicit_replication():
+            params = distribute_tree(params, pshard)
+            batch = distribute_tree(batch, bshard)
+            logits, cache = M.prefill(cfg, params, batch, max_len=max_len,
+                                      shd=policy)
+            return distribute(logits, lshard), distribute_tree(cache, cshard)
+
+    return pre
 
 
 @dataclasses.dataclass

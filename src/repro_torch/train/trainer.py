@@ -21,7 +21,7 @@ import torch
 
 from ..models import model as M
 from ..optim import adamw
-from ..sharding import NO_POLICY, Policy
+from ..sharding import NO_POLICY, NamedSharding, P, Policy, distribute
 
 F32 = torch.float32
 
@@ -66,6 +66,38 @@ def logical_axes_for(path, shape) -> tuple:
     if len(axes) > ndim:
         axes = axes[-ndim:]
     return (None,) * (ndim - len(axes)) + tuple(axes)
+
+
+def _map_with_path(fn, tree):
+    return M.tree_unflatten(tree, [fn(path, leaf) for path, leaf
+                                   in M.tree_flatten_with_path(tree)])
+
+
+def param_pspecs(policy: Policy, params_tree):
+    """Tree of PartitionSpec matching params (works on ``meta`` tensors)."""
+    return _map_with_path(
+        lambda path, leaf: policy.param_spec(
+            tuple(leaf.shape), logical_axes_for(path, leaf.shape)),
+        params_tree)
+
+
+def param_shardings(policy: Policy, params_tree):
+    return M.tree_map(lambda s: NamedSharding(policy.mesh, s),
+                      param_pspecs(policy, params_tree))
+
+
+def batch_pspecs(policy: Policy, batch_tree):
+    # guarded: a batch dim the data axes don't divide (e.g. the
+    # long_500k cell's global_batch=1) stays replicated
+    return _map_with_path(
+        lambda path, leaf: policy.guarded_spec(tuple(leaf.shape), "batch"),
+        batch_tree)
+
+
+def distribute_tree(tree, shardings):
+    """Every leaf of ``tree`` distributed to the NamedSharding at its
+    place in ``shardings``."""
+    return M.tree_map(distribute, tree, shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +179,38 @@ def make_train_step(cfg, tc: TrainConfig, policy: Policy = NO_POLICY):
     return train_step
 
 
+def jit_train_step(cfg, tc: TrainConfig, policy: Policy, params_shapes,
+                   batch_shapes):
+    """The train step with explicit in/out shardings (what the dry-run
+    lowers): ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on the policy's mesh.  Inputs may be plain tensors (the
+    full value on every rank) or DTensors; outputs are DTensors with the
+    parameter placements, the metrics replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    raw = make_train_step(cfg, tc, policy)
+    mesh = policy.mesh
+    pspec = param_shardings(policy, params_shapes)
+    rep = NamedSharding(mesh, P())
+    bspec = M.tree_map(lambda s: NamedSharding(mesh, s),
+                       batch_pspecs(policy, batch_shapes))
+
+    def opt_spec(opt_state):
+        return {k: (pspec if k in ("mu", "nu") else rep) for k in opt_state}
+
+    def step(params, opt_state, batch):
+        ospec = opt_spec(opt_state)
+        with implicit_replication():
+            params = distribute_tree(params, pspec)
+            opt_state = distribute_tree(opt_state, ospec)
+            batch = distribute_tree(batch, bspec)
+            params, opt_state, met = raw(params, opt_state, batch)
+            return (distribute_tree(params, pspec),
+                    distribute_tree(opt_state, ospec),
+                    M.tree_map(lambda x: distribute(x, rep), met))
+
+    return step
+
+
 @contextlib.contextmanager
 def deterministic_training():
     """Deterministic kernels for the span of a training run, so that a
@@ -173,4 +237,6 @@ def deterministic_training():
 
 
 __all__ = ["_PARAM_AXES", "logical_axes_for", "TrainConfig",
-           "make_train_step", "value_and_grad", "deterministic_training"]
+           "make_train_step", "value_and_grad", "deterministic_training",
+           "param_pspecs", "param_shardings", "batch_pspecs",
+           "distribute_tree", "jit_train_step"]

@@ -20,6 +20,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import backends, kernel_chain
+from repro_torch.launch.mesh import make_host_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -42,7 +43,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.optim.adamw", "repro_torch.optim.compress",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
-            "repro_torch.train.trainer"} <= set(modules)
+            "repro_torch.train.trainer", "repro_torch.core.autoshard",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun"} <= set(modules)
     code = "\n".join([
         "import sys",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
@@ -74,6 +78,20 @@ def test_no_import_names_jax_or_the_reference(path):
                 f"{path}: imports {name}"
 
 
+def test_mesh_and_dryrun_import_without_a_process_group():
+    code = "\n".join([
+        "import sys",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+        "import torch.distributed as dist",
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh",
+        "import repro_torch.launch.roofline, repro_torch.core.autoshard",
+        "assert not dist.is_initialized()",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -81,6 +99,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         kernel_chain()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         backends.default_registry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
     graph, ext = kernel_chain(device="cpu")
     assert ext[0][0].device.type == "cpu" and len(graph) == 6
     assert backends.default_registry(device="cpu").names() == \

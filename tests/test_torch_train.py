@@ -19,7 +19,9 @@ one seeded batch go to both packages:
 * remat on and off give the same gradients in the port, bit for bit;
 * ``launch.train.main`` with a ``RecoverableError`` injected at step 4
   resumes from step 3's checkpoint and ends bitwise where the
-  uninterrupted run ends (losses and final checkpoint);
+  uninterrupted run ends (losses and final checkpoint); with
+  ``--model-axis 1`` it trains on a one-rank mesh, losses bitwise the
+  run without a mesh, and it refuses a model axis the ranks cannot form;
 * ``logical_axes_for`` names every parameter's axes as the reference
   does.
 """
@@ -217,9 +219,30 @@ def test_train_driver_resumes_exactly_after_an_injected_fault(
                                                     "step_00000006"]
 
 
+def test_train_driver_on_a_one_rank_mesh(tmp_path):
+    import torch.distributed as dist
+    clean = launch_train.main(_train_args(tmp_path / "clean"))
+    try:
+        mesh = launch_train.main(_train_args(tmp_path / "mesh")
+                                 + ["--model-axis", "1"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert mesh["losses"] == clean["losses"]
+    assert sorted(os.listdir(tmp_path / "mesh")) == ["step_00000003",
+                                                     "step_00000006"]
+
+
 def test_train_driver_refuses_the_mesh_and_needs_the_card(tmp_path):
-    with pytest.raises(SystemExit):
-        launch_train.main(_train_args(tmp_path) + ["--model-axis", "2"])
+    """``--model-axis`` now trains on a mesh (``test_torch_mesh.py``); a
+    model axis the process group's ranks cannot form is refused."""
+    import torch.distributed as dist
+    try:
+        with pytest.raises(ValueError, match="does not divide"):
+            launch_train.main(_train_args(tmp_path) + ["--model-axis", "2"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--ckpt-dir", str(tmp_path)])
