@@ -158,7 +158,26 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    ``llama3.2-1b|train_4k|16x16`` and ``deepseek-v3-671b|decode_32k|
    2x16x16`` (fake groups of 256 and 512 ranks): per-device GiB against
    the card's 80, FLOPs, bytes, collective bytes by kind and the
-   dominant term, each cell within 60 s.  The phase has a time budget.
+   dominant term, each cell within 60 s, beside the reference's
+   compiled record of the same cell (constants, ``DRYRUN_REFERENCE``):
+   the port's GiB a device within 2x the reference's.  The phase has a
+   time budget;
+11. the examples — each of ``examples/torch_*.py`` in this process on
+   the card (``train_e2e`` at 2 layers of width 256, 40 steps, a
+   checkpoint every 20): each must finish and print its last check
+   (outputs against the oracle, a recovery bitwise, the resumed train
+   run bitwise the uninterrupted one, the step under autoshard's
+   overrides bitwise the meshless one) and leave no process group
+   behind; the kernels' launches over ``torch_heterogeneous_serving``
+   (its kernel chain profiled on the four lanes, the planned run, the
+   engine with the kernels) are counted from zero, each at least once,
+   and added to the ``kernels`` line once what it launched is held
+   against the plain versions at its shapes: its planned run's kernel
+   segments verified by their probes and its outputs within 3e-4 of the
+   oracle (the example's own check), its chain with every op on
+   ``cuda-kernels`` verified and within ``ROUTE_BUCKET`` of the oracle,
+   and its engine's kernel prefill against the plain prefill within 2e-4
+   (f32), every leaf.  The phase has a time budget.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary, the last
 line ``{"ok": true, "device": {...}}``.  A full log goes to
@@ -2845,6 +2864,26 @@ DRYRUN_CELLS = (("llama3.2-1b", "train_4k", False),
                 ("deepseek-v3-671b", "decode_32k", True))
 DRYRUN_BUDGET_S = 60.0       # wall seconds of one dry-run cell
 CARD_GIB = 80.0
+# The reference's compiled record of the same cells: repro.launch.dryrun
+# (XLA on 512 host devices of an 8-core CPU container, JAX 0.9.0)
+# through the production mesh with Auto axes (its jax.make_mesh now makes
+# Explicit ones, which its sharding constraints refuse), as
+# ``PYTHONPATH=src python tests/test_torch_dryrun.py --production`` prints
+# them; PERF.md, the dry-run table.  GiB a device (argument + output +
+# temp), collective B a chip by kind, FLOPs a chip.  The card has no JAX,
+# so they are constants.
+DRYRUN_REFERENCE = {
+    "llama3.2-1b|train_4k|16x16": (
+        15.5136, {"all-gather": 4.4507e9, "all-reduce": 8.5068e10,
+                  "all-to-all": 5.0332e8, "collective-permute": 2.1475e10},
+        4.6307e13),
+    "deepseek-v3-671b|decode_32k|2x16x16": (
+        51.9831, {"all-gather": 3.5096e9, "all-reduce": 2.9118e8,
+                  "all-to-all": 3.9935e8, "collective-permute": 2.7022e8},
+        1.6195e11),
+}
+# the port's GiB a device is held within this multiple of the reference's
+DRYRUN_GIB_CEILING = 2.0
 
 
 def _local_leaves(tree) -> list:
@@ -3155,6 +3194,17 @@ def _mesh_dryrun() -> dict:
             f"useful FLOP ratio {rec['useful_flop_ratio']:.3f}; step run "
             f"{rec['lower_s']} s + count {rec['count_s']} s, wall "
             f"{wall:.1f} s")
+        gib, ref_coll, ref_flops = DRYRUN_REFERENCE[key]
+        port_gib = rec["bytes_per_device"] / 2**30
+        log(f"  (d) {key} reference (compiled, constants of PERF.md): "
+            f"{gib:.2f} GiB per device, {ref_flops:.4g} FLOPs per chip, "
+            f"collective B per chip {ref_coll}; port / reference: "
+            f"{port_gib / gib:.3f}x GiB, "
+            f"{sum(coll.values()) / sum(ref_coll.values()):.3f}x "
+            f"collective B, {rec['flops_per_chip'] / ref_flops:.3f}x FLOPs")
+        check(port_gib <= DRYRUN_GIB_CEILING * gib,
+              f"(d) {key}: {port_gib:.2f} GiB per device within "
+              f"{DRYRUN_GIB_CEILING:.0f}x the reference's {gib:.2f}")
         check(wall <= DRYRUN_BUDGET_S,
               f"(d) {key} in {wall:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)")
         out[key] = dict(rec, wall=wall)
@@ -3187,6 +3237,148 @@ def phase_mesh(env: dict, zoo: dict, train: dict) -> dict:
                 autoshard=au, dryrun=dr, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_BUDGET_S = 120.0    # phase 11's share of the script's time limit
+E2E_CKPT_DIR = ROOT / "build" / "ckpt" / "chip_smoke_e2e"
+# example -> its arguments on the card (the train run cut to ~30 s) and
+# what it prints last once its own checks hold
+EXAMPLES = (
+    ("quickstart", [], "orchestrated output == monolithic output: OK"),
+    ("multi_model_concurrent", [], "A retires -> re-planned set"),
+    ("dynamic_rescheduling", [], "recovered outputs are bitwise-identical"),
+    ("vla_pipeline", [], "planned and executed as a DAG workload: OK"),
+    ("streaming_serving", [], "breaker:"),
+    ("heterogeneous_serving", [], "served batch:"),
+    ("train_e2e", ["--steps", "40", "--d-model", "256", "--layers", "2",
+                   "--seq", "128", "--batch", "8", "--ckpt-every", "20",
+                   "--lr", "3e-3", "--ckpt-dir", str(E2E_CKPT_DIR)],
+     "parameters bitwise the uninterrupted run's: OK"),
+    ("autoshard_h100", [], "bitwise the meshless step's"),
+)
+
+
+def _run_example(name: str, args: list) -> tuple[list[str], float, dict]:
+    """``examples/torch_<name>.py`` in this process, on the card (no
+    ``--device``), as ``__main__``; returns its printed lines, wall s and
+    module globals.  An exception it raises (its own asserts) propagates."""
+    import contextlib
+    import io
+    import runpy
+    path = ROOT / "examples" / f"torch_{name}.py"
+    buf = io.StringIO()
+    argv = sys.argv
+    sys.argv = [str(path), *args]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            g = runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    return buf.getvalue().splitlines(), time.perf_counter() - t0, g
+
+
+def _hold_heterogeneous(g: dict) -> None:
+    """What ``torch_heterogeneous_serving`` launched, held against the
+    plain versions at its own shapes (after its launches were counted):
+    its planned chain's kernel segments verified by their probes; the
+    chain with every op on the kernel lane (each kernel launched) against
+    the oracle; the engine's kernel prefill against the plain prefill."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.core.targets import KERNEL_DIALECTS
+    kprog, kg, kext, kref = g["kprog"], g["kg"], g["kext"], g["kref"]
+    check(g["oracle_err"] <= g["ORACLE_TOL"],
+          f"torch_heterogeneous_serving: its planned run's warm outputs "
+          f"within {g['ORACLE_TOL']:g} of the oracle (worst error / "
+          f"max|value| {g['oracle_err']:.3e})")
+    for seg in kprog.segments:
+        if seg.target is not None and seg.target.dialect in KERNEL_DIALECTS:
+            check(seg.verified in ("bitwise", "tolerance"),
+                  f"torch_heterogeneous_serving: planned kernel segment "
+                  f"{seg.index} on {seg.lane} verified {seg.verified!r}")
+    n = len(kg)
+    allk = g["korch"].executor.compile_scheduled(
+        kg, {i: KERNEL_LANE for i in range(n)})
+    allk.run(kext)              # cold: the probes, the reference's outputs
+    outs, counts = _counted(lambda: allk.run(kext))
+    allk.close()
+    log(f"  its chain, every op on {KERNEL_LANE}: verdicts "
+        f"{allk.stats['variant_verified']}, warm run's launches {counts}")
+    check(all(counts[k] >= 1 for k in KERNEL_OF_OP.values()),
+          f"the chain on {KERNEL_LANE} launched every kernel ({counts})")
+    for seg in allk.segments:
+        check(seg.verified in ("bitwise", "tolerance"),
+              f"the chain on {KERNEL_LANE}: segment {seg.index} verified "
+              f"{seg.verified!r}")
+    _drift_ok(f"the chain on {KERNEL_LANE} against the oracle", outs, kref,
+              [0.0] * n)
+    cfg, params, prompts = g["cfg"], g["params"], g["prompts"]
+    check(cfg.use_kernels and cfg.dtype == "float32",
+          "the example's engine served the f32 model with the kernels")
+    batch = {"tokens": prompts}
+    max_len = prompts.shape[1] + 8
+    (lk, ck), counts = _counted(
+        lambda: M.prefill(cfg, params, batch, max_len))
+    plain = M.prefill(dataclasses.replace(cfg, use_kernels=False), params,
+                      batch, max_len)
+    torch.cuda.synchronize()
+    _leaves_close(f"its engine's kernel prefill (launches {counts}) against "
+                  f"the plain prefill, logits and every cache leaf",
+                  [lk, ck], list(plain), ZOO_F32_TOL)
+    check(any(counts.values()), "its engine's prefill launched a kernel")
+
+
+def phase_examples(env: dict) -> dict:
+    """Each of the port's eight examples on the card, in this process; the
+    kernels' launches counted over ``torch_heterogeneous_serving``."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    log("== phase 11: the examples on the card")
+    log(env["card"])
+    t0 = time.perf_counter()
+    shutil.rmtree(E2E_CKPT_DIR, ignore_errors=True)
+    launches, walls = {}, {}
+    try:
+        for name, args, last in EXAMPLES:
+            kernels.reset_launch_counts()
+            try:
+                lines, wall, g = _run_example(name, args)
+            except Exception as e:
+                import traceback
+                log(traceback.format_exc()[-3000:])
+                check(False, f"torch_{name}: {type(e).__name__}: {e}")
+            counts = kernels.launch_counts()
+            for line in lines:
+                log(f"    | {line}")
+            check(any(last in line for line in lines),
+                  f"torch_{name} finished in {wall:.1f} s, its checks "
+                  f"held (printed {last!r})")
+            check(not dist.is_initialized(),
+                  f"torch_{name} left no process group behind")
+            walls[name] = wall
+            if name == "heterogeneous_serving":
+                launches = counts
+                log(f"  kernel launches in torch_heterogeneous_serving "
+                    f"(profile on four lanes, planned run, engine): "
+                    f"{counts}")
+                check(all(n >= 1 for n in counts.values()),
+                      "torch_heterogeneous_serving launched every kernel")
+                _hold_heterogeneous(g)
+    finally:
+        shutil.rmtree(E2E_CKPT_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    check(wall <= EXAMPLES_BUDGET_S,
+          f"phase 11 in {wall:.1f} s (budget {EXAMPLES_BUDGET_S:.0f} s)")
+    return dict(launches=launches, walls=walls, wall=wall)
+
+
 def main() -> int:
     try:
         import torch
@@ -3217,6 +3409,7 @@ def main() -> int:
         zoo = phase_zoo(env)
         train = phase_train(env)
         mesh = phase_mesh(env, zoo, train)
+        examples = phase_examples(env)
     except CheckFailed as e:
         log(f"chip_smoke: FAILED: {e}")
         return 1
@@ -3224,7 +3417,9 @@ def main() -> int:
         LOG.parent.mkdir(exist_ok=True)
         LOG.write_text("\n".join(_log_lines) + "\n")
     for name, row in rows.items():
-        row["launches"] = main["counts"][name] + mesh["launches"].get(name, 0)
+        row["launches"] = (main["counts"][name]
+                           + mesh["launches"].get(name, 0)
+                           + examples["launches"].get(name, 0))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(env["card"])
     print(json.dumps({"kernels": [

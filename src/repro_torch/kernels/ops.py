@@ -19,9 +19,11 @@ independently stay split (batch and heads; the experts of
 result is put together as a DTensor with those placements.  A split of
 any other dim (seq, N, P, d_head) is gathered first, so a kernel never
 runs on a slice it would get wrong.  Under GQA the kv heads follow the q
-heads: a rank whose q heads are a slice gets the kv heads those q heads
-use, sliced by its head offset (or gathered one per q head where the
-slice does not fall on group boundaries).
+heads (:func:`repro_torch.sharding.attention_shards`, which the plain
+attention of the layers shares): a rank whose q heads are a slice gets
+the kv heads those q heads use, split as the q heads where that divides
+the kv heads, else sliced by its head offset (or taken one per q head
+where the slice does not fall on group boundaries).
 """
 from __future__ import annotations
 
@@ -75,41 +77,11 @@ def _replicated(mesh) -> tuple:
     return tuple(Replicate() for _ in range(mesh.ndim))
 
 
-def _head_range(shape, mesh, pl, dim: int) -> tuple[int, int]:
-    """(offset, count) of this rank's slice of tensor dim ``dim``."""
-    from ..sharding import local_shape_and_offset
-    lshape, off = local_shape_and_offset(tuple(shape), mesh, pl)
-    return off[dim], lshape[dim]
-
-
 def _flash_attention_mesh(q, k, v, *, causal: bool, q_offset: int):
-    mesh = _dtensor_mesh(q, k, v)
-    rep = _replicated(mesh)
-    qpl = _keep(q, (0, 2)) or rep
-    q_loc = _placed(q, mesh, qpl)
-    # k/v: batch split as q's, heads whole (sliced below by q's offset)
-    from torch.distributed.tensor import Replicate, Shard
-    kpl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in qpl)
-    k_loc = _placed(k, mesh, kpl)
-    v_loc = _placed(v, mesh, kpl)
-    Hq, Hk = q.shape[2], k.shape[2]
-    if Hq % Hk:
-        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hk}")
-    G = Hq // Hk
-    h0, hn = _head_range(q.shape, mesh, qpl, 2)
-    if hn != Hq:
-        lo, hi = h0 // G, (h0 + hn - 1) // G + 1
-        if h0 % G == 0 and hn % G == 0 or (hi - lo == 1 and G % hn == 0):
-            k_loc, v_loc = k_loc[:, :, lo:hi], v_loc[:, :, lo:hi]
-        else:
-            # q heads that cut a group: one kv head per local q head
-            idx = torch.tensor([(h0 + i) // G for i in range(hn)],
-                               device=k_loc.device)
-            k_loc = k_loc.index_select(2, idx)
-            v_loc = v_loc.index_select(2, idx)
-    out = flash_attention(q_loc, k_loc, v_loc, causal=causal,
-                          q_offset=q_offset)
-    return _assemble(out, mesh, qpl, tuple(q.shape[:3]) + (v.shape[-1],))
+    from ..sharding import attention_shards
+    q_loc, k_loc, v_loc, finish = attention_shards(q, k, v)
+    return finish(flash_attention(q_loc, k_loc, v_loc, causal=causal,
+                                  q_offset=q_offset))
 
 
 def _ssd_scan_mesh(c, b, v, log_a, *, initial_state, chunk: int):

@@ -24,14 +24,38 @@ analyses.  Here, for each cell:
   5. the roofline terms are taken against the H100's constants.
 
 Fields XLA alone gives (``gen_code_bytes``, ``hlo_flops_body_once``,
-``compile_s``) are recorded as ``null``.  ``bytes_per_device`` is the peak
-of one rank's live local bytes during the step (inputs included), where
-the reference sums XLA's argument, output and temp sizes.  On the host
-DTensor turns an all-to-all into an all-gather and a chunk, so the
-collective bytes of a Shard-to-Shard redistribution are those of the
-all-gather.  One process holds one process group, so a fake group never
-shares a process with a real one: ``main`` runs the cells of each mesh in
-a child process of their own.
+``compile_s``) are recorded as ``null``.  One process holds one process
+group, so a fake group never shares a process with a real one: ``main``
+runs the cells of each mesh in a child process of their own.
+
+Where the record's measure differs from the reference's (numbers from
+both packages' dry-runs on an 8-core CPU host; the reference through its
+production mesh with ``Auto`` axes):
+
+* ``bytes_per_device`` is the peak of one rank's live local bytes during
+  the eager step (inputs included).  The reference sums XLA's argument,
+  output and temp sizes after buffer reuse, and counts a donated output
+  again: at ``deepseek-v3-671b|decode_32k|2x16x16`` it reports 51.98 GiB
+  = arguments 13.79 + output 8.58 (the decode cache, 8.58 of it aliased
+  to its argument) + temp 29.62, where the temp holds f32 copies of the
+  whole stacked latent cache (14.50 GiB) and of the stacked expert
+  weights (6.34 GiB) converted outside the layer loop.  The port converts
+  one layer at a time and updates the cache in place: 14.07 GiB, of which
+  arguments 13.81.  At ``llama3.2-1b|train_4k|16x16`` the two agree
+  closer: 13.46 GiB here against 15.51.
+* On the host DTensor turns an all-to-all into an all-gather and a
+  chunk, so the collective bytes of a Shard-to-Shard redistribution are
+  those of the all-gather.  GSPMD realigns a split whose bounds move (the
+  SwiGLU halves, Mamba-2's input projection) with a collective-permute
+  of the activation; DTensor splits evenly and would gather it, so the
+  port splits the weight's column blocks instead (``models.layers``)
+  and the record shows an all-gather of the weight.
+* FSDP on the stacked layer dim gathers a layer as a partial sum
+  (``sharding.select_layer``), an all-reduce at twice the wire bytes of
+  the reference's all-gather: at reduced Llama's prefill on a (4, 4)
+  mesh 2.98e5 B a chip of all-reduce against the reference's 1.49e5 B of
+  all-gather (and the bulk of the port's decode record: 2.98e5 of its
+  3.05e5 B of all-reduce).
 
 Results accumulate in a JSON file so the sweep is resumable.
 

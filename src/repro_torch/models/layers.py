@@ -6,10 +6,11 @@ Conventions:
 * activations are (batch, seq, ...) laid out as ``B T H D`` for attention;
 * every layer is ``fn(params, x, cfg, shd, ...)`` with ``shd`` a
   ``repro_torch.sharding.Policy`` (the identity on one device);
-* on a mesh the same code runs on DTensors.  Where DTensor has no rule
-  for a view or contraction the reference's GSPMD would take (a split
-  the view cannot carry, the decode scores' strided batch), the split is
-  gathered at that site (``sharding.reshape``, ``_groupable``,
+* on a mesh the same code runs on DTensors.  Attention runs meshless on
+  each rank's batch and q-head shards (``_on_rank_shards``).  Where
+  DTensor has no rule for a view or contraction the reference's GSPMD
+  would take (a split the view cannot carry, the decode scores' strided
+  batch), the split is gathered at that site (``sharding.reshape``,
   ``_latent_scores``, the MoE combine); the cache is written on each
   rank's shard;
 * params are plain dicts of tensors; init functions live next to apply
@@ -31,8 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding import (Policy, gather_dim, is_dtensor, local_shape_and_offset,
-                        place, reshape, split_ways)
+from ..sharding import (Policy, assemble, attention_shards, gather_dim,
+                        is_dtensor, local_shape_and_offset, local_value,
+                        place, reshape, sharded_on, split_ways)
 
 F32 = torch.float32
 
@@ -141,13 +143,21 @@ def _pad_seq(x, n: int):
     return torch.cat([x, x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))], 1)
 
 
-def _groupable(q, Hk: int):
-    """``q`` ready to view its heads as (Hk, G): on a mesh whose split of
-    the q heads does not divide the kv heads, the heads are gathered
-    first (DTensor cannot split one mesh axis over the (Hk, G) pair)."""
-    if Hk % split_ways(q, 2):
-        return gather_dim(q, 2)
-    return q
+def _on_mesh(*xs) -> bool:
+    return any(is_dtensor(x) for x in xs)
+
+
+def _on_rank_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` (an attention of this module) on a mesh: run
+    meshless on this rank's batch and q-head shards against the k/v heads
+    those q heads read, the result a DTensor split as q
+    (:func:`repro_torch.sharding.attention_shards`, the slicing the
+    kernels' mesh entry uses).  No q head is gathered, also where the
+    split of the q heads cuts the kv groups (DTensor cannot split one mesh
+    axis over the (Hk, G) pair a view would make); autograd goes through
+    the shards."""
+    q_loc, k_loc, v_loc, finish = attention_shards(q, k, v)
+    return finish(fn(q_loc, k_loc, v_loc, **kw))
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -158,8 +168,13 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     q: (B, Tq, Hq, D), k/v: (B, Tk, Hk, D) with Hq % Hk == 0.  Never
     materialises the (Tq, Tk) score matrix; memory is O(q_chunk x kv_chunk).
     ``q_offset`` positions q tokens at kv index ``q_offset + i`` for causal
-    masking (prefill continuation / decode).
+    masking (prefill continuation / decode).  On a mesh it runs on each
+    rank's shards (:func:`_on_rank_shards`).
     """
+    if _on_mesh(q, k, v):
+        return _on_rank_shards(flash_attention_ref, q, k, v, causal=causal,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               q_offset=q_offset)
     B, Tq, Hq, D = q.shape
     _, Tk, Hk, _ = k.shape
     Dv = v.shape[-1]
@@ -170,7 +185,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     nq = -(-Tq // q_chunk)
     nk = -(-Tk // kv_chunk)
     dev = q.device
-    qp = _pad_seq(_groupable(q, Hk), nq * q_chunk - Tq)
+    qp = _pad_seq(q, nq * q_chunk - Tq)
     kp = _pad_seq(k, nk * kv_chunk - Tk)
     vp = _pad_seq(v, nk * kv_chunk - Tk)
     qs = reshape(qp, B, nq, q_chunk, Hk, G, D)
@@ -208,14 +223,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 def plain_attention(q, k, v, *, causal: bool, q_offset: int = 0):
     """Reference dense attention (small shapes / decode).  v's head dim may
-    differ from q/k's (MLA)."""
+    differ from q/k's (MLA).  On a mesh it runs on each rank's shards
+    (:func:`_on_rank_shards`)."""
+    if _on_mesh(q, k, v):
+        return _on_rank_shards(plain_attention, q, k, v, causal=causal,
+                               q_offset=q_offset)
     B, Tq, Hq, D = q.shape
     _, Tk, Hk, _ = k.shape
     Dv = v.shape[-1]
     G = Hq // Hk
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qg = reshape(_groupable(q, Hk), B, Tq, Hk, G, D).float() * scale
+    qg = reshape(q, B, Tq, Hk, G, D).float() * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     if causal:
         q_pos = q_offset + torch.arange(Tq, device=dev)
@@ -341,14 +360,23 @@ def gqa_attention(p, x, cfg, shd: Policy, *, positions, cache=None,
 
 
 def _decode_attention(q, k, v, valid, q_offset):
-    """Attention of T=1..few query tokens over a padded cache."""
+    """Attention of T=1..few query tokens over a padded cache.  On a mesh
+    it runs on each rank's shards (:func:`_on_rank_shards`), unless the
+    cache's seq dim is split: then the cache's split leads and the few
+    query tokens' heads are gathered instead (never the cache)."""
+    if _on_mesh(q, k, v):
+        if not sharded_on(k, 1):
+            return _on_rank_shards(_decode_attention, q, k, v,
+                                   valid=local_value(valid),
+                                   q_offset=local_value(q_offset))
+        q = gather_dim(q, 2)
     B, Tq, Hq, D = q.shape
     _, Tk, Hk, _ = k.shape
     Dv = v.shape[-1]
     G = Hq // Hk
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qg = reshape(_groupable(q, Hk), B, Tq, Hk, G, D).float() * scale
+    qg = reshape(q, B, Tq, Hk, G, D).float() * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     q_pos = q_offset + torch.arange(Tq, device=dev)
     causal = q_pos[:, None] >= torch.arange(Tk, device=dev)[None, :]
@@ -382,13 +410,33 @@ def mla_init(gen, cfg, dtype, device) -> dict:
 
 
 def _latent_scores(q, c):
-    """``einsum("bthr,bsr->bhts")`` as one batched matmul of the (small,
-    heads gathered) decode queries against the latent cache: on a mesh
-    DTensor's einsum loses the cache's batch split in its views."""
+    """``einsum("bthr,bsr->bhts")`` as one batched matmul of the decode
+    queries against the latent cache (on a mesh DTensor's einsum loses
+    the cache's batch split in its views).  On a mesh whose cache holds
+    its seq dim whole, each rank scores its own batch and q-head shards
+    against its rows of the cache, no head gathered; where the cache's
+    seq dim is split, the few query tokens' heads are gathered instead."""
     B, T, H, R = q.shape
+    S = c.shape[1]
+    if sharded_on(q, 2) and is_dtensor(c) and not sharded_on(c, 1):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = q.device_mesh
+        # the cache's batch split leads (q is the small side); q keeps its
+        # head split on the other mesh dims
+        cpl = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                    for p in c.placements)
+        qpl = tuple(cp if cp.is_shard(0) else p if p.is_shard(2)
+                    else Replicate() for p, cp in zip(q.placements, cpl))
+        q_loc = place(q, mesh, qpl).to_local().float()
+        c_loc = place(c, mesh, cpl).to_local()
+        b, _, h, _ = q_loc.shape
+        s = torch.bmm(q_loc.reshape(b, T * h, R),
+                      c_loc.float().transpose(1, 2))
+        s = assemble(s.reshape(b, T, h, S), mesh, qpl, (B, T, H, S))
+        return s.permute(0, 2, 1, 3)
     q = reshape(gather_dim(q, 2).float(), B, T * H, R)
     s = torch.bmm(q, c.float().transpose(1, 2))             # (B, T*H, S)
-    return reshape(s, B, T, H, c.shape[1]).permute(0, 2, 1, 3)
+    return reshape(s, B, T, H, S).permute(0, 2, 1, 3)
 
 
 def mla_attention(p, x, cfg, shd: Policy, *, positions, cache=None):
@@ -467,10 +515,42 @@ def swiglu_init(gen, d: int, d_ff: int, dtype, device) -> dict:
             "wo": dense_init(gen, d_ff, d, dtype, device)}
 
 
+def _weight_moves(x, w) -> bool:
+    """On a mesh that splits ``w``'s output features, ``x @ w`` then split
+    into column pieces gathers the product (DTensor splits evenly, so the
+    pieces' bounds cut the shards; GSPMD permutes them).  Where this
+    rank's tokens outnumber ``w``'s input features, splitting ``w`` into
+    its column blocks first moves fewer bytes: a weight, not every
+    token's features (:func:`_column_blocks`)."""
+    if not sharded_on(w, w.ndim - 1):
+        return False
+    tokens = x.numel() // x.shape[-1] // (split_ways(x, 0)
+                                          * split_ways(x, 1))
+    return tokens > w.shape[-2]
+
+
+def _column_blocks(w, sizes, shd: Policy, axes):
+    """``w`` (d_in, d_out) cut into column blocks of ``sizes``, each with
+    its columns split as the logical axis in ``axes`` (None: whole); ``w``
+    is gathered once for all of them."""
+    w = gather_dim(w, w.ndim - 1)
+    out, start = [], 0
+    for n, ax in zip(sizes, axes):
+        out.append(shd.constrain(w[:, start:start + n], None, ax))
+        start += n
+    return out
+
+
 def swiglu_mlp(p, x, shd: Policy):
-    h = x @ p["wi"]
-    h = shd.constrain(h, "batch", "seq", "ff", name="mlp_h")
-    gate, up = h.chunk(2, dim=-1)
+    if _weight_moves(x, p["wi"]):
+        f = p["wi"].shape[-1] // 2
+        gate, up = (shd.constrain(x @ w, "batch", "seq", "ff", name="mlp_h")
+                    for w in _column_blocks(p["wi"], (f, f), shd,
+                                            ("ff", "ff")))
+    else:
+        h = x @ p["wi"]
+        h = shd.constrain(h, "batch", "seq", "ff", name="mlp_h")
+        gate, up = h.chunk(2, dim=-1)
     h = F.silu(gate) * up
     out = h @ p["wo"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="mlp_out")
@@ -663,14 +743,20 @@ def _repeat_groups(x, rep: int):
 def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
                  use_kernel: bool = False):
     """Mamba-2 (SSD).  state = dict(ssm (B,H,N,P), conv (B, k-1, convdim))
-    for single-step decode; None for full-sequence work."""
+    for single-step decode; None for full-sequence work, whose returned
+    state then holds the conv tail a decode continues from."""
     B, T, d = x.shape
     di, H, N, G = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     P = di // H
     conv_dim = di + 2 * N * G
-    zxbcdt = x @ p["in_proj"]
-    z, xbc, dt = zxbcdt.split([di, conv_dim, zxbcdt.shape[-1] - di - conv_dim],
-                              dim=-1)
+    # the input projection, split into (z, xbc, dt); where the weight moves
+    # (:func:`_weight_moves`), z is split as the ff axis, xbc and dt whole
+    sizes = [di, conv_dim, p["in_proj"].shape[-1] - di - conv_dim]
+    if _weight_moves(x, p["in_proj"]):
+        z, xbc, dt = (x @ w for w in _column_blocks(
+            p["in_proj"], sizes, shd, ("ff", None, None)))
+    else:
+        z, xbc, dt = (x @ p["in_proj"]).split(sizes, dim=-1)
     z = shd.constrain(z, "batch", "seq", "ff", name="ssm_z")
     # depthwise causal conv over (x, B, C)
     if state is not None:
@@ -679,7 +765,9 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
         xbc = torch.einsum("bkc,kc->bc", conv_in[:, -cfg.ssm_conv:],
                            p["conv_w"])[:, None, :] + p["conv_b"]
     else:
-        new_conv = None
+        # the conv tail a decode continues from (the last k-1 rows, copied
+        # so that a prefill's cache does not hold the whole projection)
+        new_conv = xbc[:, -(cfg.ssm_conv - 1):].clone()
         pad = xbc.new_zeros((B, cfg.ssm_conv - 1, conv_dim))
         xin = torch.cat([pad, xbc], dim=1)
         xbc = sum(xin[:, i:i + T] * p["conv_w"][i] for i in range(cfg.ssm_conv))
@@ -705,11 +793,11 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
     elif use_kernel:
         from ..kernels import ops as K
         y, S = K.ssd_scan(Ch, Bh, xdt, log_a, chunk=cfg.ssm_chunk)
-        new_state = {"ssm": S, "conv": None}
+        new_state = {"ssm": S, "conv": new_conv}
     else:
         y, S = chunked_linear_recurrence(Ch, Bh, xdt, log_a,
                                          chunk=cfg.ssm_chunk)
-        new_state = {"ssm": S, "conv": None}
+        new_state = {"ssm": S, "conv": new_conv}
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
     y = reshape(y, B, y.shape[1], di)
     y = rms_norm(y * F.silu(z[:, :y.shape[1]]), p["norm_w"])

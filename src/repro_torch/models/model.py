@@ -850,7 +850,6 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
     elif bp == "zamba2":
         every = cfg.zamba_attn_every
         sa = params["shared_attn"]
-        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state * cfg.ssm_groups
         ca = cache["attn"]
         ssms, convs = [], []
         for i in range(cfg.n_layers):
@@ -858,10 +857,7 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
             x = L.rms_norm(h, lp["ln1"], eps)
             m, ns = L.mamba2_block(lp["mamba"], x, cfg, shd,
                                    use_kernel=cfg.use_kernels)
-            # conv tail state for decode continuation
-            zxbcdt = x @ lp["mamba"]["in_proj"]
-            xbc = zxbcdt[..., cfg.ssm_d_inner:cfg.ssm_d_inner + conv_dim]
-            convs.append(xbc[:, -(cfg.ssm_conv - 1):, :])
+            convs.append(ns["conv"])
             ssms.append(ns["ssm"])
             h = h + m
             if (i + 1) % every == 0:

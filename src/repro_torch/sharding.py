@@ -366,6 +366,67 @@ def gather_dim(x, dim: int):
         Replicate() if p.is_shard(dim) else p for p in x.placements))
 
 
+def attention_shards(q, k, v):
+    """This rank's shards for attention ``(q, k, v) -> o`` on a mesh, and
+    what puts the result together, split as GSPMD splits it.  q (B, Tq,
+    Hq, D) keeps its splits of batch and heads (any other split is
+    gathered); k and v (B, Tk, Hk, D) follow q's batch split and hold the
+    kv heads this rank's q heads read: split as q's heads where that
+    split divides the kv heads, else whole and sliced by the q heads'
+    offset — a contiguous range where the slice falls on group
+    boundaries or inside one group, one kv head per local q head where it
+    cuts a group.  Where k and v are sliced, each rank sees only the kv
+    heads its q heads read, so their gradients return as partial sums
+    over the mesh dims that split q's heads.
+
+    Returns ``(q_loc, k_loc, v_loc, finish)``: plain tensors, and
+    ``finish(o_loc)``, the (B, Tq, Hq, Dv) DTensor split as q."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = next(x.device_mesh for x in (q, k, v) if is_dtensor(x))
+    Hq, Hk = q.shape[2], k.shape[2]
+    if Hq % Hk:
+        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hk}")
+    G = Hq // Hk
+    qpl = tuple(p if p.is_shard() and p.dim in (0, 2) else Replicate()
+                for p in q.placements) if is_dtensor(q) else \
+        tuple(Replicate() for _ in range(mesh.ndim))
+    ways = 1
+    for i, p in enumerate(qpl):
+        if p.is_shard(2):
+            ways *= mesh.size(i)
+    whole = Hk % ways != 0          # the q heads' split cuts the kv heads
+    kpl = tuple(Shard(0) if p.is_shard(0) else
+                Replicate() if whole or not p.is_shard(2) else p
+                for p in qpl)
+    gpl = tuple(Partial() if whole and p.is_shard(2) else kp
+                for p, kp in zip(qpl, kpl))
+    q_loc = place(q, mesh, qpl).to_local()
+    k_loc = place(k, mesh, kpl).to_local(grad_placements=gpl)
+    v_loc = place(v, mesh, kpl).to_local(grad_placements=gpl)
+    if whole:
+        shape, off = local_shape_and_offset(q.shape, mesh, qpl)
+        h0, hn = off[2], shape[2]
+        lo, hi = h0 // G, (h0 + hn - 1) // G + 1
+        if h0 % G == 0 and hn % G == 0 or (hi - lo == 1 and G % hn == 0):
+            k_loc, v_loc = k_loc[:, :, lo:hi], v_loc[:, :, lo:hi]
+        else:
+            idx = torch.tensor([(h0 + i) // G for i in range(hn)],
+                               device=k_loc.device)
+            k_loc = k_loc.index_select(2, idx)
+            v_loc = v_loc.index_select(2, idx)
+
+    def finish(o_loc):
+        return assemble(o_loc.contiguous(), mesh, qpl,
+                        tuple(q.shape[:3]) + (v.shape[-1],))
+    return q_loc, k_loc, v_loc, finish
+
+
+def local_value(x):
+    """The whole value of ``x`` as a plain tensor (a DTensor gathered; a
+    scalar or plain tensor as it is)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def reshape(x, *shape):
     """``x.reshape(*shape)``.  On a mesh DTensor views a split dim only
     where the split lands on the first factor of the new dims; where it

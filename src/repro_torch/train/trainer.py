@@ -5,8 +5,10 @@ Port of ``repro.train.trainer``.  The reference trains on its plain jnp
 path (a Pallas call has no implicit VJP), and so does the port: the loss
 is :func:`repro_torch.models.model.loss_fn`, whose ``forward`` never
 reaches a kernel, and its gradient is autograd's.  On the card the step
-runs eagerly on one device; the mesh-sharded ``jit_train_step`` and the
-partition-spec functions need a device mesh and are not ported yet.
+runs eagerly on one device, or on a device mesh through
+:func:`jit_train_step`, with parameters, optimizer state and batch
+placed by the partition-spec functions (:func:`param_pspecs`,
+:func:`batch_pspecs`).
 
 ``_PARAM_AXES`` and :func:`logical_axes_for` are kept: they name each
 parameter's logical axes, which a sharding policy maps onto a mesh.

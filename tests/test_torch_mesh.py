@@ -6,16 +6,23 @@ One job of two rank processes (``torch.distributed`` over
 All in f32 at reduced widths:
 
 * a Llama train step through ``jit_train_step`` at (2, 1) with FSDP
-  (which lands on the layer-stack dim) and at (1, 2) (TP): loss and
-  every parameter within atol = rtol = 1e-5 of the meshless step;
+  (which lands on the layer-stack dim) and at (1, 2) (TP), and at (1, 2)
+  for a GQA whose kv heads the model axis cuts (6 q / 3 kv heads: the
+  plain attention on each rank's q heads, k/v gradients as partial
+  sums): loss and every parameter within atol = rtol = 1e-5 of the
+  meshless step;
 * ``jit_prefill`` and three ``jit_decode_step``s of Llama and Zamba2 at
   (1, 2), heads sharded, with ``use_kernels`` (so ``flash_attention`` and
   ``ssd_scan`` take their mesh entry, counted), of DeepSeek-V3 (MLA's
   latent decode scores, the MoE combine with the experts split over
   ``model``), and of Llama and DeepSeek-V3 under ``serve_layout="1d"``
   (the cache's kv_len split, written token by token on the rank that
-  holds the row): logits and every cache leaf within 1e-5 of the
-  meshless ``prefill`` / ``decode_step``;
+  holds the row), and of the 6 q / 3 kv heads model plain and under
+  ``"1d"``: logits and every cache leaf within 1e-5 of the meshless
+  ``prefill`` / ``decode_step``;
+* one rank on a (1, 1) mesh (a job of its own): Llama's prefill, two
+  decode steps and a train step, and the same for the 6 q / 3 kv heads
+  model, bit for bit the meshless ones;
 * the kernels' mesh entries called directly: q heads sharded with kv
   heads replicated (GQA groups that split evenly, a group wider than a
   rank's q heads, and q heads that cut a group), a split of the
@@ -81,6 +88,11 @@ try:
 except ValueError:
     out["refused_3"] = True
 
+# GQA whose kv heads the model axis does not divide (3 kv heads at TP 2;
+# each rank's 3 q heads cut a group), beside reduced Llama's 4 / 2
+def cut_groups(cfg):
+    return dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+
 def batch_of(cfg, B, S, seed):
     g = torch.Generator().manual_seed(seed)
     return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
@@ -89,25 +101,42 @@ def batch_of(cfg, B, S, seed):
                                     dtype=torch.int32)}
 
 # -- train steps ------------------------------------------------------------
-cfg = get_config("llama3.2-1b").reduced()
-params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 tc = T.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
                                          total_steps=10))
+for cname, cfg in (("", get_config("llama3.2-1b").reduced()),
+                   ("_cut", cut_groups(get_config("llama3.2-1b").reduced()))):
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    opt = adamw.init_state(tc.opt, params)
+    batch = batch_of(cfg, 4, 32, 1)
+    p1, o1, m1 = T.make_train_step(cfg, tc)(params, opt, batch)
+    for name, fsdp in (("2x1", True), ("1x2", True)):
+        if cname and name == "2x1":
+            continue
+        pol = Policy(meshes[name], fsdp=fsdp)
+        step = T.jit_train_step(cfg, tc, pol, M.param_shapes(cfg), batch)
+        p2, o2, m2 = step(params, opt, batch)
+        out[f"train_{name}{cname}"] = {"loss": err(m2["loss"], m1["loss"]),
+                                       "params": tree_err(p2, p1),
+                                       "opt": tree_err(o2, o1)}
+        out[f"train_{name}{cname}_layer_dim"] = [
+            str(p) for p in p2["blocks"]["attn"]["wq"].placements]
+cfg = get_config("llama3.2-1b").reduced()
+params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 opt = adamw.init_state(tc.opt, params)
 batch = batch_of(cfg, 4, 32, 1)
-p1, o1, m1 = T.make_train_step(cfg, tc)(params, opt, batch)
-for name, fsdp in (("2x1", True), ("1x2", True)):
-    pol = Policy(meshes[name], fsdp=fsdp)
-    step = T.jit_train_step(cfg, tc, pol, M.param_shapes(cfg), batch)
-    p2, o2, m2 = step(params, opt, batch)
-    out[f"train_{name}"] = {"loss": err(m2["loss"], m1["loss"]),
-                            "params": tree_err(p2, p1),
-                            "opt": tree_err(o2, o1)}
-    out[f"train_{name}_layer_dim"] = [
-        str(p) for p in p2["blocks"]["attn"]["wq"].placements]
 
 # -- prefill and decode ---------------------------------------------------------
 calls = {"flash_attention": 0, "ssd_scan": 0}
+from repro_torch.models import layers as L
+from repro_torch.sharding import split_ways
+cut_calls = [0]
+plain_shards = L.attention_shards
+def counted_shards(q, k, v):
+    # the plain attention on a mesh whose q-head split cuts the kv groups
+    cut_calls[0] += k.shape[2] % split_ways(q, 2) != 0
+    return plain_shards(q, k, v)
+L.attention_shards = counted_shards
 for name in list(calls):
     orig = getattr(ops, f"_{name}_mesh")
     def counted(*a, _orig=orig, _name=name, **k):
@@ -116,9 +145,14 @@ for name in list(calls):
     setattr(ops, f"_{name}_mesh", counted)
 serve_cases = (("llama3.2-1b", None), ("zamba2-2.7b", None),
                ("deepseek-v3-671b", None), ("llama3.2-1b", "1d"),
-               ("deepseek-v3-671b", "1d"))
+               ("deepseek-v3-671b", "1d"), ("llama3.2-1b", "cut"),
+               ("llama3.2-1b", "cut-1d"))
 for arch, layout in serve_cases:
     cfg = dataclasses.replace(get_config(arch).reduced(), use_kernels=True)
+    if layout and layout.startswith("cut"):
+        cfg = cut_groups(cfg)
+        layout = layout[4:] or None
+        arch = arch + "-cut"
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     pol = Policy(meshes["1x2"], rules=make_rules(serve_layout=layout))
@@ -143,6 +177,7 @@ for arch, layout in serve_cases:
             T.param_pspecs(pol, params)["moe_blocks"]["moe"]["w_up"])
     out[f"serve_{arch}" + (f"-{layout}" if layout else "")] = rec
 out["mesh_calls"] = dict(calls)
+out["cut_calls"] = cut_calls[0]
 
 # -- the kernels' mesh entries ---------------------------------------------------
 mesh = meshes["1x2"]
@@ -223,6 +258,64 @@ dist.destroy_process_group()
 '''
 
 
+# one rank, a (1, 1) mesh: every placement Replicate, so the mesh code
+# paths (the plain attention on each rank's shards among them) must give
+# the meshless bits
+_JOB_11 = r'''
+import dataclasses, json, os
+import torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=0,
+                        world_size=1)
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+from repro_torch.serving import engine as E
+from repro_torch.sharding import Policy
+from repro_torch.train import trainer as T
+
+def same(x, y):
+    xs, ys = M.tree_leaves(x), M.tree_leaves(y)
+    return len(xs) == len(ys) and all(
+        torch.equal(a.full_tensor() if hasattr(a, "full_tensor") else a, b)
+        for a, b in zip(xs, ys))
+
+pol = Policy(make_host_mesh(1, device="cpu"), fsdp=True)
+base = get_config("llama3.2-1b").reduced()
+out = {}
+for name, cfg in (("llama3.2-1b", base),
+                  ("llama3.2-1b-cut", dataclasses.replace(
+                      base, n_heads=6, n_kv_heads=3))):
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=g,
+                           dtype=torch.int32)
+    b = {"tokens": tokens}
+    l1, c1 = M.prefill(cfg, params, b, max_len=32)
+    l2, c2 = E.jit_prefill(cfg, pol, M.param_shapes(cfg), b, 32)(params, b)
+    ok = [same(l2, l1), same(c2, c1)]
+    tok = {"tokens": torch.argmax(l1[:, -1], -1)[:, None].to(torch.int32)}
+    dec = E.jit_decode_step(cfg, pol, M.param_shapes(cfg), c1, tok)
+    for _ in range(2):
+        l1, c1 = M.decode_step(cfg, params, c1, tok)
+        l2, c2 = dec(params, c2, tok)
+        ok += [same(l2, l1), same(c2, c1)]
+    tc = T.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=10))
+    opt = adamw.init_state(tc.opt, params)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    p1, o1, m1 = T.make_train_step(cfg, tc)(params, opt, batch)
+    step = T.jit_train_step(cfg, tc, pol, M.param_shapes(cfg), batch)
+    p2, o2, m2 = step(params, opt, batch)
+    ok += [same(m2["loss"], m1["loss"]), same(p2, p1), same(o2, o1)]
+    out[name] = ok
+with open(os.environ["OUT"], "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+'''
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -255,6 +348,18 @@ def job(tmp_path_factory):
     return json.loads(out.read_text())
 
 
+@pytest.fixture(scope="module")
+def job_11(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh11") / "out.json"
+    env = dict(os.environ, OUT=str(out), OMP_NUM_THREADS="1",
+               INIT=f"tcp://localhost:{_free_port()}",
+               PYTHONPATH=str(ROOT / "src"), PYTHONWARNINGS="ignore")
+    proc = subprocess.run([sys.executable, "-c", _JOB_11], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
 def _within(e, tol=1e-5):
     diff, scale = e
     return diff <= tol + tol * scale
@@ -265,7 +370,7 @@ def test_host_mesh_spans_the_group(job):
     assert job["refused_3"]
 
 
-@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+@pytest.mark.parametrize("mesh", ["2x1", "1x2", "1x2_cut"])
 def test_train_step_on_the_mesh(job, mesh):
     rec = job[f"train_{mesh}"]
     assert _within(rec["loss"]) and _within(rec["params"]) \
@@ -277,7 +382,8 @@ def test_train_step_on_the_mesh(job, mesh):
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-2.7b",
                                   "deepseek-v3-671b", "llama3.2-1b-1d",
-                                  "deepseek-v3-671b-1d"])
+                                  "deepseek-v3-671b-1d", "llama3.2-1b-cut",
+                                  "llama3.2-1b-cut-1d"])
 def test_prefill_and_decode_on_the_mesh(job, arch):
     rec = job[f"serve_{arch}"]
     for e in [rec["prefill"]] + rec["decode"]:
@@ -288,6 +394,9 @@ def test_prefill_and_decode_on_the_mesh(job, arch):
         # axis, so each token is written by the rank that holds its row
         assert any(spec[2] == "model" for spec in rec["cache_specs"]
                    if len(spec) > 2), rec["cache_specs"]
+    elif arch.endswith("-cut"):
+        # 3 kv heads do not split 2 ways: the cache's heads stay whole
+        assert not any("Shard" in p for p in rec["cache_placements"])
     elif arch.startswith("deepseek"):
         # the latent cache has no heads; the experts split over model
         assert rec["w_up_spec"][1] == "model", rec["w_up_spec"]
@@ -295,6 +404,19 @@ def test_prefill_and_decode_on_the_mesh(job, arch):
         # the heads (kv heads of the attention cache, state heads of the
         # SSM) split over the model axis
         assert any("Shard" in p for p in rec["cache_placements"])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-cut"])
+def test_one_by_one_mesh_is_bitwise_meshless(job_11, arch):
+    # prefill logits and cache, two decode steps, a train step's loss,
+    # parameters and optimizer state: bit for bit
+    assert all(job_11[arch]), job_11[arch]
+
+
+def test_plain_attention_ran_on_cut_groups(job):
+    # the train steps' forward and backward and the "cut" prefills ran the
+    # plain attention on q heads that cut the kv groups, with no gather
+    assert job["cut_calls"] >= 4, job["cut_calls"]
 
 
 def test_kernels_took_their_mesh_entry(job):
