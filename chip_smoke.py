@@ -10,7 +10,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 
 1. environment — the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; builds the three kernels from the sources in
-   ``src/repro_torch/csrc`` and times the build;
+   ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
+   and spills per instantiation, and whether each bf16 attention
+   instantiation's SASS holds ``HGMMA`` (wgmma) and, where it loads by
+   TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
@@ -115,13 +118,17 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    these shapes beside SDPA and its bound are printed.  (b) every arch
    reduced, prefill and 4 decode steps with the kernels against
    without, in f32 within 2e-4, each launching the kernels its pattern
-   calls.  (c) the zoo's widest kernel shapes — StableLM-12B's prefill
-   attention (q (4, 1024, 32, 160), k/v 8 heads, causal) and
+   calls.  (c) the zoo's kernel shapes — the prefill attention at each
+   head width of the dense archs (q (4, 1024, 32, D), k/v 8 heads,
+   causal: Llama-3.2-1B's D 64, Qwen3-8B's 128, StableLM-12B's 160) and
    xLSTM-125M's mLSTM scan (c/b (4, 1024, 4, 384), v (4, 1024, 4, 385),
    chunk 256) — in bf16 and f32 against the plain versions, bitwise run
-   to run, with kernel, plain, SDPA and bound times; shapes beyond the
-   kernels (N > ``MAX_STATE``, D = 96) raise ``ValueError`` and launch
-   nothing;
+   to run, with kernel, plain, SDPA and bound times (the bf16 attention's
+   bound counts P as two bf16 terms: 6 D operations a pair); the bf16
+   attention also within one bf16 ulp of the f32 kernel on the upcast
+   inputs, element by element (SDPA's distance printed beside it);
+   shapes beyond the kernels (N > ``MAX_STATE``, D = 96) raise
+   ``ValueError`` and launch nothing;
 9. training — Llama-3.2-1B at its published widths and depth (bf16
    params, f32 AdamW state, remat on), ``SyntheticTokenSource`` batches
    of 8 x 1024, under ``deterministic_training``: (a) 6 steps
@@ -223,8 +230,8 @@ KERNEL_OF_OP = {"attn": "flash_attention", "ssd": "ssd_scan",
 ROUTE_BUCKET, SPREAD = 3e-4, 4.0
 # the __global__ functions of src/repro_torch/csrc (a device trace names
 # the stream each one ran on)
-HAND_KERNELS = ("attn_kernel", "gemm_kernel", "state_kernel", "pass_kernel",
-                "out_kernel")
+HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "gemm_kernel",
+                "state_kernel", "pass_kernel", "out_kernel")
 
 _log_lines: list[str] = []
 
@@ -386,7 +393,35 @@ def phase_environment() -> dict:
             log(f"  {name}: {u['registers']:3d} regs, smem {u['smem']} B, "
                 f"spills {u['spill_stores']} / {u['spill_loads']} B  "
                 f"{short[:100]}")
+    _hopper_sass(paths["flash_attention"])
     return {"card": card}
+
+
+def _hopper_sass(lib) -> None:
+    """Whether the built library's SASS (``cuobjdump -sass``) holds
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each bf16 attention
+    instantiation: every one must run wgmma, and the TMA ones (template
+    argument ``true``) must load by TMA."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib.name}")
+    funcs = re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
+                       out.stdout, re.S)
+    bf16 = [(n, body) for n, body in funcs if "attn_wgmma_kernel" in n]
+    names = _build.demangle([n for n, _ in bf16])
+    log("SASS of the bf16 attention (wgmma: HGMMA, TMA loads: UTMALDG):")
+    ok = bool(bf16)
+    for (mangled, body), full in zip(bf16, names):
+        short = full[full.find("attn_wgmma_kernel"):full.find(">(") + 1]
+        hgmma, utmaldg = body.count("HGMMA"), body.count("UTMALDG")
+        tma = "Lb1E" in mangled            # attn_wgmma_kernel<D, true>
+        ok = ok and hgmma > 0 and (utmaldg > 0 or not tma)
+        log(f"  {short or mangled}: HGMMA {hgmma}, UTMALDG {utmaldg}")
+    check(ok, f"every one of the {len(bf16)} bf16 attention instantiations "
+              "runs wgmma, and the TMA ones load by TMA")
 
 
 # ---------------------------------------------------------------------------
@@ -2176,13 +2211,34 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
             check_repeatable("flash_attention", f"at {arch}'s shapes",
                              fa.flash_attention_cuda, (q, k, v))
         pairs = Hq * B * T * (T + 1) // 2
-        # q, k, v read once and o written once
-        b_ms, b_by = tc_bound(4 * D * pairs, q.element_size() * (
-            2 * q.numel() + k.numel() + v.numel()), dtype)
+        # q, k, v read once and o written once; bf16 under the contract
+        # (P above bf16): 2 D for Q K^T and 2 x 2 D for P as two bf16
+        # terms, at the bf16 peak; f32 as 3xTF32
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(6 * D * pairs, nbytes, PEAK_BF16) \
+            if dtype == torch.bfloat16 else tc_bound(4 * D * pairs, nbytes,
+                                                     dtype)
         G = Hq // Hk
         qh = q.transpose(1, 2).contiguous()
         kh, vh = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
                   for x in (k, v))
+        ulps = {}
+        if dtype == torch.bfloat16:
+            # every element within one bf16 ulp of the f32 kernel on the
+            # upcast inputs (rounded to bf16), SDPA's distance beside it
+            ref = fa.flash_attention_cuda(q.float(), k.float(),
+                                          v.float()).to(dtype)
+            sdpa = F_.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=True)
+            ulps = dict(ulps=fa.bf16_ulps(fa.flash_attention_cuda(q, k, v),
+                                          ref),
+                        sdpa_ulps=fa.bf16_ulps(sdpa.transpose(1, 2), ref))
+            del ref, sdpa
+            check(ulps["ulps"] <= 1.0,
+                  f"flash_attention at {name}'s prefill shapes: every "
+                  f"element within one bf16 ulp of the f32 kernel on the "
+                  f"upcast inputs ({ulps['ulps']:.2f} ulps at max(|ref|, "
+                  f"1e-3 max|ref|); SDPA {ulps['sdpa_ulps']:.2f})")
         return dict(name="flash_attention", shapes=f"q {tuple(q.shape)}, "
                     f"k/v {tuple(k.shape)} {str(dtype)[6:]} causal",
                     ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
@@ -2191,7 +2247,7 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
                     library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=True)),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    rel_err=rel)
+                    rel_err=rel, **ulps)
     B, T, H, N = sh["cb"]
     P, C = sh["v"][-1], sh["chunk"]
     c = rand(rng, sh["cb"], dtype, 0.5)
@@ -2516,7 +2572,9 @@ def _reduced_arch(arch) -> dict:
 # The zoo's kernel shapes the kernels took last (phase 8 (c)): StableLM-12B's
 # attention at d_head 160 and xLSTM-125M's mLSTM scan at N 384 / P 385, in
 # bf16 and f32, at each arch's prefill shapes
-ZOO_SHAPES = ("stablelm-12b", "xlstm-125m")
+# the attention at each head width of the zoo's dense archs (d_head 64,
+# 128, 160) and the widest scan
+ZOO_SHAPES = ("llama3.2-1b", "qwen3-8b", "stablelm-12b", "xlstm-125m")
 # StableLM-12B's kernel prefill against its plain one at full width, cut
 # to this many of its 40 layers (the phase's time)
 STABLELM_DEPTH = 4
@@ -2620,7 +2678,7 @@ def _stablelm_prefill() -> dict:
 def phase_zoo(env: dict) -> dict:
     """The model zoo: Llama-3.2-1B, Zamba2-2.7B and xLSTM-125M served at
     full width, StableLM-12B's prefill at full width and cut depth (a),
-    every arch reduced (b), and the zoo's widest kernel shapes (c)."""
+    every arch reduced (b), and the zoo's kernel shapes (c)."""
     from repro_torch.configs import ALL_ARCHS
     log("== phase 8: model zoo serving on the card")
     log(env["card"])
@@ -2641,7 +2699,7 @@ def phase_zoo(env: dict) -> dict:
         + ", ".join(f"{a} {r['worst']:.1e}" for a, r in reduced.items()))
     t2 = time.perf_counter()
     shapes = _zoo_kernel_shapes()
-    log(f"  (c) the zoo's widest kernel shapes in "
+    log(f"  (c) the zoo's kernel shapes in "
         f"{time.perf_counter() - t2:.1f} s")
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
     return dict(full=full, f32=f32, reduced=reduced, stablelm=stablelm,

@@ -28,7 +28,25 @@ in one process:
 * ``fold64`` — the SSD scan's fresh accumulator spans 64 of K instead of
   32: at the main path (N = 64, kv tiles of 64, chunk 64) every product
   is one chain, so this shows what the fold costs there and how far the
-  truncating accumulator drifts without it.
+  truncating accumulator drifts without it;
+* ``p_one_bf16`` — the bf16 attention's P V with P as one bf16 term (hi
+  only): the speed that rounding P to bf16, as SDPA does, buys; it must
+  fail the one-ulp check;
+* ``stages2`` — the bf16 attention's ring of K / V tiles two deep
+  instead of three (where three fit);
+* ``kv32``, ``kv64``, ``kv128`` — the bf16 attention's kv tiles 32, 64
+  or 128 rows at every D (shipped: 64 at D 128, 32 elsewhere);
+* ``no_split``, ``no_softmax`` — ablations of the bf16 attention (wrong
+  results, timed only): P's lo term without its split (lo = hi), and no
+  softmax at all (S straight into P's terms, alpha 1): what the split and
+  the whole softmax cost beside the products and the pipeline.
+
+The bf16 attention's variants also run at the zoo's three prefill shapes
+(Llama-3.2-1B, Qwen3-8B and StableLM-12B: q (4, 1024, 32, D), k/v 8
+heads, causal), each with its distance in bf16 ulps from the shipped f32
+kernel on the upcast inputs (``bf16_ulps``) beside SDPA's.  Arguments
+name kernels to run alone (default all three), e.g.
+``python3 kernel_variants.py flash_attention``.
 
 A full log goes to ``chiprun_out/kernel_variants.log``.
 """
@@ -65,6 +83,17 @@ SSD_THREE = ("  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);\n"
 SSD_ONE = "  bident::mma_tf32(c, ah, bh);"
 SSD_FOLD = "constexpr int FOLD_K8 = 4;"
 WARPS_M = "constexpr int WARPS_M = 2;"
+PV_LO = ("#pragma unroll\n"
+         "  for (int kk = 0; kk < BK / 16; ++kk)\n"
+         "    hopper::Wgmma<D>::rs(acc, lo[kk],\n"
+         "                         hopper::make_desc(vs + kk * 16 * C::SW, "
+         "C::KV_SUB,\n"
+         "                                           8 * C::SW, C::SW));\n")
+KV_TILE = "return D == 128 ? 64 : 32;"
+SPLIT_LO = ("const __nv_bfloat162 pl = __floats2bfloat162_rn(x0 - __low2float(ph),\n"
+            "                                                      x1 - __high2float(ph));")
+SOFTMAX = "                                        int causal, int t) {\n"
+STAGES = "constexpr int MAX_STAGES = 3;"
 BOUNDS = "__launch_bounds__(NT, Layout<T>::F32 ? 1 : 2)"
 
 # variant -> {file: [(old, new), ...]}; each kernel builds with its own
@@ -81,7 +110,21 @@ VARIANTS = {
     "warps16": {"expert_glu.cu": [(WARPS_M, "constexpr int WARPS_M = 4;"),
                                   (BOUNDS, "__launch_bounds__(NT, 1)")]},
     "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
+    "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
+    "stages2": {"flash_attention.cu": [(STAGES, STAGES.replace("3", "2"))]},
+    "kv32": {"flash_attention.cu": [(KV_TILE, "return 32;")]},
+    "kv64": {"flash_attention.cu": [(KV_TILE, "return 64;")]},
+    "kv128": {"flash_attention.cu": [(KV_TILE, "return 128;")]},
+    # ablations of the bf16 attention's softmax (wrong results; what each
+    # part of the per-pair work costs)
+    "no_split": {"flash_attention.cu": [(SPLIT_LO, "const __nv_bfloat162 pl = ph;")]},
+    "no_softmax": {"flash_attention.cu": [
+        (SOFTMAX, SOFTMAX + "  alpha[0] = alpha[1] = 1.f;\n  return;\n")]},
 }
+# the bf16 attention at the zoo's prefill shapes: (arch, its variants)
+ZOO_ATTENTION = ("llama3.2-1b", "qwen3-8b", "stablelm-12b")
+ATTN_BF16 = ("shipped", "p_one_bf16", "stages2", "kv32", "kv64", "kv128",
+             "no_split", "no_softmax")
 KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
 
 _log_lines: list[str] = []
@@ -93,14 +136,15 @@ def log(msg: str = "") -> None:
 
 
 def sources(variant: str, kernel: str) -> dict[str, str] | None:
-    """The variant's copy of ``kernel``'s sources, or None where the
-    variant leaves that kernel as shipped (and it is not ``shipped``)."""
+    """The variant's copy of ``kernel``'s sources (its ``.cu`` and every
+    header it includes), or None where the variant leaves that kernel as
+    shipped (and it is not ``shipped``)."""
+    from repro_torch.kernels import _build
+    files = {f.name: f.read_text() for f in _build.sources(kernel)}
     subs = VARIANTS[variant]
-    touched = [f for f in subs if f in ("common.cuh", f"{kernel}.cu")]
+    touched = [f for f in subs if f in files]
     if variant != "shipped" and not touched:
         return None
-    files = {f: (CSRC / f).read_text() for f in ("common.cuh",
-                                                 f"{kernel}.cu")}
     for f in touched:
         for old, new in subs[f]:
             if old not in files[f]:
@@ -110,12 +154,12 @@ def sources(variant: str, kernel: str) -> dict[str, str] | None:
     return files
 
 
-def build() -> dict[tuple[str, str], ctypes.CDLL]:
+def build(kernels=KERNELS) -> dict[tuple[str, str], ctypes.CDLL]:
     """Every (variant, kernel) library, one nvcc each, all in parallel."""
     from repro_torch.kernels import _build
     procs = {}
     for variant in VARIANTS:
-        for kernel in KERNELS:
+        for kernel in kernels:
             files = sources(variant, kernel)
             if files is None:
                 continue
@@ -167,6 +211,51 @@ def bind(lib, kernel):
     return fn
 
 
+def _zoo_attention(libs, rand, stream) -> None:
+    """The bf16 attention's variants at the zoo's prefill shapes: time,
+    error over the plain version's largest output, and the distance in
+    bf16 ulps from the shipped f32 kernel on the upcast inputs (SDPA's
+    beside it)."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err, time_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    for arch in ZOO_ATTENTION:
+        cfg = get_config(arch)
+        B, T, Hq, Hk, D = 4, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        q = rand((B, T, Hq, D), bf16)
+        k, v = rand((B, T, Hk, D), bf16), rand((B, T, Hk, D), bf16)
+        want = fa.flash_attention_plain(q, k, v)
+        ref = fa.flash_attention_cuda(q.float(), k.float(),
+                                      v.float()).to(bf16)
+        qh = q.transpose(1, 2)
+        kh, vh = (x.repeat_interleave(Hq // Hk, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        sdpa = F_.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        log(f"flash_attention bf16 at {arch}'s prefill, q {tuple(q.shape)}, "
+            f"k/v {tuple(k.shape)}, causal: SDPA "
+            f"{time_ms(lambda: F_.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=20):.4f} ms, "
+            f"{fa.bf16_ulps(sdpa.transpose(1, 2), ref):.2f} ulps")
+        o = torch.empty_like(q)
+        for variant in ATTN_BF16:
+            if (variant, "flash_attention") not in libs:
+                continue
+            fn = bind(libs[variant, "flash_attention"], "flash_attention")
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), B, T, T, Hq, Hk, D, 1, 0, 1, stream)
+                if err:
+                    raise RuntimeError(f"{variant}: cudaError_t {err}")
+            call()
+            torch.cuda.synchronize()
+            log(f"  {variant:10s} {time_ms(call, iters=20):.4f} ms, error / "
+                f"max|plain| {norm_err(o, want)[1]:.3e}, "
+                f"{fa.bf16_ulps(o, ref):.2f} ulps")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -186,7 +275,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     log(smi.stdout.strip())
-    libs = build()
+    chosen = tuple(sys.argv[1:]) or KERNELS
+    unknown = set(chosen) - set(KERNELS)
+    if unknown:
+        print(f"kernel_variants: no kernel {sorted(unknown)}; the kernels "
+              f"are {KERNELS}", file=sys.stderr)
+        return 2
+    libs = build(chosen)
     cfg = GRANITE_MAIN_PATH
     B, T, H, D = (cfg[k] for k in ("batch", "seq", "heads", "head_dim"))
     E, F, K = (cfg[k] for k in ("experts", "moe_ff", "top_k"))
@@ -201,95 +296,100 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         bf = int(dtype == torch.bfloat16)
         name = str(dtype)[6:]
-        x, wu, wd = (rand((E, cap, d), dtype), rand((E, d, 2 * F), dtype, .5),
-                     rand((E, F, d), dtype, .5))
-        want = mg.expert_glu_plain(x, wu, wd)
-        act, y = torch.empty((E, cap, F), dtype=dtype, device="cuda"), \
-            torch.empty_like(x)
+        if "expert_glu" in chosen:
+            x, wu, wd = (rand((E, cap, d), dtype), rand((E, d, 2 * F), dtype, .5),
+                         rand((E, F, d), dtype, .5))
+            want = mg.expert_glu_plain(x, wu, wd)
+            act, y = torch.empty((E, cap, F), dtype=dtype, device="cuda"), \
+                torch.empty_like(x)
 
-        def bmm_glu():
-            h = torch.bmm(x, wu)
-            return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], wd)
-        log(f"expert_glu {name} at (E, cap, d, F) = ({E}, {cap}, {d}, {F}):"
-            f" bmm GLU {time_ms(bmm_glu, iters=20):.4f} ms")
-        for variant in VARIANTS:
-            if (variant, "expert_glu") not in libs:
-                continue
-            fn = bind(libs[variant, "expert_glu"], "expert_glu")
-
-            def call():
-                err = fn(x.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-                         act.data_ptr(), y.data_ptr(), E, cap, d, F, bf,
-                         stream)
-                if err:
-                    raise RuntimeError(f"{variant}: cudaError_t {err}")
-            call()
-            torch.cuda.synchronize()
-            rel = norm_err(y, want)[1]
-            log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
-                f"/ max|plain| {rel:.3e}")
-
-        q, k, v = (rand((B, T, H, D), dtype) for _ in range(3))
-        want = fa.flash_attention_plain(q, k, v)
-        o = torch.empty_like(q)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = time_ms(lambda: F_.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), iters=20)
-        log(f"flash_attention {name} at (B, T, H, D) = ({B}, {T}, {H}, {D}),"
-            f" causal: SDPA {sdpa:.4f} ms")
-        for variant in VARIANTS:
-            if (variant, "flash_attention") not in libs:
-                continue
-            fn = bind(libs[variant, "flash_attention"], "flash_attention")
-
-            def call():
-                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), B, T, T, H, H, D, 1, 0, bf, stream)
-                if err:
-                    raise RuntimeError(f"{variant}: cudaError_t {err}")
-            call()
-            torch.cuda.synchronize()
-            rel = norm_err(o, want)[1]
-            log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
-                f"/ max|plain| {rel:.3e}")
-        # the SSD scan at the main path's widths and three chunks
-        N, P = cfg["state"], D
-        c_, b_ = rand((B, T, H, N), dtype, .5), rand((B, T, H, N), dtype, .5)
-        v_ = rand((B, T, H, P), dtype)
-        la = -F_.softplus(rand((B, T, H), torch.float32))
-        y_, s_ = torch.empty_like(v_), torch.empty((B, H, N, P), device="cuda")
-        for chunk in (64, 128, 256):
-            want = ss.ssd_scan_plain(c_, b_, v_, la, chunk=chunk)[0]
-            work = torch.empty(B * H * -(-T // chunk) * (N * P + 1),
-                               device="cuda")
-            log(f"ssd_scan {name} at (B, T, H, N, P) = ({B}, {T}, {H}, {N},"
-                f" {P}), chunk {chunk}:")
+            def bmm_glu():
+                h = torch.bmm(x, wu)
+                return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], wd)
+            log(f"expert_glu {name} at (E, cap, d, F) = ({E}, {cap}, {d}, {F}):"
+                f" bmm GLU {time_ms(bmm_glu, iters=20):.4f} ms")
             for variant in VARIANTS:
-                if (variant, "ssd_scan") not in libs:
+                if (variant, "expert_glu") not in libs:
                     continue
-                fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
+                fn = bind(libs[variant, "expert_glu"], "expert_glu")
 
                 def call():
-                    err = fn(c_.data_ptr(), b_.data_ptr(), v_.data_ptr(),
-                             la.data_ptr(), None, y_.data_ptr(),
-                             s_.data_ptr(), work.data_ptr(), B, T, H, N, P,
-                             chunk, bf, stream)
+                    err = fn(x.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                             act.data_ptr(), y.data_ptr(), E, cap, d, F, bf,
+                             stream)
                     if err:
                         raise RuntimeError(f"{variant}: cudaError_t {err}")
                 call()
                 torch.cuda.synchronize()
-                rel = norm_err(y_, want)[1]
-                log(f"  {variant:9s} {time_ms(call, iters=50):.4f} ms, error "
+                rel = norm_err(y, want)[1]
+                log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
                     f"/ max|plain| {rel:.3e}")
-                if variant == "shipped" and chunk == 64:
-                    raw_call = call
-            # host time a call (no sync), of the C entry point and of the
-            # wrapper, which also allocates and checks: where it exceeds
-            # the device time, a wrapper timed by CUDA events reads it
-            log(f"  host time a call at chunk 64: C entry point "
-                f"{host_us(raw_call):.1f} us, ssd_scan_cuda "
-                f"{host_us(lambda: ss.ssd_scan_cuda(c_, b_, v_, la, chunk=64)):.1f}"
-                f" us")
+
+        if "flash_attention" in chosen:
+            q, k, v = (rand((B, T, H, D), dtype) for _ in range(3))
+            want = fa.flash_attention_plain(q, k, v)
+            o = torch.empty_like(q)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = time_ms(lambda: F_.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), iters=20)
+            log(f"flash_attention {name} at (B, T, H, D) = ({B}, {T}, {H}, {D}),"
+                f" causal: SDPA {sdpa:.4f} ms")
+            for variant in VARIANTS:
+                if (variant, "flash_attention") not in libs:
+                    continue
+                fn = bind(libs[variant, "flash_attention"], "flash_attention")
+
+                def call():
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), B, T, T, H, H, D, 1, 0, bf, stream)
+                    if err:
+                        raise RuntimeError(f"{variant}: cudaError_t {err}")
+                call()
+                torch.cuda.synchronize()
+                rel = norm_err(o, want)[1]
+                log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
+                    f"/ max|plain| {rel:.3e}")
+        if "ssd_scan" in chosen:
+            # the SSD scan at the main path's widths and three chunks
+            N, P = cfg["state"], D
+            c_, b_ = rand((B, T, H, N), dtype, .5), rand((B, T, H, N), dtype, .5)
+            v_ = rand((B, T, H, P), dtype)
+            la = -F_.softplus(rand((B, T, H), torch.float32))
+            y_, s_ = torch.empty_like(v_), torch.empty((B, H, N, P), device="cuda")
+            for chunk in (64, 128, 256):
+                want = ss.ssd_scan_plain(c_, b_, v_, la, chunk=chunk)[0]
+                work = torch.empty(B * H * -(-T // chunk) * (N * P + 1),
+                                   device="cuda")
+                log(f"ssd_scan {name} at (B, T, H, N, P) = ({B}, {T}, {H}, {N},"
+                    f" {P}), chunk {chunk}:")
+                for variant in VARIANTS:
+                    if (variant, "ssd_scan") not in libs:
+                        continue
+                    fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
+
+                    def call():
+                        err = fn(c_.data_ptr(), b_.data_ptr(), v_.data_ptr(),
+                                 la.data_ptr(), None, y_.data_ptr(),
+                                 s_.data_ptr(), work.data_ptr(), B, T, H, N, P,
+                                 chunk, bf, stream)
+                        if err:
+                            raise RuntimeError(f"{variant}: cudaError_t {err}")
+                    call()
+                    torch.cuda.synchronize()
+                    rel = norm_err(y_, want)[1]
+                    log(f"  {variant:9s} {time_ms(call, iters=50):.4f} ms, error "
+                        f"/ max|plain| {rel:.3e}")
+                    if variant == "shipped" and chunk == 64:
+                        raw_call = call
+                # host time a call (no sync), of the C entry point and of the
+                # wrapper, which also allocates and checks: where it exceeds
+                # the device time, a wrapper timed by CUDA events reads it
+                log(f"  host time a call at chunk 64: C entry point "
+                    f"{host_us(raw_call):.1f} us, ssd_scan_cuda "
+                    f"{host_us(lambda: ss.ssd_scan_cuda(c_, b_, v_, la, chunk=64)):.1f}"
+                    f" us")
+    if "flash_attention" in chosen:
+        _zoo_attention(libs, rand, stream)
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("\n".join(_log_lines) + "\n")
     return 0

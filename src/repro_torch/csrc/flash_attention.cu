@@ -3,13 +3,58 @@
 // Replaces the Pallas TPU kernel `flash_attention` / `_attn_kernel` of
 // src/repro/kernels/flash_attention.py.  Same contract: q (B,Tq,Hq,D),
 // k and v (B,Tk,Hk,D) with Hq % Hk == 0 (query head h reads kv head
-// h / (Hq/Hk)); q pre-scaled by 1/sqrt(D) in f32; online softmax with f32
-// running max m, denominator l (clamped at 1e-30) and accumulator; kv
+// h / (Hq/Hk)); scores scaled by 1/sqrt(D) in f32; online softmax with
+// f32 running max m, denominator l (clamped at 1e-30) and accumulator; kv
 // positions past Tk and, when causal, above the diagonal (q_offset +
 // query row < kv position) masked with -1e30; with `causal`, kv tiles
 // wholly above the diagonal are skipped; output in q's dtype.  As in the
-// Pallas kernel, q, k, v and p are f32 in the products (a bf16 run
-// upcasts; p is never rounded to bf16).
+// Pallas kernel, the products are f32-accurate and p is never rounded to
+// bf16.  Two designs, one for each dtype.
+//
+// ---- bf16: wgmma and TMA (attn_wgmma_kernel) ----
+//
+// A bf16 q.k product is exact in f32, so S = Q K^T runs as one bf16 pass
+// on `wgmma` (m64nBKk16, both operands from shared memory, f32
+// accumulator), and the 1/sqrt(D) scale, folded with log2(e) for `ex2`,
+// is applied to S in f32 after the product (q * scale is not a bf16
+// number at D 32, 128, 160).  P is kept above bf16 as two bf16 terms,
+// hi = bf16(p) and lo = bf16(p - hi) (16 significant bits), and P V runs
+// as two bf16 passes against the same V tile: wgmma with P as the register
+// A operand (S's accumulator layout is the A fragment layout, so P never
+// passes through shared memory) and V as the transposed (N-major) B
+// operand from shared memory.  O is scaled by alpha and the wgmmas
+// accumulate into it.  The least work under this contract is 6 D bf16
+// operations per (query, key) pair: 2 D for Q K^T and 2 x 2 D for P V.  At
+// Llama-3.2-1B's prefill (q (4, 1024, 32, 64), 67.17 M causal pairs) that
+// is 25.8 GFLOP: 26.1 us at 989 TFLOP/s against 12.5 us for the bytes, so
+// the kernel is bound by operations; at D 128 52.1 us, at D 160 65.2 us.
+// Beside the tensor cores each pair costs an `ex2` (16 a clock an SM) and
+// about seven ALU operations (the fma that scales and subtracts the max,
+// max, sum, and three to split p), which at D 64 come close to the
+// products' time: it is the overlap of the two, not the tensor rate, that
+// sets the pace at small heads (PERF.md).
+//
+// Roles: one block is one (batch, head, 128-row query tile), 288 threads.
+// Warp 8 is the producer: one thread issues TMA loads, Q once and each kv
+// tile's K and V into a ring of 3 stages (2 where 3 do not fit), each with
+// its own mbarrier for K, for V and for the stage's release.  Warpgroups
+// 0 and 1 each own 64 query rows.  A thread holds O (D / 2 registers), S
+// (BK / 2) and P's two terms (BK / 2); the register file of an SM quarter
+// (16 K registers for its 3 warps) caps a thread at 168 registers, and
+// `setmaxnreg` did not give the consumers more (the compiler kept them
+// within 168 and spilled), so the kv tile is chosen to fit: 64 rows at D
+// 128, 32 at D 64 and 160, and P V of tile j - 1 runs behind S of tile j
+// (see attn_wgmma_kernel).  Tiles are 4-D TMA boxes over (D, H, T, B), so
+// rows past Tk read zeros within their own batch, in the swizzled layout
+// both TMA and wgmma read (hopper.cuh): 64 columns with the 128-byte
+// swizzle, 32 (D 160, 32) with the 64-byte one, 16 with the 32-byte one.
+// Operands off a 16-byte boundary cannot be read by TMA; for them the
+// producer warp loads the same layout with plain loads (a variant of the
+// kernel, chosen before the launch).  With `causal` the query tiles run
+// heaviest first, and a warpgroup skips the kv tiles that lie wholly above
+// its own rows.  No atomics: a run is bitwise repeatable.
+//
+// ---- f32: 3xTF32 mma.sync (attn_kernel) ----
 //
 // Design for the card, not the TPU grid.  The Pallas grid walks kv blocks
 // as a sequential grid axis carrying m/l/acc in VMEM scratch; here one
@@ -17,9 +62,8 @@
 // kv tiles itself, in the FlashAttention-2 layout: each of its 4 warps
 // owns 16 query rows, so S = Q K^T, the softmax and O += P V stay inside
 // the warp.  Both products run on the tensor cores as `m16n8k8` TF32
-// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy;
-// a bf16 k or v is exact in TF32, so its lo products are skipped.  A
-// thread holds two columns of two rows of each S tile, so a row's max and
+// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy
+// (the template's bf16 branches are not instantiated).  A thread holds two columns of two rows of each S tile, so a row's max and
 // sum are two xor-shuffles inside its quad of lanes.
 //
 // P stays in registers.  The S accumulator gives thread (g, t) kv columns
@@ -46,8 +90,7 @@
 // kept once, scaled, as f32 (41 KB; 205 KB in all) and each `ldmatrix`
 // fragment is split into hi and lo in registers: the same bits as the
 // stored split, for 12 more integer and float operations per 8-deep step
-// of 24 products.  (bf16 K and V tiles halve, so bf16 keeps the stored
-// split: 170 KB.)  O's accumulator grows to 20 n8 tiles a warp; P V is
+// of 24 products.  O's accumulator grows to 20 n8 tiles a warp; P V is
 // then summed in two passes of 10 tiles each, so the fresh accumulator
 // `pv` holds 40 registers rather than 80.  Each output tile's sum over kv
 // runs in the same order in either pass, so the result is the one-pass
@@ -62,6 +105,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,15 +131,9 @@ struct Layout {
   static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
 };
 
-// The TF32 operand(s) of one K or V value: hi and lo for f32; for bf16
-// the value itself, exact in TF32.
+// The TF32 operands of one K or V value: its hi and lo parts.
 __device__ __forceinline__ void operand(float x, uint32_t& hi, uint32_t& lo) {
   bident::split_tf32(x, hi, lo);
-}
-__device__ __forceinline__ void operand(__nv_bfloat16 x, uint32_t& hi,
-                                        uint32_t& lo) {
-  hi = __float_as_uint(__bfloat162float(x));
-  lo = 0u;
 }
 
 // c += a.b in 3xTF32; with an exact b (bf16) its lo product is skipped.
@@ -328,6 +366,411 @@ cudaError_t launch_aligned(const void* q, const void* k, const void* v,
                                    q_offset, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma and TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BQ = 128;        // query rows a block: 64 per consumer warpgroup
+constexpr int NT = 288;        // two consumer warpgroups + one producer warp
+constexpr int MAX_STAGES = 3;  // K / V tiles in flight, where they fit
+constexpr double LOG2E = 1.4426950408889634;
+
+// kv rows a tile.  A consumer thread holds S (BK / 2 registers), P's two
+// bf16 terms (BK / 2) and O (D / 2) within the 168 registers a thread of
+// this block may have; of the tiles that fit, the fastest on the card
+// (kernel_variants.py's kv32 / kv64 / kv128, PERF.md)
+__host__ __device__ constexpr int kv_tile(int D) { return D == 128 ? 64 : 32; }
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = kv_tile(D);
+  // columns of a shared-memory sub-tile (the TMA box): 64, else 32, else 16
+  static constexpr int CW = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int SW = 2 * CW;   // bytes of a sub-tile row = swizzle
+  static constexpr int NSUB = D / CW;
+  static constexpr uint32_t Q_SUB = BQ * SW, KV_SUB = BK * SW;
+  static constexpr uint32_t Q_BYTES = NSUB * Q_SUB;     // = BQ x D x 2
+  static constexpr uint32_t KV_BYTES = NSUB * KV_SUB;   // one K or V tile
+  // 1024 bytes of slack to align the tiles, Q and its mbarrier, and per
+  // stage K, V and three mbarriers
+  static constexpr size_t FIXED = 1024 + Q_BYTES + 8;
+  static constexpr size_t PER_STAGE = 2 * KV_BYTES + 24;
+  static constexpr int STAGES = FIXED + MAX_STAGES * PER_STAGE <= 232448
+                                    ? MAX_STAGES
+                                    : MAX_STAGES - 1;
+  static constexpr size_t SMEM = FIXED + STAGES * PER_STAGE;
+  static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
+  static_assert(STAGES >= 2 && D % 16 == 0 && BK % 16 == 0, "wgmma k16 steps");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The thread-load path (operands not 16-byte aligned): rows t0 .. t0 +
+// rows - 1 of head hh of batch b of x (B, T, H, D) into the swizzled
+// sub-tiles at dst, rows past T as zeros; by the 32 lanes of one warp.
+template <int D>
+__device__ __forceinline__ void load_rows(uint8_t* dst, uint32_t sub_bytes,
+                                          const __nv_bfloat16* x, int b,
+                                          int T, int H, int hh, int t0,
+                                          int rows, int lane) {
+  using C = Cfg<D>;
+  constexpr int CH = D / 8;   // 16-byte chunks a row
+  for (int c = lane; c < rows * CH; c += 32) {
+    const int r = c / CH, ch = c % CH, tt = t0 + r;
+    alignas(16) __nv_bfloat16 e[8];
+    const __nv_bfloat16* src = x + ((size_t)(b * T + tt) * H + hh) * D + ch * 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = tt < T ? src[i] : __float2bfloat16(0.f);
+    uint32_t off = r * C::SW + (ch % (C::CW / 8)) * 16;
+    off ^= ((off >> 7) & (C::SW / 16 - 1)) << 4;
+    *reinterpret_cast<uint4*>(dst + (ch * 8 / C::CW) * sub_bytes + off) =
+        *reinterpret_cast<const uint4*>(e);
+  }
+  hopper::fence_proxy_async();
+  __syncwarp();
+}
+
+// O += P V for one kv tile (V's tile at shared address vs): P's hi term,
+// then its lo term, each BK / 16 wgmmas of k16
+template <int D, int BK>
+__device__ __forceinline__ void pv_mma(float (&acc)[D / 2],
+                                       uint32_t (&hi)[BK / 16][4],
+                                       uint32_t (&lo)[BK / 16][4],
+                                       uint32_t vs) {
+  using C = Cfg<D>;
+  hopper::reg_fence(acc);
+  hopper::reg_fence(hi);
+  hopper::reg_fence(lo);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    hopper::Wgmma<D>::rs(acc, hi[kk],
+                         hopper::make_desc(vs + kk * 16 * C::SW, C::KV_SUB,
+                                           8 * C::SW, C::SW));
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    hopper::Wgmma<D>::rs(acc, lo[kk],
+                         hopper::make_desc(vs + kk * 16 * C::SW, C::KV_SUB,
+                                           8 * C::SW, C::SW));
+  hopper::wgmma_commit();
+}
+
+// S = Q K^T for one kv tile (K's tile at shared address ks), issued and
+// committed: D / 16 wgmmas of k16 over the swizzled sub-tiles of Q and K
+template <int D>
+__device__ __forceinline__ void s_mma(float (&sc)[Cfg<D>::BK / 2],
+                                      uint32_t qs, uint32_t ks) {
+  using C = Cfg<D>;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int st = kk * 16 / C::CW;               // sub-tile
+    const uint32_t col = (kk * 16 % C::CW) * 2;   // bytes into its rows
+    hopper::Wgmma<C::BK>::ss(
+        sc, hopper::make_desc(qs + st * C::Q_SUB + col, 16, 8 * C::SW, C::SW),
+        hopper::make_desc(ks + st * C::KV_SUB + col, 16, 8 * C::SW, C::SW),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// The online softmax in base 2 of one kv tile's S (kv rows from kbase):
+// masked entries (past Tk, or above the diagonal where `mask` says the
+// tile reaches it) set to -1e30, the row max taken on S and scaled, then
+// p = 2^(S scale_log2 - m) in one fma; sc becomes p, alpha = 2^(m_old -
+// m), l (this thread's share) = l alpha + sum p.  Element 4 jn + e of sc:
+// row qpos0 + 8 (e / 2), kv column kbase + 8 jn + 2t + e % 2.
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        float scale_log2, bool mask,
+                                        int kbase, int qpos0, int Tk,
+                                        int causal, int t) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = kbase + (i / 4) * 8 + 2 * t + (i & 1);
+      const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+      if (kpos >= Tk || (causal && qpos < kpos)) sc[i] = NEG_INF;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    // element i of the row's BK / 4: sc[4 (i / 2) + 2 hr + i % 2]; four
+    // partial maxima and sums, then one
+    float mx[4], ps[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i] = sc[4 * (i / 2) + 2 * hr + i % 2];
+#pragma unroll
+    for (int i = 4; i < BK / 4; ++i)
+      mx[i % 4] = fmaxf(mx[i % 4], sc[4 * (i / 2) + 2 * hr + i % 2]);
+    float mr = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    const float m_new = fmaxf(m[hr], mr * scale_log2);
+    alpha[hr] = ex2(m[hr] - m_new);
+    m[hr] = m_new;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      float& x = sc[4 * (i / 2) + 2 * hr + i % 2];
+      x = ex2(fmaf(x, scale_log2, -m_new));
+      ps[i % 4] = i < 4 ? x : ps[i % 4] + x;
+    }
+    l[hr] = l[hr] * alpha[hr] + ((ps[0] + ps[1]) + (ps[2] + ps[3]));
+  }
+}
+
+// P as hi = bf16(p) and lo = bf16(p - hi), in wgmma's A layout: k-slice
+// kk's register r holds elements 8 kk + 2r and 8 kk + 2r + 1 of sc
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&sc)[BK / 2],
+                                        uint32_t (&hi)[BK / 16][4],
+                                        uint32_t (&lo)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 ph = __floats2bfloat162_rn(x0, x1);
+      const __nv_bfloat162 pl = __floats2bfloat162_rn(x0 - __low2float(ph),
+                                                      x1 - __high2float(ph));
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&ph);
+      lo[kk][r] = *reinterpret_cast<const uint32_t*>(&pl);
+    }
+}
+
+// lane 0 of each warp frees a stage (8 arrivals: the consumer warps)
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
+}
+
+// One block owns one (batch, head, 128-row query tile); see the note at
+// the head of the file.  Consumer warpgroup w (0 or 1) works on kv tile j
+// in this order: S_j = Q K_j^T issued; O = O alpha_{j-1} + P_{j-1} V_{j-1}
+// issued behind it; S_j awaited; the softmax of S_j (while P_{j-1} V_{j-1}
+// runs); P_{j-1} V_{j-1} awaited and its stage freed; P_j split into its
+// two bf16 terms.  Tile 0 (no P V before it) and the last tile's P V are
+// peeled off the loop, so that every wgmma in the loop is unconditional
+// (else the compiler serialises them).
+template <int D, bool TMA>
+__global__ void __launch_bounds__(NT, 1)
+    attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, int Tq, int Tk, int Hq,
+                      int Hk, int causal, int q_offset, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, SW = C::SW, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* Qs = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Ks = Qs + C::Q_BYTES;                 // stage s at s x KV_BYTES
+  uint8_t* Vs = Ks + STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  const int hk = h / (Hq / Hk);
+  int nk = (Tk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q_offset + q0 + BQ - 1) / BK + 1);
+  const int tid = threadIdx.x;
+  // warpgroups 0 and 1 consume, warp 8 (role 2) produces; read as
+  // warp-uniform (a shuffle) so that the compiler sees each warpgroup's
+  // wgmmas as converged
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {
+    // ---- producer ----
+    const int lane = tid - 256;
+    if constexpr (TMA) {
+      if (lane != 0) return;
+      hopper::mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int st = 0; st < C::NSUB; ++st)
+        hopper::tma_load_4d(Qs + st * C::Q_SUB, &qmap, q_full, st * C::CW, h,
+                            q0, b);
+    } else {
+      load_rows<D>(Qs, C::Q_SUB, q, b, Tq, Hq, h, q0, BQ, lane);
+      if (lane == 0) hopper::mbar_arrive(q_full);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % STAGES;
+      if (j >= STAGES) hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      uint8_t* kd = Ks + s * C::KV_BYTES;
+      uint8_t* vd = Vs + s * C::KV_BYTES;
+      if constexpr (TMA) {
+        hopper::mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        for (int st = 0; st < C::NSUB; ++st)
+          hopper::tma_load_4d(kd + st * C::KV_SUB, &kmap, &k_full[s],
+                              st * C::CW, hk, j * BK, b);
+        hopper::mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        for (int st = 0; st < C::NSUB; ++st)
+          hopper::tma_load_4d(vd + st * C::KV_SUB, &vmap, &v_full[s],
+                              st * C::CW, hk, j * BK, b);
+      } else {
+        load_rows<D>(kd, C::KV_SUB, k, b, Tk, Hk, hk, j * BK, BK, lane);
+        if (lane == 0) hopper::mbar_arrive(&k_full[s]);
+        load_rows<D>(vd, C::KV_SUB, v, b, Tk, Hk, hk, j * BK, BK, lane);
+        if (lane == 0) hopper::mbar_arrive(&v_full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    const int w = role;                        // rows w x 64 .. of the tile
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + w * 64 + warp * 16 + g;   // and row0 + 8
+    const int qpos0 = q_offset + row0;
+    const int qfirst = q_offset + q0 + w * 64;      // the warpgroup's first
+    // kv tiles this warpgroup needs (the block's cover the other's rows)
+    const int nk_w = causal ? min(nk, (qfirst + 63) / BK + 1) : nk;
+
+    const uint32_t q_addr = hopper::smem_u32(Qs) + w * 64 * SW;
+    const uint32_t k_addr = hopper::smem_u32(Ks);
+    const uint32_t v_addr = hopper::smem_u32(Vs);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // running max (in units of S scale_log2) and this thread's share of l
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t hi[BK / 16][4], lo[BK / 16][4];   // P of the last tile
+
+    hopper::mbar_wait(q_full, 0);
+    // a tile needs the mask where it reaches past Tk or above the diagonal
+    auto masked = [&](int j) {
+      return (j + 1) * BK > Tk || (causal && (j + 1) * BK - 1 > qfirst);
+    };
+    {   // kv tile 0: S, softmax, P
+      hopper::mbar_wait(&k_full[0], 0);
+      float sc[BK / 2];
+      s_mma<D>(sc, q_addr, k_addr);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(sc);
+      softmax<BK>(sc, m, l, alpha, scale_log2, masked(0), 0, qpos0, Tk,
+                  causal, t);
+      split_p<BK>(sc, hi, lo);
+    }
+    for (int j = 1; j < nk_w; ++j) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      hopper::mbar_wait(&k_full[s], (j / STAGES) & 1);
+      float sc[BK / 2];
+      s_mma<D>(sc, q_addr, k_addr + s * C::KV_BYTES);
+      // O = O alpha + P V of tile j - 1, behind S of tile j
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      hopper::mbar_wait(&v_full[sp], ((j - 1) / STAGES) & 1);
+      pv_mma<D, BK>(acc, hi, lo, v_addr + sp * C::KV_BYTES);
+      hopper::wgmma_wait<1>();          // S of tile j
+      hopper::reg_fence(sc);
+      softmax<BK>(sc, m, l, alpha, scale_log2, masked(j), j * BK, qpos0, Tk,
+                  causal, t);
+      hopper::wgmma_wait<0>();          // P V of tile j - 1
+      hopper::reg_fence(acc);
+      release(&empty[sp], lane);
+      split_p<BK>(sc, hi, lo);
+    }
+    {   // the last tile's P V
+      const int s = (nk_w - 1) % STAGES;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      hopper::mbar_wait(&v_full[s], ((nk_w - 1) / STAGES) & 1);
+      pv_mma<D, BK>(acc, hi, lo, v_addr + s * C::KV_BYTES);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+      release(&empty[s], lane);
+    }
+    // tiles wholly above this warpgroup's rows: free their stages
+    for (int j = nk_w; j < nk; ++j) {
+      const int s = j % STAGES;
+      hopper::mbar_wait(&k_full[s], (j / STAGES) & 1);
+      release(&empty[s], lane);
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lq = l[hr];
+      lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+      const int row = row0 + 8 * hr;
+      if (row >= Tq) continue;
+      const float lc = fmaxf(lq, 1e-30f);
+      __nv_bfloat16* out = o + ((size_t)(b * Tq + row) * Hq + h) * D + 2 * t;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) =
+            __floats2bfloat162_rn(acc[4 * jn + 2 * hr] / lc,
+                                  acc[4 * jn + 2 * hr + 1] / lc);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Tq, int Tk, int Hq, int Hk, int causal,
+                   int q_offset, cudaStream_t stream) {
+  using C = Cfg<D>;
+  // TMA reads from 16-byte aligned bases; other operands take plain loads
+  const bool tma = bident::aligned16(q) && bident::aligned16(k) &&
+                   bident::aligned16(v);
+  CUtensorMap qm{}, km{}, vm{};
+  if (tma && !(hopper::encode_bthd(&qm, q, B, Tq, Hq, D, C::CW, BQ) &&
+               hopper::encode_bthd(&km, k, B, Tk, Hk, D, C::CW, C::BK) &&
+               hopper::encode_bthd(&vm, v, B, Tk, Hk, D, C::CW, C::BK)))
+    return cudaErrorInvalidValue;
+  const auto kernel =
+      tma ? attn_wgmma_kernel<D, true> : attn_wgmma_kernel<D, false>;
+  cudaError_t err = bident::allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Tq + BQ - 1) / BQ);
+  kernel<<<grid, NT, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Tq, Tk, Hq, Hk, causal, q_offset,
+      static_cast<float>(LOG2E / sqrt(static_cast<double>(D))));
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* o, int B, int Tq, int Tk, int Hq, int Hk,
+                     int causal, int q_offset, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 32: return launch<32>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 64: return launch<64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 128: return launch<128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 160: return launch<160>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int Tq, int Tk, int Hq, int Hk,
@@ -356,6 +799,6 @@ extern "C" int bident_flash_attention(const void* q, const void* k,
       q_offset < 0 || (Tq + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s)
+  return bf16 ? wg::dispatch(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s)
               : dispatch<float>(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s);
 }

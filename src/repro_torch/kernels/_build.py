@@ -66,9 +66,24 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes,
+    directly or through another header, in the order first included."""
+    files = [CSRC / f"{name}.cu"]
+    for f in files:
+        for inc in _INCLUDE.findall(f.read_text()):
+            path = CSRC / inc
+            if path not in files:
+                files.append(path)
+    return files
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in sources(name):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -2,14 +2,19 @@
 version.
 
 Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).  The
-kernel (``csrc/flash_attention.cu``) owns one (batch, head, 64-row query
-tile) per block and loops over 64-row kv tiles, with both products on
-the tensor cores (3xTF32) and an online softmax in registers; its source
-states the design and what bounds it.
+kernel (``csrc/flash_attention.cu``) has two designs, both with an online
+softmax in registers; its source states each and what bounds it.  f32:
+one block a (batch, head, 64-row query tile), looping over 64-row kv
+tiles, both products in 3xTF32 ``mma.sync``.  bf16: warp-specialised
+``wgmma`` fed by TMA, 128-row query tiles, kv tiles of
+:func:`bf16_kv_tile` rows, the 1/sqrt(D) scale (with log2(e)) on S after
+the product, and P kept above bf16 as two bf16 terms.
 :func:`flash_attention_plain` repeats the kernel's arithmetic tile by
-tile in PyTorch (the same 64 x 64 tiles, mask, causal tile skip and
-``l`` clamp), so the kernel can be held against it on the card and the
-CPU path runs the same algorithm.
+tile in PyTorch (the same tiles, mask, causal tile skip, ``l`` clamp, and
+for bf16 the scale on S, base-2 exponentials and P's two terms), so the
+kernel can be held against it on the card and the CPU path runs the same
+algorithm.  :func:`bf16_ulps` measures a bf16 result in bf16 ulps of a
+reference.
 """
 from __future__ import annotations
 
@@ -23,6 +28,12 @@ BLOCK_Q = 64
 BLOCK_K = 64
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 160)
+LOG2E = math.log2(math.e)
+
+
+def bf16_kv_tile(D: int) -> int:
+    """kv rows a tile of the bf16 kernel (``wg::kv_tile`` in the source)."""
+    return 64 if D == 128 else 32
 
 
 def _shapes(q, k, v):
@@ -44,8 +55,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     with Hq % Hk == 0; returns (B,Tq,Hq,Dv) in q.dtype."""
     B, Tq, Hq, D, Tk, Hk, Dv = _shapes(q, k, v)
     group = Hq // Hk
-    scale = 1.0 / math.sqrt(D)
-    qf = (q.float() * scale).transpose(1, 2)                   # B,Hq,Tq,D
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:   # scale (and log2(e)) on S after the product; p by exp2
+        scale = torch.tensor(LOG2E / math.sqrt(D), dtype=torch.float32)
+        qf, exp, block_k = q.float(), torch.exp2, bf16_kv_tile(D)
+    else:      # q scaled before the product; p by exp
+        qf, exp, block_k = q.float() * (1.0 / math.sqrt(D)), torch.exp, \
+            BLOCK_K
+    qf = qf.transpose(1, 2)                                    # B,Hq,Tq,D
     kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
     out = torch.empty((B, Hq, Tq, Dv), dtype=torch.float32, device=q.device)
@@ -55,23 +72,40 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         m = torch.full(qt.shape[:3] + (1,), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(qt.shape[:3] + (Dv,), device=q.device)
-        n_kv = -(-Tk // BLOCK_K)
+        n_kv = -(-Tk // block_k)
         if causal:
-            n_kv = min(n_kv, (q_offset + q0 + BLOCK_Q - 1) // BLOCK_K + 1)
-        for k0 in range(0, n_kv * BLOCK_K, BLOCK_K):
-            kt, vt = kf[:, :, k0:k0 + BLOCK_K], vf[:, :, k0:k0 + BLOCK_K]
+            n_kv = min(n_kv, (q_offset + q0 + BLOCK_Q - 1) // block_k + 1)
+        for k0 in range(0, n_kv * block_k, block_k):
+            kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
             s = qt @ kt.transpose(-1, -2)
+            if bf16:
+                s = s * scale
             if causal:
                 k_pos = k0 + torch.arange(kt.shape[2], device=q.device)
                 s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
+            alpha = exp(m - m_new)
+            p = exp(s - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             m = m_new
-            acc = acc * alpha + p @ vt
+            if bf16:   # P V with P as its bf16 terms hi + lo
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                acc = acc * alpha + hi @ vt + lo @ vt
+            else:
+                acc = acc * alpha + p @ vt
         out[:, :, q0:q0 + BLOCK_Q] = acc / l.clamp_min(1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def bf16_ulps(got, ref) -> float:
+    """The largest ``|got - ref|`` in bf16 ulps, each ulp taken at
+    ``max(|ref|, 1e-3 max|ref|)``: 1.0 or less means every element of
+    ``got`` is within one bf16 ulp of ``ref``."""
+    r = ref.double()
+    mag = r.abs().clamp_min(1e-3 * float(r.abs().max()))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.double() - r).abs() / ulp).max())
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0):

@@ -58,3 +58,27 @@ def test_kernel_variants_still_match_the_sources():
         assert kv.sources(variant, kernel) is not None, (variant, kernel)
     assert "constexpr int FOLD_K8 = 8;" in \
         kv.sources("fold64", "ssd_scan")["ssd_scan.cu"]
+    # the bf16 attention's variants, each a copy with every header
+    for variant in kv.ATTN_BF16:
+        files = kv.sources(variant, "flash_attention")
+        assert set(files) == {"flash_attention.cu", "common.cuh",
+                              "hopper.cuh"}, variant
+    assert "Wgmma<D>::rs(acc, lo[kk]" not in \
+        kv.sources("p_one_bf16", "flash_attention")["flash_attention.cu"]
+
+
+def test_build_key_covers_every_included_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header it includes,
+    directly or through another header, so an edited header is never
+    served by a stale library."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cmath>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [f.name for f in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = _build._lib_path("k")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build._lib_path("k") != before
+    monkeypatch.undo()
+    assert [f.name for f in _build.sources("flash_attention")] == [
+        "flash_attention.cu", "common.cuh", "hopper.cuh"]

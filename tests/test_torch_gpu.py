@@ -72,6 +72,52 @@ def test_each_launch_is_counted_once(cuda):
                                        "expert_glu": 0}
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` starting one element past an
+    allocation's start, so off a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    u = flat[1:].view(t.shape)
+    u.copy_(t)
+    return u
+
+
+BF16_ATTN_CASES = {              # Tq, Tk, causal, q_offset, k/v unaligned
+    "causal, ragged T": (200, 200, True, 0, False),
+    "non-causal": (96, 150, False, 0, False),
+    "q_offset": (37, 300, True, 263, False),
+    "k, v unaligned": (96, 96, True, 0, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BF16_ATTN_CASES))
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_bf16_attention_kernel_matches_plain(cuda, D, case):
+    """The bf16 kernel (wgmma; TMA, or plain loads for k/v off a 16-byte
+    boundary) against its plain version within the bf16 bucket, within
+    one bf16 ulp of the f32 kernel on the upcast inputs, bitwise run to
+    run, one launch counted per call."""
+    Tq, Tk, causal, off, unaligned = BF16_ATTN_CASES[case]
+    rng = np.random.default_rng(13 + D)
+    bf16 = torch.bfloat16
+    q = _rand(rng, (2, Tq, 4, D), cuda, bf16)
+    k, v = (_rand(rng, (2, Tk, 2, D), cuda, bf16) for _ in range(2))
+    if unaligned:
+        k, v = _unaligned(k), _unaligned(v)
+    kernels.reset_launch_counts()
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    again = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    torch.testing.assert_close(
+        got, fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off),
+        **TOL[bf16])
+    ref = fa.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                  causal=causal, q_offset=off).to(bf16)
+    assert fa.bf16_ulps(got, ref) <= 1.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_expert_glu_beyond_d_1024(cuda, dtype):

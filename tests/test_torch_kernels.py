@@ -78,6 +78,42 @@ def test_attention_matches_jax(B, Tq, Tk, Hq, Hk, D, causal, off, bq, bk,
     close(got, want_kernel, TOL[dtype])
 
 
+# The bf16 design's arithmetic (the 1/sqrt(D) scale on S after the
+# product, base-2 exponentials, P V with P as its two bf16 terms, the
+# kernel's kv tiles), which the plain version follows for bf16 inputs:
+# every element within one bf16 ulp of the Pallas kernel (f32 products,
+# p never rounded), the ulp taken at max(|ref|, 1e-3 max|ref|) as
+# chip_smoke.py takes it against the f32 kernel on the card.
+@pytest.mark.parametrize("D", [64, 128, 160])
+@pytest.mark.parametrize("Tq,Tk,causal,off", [
+    (96, 96, True, 0),            # ragged T, causal
+    (96, 96, False, 0),           # non-causal
+    (59, 96, True, 37),           # q_offset > 0: the last 59 of 96
+])
+def test_bf16_attention_within_one_ulp_of_jax(D, Tq, Tk, causal, off):
+    rng = np.random.default_rng(D + Tq + off)
+    (jq, q), (jk, k), (jv, v) = (
+        pair(rng.standard_normal(s, dtype=np.float32), "bfloat16")
+        for s in ((1, Tq, 4, D), (1, Tk, 2, D), (1, Tk, 2, D)))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, q_offset=off,
+                                block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, Tq, 4, D)
+    ref = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert fa.bf16_ulps(got, ref) <= 1.0
+
+
+def test_bf16_ulps_measures_in_bf16_ulps():
+    """One ulp of bf16 at x is 2^(floor(log2 x) - 7), floored at 1e-3 of
+    the largest |ref|."""
+    ref = torch.tensor([1.0, -3.0, 0.0])
+    assert fa.bf16_ulps(ref, ref) == 0.0
+    assert fa.bf16_ulps(ref + torch.tensor([2.0 ** -7, 0, 0]), ref) == 1.0
+    assert fa.bf16_ulps(ref + torch.tensor([0, 2.0 ** -7, 0]), ref) == 0.5
+    # at 0 the ulp is that of 3e-3: 2^-9 - 7
+    assert fa.bf16_ulps(ref + torch.tensor([0, 0, 2.0 ** -16]), ref) == 1.0
+
+
 # ---------------------------------------------------------------------------
 # ssd scan
 # ---------------------------------------------------------------------------
