@@ -231,7 +231,8 @@ ROUTE_BUCKET, SPREAD = 3e-4, 4.0
 # the __global__ functions of src/repro_torch/csrc (a device trace names
 # the stream each one ran on)
 HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "gemm_kernel",
-                "state_kernel", "pass_kernel", "out_kernel")
+                "state_kernel", "pass_kernel", "out_kernel",
+                "state_wgmma_kernel", "chunk_out_kernel", "out_wgmma_kernel")
 
 _log_lines: list[str] = []
 
@@ -289,6 +290,21 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_flops(B: int, H: int, nc: int, C: int, N: int, P: int,
+              bf16: bool) -> int:
+    """Operations of the chunked SSD scan over B x H sequences of nc
+    chunks of C steps: c b^T and G v over a chunk's C (C + 1) / 2 causal
+    (query, key) pairs, the inter term c S_in and the chunk state (b o
+    w)^T v over its C steps.  In bf16, under the contract, c b^T is exact
+    in one bf16 pass and each product with an f32 operand (G, S_in, b o
+    w) takes two bf16 terms; in f32 each product is one pass (tc_bound
+    counts 3xTF32's three)."""
+    pairs = C * (C + 1) // 2
+    if bf16:
+        return B * H * nc * (2 * pairs * N + 4 * pairs * P + 8 * C * N * P)
+    return B * H * nc * (2 * pairs * (N + P) + 4 * C * N * P)
 
 
 def tc_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -393,15 +409,24 @@ def phase_environment() -> dict:
             log(f"  {name}: {u['registers']:3d} regs, smem {u['smem']} B, "
                 f"spills {u['spill_stores']} / {u['spill_loads']} B  "
                 f"{short[:100]}")
-    _hopper_sass(paths["flash_attention"])
+    _hopper_sass(paths["flash_attention"], ("attn_wgmma_kernel",),
+                 "the bf16 attention", "Lb1E")
+    # the bf16 scan: its chunk states and carry, then its chunk outputs
+    # (a block a chunk at N <= 64, a block a q tile above); f32 takes the
+    # 3xTF32 kernels, and no bf16 shape does
+    _hopper_sass(paths["ssd_scan"], ("state_wgmma_kernel", "chunk_out_kernel",
+                                     "out_wgmma_kernel"),
+                 "the bf16 SSD scan", "ILb1E")
     return {"card": card}
 
 
-def _hopper_sass(lib) -> None:
+def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     """Whether the built library's SASS (``cuobjdump -sass``) holds
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each bf16 attention
-    instantiation: every one must run wgmma, and the TMA ones (template
-    argument ``true``) must load by TMA."""
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each instantiation of
+    the bf16 ``kernels``: every one must run wgmma, and the TMA ones (whose
+    mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D, true>``, the
+    scan's kernels with their first template argument ``true``, c and b or
+    b by TMA) must load by TMA."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -410,18 +435,21 @@ def _hopper_sass(lib) -> None:
     check(out.returncode == 0, f"cuobjdump -sass {lib.name}")
     funcs = re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
                        out.stdout, re.S)
-    bf16 = [(n, body) for n, body in funcs if "attn_wgmma_kernel" in n]
+    bf16 = [(n, body) for n, body in funcs if any(k in n for k in kernels)]
     names = _build.demangle([n for n, _ in bf16])
-    log("SASS of the bf16 attention (wgmma: HGMMA, TMA loads: UTMALDG):")
+    log(f"SASS of {what} (wgmma: HGMMA, TMA loads: UTMALDG):")
     ok = bool(bf16)
+    n_tma = 0
     for (mangled, body), full in zip(bf16, names):
-        short = full[full.find("attn_wgmma_kernel"):full.find(">(") + 1]
+        kernel = next(k for k in kernels if k in full)
+        short = full[full.find(kernel):full.find(">(") + 1]
         hgmma, utmaldg = body.count("HGMMA"), body.count("UTMALDG")
-        tma = "Lb1E" in mangled            # attn_wgmma_kernel<D, true>
+        tma = tma_mark in mangled
+        n_tma += tma
         ok = ok and hgmma > 0 and (utmaldg > 0 or not tma)
         log(f"  {short or mangled}: HGMMA {hgmma}, UTMALDG {utmaldg}")
-    check(ok, f"every one of the {len(bf16)} bf16 attention instantiations "
-              "runs wgmma, and the TMA ones load by TMA")
+    check(ok, f"every one of the {len(bf16)} instantiations of {what} runs "
+              f"wgmma, and the {n_tma} TMA ones load by TMA")
 
 
 # ---------------------------------------------------------------------------
@@ -591,16 +619,12 @@ def phase_kernels(main_cfg: dict) -> dict:
                 main_err = err
     (c, b, v, la, _), _, _ = _ssd_case(rng, B, T, H, N, D,
                                        main_cfg["chunk"], False, f32)
-    # the chunked algebra with full tiles, per (b, h, chunk): c b^T and
-    # G v (2 C^2 N + 2 C^2 P), the inter term and the chunk state (2 x
-    # 2 C N P)
     C_ = main_cfg["chunk"]
-    ssd_flops = B * H * (-(-T // C_)) * (2 * C_ * C_ * (N + D)
-                                         + 4 * C_ * N * D)
+    ssd_ops = ssd_flops(B, H, -(-T // C_), C_, N, D, bf16=False)
     ssd_bytes = 4 * (c.numel() + b.numel() + 2 * v.numel() + la.numel()
                      + B * H * N * D)
-    b_ms, b_by = tc_bound(ssd_flops, ssd_bytes, f32)
-    cc_ms = bound(ssd_flops, ssd_bytes, PEAK_F32)[0]
+    b_ms, b_by = tc_bound(ssd_ops, ssd_bytes, f32)
+    cc_ms = bound(ssd_ops, ssd_bytes, PEAK_F32)[0]
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
@@ -2266,14 +2290,41 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
     check(rel <= tol and s_rel <= tol,
           f"ssd_scan at {name}'s prefill shapes: /max|plain| y {rel:.3e}, "
           f"state {s_rel:.3e} <= {tol}")
+    extra = {}
+    if dtype == torch.bfloat16:
+        # every element of y within one bf16 ulp of the f32 kernel on the
+        # upcast inputs (rounded to bf16), the final state within F32_TOL
+        # of the f32 kernel's largest value; the plain version's distances
+        # beside them
+        yf, sf = ss.ssd_scan_cuda(c.float(), b.float(), v.float(), la,
+                                  chunk=C)
+        ref = yf.to(dtype)
+        extra = dict(ulps=fa.bf16_ulps(y, ref),
+                     plain_ulps=fa.bf16_ulps(yp, ref),
+                     state_err=norm_err(s, sf)[1],
+                     plain_state_err=norm_err(sp, sf)[1])
+        del yf, sf, ref
+        check(extra["ulps"] <= 1.0 and extra["state_err"] <= F32_TOL,
+              f"ssd_scan at {name}'s prefill shapes: every element of y "
+              f"within one bf16 ulp of the f32 kernel on the upcast inputs "
+              f"({extra['ulps']:.2f} ulps at max(|ref|, 1e-3 max|ref|); "
+              f"plain {extra['plain_ulps']:.2f}), the final state within "
+              f"{F32_TOL:g} of its largest value ({extra['state_err']:.2e};"
+              f" plain {extra['plain_state_err']:.2e})")
+        if repeat:
+            extra["by_kernel"] = _scan_device_times(B, T, H, N, P, C)
     if repeat:
         check_repeatable("ssd_scan", f"at {arch}'s shapes",
                          lambda *a: ss.ssd_scan_cuda(*a, chunk=C),
                          (c, b, v, la))
-    flops = B * H * (-(-T // C)) * (2 * C * C * (N + P) + 4 * C * N * P)
+    nc = -(-T // C)
     nbytes = c.element_size() * (c.numel() + b.numel() + 2 * v.numel()) \
         + 4 * la.numel() + 4 * B * H * N * P
+    flops = ssd_flops(B, H, nc, C, N, P, dtype == torch.bfloat16)
     b_ms, b_by = tc_bound(flops, nbytes, dtype)
+    extra["ops_ms"] = 1e3 * (flops / PEAK_BF16 if dtype == torch.bfloat16
+                             else 3 * flops / PEAK_TF32)
+    extra["bytes_ms"] = 1e3 * nbytes / PEAK_BYTES
     return dict(name="ssd_scan", shapes=f"c/b {tuple(c.shape)}, v "
                 f"{tuple(v.shape)} {str(dtype)[6:]}, chunk {C}",
                 ms=time_ms(lambda: ss.ssd_scan_cuda(c, b, v, la, chunk=C)),
@@ -2281,7 +2332,66 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
                                                            chunk=C),
                                  iters=2, warmup=1),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err, rel_err=rel)
+                max_abs_err=err, rel_err=rel, **extra)
+
+
+def _device_times(fn, calls: int = 5) -> dict:
+    """Device ms a launch of each of the port's kernels (``HAND_KERNELS``)
+    that ``calls`` calls of ``fn()`` launch, from a device trace (each
+    kernel's device time over the launches the trace recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        hand = [k for k in HAND_KERNELS
+                if f"::{k}<" in ev.key or f"::{k}(" in ev.key]
+        if ev.device_type == DeviceType.CUDA and hand:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            out[hand[0]] = us / 1e3 / max(ev.count, 1)
+    return out
+
+
+# _scan_device_times's child: the bf16 scan at one shape, inputs drawn as
+# _zoo_kernel_times draws them, its device ms a launch by kernel as JSON
+_SCAN_TIMES_CHILD = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+from repro_torch.kernels import ssd_scan as ss
+B, T, H, N, P, C = map(int, sys.argv[1:])
+rng, bf16 = np.random.default_rng(1), torch.bfloat16
+c, b = (cs.rand(rng, (B, T, H, N), bf16, 0.5) for _ in range(2))
+v = cs.rand(rng, (B, T, H, P), bf16)
+la = -torch.nn.functional.softplus(cs.rand(rng, (B, T, H), torch.float32))
+fn = lambda: ss.ssd_scan_cuda(c, b, v, la, chunk=C)
+print(json.dumps(cs._device_times(fn)))
+"""
+
+
+def _scan_device_times(B, T, H, N, P, C) -> dict:
+    """The bf16 scan's device ms a launch by kernel at (B, T, H, N, P,
+    chunk C), from ``_device_times`` in a child process: in a whole run,
+    after the traced prefills and captured decodes, this process's traces
+    of the scan held some of its kernels or none, while a fresh process's
+    hold each.  The child loads the library this run built."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    run = subprocess.run(
+        [sys.executable, "-c", _SCAN_TIMES_CHILD, *map(str, (B, T, H, N, P,
+                                                             C))],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0,
+          f"ssd_scan's device times by kernel in a child process: exit "
+          f"{run.returncode} {run.stderr.strip()[-400:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 def _log_kernel_times(arch, times, n_launch) -> None:
@@ -2291,6 +2401,15 @@ def _log_kernel_times(arch, times, n_launch) -> None:
         f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
         f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}), "
         f"launches per prefill {n_launch}")
+    if "bytes_ms" in times:
+        log(f"    bound by operations {times['ops_ms']:.4f} ms, by bytes "
+            f"{times['bytes_ms']:.4f} ms")
+    if times.get("by_kernel"):
+        log("    device ms a launch by kernel: " + ", ".join(
+            f"{k} {ms:.4f}" for k, ms in times["by_kernel"].items()))
+    elif "by_kernel" in times:
+        log("    device ms a launch by kernel: not measured (the trace "
+            "held none of the port's kernels)")
 
 
 def _held_kernel_calls(run) -> list:
@@ -2574,7 +2693,8 @@ def _reduced_arch(arch) -> dict:
 # bf16 and f32, at each arch's prefill shapes
 # the attention at each head width of the zoo's dense archs (d_head 64,
 # 128, 160) and the widest scan
-ZOO_SHAPES = ("llama3.2-1b", "qwen3-8b", "stablelm-12b", "xlstm-125m")
+ZOO_SHAPES = ("llama3.2-1b", "qwen3-8b", "stablelm-12b", "zamba2-2.7b",
+              "xlstm-125m")
 # StableLM-12B's kernel prefill against its plain one at full width, cut
 # to this many of its 40 layers (the phase's time)
 STABLELM_DEPTH = 4
@@ -2704,6 +2824,68 @@ def phase_zoo(env: dict) -> dict:
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
     return dict(full=full, f32=f32, reduced=reduced, stablelm=stablelm,
                 shapes=shapes)
+
+
+# One child process's prefill timing (prefill_turns): Zamba2-2.7B at its
+# published widths and depth in bf16 with the kernels, phase 8's batch;
+# one warm-up prefill, then three timed.  Only entry points that every
+# slice of the port has: it runs on an earlier checkout too.
+_PREFILL_CHILD = """
+import dataclasses, json, sys, time
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.models import model as M
+B, T, new = map(int, sys.argv[1:])
+cfg = dataclasses.replace(get_config("zamba2-2.7b"), use_kernels=True)
+params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+tokens = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab, (B, T), dtype=np.int32)).to("cuda")
+def run():
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.prefill(cfg, params, {"tokens": tokens}, max_len=T + new)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+run()
+print(json.dumps({"ms": [run() for _ in range(3)]}))
+"""
+
+
+def prefill_turns(parent) -> dict:
+    """Zamba2-2.7B's bf16 prefill with the kernels (phase 8's batch)
+    timed in child processes of ``parent`` (the root of another checkout
+    inside this one, such as the parent commit unpacked into a directory
+    that .gitignore lists) and of this checkout, in turns parent, change,
+    change, parent, all on the same card: each child builds its
+    checkout's kernels (under that checkout) and times three prefills
+    after a warm-up.  Not part of the run with no arguments; call it as
+    ``python3 -c 'import chip_smoke as c; c.prefill_turns("DIR")'``.
+    Returns {"parent": [ms, ...], "change": [ms, ...]}."""
+    import torch
+    roots = {"parent": Path(parent).resolve(), "change": ROOT}
+    check(roots["parent"].is_relative_to(ROOT)
+          and (roots["parent"] / "src" / "repro_torch").is_dir(),
+          f"{parent}: a checkout inside {ROOT}")
+    log("== zamba2-2.7b prefill, the parent's kernels against this "
+        "checkout's (parent, change, change, parent)")
+    out = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent"):
+        env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
+        run = subprocess.run(
+            [sys.executable, "-c", _PREFILL_CHILD, str(N_PROMPTS),
+             str(PROMPT_LEN), str(MAX_NEW)],
+            cwd=roots[which], env=env, capture_output=True, text=True,
+            timeout=900)
+        check(run.returncode == 0,
+              f"zamba2-2.7b prefill of the {which} ({roots[which]}): exit "
+              f"{run.returncode} {run.stderr.strip()[-400:]}")
+        ms = json.loads(run.stdout.strip().splitlines()[-1])["ms"]
+        out[which] += ms
+        log(f"  {which}: prefill ms {[round(t, 2) for t in ms]}")
+    log(f"  zamba2-2.7b prefill on {torch.cuda.get_device_name(0)}: parent "
+        f"{min(out['parent']):.2f}-{max(out['parent']):.2f} ms, change "
+        f"{min(out['change']):.2f}-{max(out['change']):.2f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3438,6 +3620,12 @@ def phase_examples(env: dict) -> dict:
 
 
 def main() -> int:
+    # phase 9's restart restores Llama-3.2-1B's params and f32 AdamW state
+    # among the cached blocks of the steps before it: in fixed-size
+    # segments an H100 80GB was seen to hold 20.66 GiB reserved but
+    # unallocated and refuse a 2 GiB request, so segments grow instead
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         import torch
     except ImportError:

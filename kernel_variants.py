@@ -39,12 +39,33 @@ in one process:
 * ``no_split``, ``no_softmax`` — ablations of the bf16 attention (wrong
   results, timed only): P's lo term without its split (lo = hi), and no
   softmax at all (S straight into P's terms, alpha 1): what the split and
-  the whole softmax cost beside the products and the pipeline.
+  the whole softmax cost beside the products and the pipeline;
+* for the bf16 SSD scan (``state_wgmma_kernel``, ``chunk_out_kernel``
+  at N <= 64, ``out_wgmma_kernel`` above): ``qtile`` — N <= 64 through
+  the q-tile kernel too (a block a 128-row q tile, b and v streamed
+  through a ring) instead of a block a chunk; ``stages2`` — the q-tile
+  kernel's ring two deep instead of three; ``kv64`` — kv tiles of 64
+  rows instead of 32 in both; ``s_three`` and ``w_three`` — S_in, and
+  w o v in the chunk states, as three bf16 terms instead of two;
+  ``g_two`` — G as two bf16 terms instead of three (fails one ulp at the
+  mLSTM's shape);
+  ``tf32`` — the bf16 scan this design replaced, the f32 design's three
+  3xTF32 ``mma.sync`` kernels fed bf16; and the ablations (wrong
+  results, timed only) ``g_one_bf16`` — G as one bf16 term — ``no_inter``
+  — S_in in no terms, no inter term — ``no_decay`` — G without its decay
+  and mask — ``no_gv`` — no G v products — and ``score_p0`` — the
+  score c b^T skipped by ``out_wgmma_kernel``'s blocks of P's column tiles
+  past the first: at the mLSTM's P = 385 each of the 7 tiles' blocks
+  computes the q tile's score over all of N, so this is what computing it
+  once per (chunk, q tile) could save at most.
 
 The bf16 attention's variants also run at the zoo's three prefill shapes
 (Llama-3.2-1B, Qwen3-8B and StableLM-12B: q (4, 1024, 32, D), k/v 8
 heads, causal), each with its distance in bf16 ulps from the shipped f32
-kernel on the upcast inputs (``bf16_ulps``) beside SDPA's.  Arguments
+kernel on the upcast inputs (``bf16_ulps``) beside SDPA's; the bf16 SSD
+scan's at Zamba2-2.7B's and xLSTM-125M's prefill shapes (chunk 256), each
+with its distance in ulps and its final state's error from the shipped
+f32 kernel, beside the plain version's.  Arguments
 name kernels to run alone (default all three), e.g.
 ``python3 kernel_variants.py flash_attention``.
 
@@ -95,6 +116,20 @@ SPLIT_LO = ("const __nv_bfloat162 pl = __floats2bfloat162_rn(x0 - __low2float(ph
 SOFTMAX = "                                        int causal, int t) {\n"
 STAGES = "constexpr int MAX_STAGES = 3;"
 BOUNDS = "__launch_bounds__(NT, Layout<T>::F32 ? 1 : 2)"
+# the bf16 SSD scan's chunk outputs (namespace wg of ssd_scan.cu)
+SSD_KV = "constexpr int KV = 32;"
+SSD_S_TERMS = "constexpr int S_TERMS = 2;"
+SSD_G_TERMS = "constexpr int G_TERMS = 3;"
+SSD_CHUNK = "if (nsub == 1)"
+SSD_DECAY = ("                                      int Cv, int kbase, "
+             "bool mask, int t) {\n")
+SSD_GV = """  hopper::wgmma_fence();
+#pragma unroll
+  for (int term = 0; term < G_TERMS; ++term)"""
+SSD_BF16_ROUTE = ("return bf16 ? wg::launch(c, b, v, la, st, y, sf, wk, B, "
+                  "T_len, H, N, P, C,\n                           s)")
+SSD_W_TERMS = "constexpr int W_TERMS = 2;"
+SSD_SCORE = ", L.c_sub(), nsub);"   # out_wgmma_kernel's two score calls
 
 # variant -> {file: [(old, new), ...]}; each kernel builds with its own
 # copy of common.cuh
@@ -111,10 +146,33 @@ VARIANTS = {
                                   (BOUNDS, "__launch_bounds__(NT, 1)")]},
     "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
     "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
-    "stages2": {"flash_attention.cu": [(STAGES, STAGES.replace("3", "2"))]},
+    "stages2": {"flash_attention.cu": [(STAGES, STAGES.replace("3", "2"))],
+                "ssd_scan.cu": [(STAGES, STAGES.replace("3", "2"))]},
     "kv32": {"flash_attention.cu": [(KV_TILE, "return 32;")]},
-    "kv64": {"flash_attention.cu": [(KV_TILE, "return 64;")]},
+    "kv64": {"flash_attention.cu": [(KV_TILE, "return 64;")],
+             "ssd_scan.cu": [(SSD_KV, SSD_KV.replace("32", "64"))]},
     "kv128": {"flash_attention.cu": [(KV_TILE, "return 128;")]},
+    # the bf16 SSD scan: the chunk outputs through the q-tile kernel, or a
+    # block a chunk; S_in, w o v as three bf16 terms, G as two; the bf16
+    # scan this design replaced (the f32 design's 3xTF32 mma.sync kernels
+    # fed bf16)
+    "qtile": {"ssd_scan.cu": [(SSD_CHUNK, "if (false)")]},
+    "s_three": {"ssd_scan.cu": [(SSD_S_TERMS, SSD_S_TERMS.replace("2", "3"))]},
+    "w_three": {"ssd_scan.cu": [(SSD_W_TERMS, SSD_W_TERMS.replace("2", "3"))]},
+    "g_two": {"ssd_scan.cu": [(SSD_G_TERMS, SSD_G_TERMS.replace("3", "2"))]},
+    "tf32": {"ssd_scan.cu": [(SSD_BF16_ROUTE, SSD_BF16_ROUTE.replace(
+        "wg::launch", "launch_aligned<__nv_bfloat16>"))]},
+    # ablations of the bf16 SSD scan (wrong results, timed only): G as one
+    # bf16 term (must fail one ulp), no inter term, no decay, no G v, the
+    # q-tile kernel's score only in the blocks of P's first column tile
+    "g_one_bf16": {"ssd_scan.cu": [(SSD_G_TERMS,
+                                    SSD_G_TERMS.replace("3", "1"))]},
+    "no_inter": {"ssd_scan.cu": [(SSD_S_TERMS, SSD_S_TERMS.replace("2", "0"))]},
+    "no_decay": {"ssd_scan.cu": [(SSD_DECAY, SSD_DECAY + "  return;\n")]},
+    "no_gv": {"ssd_scan.cu": [(SSD_GV, SSD_GV.replace("term < G_TERMS",
+                                                      "term < 0"))]},
+    "score_p0": {"ssd_scan.cu": [(SSD_SCORE, SSD_SCORE.replace(
+        "nsub)", "pt ? 0 : nsub)"))]},
     # ablations of the bf16 attention's softmax (wrong results; what each
     # part of the per-pair work costs)
     "no_split": {"flash_attention.cu": [(SPLIT_LO, "const __nv_bfloat162 pl = ph;")]},
@@ -125,6 +183,13 @@ VARIANTS = {
 ZOO_ATTENTION = ("llama3.2-1b", "qwen3-8b", "stablelm-12b")
 ATTN_BF16 = ("shipped", "p_one_bf16", "stages2", "kv32", "kv64", "kv128",
              "no_split", "no_softmax")
+# the bf16 SSD scan at the zoo's prefill shapes, chunk 256: (arch, c/b
+# shape, v shape, v's last column ones), and its variants
+ZOO_SSD = (("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64), False),
+           ("xlstm-125m", (4, 1024, 4, 384), (4, 1024, 4, 385), True))
+SSD_BF16 = ("shipped", "tf32", "qtile", "stages2", "kv64", "s_three",
+            "w_three", "g_two", "g_one_bf16", "no_inter", "no_decay",
+            "no_gv", "score_p0")
 KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
 
 _log_lines: list[str] = []
@@ -177,10 +242,15 @@ def build(kernels=KERNELS) -> dict[tuple[str, str], ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"{key} build failed:\n{out}")
         usage = _build.ptxas_usage(out)
+        serialized = [line.split("function '")[-1].split("'")[0]
+                      for line in out.splitlines() if "C7515" in line]
+        for name in _build.demangle(serialized):
+            log(f"    wgmma serialized in {name[:name.find('>(') + 1]}")
         log(f"  {key[0]:9s} {key[1]:16s} registers "
             f"{min(u['registers'] for u in usage)}-"
             f"{max(u['registers'] for u in usage)}, spill stores up to "
-            f"{max(u['spill_stores'] for u in usage)} B")
+            f"{max(u['spill_stores'] for u in usage)} B, wgmma serialized "
+            f"in {out.count('C7515')} functions")
         libs[key] = ctypes.CDLL(str(OUT / key[0] / key[1] / "lib.so"))
     return libs
 
@@ -254,6 +324,87 @@ def _zoo_attention(libs, rand, stream) -> None:
             log(f"  {variant:10s} {time_ms(call, iters=20):.4f} ms, error / "
                 f"max|plain| {norm_err(o, want)[1]:.3e}, "
                 f"{fa.bf16_ulps(o, ref):.2f} ulps")
+
+
+def _ssd_f64(c, b, v, la, C):
+    """y of the chunked SSD algebra in f64 (``ssd_scan_plain``'s phases
+    without their f32 casts), for T a multiple of C."""
+    import torch
+    B, T, H, N = c.shape
+    nc = T // C
+
+    def ch(x):
+        return x.double().transpose(1, 2).reshape(B, H, nc, C, *x.shape[3:])
+    cf, bf, vf, cum = ch(c), ch(b), ch(v), torch.cumsum(ch(la), dim=-1)
+    tot = cum[..., -1]
+    states = (bf * torch.exp(tot[..., None] - cum)[..., None]).transpose(
+        -1, -2) @ vf
+    S = torch.zeros_like(states[:, :, 0])
+    s_in = []
+    for i in range(nc):
+        s_in.append(S)
+        S = S * torch.exp(tot[:, :, i, None, None]) + states[:, :, i]
+    lower = torch.tril(torch.ones((C, C), dtype=torch.bool, device=c.device))
+    diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~lower, -1e300)
+    y = ((cf @ bf.transpose(-1, -2)) * torch.exp(diff)) @ vf \
+        + (cf * torch.exp(cum)[..., None]) @ torch.stack(s_in, dim=2)
+    return y.reshape(B, H, T, -1).transpose(1, 2)
+
+
+def _zoo_ssd(libs, rand, stream) -> None:
+    """The bf16 SSD scan's variants at the zoo's prefill shapes (chunk
+    256): time of the C entry point, and the distance in bf16 ulps of y
+    and the final state's error over its largest value, both from the
+    shipped f32 kernel on the upcast inputs (the plain version's
+    beside them)."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err, time_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    bf16, C = torch.bfloat16, 256
+    for arch, cb, vs, ones in ZOO_SSD:
+        B, T, H, N = cb
+        P = vs[-1]
+        c, b = rand(cb, bf16, .5), rand(cb, bf16, .5)
+        v = rand(vs, bf16)
+        if ones:
+            v[..., -1] = 1
+        la = -F_.softplus(rand((B, T, H), torch.float32))
+        y_ref, s_ref = ss.ssd_scan_cuda(c.float(), b.float(), v.float(), la,
+                                        chunk=C)
+        y_ref = y_ref.to(bf16)
+        yp, sp = ss.ssd_scan_plain(c, b, v, la, chunk=C)
+        # the same algebra in f64: how far the f32 kernel itself lies
+        y64 = _ssd_f64(c, b, v, la, C).to(bf16)
+        log(f"ssd_scan bf16 at {arch}'s prefill, c/b {cb}, v {vs}, chunk "
+            f"{C}: plain {fa.bf16_ulps(yp, y_ref):.2f} ulps, state "
+            f"{norm_err(sp, s_ref)[1]:.2e}; from the f64 algebra: f32 "
+            f"kernel {fa.bf16_ulps(y_ref, y64):.2f} ulps, plain "
+            f"{fa.bf16_ulps(yp, y64):.2f} ulps")
+        del yp, sp
+        y, s = torch.empty_like(v), torch.empty_like(s_ref)
+        work = torch.empty(B * H * -(-T // C) * (N * P + 1), device="cuda")
+        for variant in SSD_BF16:
+            if (variant, "ssd_scan") not in libs:
+                continue
+            fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
+
+            def call():
+                err = fn(c.data_ptr(), b.data_ptr(), v.data_ptr(),
+                         la.data_ptr(), None, y.data_ptr(), s.data_ptr(),
+                         work.data_ptr(), B, T, H, N, P, C, 1, stream)
+                if err:
+                    raise RuntimeError(f"{variant}: cudaError_t {err}")
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                log(f"  {variant:10s} refused at this shape ({e})")
+                continue
+            log(f"  {variant:10s} {time_ms(call, iters=20):.4f} ms, "
+                f"{fa.bf16_ulps(y, y_ref):.2f} ulps ({fa.bf16_ulps(y, y64):.2f}"
+                f" from f64), state {norm_err(s, s_ref)[1]:.2e}")
 
 
 def main() -> int:
@@ -390,6 +541,8 @@ def main() -> int:
                     f" us")
     if "flash_attention" in chosen:
         _zoo_attention(libs, rand, stream)
+    if "ssd_scan" in chosen:
+        _zoo_ssd(libs, rand, stream)
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("\n".join(_log_lines) + "\n")
     return 0

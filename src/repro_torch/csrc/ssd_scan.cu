@@ -12,7 +12,74 @@
 // with cum the in-chunk prefix sum of log_a and tot its last entry.  The
 // (N, P) state is f32; padded tail steps (t >= T) get log_a = 0 and b = 0
 // so they carry the state through unchanged.  y is written in v's dtype,
-// the final state in f32.
+// the final state in f32.  Chunk <= 256, N <= 496, any P; no atomics and
+// no split reductions, so two runs give the same bits.  Two designs, one
+// for each dtype.
+//
+// ---- bf16: wgmma and TMA (state_wgmma_kernel, then chunk_out_kernel at
+// N <= 64 or out_wgmma_kernel above) ----
+//
+// A product of two bf16 numbers is exact in f32, so c b^T runs as one
+// bf16 `wgmma` pass with f32 sums.  The f32 operands are taken as bf16
+// terms, t1 = bf16(x), t2 = bf16(x - t1), ..., each a pass of its own
+// against the same bf16 tile: w o v (w = exp(tot - cum)) in the chunk
+// states and S_in in the inter term as two terms, G = (c b^T) o L in G v
+// as three (with two, y at xLSTM-125M's mLSTM shape lies 2 bf16 ulps from
+// the f64 algebra; with three, 1, as the f32 kernel does: PERF.md).
+//
+// 1. state_wgmma_kernel: chunk states and the state pass in one kernel.
+//    One block of one consumer warpgroup and a producer warp owns one (b,
+//    h, 64 state rows, 64 state columns) and walks the chunks in order with
+//    S in f32 registers (wgmma's accumulator layout).  A chunk's own state
+//    is b^T (w o v) in a fresh accumulator: b straight from TMA as the
+//    M-major A operand, w o v staged in shared memory by the consumers as
+//    the N-major B operand, tile j's staging while tile j - 1's wgmmas run.
+//    Then S goes out as the state entering the chunk (S_in) and is carried,
+//    S = S exp(tot) + state, a product and then a sum, each rounded, as the
+//    f32 state pass does it; the last S is the final state.
+// 2. chunk_out_kernel (N <= 64, Zamba2-2.7B's state): one block owns one
+//    (b, h, chunk, 64 columns of P): 288 threads, two consumer warpgroups
+//    and a producer warp.  The chunk's c, b and v (96 KB at chunk 256)
+//    come in once, a 4-D TMA box a 64-row tile with its own mbarrier, and
+//    stay; S_in is read and staged as bf16 terms once.  The q tiles of 64
+//    rows go to the warpgroups by their kv tiles, heaviest with lightest
+//    (at chunk 256: 3 and 0 to one, 2 and 1 to the other).  A q tile is
+//    causal linear attention with a decay mask: its inter term c S_in
+//    into a second accumulator, then per kv tile of 32 rows the score S =
+//    c b^T (wgmma, both K-major), G = S o exp(cum_i - cum_j) masked above
+//    the diagonal and split into its terms in registers (the accumulator
+//    layout is wgmma's A fragment layout), and G v as RS wgmmas with v
+//    N-major (the transpose bit); the score of tile j is issued before G
+//    v of tile j - 1, G's decay runs while that product does.  A block a
+//    chunk reads each of the chunk's tiles once: a block a q tile (below)
+//    read b, v and S_in again for every q tile, ~2x the bytes, from L2.
+//    A persistent block loading the next chunk under this one's products
+//    measured no faster (PERF.md).
+// 3. out_wgmma_kernel (N > 64: a chunk's c alone is 192 KB at the
+//    mLSTM's N = 384): one block owns one (b, h, chunk, 128-row q tile of
+//    two warpgroups, 64 columns of P), c rows loaded once, b and v tiles
+//    streamed through a ring of three stages (two where three do not fit;
+//    one consumer warpgroup at N = 496); the inter term after the kv loop,
+//    S_in's slices of 64 state rows staged one at a time.  It loops over
+//    N's 64-column sub-tiles at run time (ptxas serialises its wgmmas).
+//
+// Tiles are stored in the swizzled layout both TMA and wgmma read
+// (hopper.cuh), 64 columns with the 128-byte swizzle; a 4-D map over
+// (D, H, T, B) reads rows past T as zeros.  Rows off a 16-byte boundary
+// (v at the mLSTM's P = 385, or any unaligned operand) take the producer
+// warp's plain loads into the same layout; N not a multiple of 64 is
+// zero-padded.  A mbarrier wait still open after 10 s traps.
+//
+// Bound, under this contract: c, b, v in and y out in bf16, log_a and the
+// final state in f32, each once; c b^T in one bf16 pass and G v, the inter
+// term and the chunk states with their f32 operand in two terms, B H nc
+// (2 K N + 4 K P + 8 C N P) operations over a chunk's K = C (C + 1) / 2
+// causal pairs.  At Zamba2-2.7B's prefill (c/b/v (4, 1024, 80, 64), chunk
+// 256) that is 174 MB, 52.0 us at 3.35 TB/s, against 26.9 GFLOP, 27.2 us
+// at 989 TFLOP/s: bound by the bytes.  The kernels add the S_in round trip (21 MB) and G
+// v's third term.
+//
+// ---- f32: 3xTF32 mma.sync (state_kernel, pass_kernel, out_kernel) ----
 //
 // Design for the card.  The Pallas grid (B, H, chunks) runs its chunk
 // axis sequentially with the state in VMEM scratch.  Here only the carry
@@ -66,23 +133,23 @@
 // exp(cum_i) exp(-cum_j) overflows at chunk 256 under strong decay.
 //
 // Products.  Every product runs on the tensor cores as `m16n8k8` TF32
-// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy;
-// a bf16 c, b or v is exact in TF32, so its lo products are skipped (the
-// decay-scaled operands b o w and G = (c b^T) o L, and the state, are f32
-// and keep all three).  The accumulator truncates, so every chain is at
-// most 32 deep in K: a fresh accumulator per 32-deep stage, added to the
-// running sum in f32 (FOLD_K8 below).  Every sum runs in a fixed order
-// and nothing uses atomics, so two runs give the same bits.
+// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy
+// (the templates' branches for exact bf16 operands are not instantiated:
+// bf16 takes the design above).  The accumulator truncates, so every
+// chain is at most 32 deep in K: a fresh accumulator per 32-deep stage,
+// added to the running sum in f32 (FOLD_K8 below).  Every sum runs in a
+// fixed order and nothing uses atomics, so two runs give the same bits.
 //
 // Bound: the main path (B*H = 16 sequences of 1024 steps, N = P = 64,
 // chunk 64) moves 17.1 MB (c, b, v and log_a in, y and the final state
-// out): 5.1 us at 3.35 TB/s, against 0.54 GFLOP of chunked algebra with
-// full tiles, 3.3 us as 3xTF32 at 495 TFLOP/s: bound by the bytes.  The
-// chunk states and passed states add ~17 MB of round trips of this
+// out): 5.1 us at 3.35 TB/s, against 0.40 GFLOP of chunked algebra over
+// the causal pairs, 2.5 us as 3xTF32 at 495 TFLOP/s: bound by the bytes.
+// The chunk states and passed states add ~17 MB of round trips of this
 // design's own (mostly in L2).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -617,6 +684,1071 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 // ---------------------------------------------------------------------------
+// kernel 3 for bf16: chunk outputs on wgmma, operands by TMA
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BQW = 64;         // q rows a consumer warpgroup
+constexpr int CW = 64;          // columns of a shared-memory sub-tile
+constexpr int SW = 2 * CW;      // bytes of a sub-tile row = the swizzle
+constexpr int KV = 32;          // kv rows a tile
+constexpr int MAX_STAGES = 3;   // b / v tiles in flight, where they fit
+constexpr int G_TERMS = 3;      // bf16 terms of G = (c b^T) o L
+constexpr int ST_KV = 64;       // chunk rows a tile of the state kernel
+constexpr int ST_STAGES = 2;    // its b / v tiles in flight
+constexpr int W_TERMS = 2;      // bf16 terms of w o v in the chunk states
+constexpr int S_TERMS = 2;      // bf16 terms of S_in
+constexpr uint32_t SUB = 64 * SW;   // a 64 x 64 bf16 tile (8 KB)
+constexpr size_t SMEM_MAX = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(KV % 16 == 0 && CMAX % KV == 0, "kv tiles of k16 steps");
+
+// Shared memory of a block with `wgs` consumer warpgroups, N in `nsub`
+// sub-tiles of 64 columns and a ring of `stages`, from a 1024-byte aligned
+// base: c (wgs x 64 rows), the staged slice of S_in (S_TERMS tiles), the
+// ring's b tiles, its v tiles, cum, and the mbarriers.
+struct Smem {
+  int wgs, nsub, stages;
+  __host__ __device__ uint32_t c_sub() const { return wgs * BQW * SW; }
+  __host__ __device__ uint32_t b_bytes() const { return KV * SW * nsub; }
+  static constexpr uint32_t B_SUB = KV * SW, V_BYTES = KV * SW;
+  __host__ __device__ uint32_t s_off() const { return c_sub() * nsub; }
+  __host__ __device__ uint32_t b_off() const { return s_off() + S_TERMS * SUB; }
+  __host__ __device__ uint32_t v_off() const {
+    return b_off() + stages * b_bytes();
+  }
+  __host__ __device__ uint32_t cum_off() const {
+    return v_off() + stages * V_BYTES;
+  }
+  __host__ __device__ uint32_t bar_off() const { return cum_off() + 4 * CMAX; }
+  __host__ __device__ size_t bytes() const {
+    return 1024 + bar_off() + 8 * (1 + 3 * stages);
+  }
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The thread-load path (operands TMA cannot read): rows t0 .. t0 + rows -
+// 1 of head h of batch bb of x (B, T, H, W), columns col0 .. col0 + 64
+// nsub - 1, into the swizzled sub-tiles at dst (sub_bytes apart), with
+// zeros past T and past W; by the 32 lanes of one warp.
+__device__ __forceinline__ void load_rows(uint8_t* dst, uint32_t sub_bytes,
+                                          int nsub, const __nv_bfloat16* x,
+                                          int bb, int T, int H, int h, int W,
+                                          int col0, int t0, int rows,
+                                          int lane) {
+  const int CH = nsub * (CW / 8);   // 16-byte chunks a row
+  for (int e = lane; e < rows * CH; e += 32) {
+    const int r = e / CH, ch = e % CH, tt = t0 + r, col = col0 + ch * 8;
+    alignas(16) __nv_bfloat16 el[8];
+    const __nv_bfloat16* src = x + ((size_t)(bb * T + tt) * H + h) * W + col;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      el[i] = tt < T && col + i < W ? src[i] : __float2bfloat16(0.f);
+    uint32_t off = r * SW + (ch % (CW / 8)) * 16;
+    off ^= ((off >> 7) & (SW / 16 - 1)) << 4;
+    *reinterpret_cast<uint4*>(dst + (ch / (CW / 8)) * sub_bytes + off) =
+        *reinterpret_cast<const uint4*>(el);
+  }
+  hopper::fence_proxy_async();
+  __syncwarp();
+}
+
+// the score c b^T of one kv tile over N (b's tile at shared address ba),
+// issued and committed: 4 nsub wgmmas of k16 (NSUB > 0: nsub is NSUB)
+template <int NSUB>
+__device__ __forceinline__ void s_mma(float (&sc)[KV / 2], uint32_t ca,
+                                      uint32_t ba, uint32_t c_sub, int nsub) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < (NSUB > 0 ? NSUB : nsub); ++st)
+#pragma unroll
+    for (int kk = 0; kk < CW / 16; ++kk)
+      hopper::Wgmma<KV>::ss(
+          sc, hopper::make_desc(ca + st * c_sub + kk * 32, 16, 8 * SW, SW),
+          hopper::make_desc(ba + st * Smem::B_SUB + kk * 32, 16, 8 * SW, SW),
+          st > 0 || kk > 0);
+  hopper::wgmma_commit();
+}
+
+// y += G v for one kv tile (v's tile at shared address vs): each of G's
+// bf16 terms in turn, KV / 16 wgmmas of k16 each, with v N-major
+__device__ __forceinline__ void gv_mma(float (&acc)[CW / 2],
+                                       uint32_t (&gt)[G_TERMS][KV / 16][4],
+                                       uint32_t vs) {
+  hopper::reg_fence(acc);
+  hopper::reg_fence(gt);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int term = 0; term < G_TERMS; ++term)
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk)
+      hopper::Wgmma<CW>::rs(acc, gt[term][kk],
+                            hopper::make_desc(vs + kk * 16 * SW,
+                                              Smem::V_BYTES, 8 * SW, SW));
+  hopper::wgmma_commit();
+}
+
+// G = S o exp(cum_i - cum_j) for one kv tile (kv rows from kbase), in the
+// accumulator layout: element 4 jn + e is row row0 + 8 (e / 2), kv column
+// kbase + 8 jn + 2t + e % 2.  Where `mask` says the tile reaches above the
+// diagonal or past the chunk's rows, G is 0 for j > i and for i >= Cv.
+__device__ __forceinline__ void decay(float (&sc)[KV / 2], const float* cum,
+                                      const float (&cum_i)[2], int row0,
+                                      int Cv, int kbase, bool mask, int t) {
+#pragma unroll
+  for (int jn = 0; jn < KV / 8; ++jn) {
+    const float2 cj =
+        *reinterpret_cast<const float2*>(cum + kbase + 8 * jn + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1, row = row0 + 8 * hr;
+      const int col = kbase + 8 * jn + 2 * t + (e & 1);
+      float& x = sc[4 * jn + e];
+      const float gx = x * ex2((cum_i[hr] - ((e & 1) ? cj.y : cj.x)) * LOG2E);
+      x = !mask || (col <= row && row < Cv) ? gx : 0.f;
+    }
+  }
+}
+
+// G as G_TERMS bf16 terms, hi = bf16(g), lo = bf16(g - hi), ..., in
+// wgmma's A layout: k-slice kk's register r holds elements 8 kk + 2r and
+// 8 kk + 2r + 1 of sc
+__device__ __forceinline__ void split_g(const float (&sc)[KV / 2],
+                                        uint32_t (&gt)[G_TERMS][KV / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KV / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+#pragma unroll
+      for (int term = 0; term < G_TERMS; ++term) {
+        const __nv_bfloat162 x = __floats2bfloat162_rn(x0, x1);
+        x0 -= __low2float(x);
+        x1 -= __high2float(x);
+        gt[term][kk][r] = *reinterpret_cast<const uint32_t*>(&x);
+      }
+    }
+}
+
+// lane 0 of each warp frees a stage (4 wgs arrivals: the consumer warps)
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
+}
+
+// One block owns one (b, h, chunk, wgs x 64-row q tile, 64 columns of P);
+// see the note at the head of the file.  The producer warp loads the
+// block's c rows once and each kv tile's b and v into a ring.  Consumer
+// warpgroup w, kv tile j in this order: the score c b_j^T issued;
+// G_{j-1} v_{j-1} issued behind it; the score awaited; G_j = score o L
+// (while G_{j-1} v_{j-1} runs); that product awaited and its stage freed;
+// G_j split into its bf16 terms.  Tile 0 and the last tile's product are
+// peeled off the loop, so that every wgmma in the loop is unconditional.
+// Then the inter term, y += exp(cum_i) (c S_in)_i, with S_in's slices of
+// 64 state rows staged in shared memory as S_TERMS bf16 terms by the
+// consumers themselves (the first slice's loads in flight since the
+// block began).
+template <bool TMA_CB, bool TMA_V>
+__global__ void __launch_bounds__(2 * 128 + 32, 1)
+    out_wgmma_kernel(const __grid_constant__ CUtensorMap cmap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __nv_bfloat16* __restrict__ c,
+                     const __nv_bfloat16* __restrict__ b,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ log_a,
+                     const float* __restrict__ states,
+                     __nv_bfloat16* __restrict__ y, int T_len, int H, int N,
+                     int P, int C, int nc, int stages) {
+  const int wgs = (blockDim.x - 32) / 128;
+  const Smem L{wgs, (N + CW - 1) / CW, stages};
+  const int nsub = L.nsub, BQB = wgs * BQW;
+  const int QT = (C + BQB - 1) / BQB, PTL = (P + CW - 1) / CW;
+  // the block: the P tile fastest, then the q tiles of a chunk, heaviest
+  // first (a chunk's blocks run together and share its b and v in L2)
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int qt = QT - 1 - idx % QT;
+  idx /= QT;
+  const int ci = idx % nc, bh = idx / nc;
+  const int bb = bh / H, h = bh % H;
+  const int t0 = ci * C, q0 = qt * BQB, p0 = pt * CW;
+  const int Cv = min(C, T_len - t0);   // the chunk's rows within T
+  if (q0 >= Cv) return;                // the whole q tile is padding
+  // kv tiles up to the block's last row
+  const int nk = (min(Cv, q0 + BQB) + KV - 1) / KV;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Cs = base;
+  uint8_t* Ss = base + L.s_off();
+  uint8_t* Bs = base + L.b_off();
+  uint8_t* Vs = base + L.v_off();
+  float* cum = reinterpret_cast<float*>(base + L.cum_off());
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(base + L.bar_off());
+  uint64_t* b_full = c_full + 1;
+  uint64_t* v_full = b_full + stages;
+  uint64_t* empty = v_full + stages;
+
+  const int tid = threadIdx.x;
+  // warpgroups 0 .. wgs - 1 consume, the last warp (role wgs) produces;
+  // read as warp-uniform so that the compiler sees each warpgroup's
+  // wgmmas as converged
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    hopper::mbar_init(c_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&b_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * wgs);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == wgs) {
+    // ---- producer ----
+    const int lane = tid - 128 * wgs;
+    if constexpr (TMA_CB && TMA_V) {
+      if (lane != 0) return;
+    }
+    if constexpr (TMA_CB) {
+      if (lane == 0) {
+        hopper::mbar_expect_tx(c_full, L.c_sub() * nsub);
+        for (int st = 0; st < nsub; ++st)
+          hopper::tma_load_4d(Cs + st * L.c_sub(), &cmap, c_full, st * CW, h,
+                              t0 + q0, bb);
+      }
+    } else {
+      load_rows(Cs, L.c_sub(), nsub, c, bb, T_len, H, h, N, 0, t0 + q0, BQB,
+                lane);
+      if (lane == 0) hopper::mbar_arrive(c_full);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % stages, r0 = t0 + j * KV;
+      if (j >= stages) hopper::mbar_wait(&empty[s], ((j / stages) & 1) ^ 1);
+      uint8_t* bd = Bs + s * L.b_bytes();
+      uint8_t* vd = Vs + s * Smem::V_BYTES;
+      if constexpr (TMA_CB) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&b_full[s], L.b_bytes());
+          for (int st = 0; st < nsub; ++st)
+            hopper::tma_load_4d(bd + st * Smem::B_SUB, &bmap, &b_full[s],
+                                st * CW, h, r0, bb);
+        }
+      } else {
+        load_rows(bd, Smem::B_SUB, nsub, b, bb, T_len, H, h, N, 0, r0, KV,
+                  lane);
+        if (lane == 0) hopper::mbar_arrive(&b_full[s]);
+      }
+      if constexpr (TMA_V) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&v_full[s], Smem::V_BYTES);
+          hopper::tma_load_4d(vd, &vmap, &v_full[s], p0, h, r0, bb);
+        }
+      } else {
+        load_rows(vd, Smem::V_BYTES, 1, v, bb, T_len, H, h, P, p0, r0, KV,
+                  lane);
+        if (lane == 0) hopper::mbar_arrive(&v_full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    const int w = role, nthr = 128 * wgs;
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_w = q0 + w * BQW;                // the warpgroup's first row
+    const int rows_end = min(Cv, row_w + BQW);
+    const int nk_w = rows_end > row_w ? (rows_end + KV - 1) / KV : 1;
+    const int row0 = row_w + warp * 16 + g;        // and row0 + 8
+    const uint32_t c_addr = hopper::smem_u32(Cs) + w * BQW * SW;
+    const uint32_t s_addr = hopper::smem_u32(Ss);
+    const uint32_t b_addr = hopper::smem_u32(Bs);
+    const uint32_t v_addr = hopper::smem_u32(Vs);
+
+    // S_in's slices of 64 state rows (64 x 64 f32 from the state kernel)
+    // are read by the consumers, 16-byte chunks of a bf16 row each, into
+    // registers: the first slice's loads are issued now and stay in flight
+    // through the kv loop; the inter term runs after it.
+    const float* s_in = states + ((size_t)bh * nc + ci) * N * P;
+    constexpr int MAX_CHUNKS = 64 * (CW / 8) / 128;   // a thread's, at wgs 1
+    const int n_chunks = 64 * (CW / 8) / nthr;
+    float pre[MAX_CHUNKS][8];
+    auto fetch = [&](int sl) {
+#pragma unroll
+      for (int k = 0; k < MAX_CHUNKS; ++k) {
+        if (k >= n_chunks) break;
+        const int e = k * nthr + tid, r = e / (CW / 8), ch = e % (CW / 8);
+        const int n = sl * 64 + r, p = p0 + ch * 8;
+        const float* src = s_in + (size_t)n * P + p;
+        if (P % 4 == 0 && n < N && p + 8 <= P) {   // two aligned float4
+          const float4 x0 = *reinterpret_cast<const float4*>(src);
+          const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
+          pre[k][0] = x0.x, pre[k][1] = x0.y, pre[k][2] = x0.z;
+          pre[k][3] = x0.w, pre[k][4] = x1.x, pre[k][5] = x1.y;
+          pre[k][6] = x1.z, pre[k][7] = x1.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            pre[k][i] = n < N && p + i < P ? src[i] : 0.f;
+        }
+      }
+    };
+    fetch(0);
+    // the chunk's prefix sum, by the first consumer warp; the other
+    // consumers read it after the first named barrier below
+    if (tid < 32) chunk_cumsum(log_a, cum, bb, h, t0, T_len, H, C, lane);
+
+    float acc[CW / 2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) acc[i] = 0.f;
+    // intra: acc = G v over the kv tiles up to the warpgroup's last row
+    uint32_t gt[G_TERMS][KV / 16][4];   // G's terms, of the last tile
+    // a tile needs the mask where it reaches above the warpgroup's first
+    // row, or where the warpgroup has rows past the chunk's
+    auto masked = [&](int j) {
+      return (j + 1) * KV - 1 > row_w || row_w + BQW > Cv;
+    };
+    float cum_i[2], e_i[2];   // each row's cum and exp(cum) (0 past Cv)
+    hopper::mbar_wait(c_full, 0);
+    {   // kv tile 0: score, G, its terms
+      hopper::mbar_wait(&b_full[0], 0);
+      float sc[KV / 2];
+      s_mma<0>(sc, c_addr, b_addr, L.c_sub(), nsub);
+      hopper::named_bar_sync(1, nthr);   // cum is written
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row0 + 8 * hr;
+        cum_i[hr] = row < Cv ? cum[row] : 0.f;
+        e_i[hr] = row < Cv ? expf(cum_i[hr]) : 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(sc);
+      decay(sc, cum, cum_i, row0, Cv, 0, masked(0), t);
+      split_g(sc, gt);
+    }
+    for (int j = 1; j < nk_w; ++j) {
+      const int s = j % stages, sp = (j - 1) % stages;
+      hopper::mbar_wait(&b_full[s], (j / stages) & 1);
+      float sc[KV / 2];
+      s_mma<0>(sc, c_addr, b_addr + s * L.b_bytes(), L.c_sub(), nsub);
+      // G v of tile j - 1, behind the score of tile j
+      hopper::mbar_wait(&v_full[sp], ((j - 1) / stages) & 1);
+      gv_mma(acc, gt, v_addr + sp * Smem::V_BYTES);
+      hopper::wgmma_wait<1>();          // the score of tile j
+      hopper::reg_fence(sc);
+      decay(sc, cum, cum_i, row0, Cv, j * KV, masked(j), t);
+      hopper::wgmma_wait<0>();          // G v of tile j - 1
+      hopper::reg_fence(acc);
+      release(&empty[sp], lane);
+      split_g(sc, gt);
+    }
+    {   // the last tile's G v
+      const int s = (nk_w - 1) % stages;
+      hopper::mbar_wait(&v_full[s], ((nk_w - 1) / stages) & 1);
+      gv_mma(acc, gt, v_addr + s * Smem::V_BYTES);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+      release(&empty[s], lane);
+    }
+    // tiles past this warpgroup's rows: free their stages
+    for (int j = nk_w; j < nk; ++j) {
+      const int s = j % stages;
+      hopper::mbar_wait(&b_full[s], (j / stages) & 1);
+      hopper::mbar_wait(&v_full[s], (j / stages) & 1);
+      release(&empty[s], lane);
+    }
+
+
+    // inter: acc += exp(cum_i) (c S_in)_i, a fresh accumulator over N's
+    // slices, each slice of S_in split into S_TERMS bf16 terms and stored
+    // in the N-major swizzled layout by the consumers
+    float inter[CW / 2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) inter[i] = 0.f;
+#pragma unroll
+    for (int sl = 0; sl < nsub; ++sl) {
+      if (sl > 0) {   // the previous slice's wgmmas are done with the tile
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(inter);
+        fetch(sl);
+      }
+      hopper::named_bar_sync(1, nthr);
+#pragma unroll
+      for (int k = 0; k < MAX_CHUNKS; ++k) {
+        if (k >= n_chunks) break;
+        const int e = k * nthr + tid, r = e / (CW / 8), ch = e % (CW / 8);
+        uint32_t off = r * SW + ch * 16;
+        off ^= ((off >> 7) & (SW / 16 - 1)) << 4;
+        float rest[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) rest[i] = pre[k][i];
+#pragma unroll
+        for (int term = 0; term < S_TERMS; ++term) {
+          uint32_t packed[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162 x =
+                __floats2bfloat162_rn(rest[2 * i], rest[2 * i + 1]);
+            rest[2 * i] -= __low2float(x);
+            rest[2 * i + 1] -= __high2float(x);
+            packed[i] = *reinterpret_cast<const uint32_t*>(&x);
+          }
+          *reinterpret_cast<uint4*>(Ss + term * SUB + off) =
+              make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_bar_sync(1, nthr);
+      hopper::reg_fence(inter);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CW / 16; ++kk)
+#pragma unroll
+        for (int term = 0; term < S_TERMS; ++term)
+          hopper::Wgmma<CW>::ss_t(
+              inter,
+              hopper::make_desc(c_addr + sl * L.c_sub() + kk * 32, 16,
+                                8 * SW, SW),
+              hopper::make_desc(s_addr + term * SUB + kk * 16 * SW, SUB,
+                                8 * SW, SW),
+              1);
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(inter);
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) acc[i] += e_i[(i >> 1) & 1] * inter[i];
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= Cv) continue;
+      __nv_bfloat16* out = y + ((size_t)(bb * T_len + t0 + row) * H + h) * P;
+#pragma unroll
+      for (int jn = 0; jn < CW / 8; ++jn) {
+        const int p = p0 + 8 * jn + 2 * t;
+        const float a0 = acc[4 * jn + 2 * hr], a1 = acc[4 * jn + 2 * hr + 1];
+        if (P % 2 == 0) {   // pairs on a 4-byte boundary
+          if (p < P)
+            *reinterpret_cast<__nv_bfloat162*>(out + p) =
+                __floats2bfloat162_rn(a0, a1);
+        } else {
+          if (p < P) out[p] = __float2bfloat16(a0);
+          if (p + 1 < P) out[p + 1] = __float2bfloat16(a1);
+        }
+      }
+    }
+  }
+}
+
+// ---- N <= 64: one block a chunk (chunk_out_kernel) ----
+
+constexpr int CQ = CMAX / 64;   // 64-row tiles of a chunk, at most
+static_assert(64 % KV == 0, "kv tiles within the 64-row tiles");
+
+// Shared memory of a chunk's block, from a 1024-byte aligned base: the
+// chunk's c, b and v as 64-row tiles (CQ each), the staged S_in
+// (S_TERMS tiles), cum, and one mbarrier a tile.
+struct ChunkSmem {
+  static constexpr uint32_t TILE = 64 * SW;
+  static constexpr uint32_t B_OFF = CQ * TILE, V_OFF = 2 * CQ * TILE;
+  static constexpr uint32_t S_OFF = 3 * CQ * TILE;
+  static constexpr uint32_t CUM_OFF = S_OFF + S_TERMS * TILE;
+  static constexpr uint32_t BAR_OFF = CUM_OFF + 4 * CMAX;
+  static constexpr size_t BYTES = 1024 + BAR_OFF + 8 * 3 * CQ;
+};
+
+// One block owns one (b, h, chunk, 64 columns of P) at N <= 64: the
+// chunk's c, b and v (96 KB at chunk 256) come in once, by TMA or the
+// producer warp's plain loads, a barrier for each 64-row tile, and stay;
+// S_in (64 x 64 f32) is read and staged as S_TERMS bf16 terms once.  The
+// chunk's q tiles (64 rows) go to the two consumer warpgroups by their
+// kv tiles, heaviest first: at chunk 256, tiles 3 and 0 (4 + 1 kv tiles)
+// to one, 2 and 1 (3 + 2) to the other.  A q tile: the kv loop of the
+// q-tile kernel (the score of tile j issued before G v of tile j - 1, G's
+// decay while that product runs), its inter term c S_in issued first
+// into a second accumulator (at kv tiles of 32 rows both accumulators,
+// the score and G's terms fit the 168 registers a thread of a block of
+// 288 may have), then y = G v + exp(cum_i) c S_in.
+template <bool TMA_CB, bool TMA_V>
+__global__ void __launch_bounds__(2 * 128 + 32, 1)
+    chunk_out_kernel(const __grid_constant__ CUtensorMap cmap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __nv_bfloat16* __restrict__ c,
+                     const __nv_bfloat16* __restrict__ b,
+                     const __nv_bfloat16* __restrict__ v,
+                     const float* __restrict__ log_a,
+                     const float* __restrict__ states,
+                     __nv_bfloat16* __restrict__ y, int T_len, int H, int N,
+                     int P, int C, int nc) {
+  using L = ChunkSmem;
+  const int PTL = (P + CW - 1) / CW;
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int ci = idx % nc, bh = idx / nc;
+  const int bb = bh / H, h = bh % H;
+  const int t0 = ci * C, p0 = pt * CW;
+  const int Cv = min(C, T_len - t0);   // the chunk's rows within T
+  const int QT = (Cv + 63) / 64;       // its 64-row tiles (q and kv)
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Cs = base;
+  uint8_t* Bs = base + L::B_OFF;
+  uint8_t* Vs = base + L::V_OFF;
+  uint8_t* Ss = base + L::S_OFF;
+  float* cum = reinterpret_cast<float*>(base + L::CUM_OFF);
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* b_full = c_full + CQ;
+  uint64_t* v_full = b_full + CQ;
+
+  const int tid = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    for (int q = 0; q < CQ; ++q) {
+      hopper::mbar_init(&c_full[q], 1);
+      hopper::mbar_init(&b_full[q], 1);
+      hopper::mbar_init(&v_full[q], 1);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  // the q tiles of warpgroup w: the heaviest and the lightest to one, the
+  // two middle ones to the other (fewer tiles: as many as there are)
+  auto q_tile = [&](int w, int m) {
+    return m == 0 ? QT - 1 - w
+                  : (w == 0 ? (QT == 4 ? 0 : -1) : (QT >= 3 ? QT - 3 : -1));
+  };
+
+  if (role == 2) {
+    // ---- producer: the two first q tiles' c, then kv tile by kv tile ----
+    const int lane = tid - 256;
+    if constexpr (TMA_CB && TMA_V) {
+      if (lane != 0) return;
+    }
+    auto load_c = [&](int q) {
+      if constexpr (TMA_CB) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&c_full[q], L::TILE);
+          hopper::tma_load_4d(Cs + q * L::TILE, &cmap, &c_full[q], 0, h,
+                              t0 + 64 * q, bb);
+        }
+      } else {
+        load_rows(Cs + q * L::TILE, L::TILE, 1, c, bb, T_len, H, h, N, 0,
+                  t0 + 64 * q, 64, lane);
+        if (lane == 0) hopper::mbar_arrive(&c_full[q]);
+      }
+    };
+    // the warpgroups' first q tiles' c, then kv tile by kv tile, then the
+    // second q tiles' c
+    load_c(q_tile(0, 0));
+    if (q_tile(1, 0) >= 0) load_c(q_tile(1, 0));
+    for (int k = 0; k < QT; ++k) {
+      if constexpr (TMA_CB) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&b_full[k], L::TILE);
+          hopper::tma_load_4d(Bs + k * L::TILE, &bmap, &b_full[k], 0, h,
+                              t0 + 64 * k, bb);
+        }
+      } else {
+        load_rows(Bs + k * L::TILE, L::TILE, 1, b, bb, T_len, H, h, N, 0,
+                  t0 + 64 * k, 64, lane);
+        if (lane == 0) hopper::mbar_arrive(&b_full[k]);
+      }
+      if constexpr (TMA_V) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&v_full[k], L::TILE);
+          hopper::tma_load_4d(Vs + k * L::TILE, &vmap, &v_full[k], p0, h,
+                              t0 + 64 * k, bb);
+        }
+      } else {
+        load_rows(Vs + k * L::TILE, L::TILE, 1, v, bb, T_len, H, h, P, p0,
+                  t0 + 64 * k, 64, lane);
+        if (lane == 0) hopper::mbar_arrive(&v_full[k]);
+      }
+    }
+    for (int w = 1; w >= 0; --w)
+      if (q_tile(w, 1) >= 0) load_c(q_tile(w, 1));
+  } else {
+    // ---- consumers ----
+    const int w = role;
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    // S_in (the chunk's 64 x 64 f32 state tile) into registers, 16-byte
+    // chunks of a bf16 row each; the loads fly while warp 0 sums cum
+    const float* s_in = states + ((size_t)bh * nc + ci) * N * P;
+    float pre[2][8];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = k * 256 + tid, r = e / (CW / 8), ch = e % (CW / 8);
+      const int p = p0 + ch * 8;
+      const float* src = s_in + (size_t)r * P + p;
+      if (P % 4 == 0 && r < N && p + 8 <= P) {   // two aligned float4
+        const float4 x0 = *reinterpret_cast<const float4*>(src);
+        const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
+        pre[k][0] = x0.x, pre[k][1] = x0.y, pre[k][2] = x0.z;
+        pre[k][3] = x0.w, pre[k][4] = x1.x, pre[k][5] = x1.y;
+        pre[k][6] = x1.z, pre[k][7] = x1.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pre[k][i] = r < N && p + i < P ? src[i] : 0.f;
+      }
+    }
+    if (tid < 32) chunk_cumsum(log_a, cum, bb, h, t0, T_len, H, C, lane);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = k * 256 + tid, r = e / (CW / 8), ch = e % (CW / 8);
+      uint32_t off = r * SW + ch * 16;
+      off ^= ((off >> 7) & (SW / 16 - 1)) << 4;
+#pragma unroll
+      for (int term = 0; term < S_TERMS; ++term) {
+        uint32_t packed[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 x =
+              __floats2bfloat162_rn(pre[k][2 * i], pre[k][2 * i + 1]);
+          pre[k][2 * i] -= __low2float(x);
+          pre[k][2 * i + 1] -= __high2float(x);
+          packed[i] = *reinterpret_cast<const uint32_t*>(&x);
+        }
+        *reinterpret_cast<uint4*>(Ss + term * L::TILE + off) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_bar_sync(1, 256);   // S_in staged, cum written
+
+    const uint32_t c_base = hopper::smem_u32(Cs);
+    const uint32_t s_addr = hopper::smem_u32(Ss);
+    const uint32_t b_addr = hopper::smem_u32(Bs);
+    const uint32_t v_addr = hopper::smem_u32(Vs);
+#pragma unroll 1
+    for (int m = 0; m < 2; ++m) {
+      const int qt = q_tile(w, m);
+      if (qt < 0) continue;
+      const int row_w = qt * 64, row0 = row_w + warp * 16 + g;
+      const uint32_t c_addr = c_base + qt * L::TILE;
+      float cum_i[2], e_i[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row0 + 8 * hr;
+        cum_i[hr] = row < Cv ? cum[row] : 0.f;
+        e_i[hr] = row < Cv ? expf(cum_i[hr]) : 0.f;
+      }
+      float acc[CW / 2], inter[CW / 2];
+#pragma unroll
+      for (int i = 0; i < CW / 2; ++i) acc[i] = 0.f;
+      hopper::mbar_wait(&c_full[qt], 0);
+      // inter: c S_in into a second accumulator, issued first: it runs
+      // under the kv loop
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CW / 16; ++kk)
+#pragma unroll
+        for (int term = 0; term < S_TERMS; ++term)
+          hopper::Wgmma<CW>::ss_t(
+              inter,
+              hopper::make_desc(c_addr + kk * 32, 16, 8 * SW, SW),
+              hopper::make_desc(s_addr + term * L::TILE + kk * 16 * SW,
+                                L::TILE, 8 * SW, SW),
+              kk > 0 || term > 0);
+      hopper::wgmma_commit();
+      // intra: acc = G v over the kv tiles (KV rows, within the resident
+      // 64-row tiles, whose barriers they wait on) up to the q tile's
+      // last row; the mask where a tile reaches above the q tile's first
+      // row, or the q tile has rows past the chunk's
+      const bool rows_past = row_w + 64 > Cv;
+      const int nk = (row_w + 64) / KV;
+      uint32_t gt[G_TERMS][KV / 16][4];
+      {   // kv tile 0
+        hopper::mbar_wait(&b_full[0], 0);
+        float sc[KV / 2];
+        s_mma<1>(sc, c_addr, b_addr, 0, 1);
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(sc);
+        hopper::reg_fence(inter);
+        decay(sc, cum, cum_i, row0, Cv, 0, KV - 1 > row_w || rows_past, t);
+        split_g(sc, gt);
+      }
+      for (int j = 1; j < nk; ++j) {
+        hopper::mbar_wait(&b_full[j * KV / 64], 0);
+        float sc[KV / 2];
+        s_mma<1>(sc, c_addr, b_addr + j * KV * SW, 0, 1);
+        hopper::mbar_wait(&v_full[(j - 1) * KV / 64], 0);
+        gv_mma(acc, gt, v_addr + (j - 1) * KV * SW);
+        hopper::wgmma_wait<1>();          // the score of tile j
+        hopper::reg_fence(sc);
+        decay(sc, cum, cum_i, row0, Cv, j * KV,
+              (j + 1) * KV - 1 > row_w || rows_past, t);
+        hopper::wgmma_wait<0>();          // G v of tile j - 1
+        hopper::reg_fence(acc);
+        split_g(sc, gt);
+      }
+      hopper::mbar_wait(&v_full[(nk - 1) * KV / 64], 0);
+      gv_mma(acc, gt, v_addr + (nk - 1) * KV * SW);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+#pragma unroll
+      for (int i = 0; i < CW / 2; ++i)
+        acc[i] += e_i[(i >> 1) & 1] * inter[i];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row0 + 8 * hr;
+        if (row >= Cv) continue;
+        __nv_bfloat16* out =
+            y + ((size_t)(bb * T_len + t0 + row) * H + h) * P;
+#pragma unroll
+        for (int jn = 0; jn < CW / 8; ++jn) {
+          const int p = p0 + 8 * jn + 2 * t;
+          const float a0 = acc[4 * jn + 2 * hr],
+                      a1 = acc[4 * jn + 2 * hr + 1];
+          if (P % 2 == 0) {   // pairs on a 4-byte boundary
+            if (p < P)
+              *reinterpret_cast<__nv_bfloat162*>(out + p) =
+                  __floats2bfloat162_rn(a0, a1);
+          } else {
+            if (p < P) out[p] = __float2bfloat16(a0);
+            if (p + 1 < P) out[p + 1] = __float2bfloat16(a1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of the state kernel, from a 1024-byte aligned base: the
+// ring's b tiles and v tiles (ST_KV rows of 64 columns each), two staging
+// buffers of w o v (W_TERMS tiles each), cum, and the mbarriers.
+struct StateSmem {
+  static constexpr uint32_t TILE = ST_KV * SW;
+  static constexpr uint32_t V_OFF = ST_STAGES * TILE;
+  static constexpr uint32_t W_OFF = 2 * ST_STAGES * TILE;
+  static constexpr uint32_t CUM_OFF = W_OFF + 2 * W_TERMS * TILE;
+  static constexpr uint32_t BAR_OFF = CUM_OFF + 4 * CMAX;
+  static constexpr size_t BYTES = 1024 + BAR_OFF + 8 * 2 * ST_STAGES;
+};
+
+// Chunk states and the state pass in one kernel (bf16 b, v).  One block
+// owns one (b, h, 64 state rows, 64 state columns) and walks the chunks in
+// order with the state S in f32 registers, in wgmma's accumulator layout:
+// each chunk's own state b^T (w o v), w = exp(tot - cum), is a fresh
+// accumulator over the chunk's kv tiles (b exact as the M-major A operand,
+// straight from TMA; w o v as W_TERMS bf16 terms staged in shared memory
+// by the consumers, the N-major B operand); then S goes out as the state
+// entering the chunk (S_in, for the chunk outputs) and is carried, S = S
+// exp(tot) + state, a product and then a sum, each rounded, as the state
+// pass does it.  The producer warp keeps b and v tiles in flight across
+// chunk boundaries; the staging of tile j runs while tile j - 1's wgmmas
+// do.
+template <bool TMA_B, bool TMA_V>
+__global__ void __launch_bounds__(128 + 32, 3)
+    state_wgmma_kernel(const __grid_constant__ CUtensorMap bmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __nv_bfloat16* __restrict__ b,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ log_a,
+                       const float* __restrict__ s0,
+                       float* __restrict__ states,
+                       float* __restrict__ s_final, int T_len, int H, int N,
+                       int P, int C, int nc) {
+  using L = StateSmem;
+  const int PTL = (P + CW - 1) / CW, NTL = (N + CW - 1) / CW;
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int nt = idx % NTL, bh = idx / NTL;
+  const int bb = bh / H, h = bh % H, n0 = nt * CW, p0 = pt * CW;
+  const int kt = (C + ST_KV - 1) / ST_KV;   // kv tiles a chunk
+  const int ntiles = nc * kt;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Bs = base;
+  uint8_t* Vs = base + L::V_OFF;
+  uint8_t* Ws = base + L::W_OFF;
+  float* cum = reinterpret_cast<float*>(base + L::CUM_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* empty = full + ST_STAGES;
+
+  const int tid = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (tid == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 2);   // b's arrival and v's
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 1) {
+    // ---- producer: every chunk's b and v tiles, in order ----
+    const int lane = tid - 128;
+    if constexpr (TMA_B && TMA_V) {
+      if (lane != 0) return;
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST_STAGES;
+      const int r0 = j / kt * C + j % kt * ST_KV;
+      if (j >= ST_STAGES)
+        hopper::mbar_wait(&empty[s], ((j / ST_STAGES) & 1) ^ 1);
+      if constexpr (TMA_B) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&full[s], L::TILE);
+          hopper::tma_load_4d(Bs + s * L::TILE, &bmap, &full[s], n0, h, r0,
+                              bb);
+        }
+      } else {
+        load_rows(Bs + s * L::TILE, L::TILE, 1, b, bb, T_len, H, h, N, n0,
+                  r0, ST_KV, lane);
+        if (lane == 0) hopper::mbar_arrive(&full[s]);
+      }
+      if constexpr (TMA_V) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(&full[s], L::TILE);
+          hopper::tma_load_4d(Vs + s * L::TILE, &vmap, &full[s], p0, h, r0,
+                              bb);
+        }
+      } else {
+        load_rows(Vs + s * L::TILE, L::TILE, 1, v, bb, T_len, H, h, P, p0,
+                  r0, ST_KV, lane);
+        if (lane == 0) hopper::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: one warpgroup ----
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    // element i of S and of a chunk's state: row n0 + 16 warp + g + 8 (i /
+    // 2 % 2), column p0 + 8 (i / 4) + 2t + i % 2
+    auto at = [&](int i, int& n, int& p) {
+      n = n0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+      p = p0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    };
+    float S[CW / 2], cs[CW / 2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) {
+      int n, p;
+      at(i, n, p);
+      S[i] = s0 != nullptr && n < N && p < P
+                 ? s0[((size_t)bh * N + n) * P + p] : 0.f;
+    }
+    const uint32_t b_addr = hopper::smem_u32(Bs);
+    const uint32_t w_addr = hopper::smem_u32(Ws);
+    for (int ci = 0; ci < nc; ++ci) {
+      // the chunk's prefix sum, once every thread is done with the last's
+      hopper::named_bar_sync(1, 128);
+      if (warp == 0)
+        chunk_cumsum(log_a, cum, bb, h, ci * C, T_len, H, C, lane);
+      hopper::named_bar_sync(1, 128);
+      const float tot = cum[C - 1];
+      for (int jj = 0; jj < kt; ++jj) {
+        const int j = ci * kt + jj, s = j % ST_STAGES;
+        hopper::mbar_wait(&full[s], (j / ST_STAGES) & 1);
+        // w o v as W_TERMS bf16 terms into staging buffer j % 2 (tile
+        // j - 2's wgmmas, its last reader, are done), 16-byte chunks of
+        // the swizzled rows; rows past the chunk get w = 0
+        const uint8_t* vt = Vs + s * L::TILE;
+        uint8_t* wt = Ws + (j & 1) * W_TERMS * L::TILE;
+#pragma unroll
+        for (int k = 0; k < ST_KV * (CW / 8) / 128; ++k) {
+          const int e = k * 128 + tid, r = e / (CW / 8), ch = e % (CW / 8);
+          uint32_t off = r * SW + ch * 16;
+          off ^= ((off >> 7) & (SW / 16 - 1)) << 4;
+          const int i = jj * ST_KV + r;
+          const float w = i < C ? expf(tot - cum[i]) : 0.f;
+          const uint4 raw4 = *reinterpret_cast<const uint4*>(vt + off);
+          const __nv_bfloat162* x2 =
+              reinterpret_cast<const __nv_bfloat162*>(&raw4);
+          float x[8];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            x[2 * q] = __low2float(x2[q]) * w;
+            x[2 * q + 1] = __high2float(x2[q]) * w;
+          }
+#pragma unroll
+          for (int term = 0; term < W_TERMS; ++term) {
+            uint32_t packed[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const __nv_bfloat162 y2 =
+                  __floats2bfloat162_rn(x[2 * q], x[2 * q + 1]);
+              x[2 * q] -= __low2float(y2);
+              x[2 * q + 1] -= __high2float(y2);
+              packed[q] = *reinterpret_cast<const uint32_t*>(&y2);
+            }
+            *reinterpret_cast<uint4*>(wt + term * L::TILE + off) =
+                make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::named_bar_sync(1, 128);
+        hopper::reg_fence(cs);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int term = 0; term < W_TERMS; ++term)
+#pragma unroll
+          for (int kk = 0; kk < ST_KV / 16; ++kk)
+            hopper::Wgmma<CW>::ss_tt(
+                cs,
+                hopper::make_desc(b_addr + s * L::TILE + kk * 16 * SW,
+                                  L::TILE, 8 * SW, SW),
+                hopper::make_desc(w_addr + ((j & 1) * W_TERMS + term) *
+                                                L::TILE + kk * 16 * SW,
+                                  L::TILE, 8 * SW, SW),
+                jj > 0 || term > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();   // tile j - 1's wgmmas
+        hopper::reg_fence(cs);
+        if (j > 0) release(&empty[(j - 1) % ST_STAGES], lane);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(cs);
+      // S_in of this chunk, then the carry
+      float* out = states + (size_t)(bh * nc + ci) * N * P;
+      const float d = expf(tot);
+#pragma unroll
+      for (int i = 0; i < CW / 2; ++i) {
+        int n, p;
+        at(i, n, p);
+        if (n < N && p < P) out[(size_t)n * P + p] = S[i];
+        S[i] = __fadd_rn(__fmul_rn(S[i], d), cs[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) {
+      int n, p;
+      at(i, n, p);
+      if (n < N && p < P) s_final[((size_t)bh * N + n) * P + p] = S[i];
+    }
+  }
+}
+
+// Chunk outputs at N <= 64, a block a chunk: c and b by TMA where their
+// rows start on 16-byte boundaries, v too where its rows do.
+cudaError_t launch_chunk(const void* c, const void* b, const void* v,
+                         const float* log_a, const float* states, void* y,
+                         int B, int T_len, int H, int N, int P, int C,
+                         int nc, cudaStream_t stream) {
+  const bool tma_cb =
+      bident::aligned16(c) && bident::aligned16(b) && N % 8 == 0;
+  const bool tma_v = tma_cb && bident::aligned16(v) && P % 8 == 0;
+  CUtensorMap cm{}, bm{}, vm{};
+  if (tma_cb && !(hopper::encode_bthd(&cm, c, B, T_len, H, N, CW, 64) &&
+                  hopper::encode_bthd(&bm, b, B, T_len, H, N, CW, 64)))
+    return cudaErrorInvalidValue;
+  if (tma_v && !hopper::encode_bthd(&vm, v, B, T_len, H, P, CW, 64))
+    return cudaErrorInvalidValue;
+  const auto kernel = tma_v    ? chunk_out_kernel<true, true>
+                      : tma_cb ? chunk_out_kernel<true, false>
+                               : chunk_out_kernel<false, false>;
+  cudaError_t err = bident::allow_smem(kernel, ChunkSmem::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * nc * ((P + CW - 1) / CW);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 2 * 128 + 32, ChunkSmem::BYTES, stream>>>(
+      cm, bm, vm, static_cast<const __nv_bfloat16*>(c),
+      static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(v), log_a, states,
+      static_cast<__nv_bfloat16*>(y), T_len, H, N, P, C, nc);
+  return cudaGetLastError();
+}
+
+// Chunk outputs of bf16 c, b, v from the state pass's S_in (`states`):
+// the block's shape is the largest that fits shared memory (two consumer
+// warpgroups, else one; a ring of three stages, else two).  c and b go by
+// TMA where their rows start on 16-byte boundaries, v too where its rows
+// do; the rest take the producer warp's plain loads.
+cudaError_t launch_out(const void* c, const void* b, const void* v,
+                       const float* log_a, const float* states, void* y,
+                       int B, int T_len, int H, int N, int P, int C, int nc,
+                       cudaStream_t stream) {
+  const int nsub = (N + CW - 1) / CW;
+  if (nsub == 1)
+    return launch_chunk(c, b, v, log_a, states, y, B, T_len, H, N, P, C, nc,
+                        stream);
+  Smem L{0, nsub, 0};
+  for (int wgs = 2; wgs >= 1 && L.wgs == 0; --wgs)
+    for (int st = MAX_STAGES; st >= 2 && L.wgs == 0; --st)
+      if (Smem{wgs, nsub, st}.bytes() <= SMEM_MAX) L = Smem{wgs, nsub, st};
+  if (L.wgs == 0) return cudaErrorInvalidValue;
+  const bool tma_cb =
+      bident::aligned16(c) && bident::aligned16(b) && N % 8 == 0;
+  const bool tma_v = tma_cb && bident::aligned16(v) && P % 8 == 0;
+  CUtensorMap cm{}, bm{}, vm{};
+  if (tma_cb &&
+      !(hopper::encode_bthd(&cm, c, B, T_len, H, N, CW, L.wgs * BQW) &&
+        hopper::encode_bthd(&bm, b, B, T_len, H, N, CW, KV)))
+    return cudaErrorInvalidValue;
+  if (tma_v && !hopper::encode_bthd(&vm, v, B, T_len, H, P, CW, KV))
+    return cudaErrorInvalidValue;
+  const auto kernel = tma_v    ? out_wgmma_kernel<true, true>
+                      : tma_cb ? out_wgmma_kernel<true, false>
+                               : out_wgmma_kernel<false, false>;
+  cudaError_t err = bident::allow_smem(kernel, L.bytes());
+  if (err != cudaSuccess) return err;
+  const int BQB = L.wgs * BQW;
+  const long long blocks = (long long)B * H * nc * ((C + BQB - 1) / BQB) *
+                           ((P + CW - 1) / CW);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, L.wgs * 128 + 32, L.bytes(), stream>>>(
+      cm, bm, vm, static_cast<const __nv_bfloat16*>(c),
+      static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(v), log_a, states,
+      static_cast<__nv_bfloat16*>(y), T_len, H, N, P, C, nc, L.stages);
+  return cudaGetLastError();
+}
+
+// The bf16 scan: the state kernel (S_in of every chunk into `work`, the
+// final state), then the chunk outputs.  b and v go by TMA where their
+// rows start on 16-byte boundaries, else by the producer's plain loads.
+cudaError_t launch(const void* c, const void* b, const void* v,
+                   const float* log_a, const float* s0, void* y,
+                   float* s_final, float* work, int B, int T_len, int H,
+                   int N, int P, int C, cudaStream_t stream) {
+  const int nc = (T_len + C - 1) / C;
+  const bool tma_b = bident::aligned16(b) && N % 8 == 0;
+  const bool tma_v = bident::aligned16(v) && P % 8 == 0;
+  CUtensorMap bm{}, vm{};
+  if (tma_b && !hopper::encode_bthd(&bm, b, B, T_len, H, N, CW, ST_KV))
+    return cudaErrorInvalidValue;
+  if (tma_v && !hopper::encode_bthd(&vm, v, B, T_len, H, P, CW, ST_KV))
+    return cudaErrorInvalidValue;
+  const auto kernel = tma_b ? (tma_v ? state_wgmma_kernel<true, true>
+                                     : state_wgmma_kernel<true, false>)
+                            : (tma_v ? state_wgmma_kernel<false, true>
+                                     : state_wgmma_kernel<false, false>);
+  cudaError_t err = bident::allow_smem(kernel, StateSmem::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((N + CW - 1) / CW) *
+                           ((P + CW - 1) / CW);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128 + 32, StateSmem::BYTES, stream>>>(
+      bm, vm, static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(v), log_a, s0, work, s_final, T_len,
+      H, N, P, C, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_out(c, b, v, log_a, work, y, B, T_len, H, N, P, C, nc,
+                    stream);
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -703,8 +1835,8 @@ extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
   const float* st = static_cast<const float*>(s0);
   float* sf = static_cast<float*>(s_final);
   float* wk = static_cast<float*>(work);
-  return bf16 ? launch_aligned<__nv_bfloat16>(c, b, v, la, st, y, sf, wk, B,
-                                              T_len, H, N, P, C, s)
+  return bf16 ? wg::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C,
+                           s)
               : launch_aligned<float>(c, b, v, la, st, y, sf, wk, B, T_len,
                                       H, N, P, C, s);
 }

@@ -1,11 +1,16 @@
 """Chunked Mamba-2 SSD scan: the CUDA kernel and its plain version.
 
 Port of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel).  The kernel
-(``csrc/ssd_scan.cu``) runs in three phases, the first and last parallel
-over chunks: every chunk's own state contribution, then a short
-sequential pass that carries the state across chunks, then every chunk's
-outputs on the tensor cores; its source states the design and what
-bounds it.  :func:`ssd_scan_plain` repeats the same chunked algebra in
+(``csrc/ssd_scan.cu``) has one design for each dtype.  In f32 it runs in
+three phases, the first and last parallel over chunks: every chunk's own
+state contribution, then a short sequential pass that carries the state
+across chunks, then every chunk's outputs, on 3xTF32 ``mma.sync``.  In
+bf16 it runs two ``wgmma`` kernels fed by TMA: the chunk states and the
+carry in one (each block walks its chunks in order), then the chunk
+outputs (a block a chunk at N <= 64, a block a 128-row q tile above),
+with the f32 operands (G = (c b^T) o L, S_in, w o v) taken as bf16
+terms.  Its source states the design and what bounds it.
+:func:`ssd_scan_plain` repeats the same chunked algebra in
 PyTorch in the same phase order (chunk states ``(b o e^(tot-cum))^T v``
 for all chunks at once, the carry ``S e^tot + chunk_state`` chunk by
 chunk, then intra-chunk ``((c b^T) o L) v`` plus inter-chunk

@@ -82,3 +82,39 @@ def test_build_key_covers_every_included_header(tmp_path, monkeypatch):
     monkeypatch.undo()
     assert [f.name for f in _build.sources("flash_attention")] == [
         "flash_attention.cu", "common.cuh", "hopper.cuh"]
+
+
+def test_ssd_build_key_covers_hopper_header():
+    """The SSD scan includes ``hopper.cuh`` (its bf16 chunk outputs run on
+    wgmma and TMA), so an edit of that header rebuilds it too."""
+    assert [f.name for f in _build.sources("ssd_scan")] == [
+        "ssd_scan.cu", "common.cuh", "hopper.cuh"]
+
+
+def test_ssd_scan_bf16_variants_match_the_sources():
+    """The bf16 SSD scan's design variants and ablations in
+    ``kernel_variants.py`` each change its source, with every header
+    copied beside it."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    shipped = kv.sources("shipped", "ssd_scan")
+    assert "out_wgmma_kernel" in shipped["ssd_scan.cu"]
+    for variant in kv.SSD_BF16[1:]:
+        files = kv.sources(variant, "ssd_scan")
+        assert files is not None and files != shipped, variant
+        assert set(files) == {"ssd_scan.cu", "common.cuh", "hopper.cuh"}
+    got = {v: kv.sources(v, "ssd_scan")["ssd_scan.cu"] for v in kv.SSD_BF16}
+    assert "constexpr int KV = 64;" in got["kv64"]
+    assert "constexpr int S_TERMS = 3;" in got["s_three"]
+    assert "constexpr int G_TERMS = 1;" in got["g_one_bf16"]
+    assert "constexpr int G_TERMS = 2;" in got["g_two"]
+    assert "constexpr int MAX_STAGES = 2;" in got["stages2"]
+    assert "return bf16 ? launch_aligned<__nv_bfloat16>(" in got["tf32"]
+    assert "constexpr int W_TERMS = 3;" in got["w_three"]
+    assert "if (false)" in got["qtile"]
+    assert "constexpr int S_TERMS = 0;" in got["no_inter"]
+    assert got["score_p0"].count("L.c_sub(), pt ? 0 : nsub);") == 2

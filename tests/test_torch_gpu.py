@@ -174,6 +174,69 @@ def test_ssd_scan_at_chunk_256(cuda, dtype):
         assert rel <= tol, rel
 
 
+BF16_SSD_CASES = {   # B, T, H, N, P, chunk, initial state, decay, unaligned
+    "chunk 32": (2, 128, 2, 16, 32, 32, False, None, ()),
+    "padded T=100, N 8": (1, 100, 3, 8, 16, 32, False, None, ()),
+    "chunk 16, initial_state": (2, 64, 2, 16, 16, 16, True, None, ()),
+    "T=17 < chunk": (1, 17, 2, 8, 8, 32, True, None, ()),
+    "main path widths, chunk 64": (1, 256, 4, 64, 64, 64, True, None, ()),
+    "chunk 128, padded": (1, 300, 2, 64, 64, 128, True, None, ()),
+    "Zamba2 widths, chunk 256": (1, 600, 2, 64, 64, 256, False, None, ()),
+    "strong decay, chunk 256": (1, 600, 2, 64, 64, 256, True, -5.0, ()),
+    "mLSTM N 384 P 385": (1, 300, 2, 384, 385, 256, False, None, ()),
+    "mLSTM N 384 P 385, initial_state": (1, 300, 2, 384, 385, 256, True,
+                                         None, ()),
+    "N 18 P 20, chunk 100": (1, 200, 2, 18, 20, 100, True, None, ()),
+    "N 496": (1, 130, 1, 496, 24, 64, True, None, ()),
+    "c, b, v unaligned": (1, 96, 2, 64, 64, 64, False, None,
+                          ("c", "b", "v")),
+    "v unaligned": (1, 96, 2, 64, 64, 64, True, None, ("v",)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BF16_SSD_CASES))
+def test_bf16_ssd_scan_kernel_matches_plain(cuda, case):
+    """The bf16 scan (chunk outputs on wgmma; c, b, v by TMA, or plain
+    loads for rows TMA cannot read) against its plain version within the
+    bf16 bucket; every element of y within one bf16 ulp of the f32 kernel
+    on the upcast inputs and the final state within 3e-5 of its largest
+    value; bitwise run to run; one launch counted per call."""
+    B, T, H, N, P, chunk, with_s0, decay, unaligned = BF16_SSD_CASES[case]
+    rng = np.random.default_rng(17 + N + T)
+    bf16 = torch.bfloat16
+    scale = 0.1 if N > 64 else 0.5
+    x = dict(c=_rand(rng, (B, T, H, N), cuda, bf16, scale),
+             b=_rand(rng, (B, T, H, N), cuda, bf16, scale),
+             v=_rand(rng, (B, T, H, P), cuda, bf16))
+    if P == N + 1:
+        x["v"][..., -1] = 1.0
+    for name in unaligned:
+        x[name] = _unaligned(x[name])
+    c, b, v = x["c"], x["b"], x["v"]
+    if decay is None:
+        la = -torch.nn.functional.softplus(_rand(rng, (B, T, H), cuda,
+                                                 torch.float32))
+    else:
+        la = (decay + 0.5 * _rand(rng, (B, T, H), cuda,
+                                  torch.float32)).clamp(max=0)
+    s0 = (_rand(rng, (B, H, N, P), cuda, torch.float32) if with_s0
+          else None)
+    kernels.reset_launch_counts()
+    y, s = ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=chunk)
+    y2, s2 = ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 2
+    assert torch.equal(y.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(s, s2)
+    yp, sp = ss.ssd_scan_plain(c, b, v, la, initial_state=s0, chunk=chunk)
+    torch.testing.assert_close(y, yp, **TOL[bf16])
+    yf, sf = ss.ssd_scan_cuda(c.float(), b.float(), v.float(), la,
+                              initial_state=s0, chunk=chunk)
+    assert fa.bf16_ulps(y, yf.to(bf16)) <= 1.0
+    assert float((s - sf).abs().max() / sf.abs().max()) <= 3e-5
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros

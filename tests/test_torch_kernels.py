@@ -215,6 +215,38 @@ def test_ssd_scan_at_the_mlstm_state_matches_jax(dtype):
     close(S, Sk, dict(atol=5e-4, rtol=5e-4))
 
 
+# bf16 c, b, v at the zoo's two scan widths, chunk 256: every element of
+# y within one bf16 ulp of the Pallas kernel (f32 arithmetic on the
+# upcast operands), the ulp taken at max(|ref|, 1e-3 max|ref|) as
+# chip_smoke.py holds the bf16 kernel to the f32 one on the card; the
+# final state (f32) within the f32 bucket.
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("N,P,T,scale", [
+    (64, 64, 300, 0.5),           # Zamba2-2.7B's N = P = 64
+    (384, 385, 300, 0.1),         # xLSTM-125M's mLSTM: v and a ones column
+])
+def test_bf16_ssd_scan_within_one_ulp_of_jax(N, P, T, scale, with_s0):
+    rng = np.random.default_rng(N + T + with_s0)
+    B, H = 1, 2
+    (jc, c), (jb, b) = (pair(np.float32(scale) * rng.standard_normal(
+        (B, T, H, N), dtype=np.float32), "bfloat16") for _ in range(2))
+    v_np = rng.standard_normal((B, T, H, P), dtype=np.float32)
+    if P == N + 1:
+        v_np[..., -1] = 1.0
+    jv, v = pair(v_np, "bfloat16")
+    jla, la = pair(-np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(
+        np.float32), "float32")
+    js0, s0 = (pair(rng.standard_normal((B, H, N, P), dtype=np.float32),
+                    "float32") if with_s0 else (None, None))
+    yk, Sk = jops.ssd_scan(jc, jb, jv, jla, initial_state=js0, chunk=256,
+                           interpret=True)
+    y, S = ops.ssd_scan(c, b, v, la, initial_state=s0, chunk=256)
+    assert y.dtype == torch.bfloat16 and y.shape == (B, T, H, P)
+    ref = torch.from_numpy(np.array(yk.astype(jnp.float32)))
+    assert fa.bf16_ulps(y, ref) <= 1.0
+    close(S, Sk, TOL["float32"])
+
+
 def test_ssd_scan_default_chunk_is_the_pallas_kernels():
     """Without a ``chunk`` argument both packages chunk at 256, so the
     same call computes the same chunked algebra: T = 300 runs as one full
