@@ -231,8 +231,9 @@ ROUTE_BUCKET, SPREAD = 3e-4, 4.0
 # the __global__ functions of src/repro_torch/csrc (a device trace names
 # the stream each one ran on)
 HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "gemm_kernel",
-                "state_kernel", "pass_kernel", "out_kernel",
-                "state_wgmma_kernel", "chunk_out_kernel", "out_wgmma_kernel")
+                "glu_wgmma_kernel", "state_kernel", "pass_kernel",
+                "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
+                "out_wgmma_kernel")
 
 _log_lines: list[str] = []
 
@@ -393,10 +394,17 @@ def phase_environment() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows, phase 2's
+    # baseline, built beside the kernels (kernel_variants.py's mma_sync)
+    import kernel_variants
+    baseline = kernel_variants.start(("expert_glu",), ("mma_sync",))
     paths = _build.build_all()
     for name in _build.KERNELS:
         _build.function(name)
     log(f"built {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
+    glu_baseline = kernel_variants.bind(kernel_variants.finish(baseline)[
+        "mma_sync", "expert_glu"], "expert_glu")
+    log(f"built the baseline in {time.perf_counter() - t0:.1f}s")
     log("ptxas, per instantiation (registers a thread, static shared "
         "memory, spill stores / loads):")
     for name, out in _build.build_log.items():
@@ -417,16 +425,21 @@ def phase_environment() -> dict:
     _hopper_sass(paths["ssd_scan"], ("state_wgmma_kernel", "chunk_out_kernel",
                                      "out_wgmma_kernel"),
                  "the bf16 SSD scan", "ILb1E")
-    return {"card": card}
+    # the f32 expert GLU on 16-byte rows: TF32 wgmma, every
+    # instantiation fed by TMA
+    _hopper_sass(paths["expert_glu"], ("glu_wgmma_kernel",),
+                 "the f32 expert GLU", "glu_wgmma_kernel")
+    return {"card": card, "glu_baseline": glu_baseline}
 
 
 def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     """Whether the built library's SASS (``cuobjdump -sass``) holds
     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each instantiation of
-    the bf16 ``kernels``: every one must run wgmma, and the TMA ones (whose
-    mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D, true>``, the
-    scan's kernels with their first template argument ``true``, c and b or
-    b by TMA) must load by TMA."""
+    the wgmma ``kernels``: every one must run wgmma, and the TMA ones
+    (whose mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D,
+    true>``, the scan's kernels with their first template argument
+    ``true``, c and b or b by TMA, every ``glu_wgmma_kernel``) must load
+    by TMA."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -435,12 +448,12 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     check(out.returncode == 0, f"cuobjdump -sass {lib.name}")
     funcs = re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
                        out.stdout, re.S)
-    bf16 = [(n, body) for n, body in funcs if any(k in n for k in kernels)]
-    names = _build.demangle([n for n, _ in bf16])
+    wg = [(n, body) for n, body in funcs if any(k in n for k in kernels)]
+    names = _build.demangle([n for n, _ in wg])
     log(f"SASS of {what} (wgmma: HGMMA, TMA loads: UTMALDG):")
-    ok = bool(bf16)
+    ok = bool(wg)
     n_tma = 0
-    for (mangled, body), full in zip(bf16, names):
+    for (mangled, body), full in zip(wg, names):
         kernel = next(k for k in kernels if k in full)
         short = full[full.find(kernel):full.find(">(") + 1]
         hgmma, utmaldg = body.count("HGMMA"), body.count("UTMALDG")
@@ -448,7 +461,7 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
         n_tma += tma
         ok = ok and hgmma > 0 and (utmaldg > 0 or not tma)
         log(f"  {short or mangled}: HGMMA {hgmma}, UTMALDG {utmaldg}")
-    check(ok, f"every one of the {len(bf16)} instantiations of {what} runs "
+    check(ok, f"every one of the {len(wg)} instantiations of {what} runs "
               f"wgmma, and the {n_tma} TMA ones load by TMA")
 
 
@@ -518,7 +531,7 @@ def _hold(name, label, got, want, dtype, elementwise: bool) -> float:
     return err
 
 
-def phase_kernels(main_cfg: dict) -> dict:
+def phase_kernels(main_cfg: dict, env: dict) -> dict:
     """Every kernel against its plain version; returns the per-kernel
     rows of the summary line (all but ``launches``)."""
     import numpy as np
@@ -647,16 +660,22 @@ def phase_kernels(main_cfg: dict) -> dict:
          (3, 20, 18, 10), 0.1, True),
         ("main path", (E, cap, d, F), 0.5, False),
         ("E=4 cap=256 d=2048 F=512", (4, cap, 2 * d, F), 0.5, False),
+        # the f32 wgmma kernel's edges: a ragged last token tile, one
+        # expert, a row tile past F and d, rows of 36 and 20 floats
+        (f"cap={cap - 56} (a ragged token tile)", (E, cap - 56, d, F), 0.5,
+         False),
+        ("E=1", (1, cap, d, F), 0.5, False),
+        ("E=3 cap=70 d=36 F=20", (3, 70, 36, 20), 0.1, True),
     ]
     for dtype in (f32, bf16):
         for label, shape, scale, small in glu_cases:
             args, got, want = _glu_case(rng, *shape, dtype, scale)
             err = _hold("expert_glu", label, got, want, dtype, small)
-            if label == "main path":
+            if not small:
                 check_repeatable("expert_glu", label, mg.expert_glu_cuda,
                                  args)
-                if dtype == f32:
-                    main_err = err
+            if label == "main path" and dtype == f32:
+                main_err = err
     # capacity drop through the whole MoE composition, against the oracle
     for dtype in (f32, bf16):
         Tm, dm, Em, Km, Fm, capm = 128, 64, 8, 2, 32, 24
@@ -685,6 +704,18 @@ def phase_kernels(main_cfg: dict) -> dict:
     def bmm_glu():
         h = torch.bmm(x, w_up)
         return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], w_down)
+    # the mma.sync kernel (gemm_kernel) on the same operands, in one process
+    act, y = torch.empty((E, cap, F), device="cuda"), torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def baseline():
+        err = env["glu_baseline"](x.data_ptr(), w_up.data_ptr(),
+                                  w_down.data_ptr(), act.data_ptr(),
+                                  y.data_ptr(), E, cap, d, F, 0, stream)
+        check(err == 0, f"the mma.sync expert GLU: cudaError_t {err}")
+    baseline()
+    _hold("expert_glu", "main path, the mma.sync kernel", y,
+          mg.expert_glu_plain(x, w_up, w_down), f32, False)
     rows["expert_glu"] = dict(
         name="expert_glu", route="cuda",
         source="src/repro_torch/csrc/expert_glu.cu",
@@ -694,14 +725,18 @@ def phase_kernels(main_cfg: dict) -> dict:
         plain_ms=time_ms(lambda: mg.expert_glu_plain(x, w_up, w_down),
                          iters=5),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(bmm_glu, iters=5), cuda_core_bound_ms=cc_ms)
+        library_ms=time_ms(bmm_glu, iters=5), cuda_core_bound_ms=cc_ms,
+        mma_sync_ms=time_ms(baseline, iters=5))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         cc = r.get("cuda_core_bound_ms")
         tc = "" if cc is None else \
             f", 3xTF32 tensor cores; f32 CUDA-core bound {cc:.4f} ms"
-        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+        old = r.get("mma_sync_ms")
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms"
+            + ("" if old is None else
+               f" (the mma.sync kernel {old:.4f} ms)")
+            + f", plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}{tc})")
     return rows
 
@@ -2826,17 +2861,17 @@ def phase_zoo(env: dict) -> dict:
                 shapes=shapes)
 
 
-# One child process's prefill timing (prefill_turns): Zamba2-2.7B at its
-# published widths and depth in bf16 with the kernels, phase 8's batch;
-# one warm-up prefill, then three timed.  Only entry points that every
-# slice of the port has: it runs on an earlier checkout too.
+# One child process's prefill timing (prefill_turns): one arch of the zoo
+# at its published widths and depth in bf16 with the kernels, phase 8's
+# batch; one warm-up prefill, then three timed.  Only entry points that
+# every slice of the port has: it runs on an earlier checkout too.
 _PREFILL_CHILD = """
 import dataclasses, json, sys, time
 import numpy as np, torch
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-B, T, new = map(int, sys.argv[1:])
-cfg = dataclasses.replace(get_config("zamba2-2.7b"), use_kernels=True)
+arch, (B, T, new) = sys.argv[1], map(int, sys.argv[2:])
+cfg = dataclasses.replace(get_config(arch), use_kernels=True)
 params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
 tokens = torch.from_numpy(np.random.default_rng(0).integers(
     0, cfg.vocab, (B, T), dtype=np.int32)).to("cuda")
@@ -2851,8 +2886,8 @@ print(json.dumps({"ms": [run() for _ in range(3)]}))
 """
 
 
-def prefill_turns(parent) -> dict:
-    """Zamba2-2.7B's bf16 prefill with the kernels (phase 8's batch)
+def prefill_turns(parent, arch: str = "zamba2-2.7b") -> dict:
+    """``arch``'s bf16 prefill with the kernels (phase 8's batch)
     timed in child processes of ``parent`` (the root of another checkout
     inside this one, such as the parent commit unpacked into a directory
     that .gitignore lists) and of this checkout, in turns parent, change,
@@ -2866,25 +2901,89 @@ def prefill_turns(parent) -> dict:
     check(roots["parent"].is_relative_to(ROOT)
           and (roots["parent"] / "src" / "repro_torch").is_dir(),
           f"{parent}: a checkout inside {ROOT}")
-    log("== zamba2-2.7b prefill, the parent's kernels against this "
+    log(f"== {arch} prefill, the parent's kernels against this "
         "checkout's (parent, change, change, parent)")
     out = {"parent": [], "change": []}
     for which in ("parent", "change", "change", "parent"):
         env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
         run = subprocess.run(
-            [sys.executable, "-c", _PREFILL_CHILD, str(N_PROMPTS),
+            [sys.executable, "-c", _PREFILL_CHILD, arch, str(N_PROMPTS),
              str(PROMPT_LEN), str(MAX_NEW)],
             cwd=roots[which], env=env, capture_output=True, text=True,
             timeout=900)
         check(run.returncode == 0,
-              f"zamba2-2.7b prefill of the {which} ({roots[which]}): exit "
+              f"{arch} prefill of the {which} ({roots[which]}): exit "
               f"{run.returncode} {run.stderr.strip()[-400:]}")
         ms = json.loads(run.stdout.strip().splitlines()[-1])["ms"]
         out[which] += ms
         log(f"  {which}: prefill ms {[round(t, 2) for t in ms]}")
-    log(f"  zamba2-2.7b prefill on {torch.cuda.get_device_name(0)}: parent "
+    log(f"  {arch} prefill on {torch.cuda.get_device_name(0)}: parent "
         f"{min(out['parent']):.2f}-{max(out['parent']):.2f} ms, change "
         f"{min(out['change']):.2f}-{max(out['change']):.2f} ms")
+    return out
+
+
+# One child process's timing of the main path (route_turns): phase 3's
+# chain at GRANITE_MAIN_PATH with every op on `cuda-kernels`, one captured
+# segment (the planned route); two cold runs (the probe, the capture), then
+# warm runs fenced on the card.  Only entry points that every slice of
+# the port since the capture has: it runs on an earlier checkout too.
+_ROUTE_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.core import GRANITE_MAIN_PATH, ScheduleExecutor, kernel_chain
+from repro_torch.core.backends import default_registry
+from repro_torch.core.profiler import fence
+lane = "cuda-kernels"
+graph, ext = kernel_chain(seed=0, **GRANITE_MAIN_PATH)
+ex = ScheduleExecutor([lane], targets={lane: default_registry().get(lane)})
+prog = ex.compile_scheduled(graph, {i: lane for i in range(len(graph))})
+def run():
+    t0 = time.perf_counter()
+    fence(list(prog.run(ext).values()))
+    return 1e3 * (time.perf_counter() - t0)
+run(); run()
+ms = [run() for _ in range(int(sys.argv[1]))]
+print(json.dumps({"ms": ms, "captured": [s.mode for s in prog.segments]}))
+"""
+
+
+def route_turns(parent, runs: int = CAPTURE_REPEATS) -> dict:
+    """Phase 3's captured main-path route (every op on `cuda-kernels`,
+    one captured segment) timed in child processes of ``parent`` (the
+    root of another checkout inside this one, such as the parent commit
+    unpacked into a directory that .gitignore lists) and of this
+    checkout, in turns parent, change, change, parent, on the same card;
+    each child builds its checkout's kernels and times ``runs`` warm runs.
+    Not part of the run with no arguments; call it as ``python3 -c
+    'import chip_smoke as c; c.route_turns("DIR")'``.  Returns
+    {"parent": [ms, ...], "change": [ms, ...]}."""
+    import torch
+    roots = {"parent": Path(parent).resolve(), "change": ROOT}
+    check(roots["parent"].is_relative_to(ROOT)
+          and (roots["parent"] / "src" / "repro_torch").is_dir(),
+          f"{parent}: a checkout inside {ROOT}")
+    log("== the main path's captured route, the parent's kernels against "
+        "this checkout's (parent, change, change, parent)")
+    out = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent"):
+        env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
+        run = subprocess.run([sys.executable, "-c", _ROUTE_CHILD, str(runs)],
+                             cwd=roots[which], env=env, capture_output=True,
+                             text=True, timeout=900)
+        check(run.returncode == 0,
+              f"main path of the {which} ({roots[which]}): exit "
+              f"{run.returncode} {run.stderr.strip()[-400:]}")
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        out[which] += got["ms"]
+        log(f"  {which}: segments {got['captured']}, median "
+            f"{_median(got['ms']):.3f} ms, runs "
+            f"{[round(t, 3) for t in got['ms']]}")
+    log(f"  main path's captured route on {torch.cuda.get_device_name(0)}: "
+        f"parent {min(out['parent']):.3f}-{max(out['parent']):.3f} ms "
+        f"(median {_median(out['parent']):.3f}), change "
+        f"{min(out['change']):.3f}-{max(out['change']):.3f} ms (median "
+        f"{_median(out['change']):.3f})")
     return out
 
 
@@ -3646,7 +3745,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         env = phase_environment()
-        rows = phase_kernels(GRANITE_MAIN_PATH)
+        rows = phase_kernels(GRANITE_MAIN_PATH, env)
         main = phase_main_path(GRANITE_MAIN_PATH)
         conc = phase_concurrent(GRANITE_MAIN_PATH, main)
         phase_dag(GRANITE_MAIN_PATH, main, conc)

@@ -12,19 +12,29 @@ undone at a time, by a textual substitution of the sources (each
 substitution must match, so a variant cannot silently become the shipped
 kernel), into ``build/kernels/variants/``.  Each variant runs at the
 main-path shapes (``GRANITE_MAIN_PATH``; the SSD scan at chunks 64, the
-main path's, 128 and 256) in f32 and bf16 and prints its time (CUDA
-events), its error over the largest output of the plain version, and the
-time of one library call for the same function where there is one, all
-in one process:
+main path's, 128 and 256) in f32 and bf16 (the expert GLU's variants,
+which change its f32 path, in f32) and prints its time (CUDA events),
+its error over the largest output of the plain version (the expert
+GLU's also whether two runs agree bitwise), and the time of one library
+call for the same function where there is one, all in one process:
 
 * ``cvt_rna`` — the 3xTF32 split by two ``cvt.rna.tf32.f32`` instead of
   integer rounding (same numbers, more instructions);
-* ``no_fold`` — the GLU's f32 stages summed straight into the running
-  sum, one chain of ``mma`` over all of K (shows the tensor cores'
-  truncating accumulator);
 * ``one_tf32`` — only the hi.hi product (wrong by ~3e-4: a speed ceiling
-  for the products, not a kernel to ship);
-* ``warps16`` — the GLU with 16 warps of 32 x 32 instead of 8 of 64 x 32;
+  for the products, not a kernel to ship); at the f32 expert GLU it also
+  says whether the tensor cores truncate or round the raw f32 bits of
+  ``wgmma``'s shared-memory operand (``_glu_truncation``);
+* for the f32 expert GLU (``glu_wgmma_kernel``, TF32 ``wgmma`` fed by
+  TMA): ``mma_sync`` — the ``mma.sync`` kernel (``gemm_kernel``, which
+  bf16 takes) on the aligned rows, the baseline, in the same process;
+  ``fold1`` and ``no_fold`` — the fresh accumulator every stage (K 32)
+  instead of every 4, or never (one
+  truncating chain over K: shows the drift); ``bm64`` — a 64-token tile
+  (more blocks, each weight tile read four times); ``ring4`` — a ring of
+  4 stages instead of 3; and the ablations (wrong results, timed only)
+  ``no_lohi`` — no a_lo.b_hi product, ``no_bsplit`` — no split pass (B's
+  lo tile left as it lies), ``no_mma`` — no products at all (the loads,
+  splits and barriers alone);
 * ``fold64`` — the SSD scan's fresh accumulator spans 64 of K instead of
   32: at the main path (N = 64, kv tiles of 64, chunk 64) every product
   is one chain, so this shows what the fold costs there and how far the
@@ -88,12 +98,19 @@ SPLIT = ("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
 CVT_RNA = ('  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
            '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - '
            '__uint_as_float(hi)));')
-GLU_STAGE = "mma_stage(stage, stage + BM * L::AS, part, wr, ncol, lane);"
-GLU_FOLD = "for (int q = 0; q < 4; ++q) acc[mi][j][q] += part[mi][j][q];"
-GLU_THREE = ("        bident::mma_tf32(part[mi][j], al, bh[j]);\n"
-             "        bident::mma_tf32(part[mi][j], ah, bl[j]);\n"
-             "        bident::mma_tf32(part[mi][j], ah, bh[j]);")
-GLU_ONE = "        bident::mma_tf32(part[mi][j], ah, bh[j]);"
+# the f32 expert GLU (namespace tc of expert_glu.cu): its route, fold,
+# products, token tile and the split of B's lo term
+GLU_ROUTE = "if (tc::tma_route(x, w_up, w_down, act, d, F))"
+GLU_FOLD = "constexpr int FOLD = 4;"
+GLU_THREE = ("hopper::WgmmaTf32<BM>::rs(part, al[kk], dh, !(fresh && kk == 0));\n"
+             "      hopper::WgmmaTf32<BM>::rs(part, ah[kk], dl, 1);\n"
+             "      hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, 1);")
+GLU_TWO = ("hopper::WgmmaTf32<BM>::rs(part, ah[kk], dl, !(fresh && kk == 0));\n"
+           "      hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, 1);")
+GLU_ONE = "hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, !(fresh && kk == 0));"
+GLU_BM = "constexpr int BM = 128;     // token rows a block: the wgmma's N"
+GLU_SPLIT = "  for (int q = 0; q < STEPS; ++q) {"
+GLU_RING = "constexpr int STAGES = 3;   // the ring"
 ATTN_THREE = ("  bident::mma_tf32(c, al, bh);\n"
               "  if constexpr (sizeof(T) == 4) bident::mma_tf32(c, ah, bl);\n"
               "  bident::mma_tf32(c, ah, bh);")
@@ -103,7 +120,6 @@ SSD_THREE = ("  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);\n"
              "  bident::mma_tf32(c, ah, bh);")
 SSD_ONE = "  bident::mma_tf32(c, ah, bh);"
 SSD_FOLD = "constexpr int FOLD_K8 = 4;"
-WARPS_M = "constexpr int WARPS_M = 2;"
 PV_LO = ("#pragma unroll\n"
          "  for (int kk = 0; kk < BK / 16; ++kk)\n"
          "    hopper::Wgmma<D>::rs(acc, lo[kk],\n"
@@ -115,7 +131,6 @@ SPLIT_LO = ("const __nv_bfloat162 pl = __floats2bfloat162_rn(x0 - __low2float(ph
             "                                                      x1 - __high2float(ph));")
 SOFTMAX = "                                        int causal, int t) {\n"
 STAGES = "constexpr int MAX_STAGES = 3;"
-BOUNDS = "__launch_bounds__(NT, Layout<T>::F32 ? 1 : 2)"
 # the bf16 SSD scan's chunk outputs (namespace wg of ssd_scan.cu)
 SSD_KV = "constexpr int KV = 32;"
 SSD_S_TERMS = "constexpr int S_TERMS = 2;"
@@ -136,14 +151,30 @@ SSD_SCORE = ", L.c_sub(), nsub);"   # out_wgmma_kernel's two score calls
 VARIANTS = {
     "shipped": {},
     "cvt_rna": {"common.cuh": [(SPLIT, CVT_RNA)]},
-    "no_fold": {"expert_glu.cu": [(GLU_STAGE, GLU_STAGE.replace("part",
-                                                                 "acc")),
-                                  (GLU_FOLD, ";")]},
+    # the f32 expert GLU: the mma.sync gemm_kernel (cp.async) on the
+    # aligned rows, the baseline; one fold per stage (K 32) or none (one
+    # chain over K); the token tile at 64; a ring of 4 stages (of 3);
+    # and the ablations (wrong
+    # results, timed only) without a_lo.b_hi, hi.hi alone (as for every
+    # kernel: the products' speed ceiling; at the GLU it also shows whether
+    # the tensor cores truncate or round B's raw bits), no split pass (B's
+    # lo tile left as it lies) and no products at all (the loads, splits
+    # and barriers alone)
+    "mma_sync": {"expert_glu.cu": [(GLU_ROUTE, GLU_ROUTE.replace(
+        "if (", "if (false && ")), ("return run<float, false>(",
+                                     "return dispatch<float>(")]},
+    "fold1": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace("4", "1"))]},
+    "no_fold": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace(
+        "4", "1 << 30"))]},
+    "bm64": {"expert_glu.cu": [(GLU_BM, GLU_BM.replace("128", "64"))]},
+    "no_lohi": {"expert_glu.cu": [(GLU_THREE, GLU_TWO)]},
+    "no_bsplit": {"expert_glu.cu": [(GLU_SPLIT, GLU_SPLIT.replace(
+        "q < STEPS", "q < 0"))]},
+    "no_mma": {"expert_glu.cu": [(GLU_THREE, "")]},
+    "ring4": {"expert_glu.cu": [(GLU_RING, GLU_RING.replace("3;", "4;"))]},
     "one_tf32": {"expert_glu.cu": [(GLU_THREE, GLU_ONE)],
                  "flash_attention.cu": [(ATTN_THREE, ATTN_ONE)],
                  "ssd_scan.cu": [(SSD_THREE, SSD_ONE)]},
-    "warps16": {"expert_glu.cu": [(WARPS_M, "constexpr int WARPS_M = 4;"),
-                                  (BOUNDS, "__launch_bounds__(NT, 1)")]},
     "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
     "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
     "stages2": {"flash_attention.cu": [(STAGES, STAGES.replace("3", "2"))],
@@ -219,11 +250,18 @@ def sources(variant: str, kernel: str) -> dict[str, str] | None:
     return files
 
 
-def build(kernels=KERNELS) -> dict[tuple[str, str], ctypes.CDLL]:
-    """Every (variant, kernel) library, one nvcc each, all in parallel."""
+def build(kernels=KERNELS, variants=None) -> dict[tuple[str, str],
+                                                  ctypes.CDLL]:
+    """Every (variant, kernel) library (of ``variants``, default all), one
+    nvcc each, all in parallel."""
+    return finish(start(kernels, variants))
+
+
+def start(kernels=KERNELS, variants=None) -> dict:
+    """Start the builds of :func:`build`; :func:`finish` waits for them."""
     from repro_torch.kernels import _build
     procs = {}
-    for variant in VARIANTS:
+    for variant in variants or VARIANTS:
         for kernel in kernels:
             files = sources(variant, kernel)
             if files is None:
@@ -236,6 +274,12 @@ def build(kernels=KERNELS) -> dict[tuple[str, str], ctypes.CDLL]:
                 [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
                  str(d / f"{kernel}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def finish(procs: dict) -> dict[tuple[str, str], ctypes.CDLL]:
+    """Wait for the builds :func:`start` began; their libraries, loaded."""
+    from repro_torch.kernels import _build
     libs = {}
     for key, proc in procs.items():
         out, _ = proc.communicate()
@@ -407,6 +451,43 @@ def _zoo_ssd(libs, rand, stream) -> None:
                 f" from f64), state {norm_err(s, s_ref)[1]:.2e}")
 
 
+def _tf32_hi(x, rounding: str):
+    """x's TF32 hi term: its top 19 bits (``trunc``) or x rounded to
+    them, ties away from zero (``rna``, as ``split_tf32``)."""
+    import torch
+    bits = x.float().contiguous().view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _glu_truncation(y, x, wu, wd) -> None:
+    """Whether the tensor cores truncate or round the raw f32 bits of
+    `wgmma`'s shared-memory operand: the f32 GLU's ``one_tf32`` output
+    (hi.hi products only; the weights' hi split in registers, rna) against
+    the same products in f64 with B (x, then the activation) truncated,
+    and rounded.  The split of B's lo term must match the one it is
+    nearer: the other lies the whole hi.hi error away (~1e-3 of the
+    largest output at the main path), the matching one only where an
+    activation near a TF32 boundary falls the other way (~1e-4)."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err
+    F = wd.shape[1]
+    got = {}
+    for how in ("trunc", "rna"):
+        h = torch.bmm(_tf32_hi(x, how).double(),
+                      _tf32_hi(wu, "rna").double())
+        a = (F_.silu(h[..., :F]) * h[..., F:]).float()
+        want = torch.bmm(_tf32_hi(a, how).double(),
+                         _tf32_hi(wd, "rna").double())
+        got[how] = norm_err(y, want)[1]
+    near = min(got, key=got.get)
+    log(f"    one_tf32 against hi.hi in f64 with B truncated: "
+        f"{got['trunc']:.3e}, with B rounded: {got['rna']:.3e}: the tensor "
+        f"cores {'truncate' if near == 'trunc' else 'round'} B's raw bits")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -459,7 +540,9 @@ def main() -> int:
                 return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], wd)
             log(f"expert_glu {name} at (E, cap, d, F) = ({E}, {cap}, {d}, {F}):"
                 f" bmm GLU {time_ms(bmm_glu, iters=20):.4f} ms")
-            for variant in VARIANTS:
+            # the variants change the f32 path only (cvt_rna the split of
+            # f32 values): bf16 times the shipped kernel
+            for variant in VARIANTS if dtype == torch.float32 else ("shipped",):
                 if (variant, "expert_glu") not in libs:
                     continue
                 fn = bind(libs[variant, "expert_glu"], "expert_glu")
@@ -473,8 +556,15 @@ def main() -> int:
                 call()
                 torch.cuda.synchronize()
                 rel = norm_err(y, want)[1]
+                again = y.clone()
+                call()
+                torch.cuda.synchronize()
                 log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
-                    f"/ max|plain| {rel:.3e}")
+                    f"/ max|plain| {rel:.3e}"
+                    + ("" if torch.equal(y, again) else ", NOT bitwise "
+                       "run to run"))
+                if variant == "one_tf32":
+                    _glu_truncation(y, x, wu, wd)
 
         if "flash_attention" in chosen:
             q, k, v = (rand((B, T, H, D), dtype) for _ in range(3))

@@ -13,48 +13,92 @@
 //
 // Design for the card.  The TPU kernel fuses both projections so the
 // hidden activation stays in VMEM.  Here that fusion would pin a block's
-// whole (rows x d) output accumulator in registers, which caps the token
-// tile at 32 rows and d at 1024, and makes every block re-read its
-// expert's weights for 32 rows.  So one C call runs two kernels on the
-// stream, and the activation makes one round trip through device memory
-// (an (E, cap, F) buffer, 16 MB at the main path against 268 MB of
-// weights):
+// whole (rows x d) output accumulator in registers and make every block
+// re-read its expert's weights for a few rows.  So one C call runs two
+// kernels on the stream, and the activation makes one round trip through
+// device memory (an (E, cap, F) buffer, 16 MB at the main path against
+// 201 MB of f32 weights): the up projection with the GLU in its epilogue
+// (silu(g) * u in f32, rounded to x's dtype, written as the activation),
+// then the down projection.  No atomics, no split-K: each output is one
+// thread's fixed-order sum, so a run is bitwise repeatable.  Two designs:
 //
-// 1. up projection + GLU: a block tile is 128 token rows x (64 gate
-//    columns and the 64 up columns that match them) of one expert, over
-//    K = d; its epilogue computes silu(g) * u in f32, rounds it to x's
-//    dtype and writes the activation;
-// 2. down projection: (cap x F) . (F x d) per expert, 128 x 128 tiles
-//    over K = F.
+// ---- f32, rows on 16-byte strides: TF32 wgmma fed by TMA (namespace tc) ----
 //
-// Both are one tensor-core GEMM: 8 warps, each owning a 64 x 32 piece of
-// the tile (4 x 4 `mma.sync` tiles; in the GLU kernel its gate and up
-// columns meet in one thread, so the epilogue needs no exchange).  A and
-// B tiles of depth 32 stream through a 4-stage ring in shared memory by
-// `cp.async`, three stages in flight while one is multiplied; rows are
-// padded so every fragment load (`ldmatrix` for A, and for bf16 B) hits
-// distinct banks.  f32 operands go through 3xTF32 `m16n8k8` products
-// (common.cuh), split into TF32 hi and lo parts in registers as they are
-// loaded; each stage is summed in a fresh accumulator that joins the
-// running sum with an f32 add, in stage order.  (Splitting each stage
-// once per block into a second shared buffer, so that the four warps
-// reading an A element do not each split it, was slower on the card: the
-// extra barrier and shared-memory traffic cost more than the splits.)
-// bf16 operands go through one `m16n8k16` bf16 product each, as the
-// Pallas kernel multiplies bf16 by bf16 into f32, straight into the
-// running sum (one `mma` per 16 of K, whose drift is far below a bf16
-// output's rounding), which leaves room for two blocks per SM.  No
-// atomics, no split-K: each output is one thread's fixed-order sum.  Rows
-// that are not 16-byte aligned (d or F not a multiple of 16 bytes) take
-// plain loads into the same ring.
+// f32-accurate products on the tensor cores take three TF32 ones (3xTF32,
+// common.cuh): a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi.  TF32 `wgmma`
+// reads both shared-memory operands K-major only (its transpose bits exist
+// for 16-bit types), and the weights w_up (E, d, 2F) and w_down (E, F, d)
+// are N-major; a transposed copy would move 2 x 201 MB a call.  So each
+// kernel computes the transpose, C^T = W^T B^T: the weights are the A
+// operand, read from registers (each thread loads its own fragment from
+// the N-major tile that TMA landed, so A's layout in shared memory does
+// not matter, and splits it into TF32 hi and lo there), and x (E, cap, d)
+// and the activation (E, cap, F), both K-major, are B, straight from the
+// TMA tile.  The weights are read in place, once per token tile.
+//
+// B's lo term needs a shared-memory tile of its own: each stage's x (or
+// activation) tile is split, once per block, into lo = x - hi beside it,
+// where hi is what the tensor cores read of x's raw bits (the top 19: they
+// truncate, so the raw tile is the hi term; tests/test_torch_tf32x3.py
+// shows that a split assuming rounding would miss the f32 bucket, and
+// kernel_variants.py's one_tf32 shows the card truncating).  The two
+// consumer warpgroups each split half the tile, one stage ahead, while
+// their products run.
+//
+// A block is 128 weight columns (for the GLU: 64 gate columns and the 64
+// up columns that match them) x 128 token rows of one expert, 288 threads:
+// warp 8 keeps a ring of 3 stages of depth 32 in flight by TMA (four
+// 32 x 32 weight sub-tiles and a 32 x 128 x / activation tile a stage,
+// beside room for its lo tile, 128-byte swizzle), and consumer warpgroup
+// w runs `wgmma` m64n128k8 on 64 of the weight columns: its A row
+// 16 warp + g is a gate column and row 16 warp + g + 8 the up column that
+// matches it, so silu(g) * u pairs in one thread, and the columns are
+// ordered so a warp's fragment loads hit all 32 banks of the swizzled
+// rows.  Each k8 step runs a_lo.b_hi, a_hi.b_lo, a_hi.b_hi.  The tensor
+// cores' accumulator truncates at every step (one chain over K drifts to
+// 1.75e-5 of the largest output on the card: within the bucket, but not
+// by much), so every FOLD = 4 stages (K 128) are summed in a fresh
+// accumulator and added to the running sum with an f32 add.  The grid's
+// fastest index is the token tile, so the blocks that share a weight tile
+// run together and the second read comes from L2.  Outputs are written
+// from the accumulators with plain stores (16 contiguous bytes a group of
+// four threads).
+//
+// What holds it short of its bound is the data path: with no products at
+// all (kernel_variants.py's no_mma) the loads, splits and barriers take
+// longer than the products' own bound, and the products overlap them only
+// in part.  More loads in flight or fewer bytes from L2 did not shorten
+// it: on the card a ring of 4 or 5 stages, a persistent block loading the
+// next tile under this one's epilogue, a block without a producer warp
+// (255 registers: double-buffered fragments, one stage of products in
+// flight) and a cluster of the two blocks that share a weight tile, each
+// loading half of it by TMA multicast (25% fewer bytes from L2), were
+// each slower, and so was a 64-token tile (PERF.md).
+//
+// ---- bf16, and f32 rows off 16-byte strides: mma.sync (gemm_kernel) ----
+//
+// Both projections as one tensor-core GEMM: a block tile is 128 token
+// rows x 128 product columns (for the GLU, 64 gate and the 64 up columns
+// that match them), 8 warps, each owning a 64 x 32 piece of the tile (4 x
+// 4 `mma.sync` tiles; in the GLU kernel its gate and up columns meet in
+// one thread).  A and B tiles of depth 32 stream through a 4-stage ring
+// in shared memory by `cp.async` (plain loads for rows that are not
+// 16-byte aligned); rows are padded so every fragment load (`ldmatrix`
+// for A, and for bf16 B) hits distinct banks.  bf16 operands go through
+// one `m16n8k16` bf16 product each, as the Pallas kernel multiplies bf16
+// by bf16 into f32, straight into the running sum (its drift is far below
+// a bf16 output's rounding); two blocks fit an SM.  f32 operands (only
+// those TMA cannot read: d or F not a multiple of 4, or a base off 16
+// bytes) go through 3xTF32 `m16n8k8` products split in registers, each
+// 32-deep stage summed in a fresh accumulator.
 //
 // Bound: at the main-path shape (32 experts x 256 slots, d = 1024,
 // F = 512, f32) the work is 25.8 GFLOP of products against ~268 MB of
 // traffic (the f32 weights dominate).  f32-accurate products cost three
 // TF32 ones: 3 x 25.8 GFLOP / 495 TFLOP/s = 156 us on the tensor cores,
 // against 80 us for the bytes, so the kernel is bound by operations.
-// Each weight element now serves 128 token rows per block, not 32.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -332,6 +376,237 @@ cudaError_t dispatch(const void* x, const void* w_up, const void* w_down,
                : run<T, false>(x, w_up, w_down, act, y, E, cap, d, F, stream);
 }
 
+// ---------------------------------------------------------------------------
+// f32: TF32 wgmma fed by TMA (namespace tc)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 128;     // token rows a block: the wgmma's N
+constexpr int BK = 32;      // K a stage: one 128-byte swizzled row of f32
+constexpr int FOLD = 4;     // stages summed in a fresh accumulator
+constexpr int NT = 288;     // two consumer warpgroups + one producer warp
+constexpr int STAGES = 3;   // the ring
+constexpr uint32_t SUB = BK * 128;           // a 32-column weight sub-tile
+constexpr uint32_t A_BYTES = 4 * SUB;        // the stage's weight tile
+constexpr uint32_t B_BYTES = BM * 128;       // its x / act tile, or lo tile
+constexpr uint32_t STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+constexpr size_t SMEM = 1024 + STAGES * (STAGE_BYTES + 24);
+static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
+
+// The lo term of each element of the stage's B tile: x - hi, where hi is
+// what the tensor cores read of x's raw bits (the top 19: truncation), so
+// that hi + lo = x exactly.  Consumer warpgroup w splits rows [w BM / 2,
+// (w + 1) BM / 2) of the tile, 16 bytes a thread a step; the tile is
+// swizzled, but the split is elementwise, so lo lands where x lies.
+__device__ __forceinline__ void split_b(const uint8_t* b, uint8_t* lo, int w,
+                                        int i) {
+  constexpr int STEPS = B_BYTES / 2 / 16 / 128;
+#pragma unroll
+  for (int q = 0; q < STEPS; ++q) {
+    const uint32_t off = w * (B_BYTES / 2) + 16 * (i + 128 * q);
+    const float4 x = *reinterpret_cast<const float4*>(b + off);
+    float4 l;
+    l.x = x.x - __uint_as_float(__float_as_uint(x.x) & 0xffffe000u);
+    l.y = x.y - __uint_as_float(__float_as_uint(x.y) & 0xffffe000u);
+    l.z = x.z - __uint_as_float(__float_as_uint(x.z) & 0xffffe000u);
+    l.w = x.w - __uint_as_float(__float_as_uint(x.w) & 0xffffe000u);
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// One block computes a (128 weight columns) x (BM tokens) tile of the
+// transposed product of one expert, C^T = W^T B^T over K: W (K x cols)
+// through `amap` as (cols, K, E), B (M x K) through `bmap` as (K, M, E).
+// GLU: the tile's weight columns are gate columns r0 .. r0 + 63 and the
+// up columns N + r0 .. that match them, and the block writes the 64 x BM
+// activation silu(gate) * up into C (E, M, N).  Otherwise: columns
+// r0 .. r0 + 127, written into C (E, M, N) as the product.  The grid's
+// fastest index is the token tile, so the blocks that share a weight
+// tile run together.  See the note at the head of the file.
+template <bool GLU>
+__global__ void __launch_bounds__(NT, 1)
+    glu_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     float* __restrict__ C, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  // stage s: weight sub-tiles 0-3, the B tile, its lo tile
+  uint8_t* tiles = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + STAGES * STAGE_BYTES);
+  uint64_t* split = full + STAGES;
+  uint64_t* empty = split + STAGES;
+
+  const int m0 = blockIdx.x * BM, e = blockIdx.z;
+  const int r0 = blockIdx.y * (GLU ? 64 : 128);
+  const int nk = (K + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&split[s], 8);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight ----
+    if (tid != 256) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+      uint8_t* st = tiles + s * STAGE_BYTES;
+      hopper::mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        const int col = GLU ? (sub & 1) * 32 + (sub >> 1) * N + r0
+                            : r0 + 32 * sub;
+        hopper::tma_load_3d(st + sub * SUB, &amap, &full[s], col, kt * BK, e);
+      }
+      hopper::tma_load_3d(st + A_BYTES, &bmap, &full[s], kt * BK, m0, e);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w takes 64 of the block's 128 A rows ----
+  const int w = role, i = tid % 128;
+  const int warp = i / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  // A row 16 warp + g (+ 8) is column fc of sub-tile s0 (s1): for the GLU
+  // the gate (up) columns of the pair, so silu(g) * u meets in one thread.
+  // fc spreads a warp's loads over all 32 banks of the swizzled rows.
+  const int s0 = GLU ? w : 2 * w, s1 = GLU ? 2 + w : 2 * w + 1;
+  const int fc = 4 * warp + (g & 3) + 16 * (g >> 2);
+  const uint32_t frag0 = t * 128 + (((fc >> 2) ^ t) << 4) + (fc & 3) * 4;
+  const uint32_t frag4 =
+      (t + 4) * 128 + (((fc >> 2) ^ (t + 4)) << 4) + (fc & 3) * 4;
+
+  // this warpgroup's half of stage kt's lo tile, once the stage has landed
+  auto split_stage = [&](int kt) {
+    const int s = kt % STAGES;
+    uint8_t* st = tiles + s * STAGE_BYTES;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+    split_b(st + A_BYTES, st + A_BYTES + B_BYTES, w, i);
+    hopper::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&split[s]);
+  };
+
+  float acc[BM / 2], part[BM / 2];
+#pragma unroll
+  for (int q = 0; q < BM / 2; ++q) acc[q] = part[q] = 0.f;
+
+  split_stage(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    const uint8_t* st = tiles + s * STAGE_BYTES;
+    // the stage's A fragments, split into TF32 hi and lo in registers
+    uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint8_t* p0 = st + s0 * SUB + kk * 1024;
+      const uint8_t* p1 = st + s1 * SUB + kk * 1024;
+      bident::split_tf32(*reinterpret_cast<const float*>(p0 + frag0),
+                         ah[kk][0], al[kk][0]);
+      bident::split_tf32(*reinterpret_cast<const float*>(p1 + frag0),
+                         ah[kk][1], al[kk][1]);
+      bident::split_tf32(*reinterpret_cast<const float*>(p0 + frag4),
+                         ah[kk][2], al[kk][2]);
+      bident::split_tf32(*reinterpret_cast<const float*>(p1 + frag4),
+                         ah[kk][3], al[kk][3]);
+    }
+    hopper::mbar_wait(&split[s], (kt / STAGES) & 1);
+    const uint32_t b_hi = hopper::smem_u32(st + A_BYTES);
+    const uint32_t b_lo = b_hi + B_BYTES;
+    const int fresh = kt % FOLD == 0;
+    hopper::reg_fence(part);
+    hopper::reg_fence(ah);
+    hopper::reg_fence(al);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t dh = hopper::make_desc(b_hi + 32 * kk, 16, 1024, 128);
+      const uint64_t dl = hopper::make_desc(b_lo + 32 * kk, 16, 1024, 128);
+      hopper::WgmmaTf32<BM>::rs(part, al[kk], dh, !(fresh && kk == 0));
+      hopper::WgmmaTf32<BM>::rs(part, ah[kk], dl, 1);
+      hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, 1);
+    }
+    hopper::wgmma_commit();
+    // the next stage's lo tile, while these products run
+    if (kt + 1 < nk) split_stage(kt + 1);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(part);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    if (kt % FOLD == FOLD - 1 || kt == nk - 1) {
+#pragma unroll
+      for (int q = 0; q < BM / 2; ++q) acc[q] += part[q];
+    }
+  }
+
+  // accumulator element 4j + q: A row 16 warp + g + 8 (q / 2), token
+  // 8j + 2t + q % 2 of the tile
+  float* out = C + (size_t)e * M * N;
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = m0 + 8 * j + 2 * t + c;
+      if (m >= M) continue;
+      if constexpr (GLU) {
+        const int f = r0 + 32 * w + fc;
+        const float gate = acc[4 * j + c], up = acc[4 * j + 2 + c];
+        if (f < N) out[(size_t)m * N + f] = gate / (1.f + expf(-gate)) * up;
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = r0 + 64 * w + 32 * h + fc;
+          if (n < N) out[(size_t)m * N + n] = acc[4 * j + 2 * h + c];
+        }
+      }
+    }
+}
+
+// TMA reads every operand: rows of d and F floats on 16-byte strides,
+// 16-byte aligned bases (y is written by plain stores)
+inline bool tma_route(const void* x, const void* w_up, const void* w_down,
+                      const void* act, int d, int F) {
+  return d % 4 == 0 && F % 4 == 0 && bident::aligned16(x) &&
+         bident::aligned16(w_up) && bident::aligned16(w_down) &&
+         bident::aligned16(act);
+}
+
+template <bool GLU>
+cudaError_t launch(const CUtensorMap& am, const CUtensorMap& bm, float* C,
+                   int E, int M, int K, int N, cudaStream_t stream) {
+  constexpr int COLS = GLU ? 64 : 128;   // output columns a block
+  const dim3 grid((M + BM - 1) / BM, (N + COLS - 1) / COLS, E);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = bident::allow_smem(glu_wgmma_kernel<GLU>, SMEM);
+  if (err != cudaSuccess) return err;
+  glu_wgmma_kernel<GLU><<<grid, NT, SMEM, stream>>>(am, bm, C, M, K, N);
+  return cudaGetLastError();
+}
+
+cudaError_t run(const void* x, const void* w_up, const void* w_down,
+                void* act, void* y, int E, int cap, int d, int F,
+                cudaStream_t stream) {
+  CUtensorMap um{}, xm{}, dm{}, am{};
+  if (!(hopper::encode_f32_3d(&um, w_up, 2 * F, d, E, BK) &&
+        hopper::encode_f32_3d(&xm, x, d, cap, E, BM) &&
+        hopper::encode_f32_3d(&dm, w_down, d, F, E, BK) &&
+        hopper::encode_f32_3d(&am, act, F, cap, E, BM)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch<true>(um, xm, static_cast<float*>(act), E, cap, d,
+                                 F, stream);
+  if (err != cudaSuccess) return err;
+  return launch<false>(dm, am, static_cast<float*>(y), E, cap, F, d, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // C entry point (bound with ctypes).  x (E, cap, d), w_up (E, d, 2F),
@@ -346,7 +621,11 @@ extern "C" int bident_expert_glu(const void* x, const void* w_up,
       (cap + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(x, w_up, w_down, act, y, E, cap, d,
-                                        F, s)
-              : dispatch<float>(x, w_up, w_down, act, y, E, cap, d, F, s);
+  if (bf16)
+    return dispatch<__nv_bfloat16>(x, w_up, w_down, act, y, E, cap, d, F, s);
+  // f32: TF32 wgmma where TMA reads every operand, else mma.sync with
+  // plain loads (cp.async needs the 16-byte rows TMA takes)
+  if (tc::tma_route(x, w_up, w_down, act, d, F))
+    return tc::run(x, w_up, w_down, act, y, E, cap, d, F, s);
+  return run<float, false>(x, w_up, w_down, act, y, E, cap, d, F, s);
 }

@@ -118,3 +118,39 @@ def test_ssd_scan_bf16_variants_match_the_sources():
     assert "if (false)" in got["qtile"]
     assert "constexpr int S_TERMS = 0;" in got["no_inter"]
     assert got["score_p0"].count("L.c_sub(), pt ? 0 : nsub);") == 2
+
+
+def test_expert_glu_variants_match_the_sources():
+    """The f32 expert GLU's baseline, fold, token-tile variants and its
+    ablations in ``kernel_variants.py`` each change its source, every
+    header copied beside it (it includes ``hopper.cuh`` since its f32 path
+    runs on wgmma and TMA, so an edit of that header rebuilds it)."""
+    import importlib.util
+    from pathlib import Path
+    assert [f.name for f in _build.sources("expert_glu")] == [
+        "expert_glu.cu", "common.cuh", "hopper.cuh"]
+    path = Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    shipped = kv.sources("shipped", "expert_glu")["expert_glu.cu"]
+    assert "glu_wgmma_kernel" in shipped
+    got = {}
+    for variant in ("mma_sync", "fold1", "no_fold", "bm64", "ring4",
+                    "no_lohi", "no_bsplit", "no_mma", "one_tf32", "cvt_rna"):
+        files = kv.sources(variant, "expert_glu")
+        assert set(files) == {"expert_glu.cu", "common.cuh", "hopper.cuh"}
+        assert files != kv.sources("shipped", "expert_glu"), variant
+        got[variant] = files["expert_glu.cu"]
+    assert "if (false && tc::tma_route(" in got["mma_sync"]
+    assert "return dispatch<float>(x, w_up" in got["mma_sync"]
+    assert "dispatch<float>(" not in shipped
+    assert "constexpr int FOLD = 1;" in got["fold1"]
+    assert "constexpr int FOLD = 1 << 30;" in got["no_fold"]
+    assert "constexpr int BM = 64;" in got["bm64"]
+    assert "constexpr int STAGES = 4;" in got["ring4"]
+    assert got["no_lohi"].count("WgmmaTf32<BM>::rs(") == 2
+    assert got["one_tf32"].count("WgmmaTf32<BM>::rs(") == 1
+    assert "WgmmaTf32<BM>::rs(" not in got["no_mma"]
+    assert "q < 0; ++q" in got["no_bsplit"]
+    assert "warps16" not in kv.VARIANTS

@@ -152,6 +152,42 @@ def test_expert_glu_counts_one_launch_for_its_two_kernels(cuda):
                                **TOL[torch.float32])
 
 
+F32_GLU_CASES = {          # E, cap, d, F, weight scale, x unaligned
+    "main-path widths": (4, 256, 1024, 512, 0.5, False),
+    "cap 200, a ragged token tile": (4, 200, 1024, 512, 0.5, False),
+    "E = 1": (1, 256, 1024, 512, 0.5, False),
+    "d = 2048": (2, 256, 2048, 512, 0.5, False),
+    "d 36, F 20: ragged K and row tiles": (3, 70, 36, 20, 0.1, False),
+    "d 18, F 10: rows off 16 bytes (mma.sync)": (3, 20, 18, 10, 0.1, False),
+    "x off 16 bytes (mma.sync)": (2, 64, 64, 32, 0.1, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(F32_GLU_CASES))
+def test_f32_expert_glu_matches_plain(cuda, case):
+    """The f32 expert GLU (TF32 wgmma fed by TMA on 16-byte rows, the
+    mma.sync kernel elsewhere) against the plain version within 3e-5 of
+    its largest output, bitwise run to run, one counted launch a call."""
+    E, cap, d, F, scale, unaligned = F32_GLU_CASES[case]
+    rng = np.random.default_rng(14)
+    f32 = torch.float32
+    x = _rand(rng, (E, cap, d), cuda, f32)
+    if unaligned:
+        x = _unaligned(x)
+    wu = _rand(rng, (E, d, 2 * F), cuda, f32, scale)
+    wd = _rand(rng, (E, F, d), cuda, f32, scale)
+    kernels.reset_launch_counts()
+    got = mg.expert_glu_cuda(x, wu, wd)
+    again = mg.expert_glu_cuda(x, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["expert_glu"] == 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = mg.expert_glu_plain(x, wu, wd).double()
+    rel = float((got.double() - want).abs().max() / want.abs().max())
+    assert rel <= TOL[f32]["rtol"], rel
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_at_chunk_256(cuda, dtype):

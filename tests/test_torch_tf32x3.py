@@ -12,11 +12,26 @@ down projection over F = 512, attention over D = 64 and a 64-wide kv
 tile), and holds each to the bucket.
 
 The tensor cores' f32 accumulator may truncate (round toward zero) at
-every ``mma``; a long chain of truncations drifts.  The last test
+every ``mma``; a long chain of truncations drifts.  The next test
 emulates that accumulator and the kernels' remedy: each stretch of K (32
-deep in ``expert_glu``, one 64-wide kv tile in attention) is summed in a
-fresh accumulator and added to the running f32 sum, rounding to nearest.
+deep in the ``mma.sync`` expert GLU, one 64-wide kv tile in attention) is
+summed in a fresh accumulator and added to the running f32 sum, rounding
+to nearest.
+
+The f32 expert GLU on 16-byte rows runs on TF32 ``wgmma``, which takes
+its shared-memory operand K-major only, so it computes the transpose
+C^T = W^T B^T (``csrc/expert_glu.cu``): the weights are A, split into hi
+and lo in registers as above, and x (or the activation) is B, read from
+the raw f32 tile as its hi term and from a second tile holding
+x - hi as its lo term.  The last four tests emulate that
+design and decide its split: B's lo term must be taken against what the
+tensor cores read of the raw bits (they truncate, as the card showed),
+all three products are needed, and the accumulator is folded every
+``FOLD`` stages of ``BK``, as read from the kernel's source.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -124,3 +139,94 @@ def test_3xtf32_with_a_truncating_accumulator_holds_the_bucket(case, fold):
     if a.shape[1] > fold:       # one chain over all of K drifts further
         chained = _err(three_tf32_truncating(a, b, a.shape[1]), a, b)
         assert chained > folded, (chained, folded)
+
+
+# ---- the transposed design of the f32 wgmma expert GLU ----------------------
+
+_GLU_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+            "csrc" / "expert_glu.cu").read_text().split("namespace tc {")[1]
+BK = int(re.search(r"constexpr int BK = (\d+);", _GLU_SRC).group(1))
+FOLD = int(re.search(r"constexpr int FOLD = (\d+);", _GLU_SRC).group(1))
+
+
+def trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of f32 bits: the top 19 (sign, exponent,
+    10 mantissa bits), the other 13 cut off."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def transposed(a, b, fold: int, hw=trunc, lo_against=None,
+               products=("lo.hi", "hi.lo", "hi.hi")):
+    """a (M, K) @ b (K, N) as the kernel computes it, transposed: A = b^T
+    split in registers (hi = tf32(b), lo = b - hi, read through ``hw``),
+    B = a from its raw tile (read through ``hw``, the tensor cores' view
+    of raw bits) and its lo tile a - lo_against(a) (default: ``hw``, the
+    matching split); products named weight.x in issue order per k8 step,
+    into a truncating accumulator folded every ``fold`` of K."""
+    lo_against = lo_against or hw
+    wh = tf32(b.t())
+    terms = {"w": (wh, hw(b.t() - wh)),
+             "x": (hw(a), hw(a - lo_against(a)))}
+    pick = {"hi": 0, "lo": 1}
+    total = torch.zeros(b.shape[1], a.shape[0], dtype=torch.float32)
+    for f0 in range(0, a.shape[1], fold):
+        part = torch.zeros_like(total)
+        for k0 in range(f0, min(f0 + fold, a.shape[1]), MMA_K):
+            ks = slice(k0, k0 + MMA_K)
+            for name in products:
+                w_, x_ = name.split(".")
+                wk = terms["w"][pick[w_]][:, ks].double()
+                xk = terms["x"][pick[x_]][:, ks].double()
+                part = rz32(part.double() + wk @ xk.t())
+        total = total + part
+    return total.t().double()
+
+
+@pytest.mark.parametrize("fold", [BK, FOLD * BK])
+@pytest.mark.parametrize("hw", ["trunc", "rna"])
+@pytest.mark.parametrize("case", ["up", "down"])
+def test_transposed_3xtf32_holds_the_bucket(case, hw, fold):
+    """With B's lo term split against what the tensor cores read of the
+    raw tile (truncated, as on the card; rounded, had they rounded), the
+    transposed design holds the f32 bucket tenfold, folded every stage or
+    every FOLD stages."""
+    a, b = _operands(case)
+    got = transposed(a, b, fold, hw={"trunc": trunc, "rna": tf32}[hw])
+    assert _err(got, a, b) <= F32_TOL / 10
+
+
+@pytest.mark.parametrize("case", ["up", "down"])
+def test_transposed_split_must_match_what_the_hardware_reads(case):
+    """A lo term taken against the other reading of the raw bits counts
+    the cut-off bits twice or not at all: far outside the bucket.  So the
+    kernel splits against truncation, which the card showed."""
+    a, b = _operands(case)
+    fold = FOLD * BK
+    assert _err(transposed(a, b, fold, hw=tf32, lo_against=trunc), a,
+                b) > F32_TOL
+    assert _err(transposed(a, b, fold, hw=trunc, lo_against=tf32), a,
+                b) > F32_TOL
+
+
+@pytest.mark.parametrize("dropped", ["lo.hi", "hi.lo"])
+@pytest.mark.parametrize("case", ["up", "down"])
+def test_transposed_3xtf32_needs_every_product(case, dropped):
+    """Without either cross product the error is that of one TF32 side:
+    far outside the bucket (the kernel_variants.py ``no_lohi`` ablation)."""
+    a, b = _operands(case)
+    kept = tuple(p for p in ("lo.hi", "hi.lo", "hi.hi") if p != dropped)
+    assert _err(transposed(a, b, FOLD * BK, products=kept), a, b) > F32_TOL
+
+
+@pytest.mark.parametrize("case", ["up", "down"])
+def test_transposed_fold_depth(case):
+    """The kernel's fold (FOLD stages of BK) keeps the truncating
+    accumulator's drift a tenth of the bucket; one chain over all of K
+    drifts several times further (on the card 1.75e-5 of the largest
+    output over both projections, ``no_fold``)."""
+    a, b = _operands(case)
+    folded = _err(transposed(a, b, FOLD * BK), a, b)
+    chained = _err(transposed(a, b, a.shape[1]), a, b)
+    assert folded <= F32_TOL / 10, folded
+    assert chained > 3 * folded, (chained, folded)
