@@ -11,17 +11,21 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
 1. environment — the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; builds the three kernels from the sources in
    ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
-   and spills per instantiation, and whether each bf16 attention
-   instantiation's SASS holds ``HGMMA`` (wgmma) and, where it loads by
-   TMA, ``UTMALDG``;
+   and spills per instantiation, and whether each instantiation of the
+   bf16 attention, the f32 attention at D 64 / 128, the bf16 SSD scan and
+   the f32 expert GLU holds ``HGMMA`` (wgmma) in its SASS and, where it
+   loads by TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
    main-path shapes, at d = 2048 for the expert GLU and at chunks 128
    and 256 (one case under strong decay) for the SSD scan, in f32 and
    bf16; checks that each kernel is bitwise equal between two runs on
-   the same inputs; and times kernel, plain version and (where one
-   exists) a library call;
+   the same inputs, and that each f32 attention call launched the design
+   the C entry's rule names (from a device trace); and times kernel,
+   plain version, (where one exists) a library call and, for the f32
+   attention and expert GLU, the earlier ``mma.sync`` kernel on the same
+   operands;
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
    torch-cpu, cuda:0, cuda-kernels; the CUDA lanes' cells timed as
@@ -230,7 +234,8 @@ KERNEL_OF_OP = {"attn": "flash_attention", "ssd": "ssd_scan",
 ROUTE_BUCKET, SPREAD = 3e-4, 4.0
 # the __global__ functions of src/repro_torch/csrc (a device trace names
 # the stream each one ran on)
-HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "gemm_kernel",
+HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "attn_tf32_kernel",
+                "gemm_kernel",
                 "glu_wgmma_kernel", "state_kernel", "pass_kernel",
                 "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
                 "out_wgmma_kernel")
@@ -394,17 +399,23 @@ def phase_environment() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows, phase 2's
-    # baseline, built beside the kernels (kernel_variants.py's mma_sync)
+    # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows and the
+    # mma.sync f32 attention (attn_kernel) at D 64 / 128 on aligned
+    # operands, phase 2's and 8's baselines, built beside the kernels
+    # (kernel_variants.py's mma_sync)
     import kernel_variants
-    baseline = kernel_variants.start(("expert_glu",), ("mma_sync",))
+    baseline = kernel_variants.start(("expert_glu", "flash_attention"),
+                                     ("mma_sync",))
     paths = _build.build_all()
     for name in _build.KERNELS:
         _build.function(name)
     log(f"built {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
-    glu_baseline = kernel_variants.bind(kernel_variants.finish(baseline)[
-        "mma_sync", "expert_glu"], "expert_glu")
-    log(f"built the baseline in {time.perf_counter() - t0:.1f}s")
+    baselines = kernel_variants.finish(baseline)
+    glu_baseline = kernel_variants.bind(baselines["mma_sync", "expert_glu"],
+                                        "expert_glu")
+    attn_baseline = kernel_variants.bind(
+        baselines["mma_sync", "flash_attention"], "flash_attention")
+    log(f"built the baselines in {time.perf_counter() - t0:.1f}s")
     log("ptxas, per instantiation (registers a thread, static shared "
         "memory, spill stores / loads):")
     for name, out in _build.build_log.items():
@@ -419,6 +430,9 @@ def phase_environment() -> dict:
                 f"{short[:100]}")
     _hopper_sass(paths["flash_attention"], ("attn_wgmma_kernel",),
                  "the bf16 attention", "Lb1E")
+    # the f32 attention at D 64 and 128: 3xTF32 wgmma, fed by TMA
+    _hopper_sass(paths["flash_attention"], ("attn_tf32_kernel",),
+                 "the f32 wgmma attention", "attn_tf32_kernel")
     # the bf16 scan: its chunk states and carry, then its chunk outputs
     # (a block a chunk at N <= 64, a block a q tile above); f32 takes the
     # 3xTF32 kernels, and no bf16 shape does
@@ -429,7 +443,8 @@ def phase_environment() -> dict:
     # instantiation fed by TMA
     _hopper_sass(paths["expert_glu"], ("glu_wgmma_kernel",),
                  "the f32 expert GLU", "glu_wgmma_kernel")
-    return {"card": card, "glu_baseline": glu_baseline}
+    return {"card": card, "glu_baseline": glu_baseline,
+            "attn_baseline": attn_baseline}
 
 
 def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
@@ -438,8 +453,8 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     the wgmma ``kernels``: every one must run wgmma, and the TMA ones
     (whose mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D,
     true>``, the scan's kernels with their first template argument
-    ``true``, c and b or b by TMA, every ``glu_wgmma_kernel``) must load
-    by TMA."""
+    ``true``, c and b or b by TMA, every ``glu_wgmma_kernel`` and
+    ``attn_tf32_kernel``) must load by TMA."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -531,6 +546,47 @@ def _hold(name, label, got, want, dtype, elementwise: bool) -> float:
     return err
 
 
+# _f32_routes's child: each f32 attention call's kernels by name, from a
+# device trace, beside the kernel the C entry's rule names
+_F32_ROUTE_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import flash_attention as fa
+out = {}
+for label, (B, Tq, Tk, Hq, Hk, D, unaligned) in json.loads(sys.argv[1]).items():
+    q = torch.randn(B, Tq, Hq, D, device="cuda")
+    k, v = (torch.randn(B, Tk, Hk, D, device="cuda") for _ in range(2))
+    if unaligned:
+        k, v = cs._unaligned(k), cs._unaligned(v)
+    ran = cs._device_times(lambda: fa.flash_attention_cuda(q, k, v), calls=1)
+    out[label] = [sorted(ran), fa.f32_kernel(q, k, v)]
+print(json.dumps(out))
+"""
+
+
+def _f32_routes(cases: dict) -> None:
+    """Each f32 attention call of ``cases`` ({label: (B, Tq, Tk, Hq, Hk,
+    D, k/v unaligned)}) launched, in a device trace, the one kernel the C
+    entry's rule names (``flash_attention.f32_kernel``: the wgmma design
+    at D 64 and 128 on 16-byte boundaries, else the mma.sync one).  The
+    traces are taken in a child process: late in a whole run this
+    process's traces can hold none of the port's kernels (PERF.md §7).
+    The child loads the library this run built."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    run = subprocess.run([sys.executable, "-c", _F32_ROUTE_CHILD,
+                          json.dumps(cases)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0,
+          f"the f32 attention's kernels by name in a child process: exit "
+          f"{run.returncode} {run.stderr.strip()[-400:]}")
+    for label, (ran, want) in json.loads(
+            run.stdout.strip().splitlines()[-1]).items():
+        check(ran == [want], f"flash_attention {label} float32: launched "
+                             f"{ran}, the rule's {want}")
+
+
 def phase_kernels(main_cfg: dict, env: dict) -> dict:
     """Every kernel against its plain version; returns the per-kernel
     rows of the summary line (all but ``launches``)."""
@@ -559,6 +615,10 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         ("padded T=200, GQA 4/1", (2, 200, 200, 4, 1, 32, True, 0), True),
         ("non-causal D=128", (1, 64, 512, 4, 2, 128, False, 0), True),
         ("decode Tq=1 q_offset=299", (1, 1, 300, 4, 2, 64, True, 299), True),
+        ("causal D=128, GQA 4/2, padded T=200",
+         (2, 200, 200, 4, 2, 128, True, 0), True),
+        ("decode Tq=1 q_offset=299 D=128",
+         (1, 1, 300, 4, 2, 128, True, 299), True),
         ("Granite GQA 16/8", (B, T, T, H, 8, D, True, 0), False),
         ("main path", (B, T, T, H, H, D, True, 0), False),
     ]
@@ -566,19 +626,42 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         for label, shape, small in attn_cases:
             args, got, want = _attn_case(rng, *shape, dtype)
             err = _hold("flash_attention", label, got, want, dtype, small)
-            if label == "main path":
+            if label == "main path" or (dtype == f32 and small):
                 check_repeatable("flash_attention", label,
                                  fa.flash_attention_cuda, args)
-                if dtype == f32:
-                    main_err = err
-    # k and v off a 16-byte boundary take plain loads, not cp.async
+            if label == "main path" and dtype == f32:
+                main_err = err
+    # k and v off a 16-byte boundary: plain loads (bf16), the mma.sync
+    # kernel's plain loads (f32, by the rule)
     for dtype in (f32, bf16):
         (q, k, v), _, want = _attn_case(rng, 1, 96, 96, 4, 2, 64, True, 0,
                                         dtype)
         got = fa.flash_attention_cuda(q, _unaligned(k), _unaligned(v))
         _hold("flash_attention", "k, v not 16-byte aligned", got, want,
               dtype, True)
+    # which f32 design each case, and the zoo's f32 prefill shapes, took
+    from repro_torch.configs import get_config
+    routes = {label: shape[:6] + (False,) for label, shape, _ in attn_cases}
+    routes["k, v not 16-byte aligned"] = (1, 96, 96, 4, 2, 64, True)
+    for arch in ZOO_SHAPES[:3]:
+        sh = _zoo_call_shapes(arch, get_config(arch))[1]
+        routes[f"at {arch}'s prefill shapes"] = (
+            sh["q"][0], sh["q"][1], sh["kv"][1], sh["q"][2], sh["kv"][2],
+            sh["q"][3], False)
+    _f32_routes(routes)
     (q, k, v), _, _ = _attn_case(rng, B, T, T, H, H, D, True, 0, f32)
+    # the mma.sync kernel (attn_kernel) on the same operands
+    o_base = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def attn_baseline():
+        err = env["attn_baseline"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   o_base.data_ptr(), B, T, T, H, H, D, 1, 0,
+                                   0, stream)
+        check(err == 0, f"the mma.sync f32 attention: cudaError_t {err}")
+    attn_baseline()
+    _hold("flash_attention", "main path, the mma.sync kernel", o_base,
+          fa.flash_attention_plain(q, k, v), f32, False)
     pairs = H * sum(min(t + 1, T) for t in range(T)) * B
     b_ms, b_by = tc_bound(pairs * 4 * D, 4 * q.numel() * 4, f32)
     cc_ms = bound(pairs * 4 * D, 4 * q.numel() * 4, PEAK_F32)[0]
@@ -592,7 +675,8 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True)), cuda_core_bound_ms=cc_ms)
+            qh, kh, vh, is_causal=True)), cuda_core_bound_ms=cc_ms,
+        mma_sync_ms=time_ms(attn_baseline))
 
     # -- SSD scan ----------------------------------------------------------
     ssd_cases = [
@@ -706,7 +790,6 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], w_down)
     # the mma.sync kernel (gemm_kernel) on the same operands, in one process
     act, y = torch.empty((E, cap, F), device="cuda"), torch.empty_like(x)
-    stream = torch.cuda.current_stream().cuda_stream
 
     def baseline():
         err = env["glu_baseline"](x.data_ptr(), w_up.data_ptr(),
@@ -2241,11 +2324,14 @@ def _zoo_call_shapes(arch, cfg) -> tuple[str, dict]:
                             chunk=cfg.ssm_chunk, ones=False)
 
 
-def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
+def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False,
+                      attn_baseline=None) -> dict:
     """The kernel of ``arch``'s prefill at its shapes (random inputs of
     those shapes, in ``dtype``, default bf16): held against its plain
     version within the dtype's bucket (and, with ``repeat``, bitwise
-    between two runs); kernel, plain version, library call and bound."""
+    between two runs); kernel, plain version, library call and bound.
+    In f32, given ``attn_baseline`` (phase 1's build of the mma.sync
+    attention), that kernel is held and timed on the same operands."""
     import torch
     import torch.nn.functional as F_
     from repro_torch.kernels import flash_attention as fa
@@ -2269,6 +2355,21 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
         if repeat:
             check_repeatable("flash_attention", f"at {arch}'s shapes",
                              fa.flash_attention_cuda, (q, k, v))
+        extra = {}
+        if dtype == torch.float32 and attn_baseline is not None:
+            o = torch.empty_like(q)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def base():
+                e = attn_baseline(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  o.data_ptr(), B, T, T, Hq, Hk, D, 1, 0, 0,
+                                  stream)
+                check(e == 0, f"the mma.sync f32 attention: cudaError_t {e}")
+            base()
+            _hold("flash_attention", f"at {arch}'s shapes, the mma.sync "
+                  "kernel", o, fa.flash_attention_plain(q, k, v), dtype,
+                  False)
+            extra["mma_sync_ms"] = time_ms(base)
         pairs = Hq * B * T * (T + 1) // 2
         # q, k, v read once and o written once; bf16 under the contract
         # (P above bf16): 2 D for Q K^T and 2 x 2 D for P as two bf16
@@ -2306,7 +2407,7 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False) -> dict:
                     library_ms=time_ms(lambda: F_.scaled_dot_product_attention(
                         qh, kh, vh, is_causal=True)),
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                    rel_err=rel, **ulps)
+                    rel_err=rel, **ulps, **extra)
     B, T, H, N = sh["cb"]
     P, C = sh["v"][-1], sh["chunk"]
     c = rand(rng, sh["cb"], dtype, 0.5)
@@ -2435,7 +2536,9 @@ def _log_kernel_times(arch, times, n_launch) -> None:
     log(f"  {arch}: {times['name']} at {times['shapes']}: kernel "
         f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
         f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}), "
-        f"launches per prefill {n_launch}")
+        f"launches per prefill {n_launch}"
+        + (f"; the mma.sync kernel {times['mma_sync_ms']:.4f} ms"
+           if "mma_sync_ms" in times else ""))
     if "bytes_ms" in times:
         log(f"    bound by operations {times['ops_ms']:.4f} ms, by bytes "
             f"{times['bytes_ms']:.4f} ms")
@@ -2735,10 +2838,11 @@ ZOO_SHAPES = ("llama3.2-1b", "qwen3-8b", "stablelm-12b", "zamba2-2.7b",
 STABLELM_DEPTH = 4
 
 
-def _zoo_kernel_shapes() -> list:
+def _zoo_kernel_shapes(env: dict) -> list:
     """(c) each kernel at the zoo's widest call shapes against its plain
-    version, bitwise run to run, with its times; a shape beyond the
-    kernels still raises and launches nothing."""
+    version, bitwise run to run, with its times (the f32 attention beside
+    mma.sync kernel, phase 1's ``attn_baseline``); a shape beyond
+    the kernels still raises and launches nothing."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -2750,7 +2854,8 @@ def _zoo_kernel_shapes() -> list:
         cfg = get_config(arch)
         for dtype in (torch.bfloat16, torch.float32):
             kernels.reset_launch_counts()
-            t = _zoo_kernel_times(arch, cfg, dtype, repeat=True)
+            t = _zoo_kernel_times(arch, cfg, dtype, repeat=True,
+                                  attn_baseline=env.get("attn_baseline"))
             torch.cuda.synchronize()
             t["launches"] = kernels.launch_counts()[t["name"]]
             t["arch"], t["dtype"] = arch, str(dtype)[6:]
@@ -2853,7 +2958,7 @@ def phase_zoo(env: dict) -> dict:
     log(f"  (b) every arch reduced in {time.perf_counter() - t1:.1f} s: "
         + ", ".join(f"{a} {r['worst']:.1e}" for a, r in reduced.items()))
     t2 = time.perf_counter()
-    shapes = _zoo_kernel_shapes()
+    shapes = _zoo_kernel_shapes(env)
     log(f"  (c) the zoo's kernel shapes in "
         f"{time.perf_counter() - t2:.1f} s")
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")

@@ -39,6 +39,19 @@ call for the same function where there is one, all in one process:
   32: at the main path (N = 64, kv tiles of 64, chunk 64) every product
   is one chain, so this shows what the fold costs there and how far the
   truncating accumulator drifts without it;
+* for the f32 attention (``attn_tf32_kernel``, 3xTF32 ``wgmma`` fed by
+  TMA at D 64 and 128): ``mma_sync`` — the ``mma.sync`` kernel
+  (``attn_kernel``) on the same operands, the baseline; ``one_tf32`` —
+  hi.hi alone in both chains (the mma.sync kernel's too); ``f32_kv32`` — kv
+  tiles of 32 rows at D 64 (of 64); ``f32_stages2`` — a ring of 2
+  stages where 3 fit; ``kv_one_wg`` — warpgroup 0 walks every kv tile
+  (no split of the kv walk between the two consumer warpgroups);
+  ``o_in_place`` — P V summed straight into O scaled by alpha, with no
+  fresh accumulator (fewer registers; the truncating accumulator's drift
+  over the whole kv walk, which the main path's chain does not hold); and the
+  ablation ``no_mma`` — no products in either chain (the loads, the
+  splits of K lo and V^T, the softmax and the barriers alone); each also
+  at Qwen3-8B's f32 prefill shape, bitwise run to run or not;
 * ``p_one_bf16`` — the bf16 attention's P V with P as one bf16 term (hi
   only): the speed that rounding P to bf16, as SDPA does, buys; it must
   fail the one-ulp check;
@@ -111,10 +124,46 @@ GLU_ONE = "hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, !(fresh && kk == 0));"
 GLU_BM = "constexpr int BM = 128;     // token rows a block: the wgmma's N"
 GLU_SPLIT = "  for (int q = 0; q < STEPS; ++q) {"
 GLU_RING = "constexpr int STAGES = 3;   // the ring"
+# the mma.sync f32 attention (attn_kernel)
 ATTN_THREE = ("  bident::mma_tf32(c, al, bh);\n"
-              "  if constexpr (sizeof(T) == 4) bident::mma_tf32(c, ah, bl);\n"
+              "  bident::mma_tf32(c, ah, bl);\n"
               "  bident::mma_tf32(c, ah, bh);")
 ATTN_ONE = "  bident::mma_tf32(c, ah, bh);"
+# the f32 attention on TF32 wgmma (namespace tf of flash_attention.cu):
+# its route, both chains' three products, kv tile, stages, and the split
+# of the kv tiles between its two consumer warpgroups
+ATTN_ROUTE = "if (tf::tma_route(q, k, v, D))"
+TF_S_THREE = ("    hopper::WgmmaTf32<C::BK>::ss(sc, hopper::make_desc(ql + qo, 16, 1024, 128),\n"
+              "                                 dk, kk > 0);\n"
+              "    hopper::WgmmaTf32<C::BK>::ss(sc, dq, hopper::make_desc(kl + ko, 16, 1024, 128), 1);\n"
+              "    hopper::WgmmaTf32<C::BK>::ss(sc, dq, dk, 1);")
+TF_S_ONE = "    hopper::WgmmaTf32<C::BK>::ss(sc, dq, dk, kk > 0);"
+TF_PV_THREE = ("    hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);\n"
+               "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 1024, 128), 1);\n"
+               "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, 1);")
+TF_PV_ONE = "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, kk > 0);"
+TF_KV = "return D == 128 ? 32 : 64;"
+TF_RING = "constexpr int RING = 3;"
+TF_WALK = "for (int j = w; j < nk; j += 2) {"
+TF_FOLD = """    // O = O alpha + P V with an f32 add, DH columns a pass
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += DH) {
+      float pv[DH / 2];
+      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * 128, vtl + c0 * 128);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(pv);
+#pragma unroll
+      for (int x = 0; x < DH / 2; ++x)
+        acc[c0 / 2 + x] = acc[c0 / 2 + x] * alpha[(x >> 1) & 1] + pv[x];
+    }
+"""
+TF_IN_PLACE = """#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x >> 1) & 1];
+    pv_mma<D, D, BK>(acc, hi, lo, vth, vtl);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(acc);
+"""
+TF_PV_FIRST = "hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);"
 SSD_THREE = ("  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);\n"
              "  if constexpr (!B_EXACT) bident::mma_tf32(c, ah, bl);\n"
              "  bident::mma_tf32(c, ah, bh);")
@@ -162,7 +211,9 @@ VARIANTS = {
     # and barriers alone)
     "mma_sync": {"expert_glu.cu": [(GLU_ROUTE, GLU_ROUTE.replace(
         "if (", "if (false && ")), ("return run<float, false>(",
-                                     "return dispatch<float>(")]},
+                                     "return dispatch<float>(")],
+                 "flash_attention.cu": [(ATTN_ROUTE, ATTN_ROUTE.replace(
+                     "if (", "if (false && "))]},
     "fold1": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace("4", "1"))]},
     "no_fold": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace(
         "4", "1 << 30"))]},
@@ -170,10 +221,13 @@ VARIANTS = {
     "no_lohi": {"expert_glu.cu": [(GLU_THREE, GLU_TWO)]},
     "no_bsplit": {"expert_glu.cu": [(GLU_SPLIT, GLU_SPLIT.replace(
         "q < STEPS", "q < 0"))]},
-    "no_mma": {"expert_glu.cu": [(GLU_THREE, "")]},
+    "no_mma": {"expert_glu.cu": [(GLU_THREE, "")],
+               "flash_attention.cu": [(TF_S_THREE, ""), (TF_PV_THREE, "")]},
     "ring4": {"expert_glu.cu": [(GLU_RING, GLU_RING.replace("3;", "4;"))]},
     "one_tf32": {"expert_glu.cu": [(GLU_THREE, GLU_ONE)],
-                 "flash_attention.cu": [(ATTN_THREE, ATTN_ONE)],
+                 "flash_attention.cu": [(ATTN_THREE, ATTN_ONE),
+                                        (TF_S_THREE, TF_S_ONE),
+                                        (TF_PV_THREE, TF_PV_ONE)],
                  "ssd_scan.cu": [(SSD_THREE, SSD_ONE)]},
     "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
     "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
@@ -204,6 +258,18 @@ VARIANTS = {
                                                       "term < 0"))]},
     "score_p0": {"ssd_scan.cu": [(SSD_SCORE, SSD_SCORE.replace(
         "nsub)", "pt ? 0 : nsub)"))]},
+    # the f32 attention on TF32 wgmma: kv tiles of 32 rows at D 64 (of
+    # 64), a ring of 2 stages where 3 fit, and warpgroup 0 walking every kv
+    # tile (warpgroup 1 none: no split of the kv walk, nothing to merge)
+    "f32_kv32": {"flash_attention.cu": [(TF_KV, "return 32;")]},
+    "f32_stages2": {"flash_attention.cu": [(TF_RING, TF_RING.replace(
+        "3", "2"))]},
+    "kv_one_wg": {"flash_attention.cu": [(TF_WALK, (
+        "for (int j = 0; j < (w == 0 ? nk : 0); ++j) {"))]},
+    # P V summed straight into O scaled by alpha (no fresh accumulator)
+    "o_in_place": {"flash_attention.cu": [
+        (TF_FOLD, TF_IN_PLACE),
+        (TF_PV_FIRST, TF_PV_FIRST.replace("kk > 0", "1"))]},
     # ablations of the bf16 attention's softmax (wrong results; what each
     # part of the per-pair work costs)
     "no_split": {"flash_attention.cu": [(SPLIT_LO, "const __nv_bfloat162 pl = ph;")]},
@@ -214,6 +280,11 @@ VARIANTS = {
 ZOO_ATTENTION = ("llama3.2-1b", "qwen3-8b", "stablelm-12b")
 ATTN_BF16 = ("shipped", "p_one_bf16", "stages2", "kv32", "kv64", "kv128",
              "no_split", "no_softmax")
+# the f32 attention's variants, at the main path and at Qwen3-8B's f32
+# prefill shape
+ATTN_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "no_mma",
+            "f32_kv32", "f32_stages2", "kv_one_wg", "o_in_place")
+ZOO_ATTENTION_F32 = "qwen3-8b"
 # the bf16 SSD scan at the zoo's prefill shapes, chunk 256: (arch, c/b
 # shape, v shape, v's last column ones), and its variants
 ZOO_SSD = (("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64), False),
@@ -368,6 +439,49 @@ def _zoo_attention(libs, rand, stream) -> None:
             log(f"  {variant:10s} {time_ms(call, iters=20):.4f} ms, error / "
                 f"max|plain| {norm_err(o, want)[1]:.3e}, "
                 f"{fa.bf16_ulps(o, ref):.2f} ulps")
+
+
+def _zoo_attention_f32(libs, rand, stream) -> None:
+    """The f32 attention's variants at Qwen3-8B's f32 prefill shape (q (4,
+    1024, 32, 128), k/v 8 heads, causal): time, error over the plain
+    version's largest output, and whether two runs agree bitwise, beside
+    SDPA's time."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err, time_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    f32 = torch.float32
+    cfg = get_config(ZOO_ATTENTION_F32)
+    B, T, Hq, Hk, D = 4, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = rand((B, T, Hq, D), f32)
+    k, v = rand((B, T, Hk, D), f32), rand((B, T, Hk, D), f32)
+    want = fa.flash_attention_plain(q, k, v)
+    qh = q.transpose(1, 2)
+    kh, vh = (x.repeat_interleave(Hq // Hk, dim=2).transpose(1, 2)
+              for x in (k, v))
+    log(f"flash_attention float32 at {ZOO_ATTENTION_F32}'s prefill, q "
+        f"{tuple(q.shape)}, k/v {tuple(k.shape)}, causal: SDPA "
+        f"{time_ms(lambda: F_.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=20):.4f} ms")
+    o = torch.empty_like(q)
+    for variant in ATTN_F32:
+        if (variant, "flash_attention") not in libs:
+            continue
+        fn = bind(libs[variant, "flash_attention"], "flash_attention")
+
+        def call():
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     B, T, T, Hq, Hk, D, 1, 0, 0, stream)
+            if err:
+                raise RuntimeError(f"{variant}: cudaError_t {err}")
+        call()
+        torch.cuda.synchronize()
+        first = o.clone()
+        call()
+        torch.cuda.synchronize()
+        log(f"  {variant:11s} {time_ms(call, iters=20):.4f} ms, error / "
+            f"max|plain| {norm_err(o, want)[1]:.3e}"
+            + ("" if torch.equal(o, first) else ", NOT bitwise run to run"))
 
 
 def _ssd_f64(c, b, v, la, C):
@@ -575,7 +689,9 @@ def main() -> int:
                 qh, kh, vh, is_causal=True), iters=20)
             log(f"flash_attention {name} at (B, T, H, D) = ({B}, {T}, {H}, {D}),"
                 f" causal: SDPA {sdpa:.4f} ms")
-            for variant in VARIANTS:
+            # each dtype's own variants (the others leave its path as shipped)
+            for variant in ATTN_F32 if dtype == torch.float32 else \
+                    [v for v in VARIANTS if v not in ATTN_F32[1:]]:
                 if (variant, "flash_attention") not in libs:
                     continue
                 fn = bind(libs[variant, "flash_attention"], "flash_attention")
@@ -631,6 +747,7 @@ def main() -> int:
                     f" us")
     if "flash_attention" in chosen:
         _zoo_attention(libs, rand, stream)
+        _zoo_attention_f32(libs, rand, stream)
     if "ssd_scan" in chosen:
         _zoo_ssd(libs, rand, stream)
     LOG.parent.mkdir(exist_ok=True)

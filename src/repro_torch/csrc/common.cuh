@@ -5,7 +5,8 @@
 // reproducible) and writes in the operand dtype.
 //
 // Products.  Every kernel (expert_glu, flash_attention, ssd_scan) runs
-// its products on the tensor cores with `mma.sync`.  One TF32 product
+// its products on the tensor cores (`mma.sync`, or `wgmma` with the
+// building blocks of hopper.cuh).  One TF32 product
 // keeps 11 significant bits of each operand, about 3e-4 of the largest
 // output at the main path's K, which the f32 bucket of 3e-5 does not
 // hold.  They use the 3xTF32 split instead: a = a_hi + a_lo with

@@ -9,7 +9,11 @@
 // query row < kv position) masked with -1e30; with `causal`, kv tiles
 // wholly above the diagonal are skipped; output in q's dtype.  As in the
 // Pallas kernel, the products are f32-accurate and p is never rounded to
-// bf16.  Two designs, one for each dtype.
+// bf16.  Three designs, chosen before the launch by an explicit rule in
+// the C entry (never on error): bf16 on `wgmma` fed by TMA; f32 at D 64
+// and 128 with q, k, v on 16-byte boundaries on 3xTF32 `wgmma` fed by TMA
+// (`tf::tma_route`); every other f32 call (D 16, 32, 160, operands off 16
+// bytes) on 3xTF32 `mma.sync`.
 //
 // ---- bf16: wgmma and TMA (attn_wgmma_kernel) ----
 //
@@ -54,7 +58,71 @@
 // heaviest first, and a warpgroup skips the kv tiles that lie wholly above
 // its own rows.  No atomics: a run is bitwise repeatable.
 //
-// ---- f32: 3xTF32 mma.sync (attn_kernel) ----
+// ---- f32 at D 64 and 128: 3xTF32 wgmma fed by TMA (tf::attn_tf32_kernel) ----
+//
+// f32-accurate products take three TF32 ones (common.cuh): a.b ~
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, in every k8 step of both products.
+// The tensor cores read the top 19 bits of a raw f32 operand (they
+// truncate: kernel_variants.py's `one_tf32` at the expert GLU), so a raw
+// tile is its own hi term and a lo tile holds x - trunc19(x);
+// tests/test_torch_tf32x3.py emulates the kernel's two chains on the CPU
+// and decided what follows.
+//
+// (1) TF32 `wgmma` takes no transpose: both shared-memory operands are
+// K-major.  S = Q K^T reads Q (rows x D) and K (kv x D) straight from their
+// TMA tiles.  V (kv x D) is N-major for P V, so the warpgroup that
+// consumes a kv tile writes V^T itself as two K-major tiles in the 128-byte
+// swizzle: V^T hi (the raw bits) and V^T lo.  The alternative, O^T = V^T
+// P^T with V^T from registers, would send P through shared memory every
+// tile and move alpha across threads (the accumulator's rows would be O's
+// columns).
+// (2) P stays in registers as the A operand.  S's accumulator gives thread
+// (g, t) kv columns 2t and 2t + 1 of each 8-column slice, where the TF32 A
+// fragment holds columns t and t + 4; V^T holds each 8 kv positions in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 (A's k index t stands for kv 2t, t + 4 for
+// kv 2t + 1), so P's registers are the fragment as they lie.
+// (3) Q is scaled by 1/sqrt(D) once, in place in its tile, with its lo
+// tile beside it; each kv tile's K lo is split off with its V^T.  P is
+// split into hi (rounded to TF32) and lo in registers.  P V of a tile is
+// summed in a fresh accumulator and folded in as O alpha + pv with an f32
+// add, 32 of O's columns a pass.  The tensor cores' accumulator truncates
+// at every step; summed straight into O the truncations of the whole kv
+// walk shrink every output by ~4e-6 of itself at T 1024 (the CPU
+// emulation; a fresh accumulator a tile: ~1.5e-6), inside the bucket of
+// 3e-5, but the main path's chain (a sort and a top-8 routing behind the
+// attention) carried that shift past its oracle's bound on the card.
+// (4) Budgets.  A consumer thread holds O (D / 2 registers), the pass's
+// accumulator (16), S (BK / 2) and P's two terms (BK): 144 at D 64 with
+// kv tiles of 64, 112 at D 128 with 32, within the 168 a thread of 288
+// may have (ptxas spills 76 and 20 bytes).  Shared memory: Q and
+// its lo tile (2 x 64 x D x 4 B), a ring of K and V tiles (2 x BK x D x 4
+// B a stage) and each consumer warpgroup's K lo, V^T hi and V^T lo (3 x BK
+// x D x 4 B): 32 + 3 x 32 + 2 x 48 = 224 KB at D 64 (3 stages), 64 + 2 x
+// 32 + 2 x 48 = 224 KB at D 128 (2 stages), of the 227 KB a block may use.
+// At D 160 one stage of 32 kv rows needs 80 + 40 + 2 x 60 = 240 KB, so D
+// 160 stays on the mma.sync kernel, with D 16 and 32 (rows narrower than
+// the 128-byte swizzle) and operands off 16 bytes (TMA cannot read them).
+// (5) The grid.  A block owns one (batch, head, 64-row query tile), and
+// its two consumer warpgroups take alternate kv tiles (even, odd), each
+// with its own m, l and O; warpgroup 1 then hands (m, l, O) to warpgroup
+// 0 through shared memory, which merges them in that fixed order.  At the
+// main path (1 x 1024 x 16 x 64, causal) that is 256 blocks, heaviest
+// first, whose heaviest walks 1024 kv rows with two warpgroups: ~13 us at
+// one SM's share of the TF32 rate, where 128-row blocks (128 of them, one
+// wave) would take 27 us in the heaviest.
+// (6) No atomics and no order that varies: a run is bitwise repeatable.
+// (7) Tiles are 4-D TMA boxes of 32 floats over (D, H, T, B)
+// (hopper::encode_bthd), so rows past Tq or Tk read zeros within their
+// own batch.
+//
+// Roles: 288 threads.  Warp 8's first thread loads Q once and each kv
+// tile's K and V into a ring of stages (an mbarrier each for full and
+// empty).  Consumer warpgroup w walks kv tiles w, w + 2, ...: it splits
+// the tile's K lo and V^T into its own tiles, runs S, frees the stage,
+// runs the online softmax in base 2 (log2(e) applied to S, as the bf16
+// kernel does), scales O, splits P and runs P V.
+//
+// ---- f32 elsewhere: 3xTF32 mma.sync (attn_kernel) ----
 //
 // Design for the card, not the TPU grid.  The Pallas grid walks kv blocks
 // as a sequential grid axis carrying m/l/acc in VMEM scratch; here one
@@ -62,9 +130,9 @@
 // kv tiles itself, in the FlashAttention-2 layout: each of its 4 warps
 // owns 16 query rows, so S = Q K^T, the softmax and O += P V stay inside
 // the warp.  Both products run on the tensor cores as `m16n8k8` TF32
-// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy
-// (the template's bf16 branches are not instantiated).  A thread holds two columns of two rows of each S tile, so a row's max and
-// sum are two xor-shuffles inside its quad of lanes.
+// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy.
+// A thread holds two columns of two rows of each S tile, so a row's max
+// and sum are two xor-shuffles inside its quad of lanes.
 //
 // P stays in registers.  The S accumulator gives thread (g, t) kv columns
 // 2t and 2t+1 of an 8-column slice, where the A operand of P V wants
@@ -96,11 +164,11 @@
 // runs in the same order in either pass, so the result is the one-pass
 // result, bit for bit.
 //
-// Bound: at the main-path shape (1 x 1024 x 16 x 64, causal) the work is
-// 2.15 GFLOP of products against ~17 MB of traffic; f32-accurate products
-// cost three TF32 ones: 3 x 2.15 GFLOP / 495 TFLOP/s = 13 us on the
-// tensor cores, against 5 us for the bytes, so the kernel is bound by
-// operations.
+// Bound of both f32 designs: at the main-path shape (1 x 1024 x 16 x 64,
+// causal) the work is 2.15 GFLOP of products against ~17 MB of traffic;
+// f32-accurate products cost three TF32 ones: 3 x 2.15 GFLOP / 495
+// TFLOP/s = 13 us on the tensor cores, against 5 us for the bytes, so
+// the kernels are bound by operations.
 #include <cmath>
 #include <stdint.h>
 
@@ -115,12 +183,13 @@ constexpr int NT = 128;       // 4 warps
 constexpr int SJ = BK / 8;    // n8 tiles of S per warp
 constexpr float NEG_INF = -1e30f;
 
-template <typename T, int D>
+constexpr int VEC = 4;        // floats a 16-byte chunk
+
+template <int D>
 struct Layout {
-  static constexpr int VEC = 16 / sizeof(T);
   static constexpr int QS = D + 4;    // row stride of the Q hi / lo tiles
   static constexpr int KS = D + VEC;  // row stride of the K and V tiles
-  static constexpr size_t KV_BYTES = sizeof(T) * BK * KS;   // one tile
+  static constexpr size_t KV_BYTES = sizeof(float) * BK * KS;   // one tile
   // q as its split (hi and lo tiles), or as one f32 tile split at each
   // fragment load where the split does not fit beside 2 x (K, V)
   static constexpr bool Q_SPLIT =
@@ -136,25 +205,24 @@ __device__ __forceinline__ void operand(float x, uint32_t& hi, uint32_t& lo) {
   bident::split_tf32(x, hi, lo);
 }
 
-// c += a.b in 3xTF32; with an exact b (bf16) its lo product is skipped.
-template <typename T>
+// c += a.b in 3xTF32
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4],
                                      const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
   bident::mma_tf32(c, al, bh);
-  if constexpr (sizeof(T) == 4) bident::mma_tf32(c, ah, bl);
+  bident::mma_tf32(c, ah, bl);
   bident::mma_tf32(c, ah, bh);
 }
 
-template <typename T, int D, bool ASYNC>
+template <int D, bool ASYNC>
 __global__ void __launch_bounds__(NT)
-    attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int B, int Tq,
-                int Tk, int Hq, int Hk, int causal, int q_offset,
+    attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int B,
+                int Tq, int Tk, int Hq, int Hk, int causal, int q_offset,
                 float scale) {
-  using L = Layout<T, D>;
-  constexpr int VEC = L::VEC, QS = L::QS, KS = L::KS;
+  using L = Layout<D>;
+  constexpr int QS = L::QS, KS = L::KS;
   constexpr int DJ = D / 8;   // n8 tiles of O per warp
   // n8 tiles of O per pass of P V (two passes above 16 tiles)
   constexpr int DH = DJ > 16 ? DJ / 2 : DJ;
@@ -163,7 +231,8 @@ __global__ void __launch_bounds__(NT)
   // TF32 hi parts of q (without Q_SPLIT: q itself, scaled, as f32 bits)
   uint32_t* Qh = reinterpret_cast<uint32_t*>(smem4);
   uint32_t* Ql = Qh + BQ * QS;                         // ... and lo parts
-  T* KV = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + L::Q_BYTES);
+  float* KV =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L::Q_BYTES);
 
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -177,9 +246,7 @@ __global__ void __launch_bounds__(NT)
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D, c = e % D, tq = q0 + r;
     const float qv =
-        tq < Tq ? bident::to_f32(q[((size_t)(b * Tq + tq) * Hq + h) * D + c]) *
-                      scale
-                : 0.f;
+        tq < Tq ? q[((size_t)(b * Tq + tq) * Hq + h) * D + c] * scale : 0.f;
     if constexpr (L::Q_SPLIT)
       bident::split_tf32(qv, Qh[r * QS + c], Ql[r * QS + c]);
     else
@@ -188,8 +255,8 @@ __global__ void __launch_bounds__(NT)
 
   // K and V of kv tile kt into buffer s (zero past Tk)
   auto load_tile = [&](int kt, int s) {
-    T* Ks = KV + (2 * s) * BK * KS;
-    T* Vs = Ks + BK * KS;
+    float* Ks = KV + (2 * s) * BK * KS;
+    float* Vs = Ks + BK * KS;
     for (int c = tid; c < BK * D / VEC; c += NT) {
       const int r = c / (D / VEC), cc = c % (D / VEC) * VEC;
       const int tk = kt * BK + r;
@@ -224,8 +291,8 @@ __global__ void __launch_bounds__(NT)
     bident::cp_async_commit();
     bident::cp_async_wait<1>();   // tile kt has landed
     __syncthreads();
-    const T* Ks = KV + (2 * (kt & 1)) * BK * KS;
-    const T* Vs = Ks + BK * KS;
+    const float* Ks = KV + (2 * (kt & 1)) * BK * KS;
+    const float* Vs = Ks + BK * KS;
 
     // S = Q K^T for the warp's 16 rows x 64 kv columns
     float s[SJ][4];
@@ -246,11 +313,11 @@ __global__ void __launch_bounds__(NT)
       }
 #pragma unroll
       for (int j = 0; j < SJ; ++j) {
-        const T* kr = Ks + (j * 8 + g) * KS + kk * 8 + t;   // B(k, n) = K[n][k]
+        const float* kr = Ks + (j * 8 + g) * KS + kk * 8 + t;   // B(k, n) = K[n][k]
         uint32_t bh[2], bl[2];
         operand(kr[0], bh[0], bl[0]);
         operand(kr[4], bh[1], bl[1]);
-        mma3<T>(s[j], ah, al, bh, bl);
+        mma3(s[j], ah, al, bh, bl);
       }
     }
 
@@ -306,13 +373,13 @@ __global__ void __launch_bounds__(NT)
         bident::split_tf32(s[j][2], ph[1], pl[1]);   // (g + 8, kv 2t)
         bident::split_tf32(s[j][1], ph[2], pl[2]);   // (g,     kv 2t + 1)
         bident::split_tf32(s[j][3], ph[3], pl[3]);   // (g + 8, kv 2t + 1)
-        const T* vr = Vs + (j * 8 + 2 * t) * KS + g + d0 * 8;
+        const float* vr = Vs + (j * 8 + 2 * t) * KS + g + d0 * 8;
 #pragma unroll
         for (int dj = 0; dj < DH; ++dj) {
           uint32_t bh[2], bl[2];
           operand(vr[dj * 8], bh[0], bl[0]);        // V[8j + 2t][8dj + g]
           operand(vr[KS + dj * 8], bh[1], bl[1]);   // V[8j + 2t + 1][...]
-          mma3<T>(pv[dj], ph, pl, bh, bl);
+          mma3(pv[dj], ph, pl, bh, bl);
         }
       }
 #pragma unroll
@@ -329,41 +396,40 @@ __global__ void __launch_bounds__(NT)
     const int tq = q0 + r_lo + 8 * hr;
     if (tq >= Tq) continue;
     const float lc = fmaxf(l[hr], 1e-30f);
-    T* out = o + ((size_t)(b * Tq + tq) * Hq + h) * D;
+    float* out = o + ((size_t)(b * Tq + tq) * Hq + h) * D;
 #pragma unroll
     for (int dj = 0; dj < DJ; ++dj)
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc)
-        out[dj * 8 + 2 * t + cc] =
-            bident::from_f32<T>(acc[dj][2 * hr + cc] / lc);
+        out[dj * 8 + 2 * t + cc] = acc[dj][2 * hr + cc] / lc;
   }
 }
 
-template <typename T, int D, bool ASYNC>
+template <int D, bool ASYNC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Tq, int Tk, int Hq, int Hk, int causal,
                    int q_offset, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, D>::SMEM;
-  cudaError_t err = bident::allow_smem(attn_kernel<T, D, ASYNC>, smem);
+  constexpr size_t smem = Layout<D>::SMEM;
+  cudaError_t err = bident::allow_smem(attn_kernel<D, ASYNC>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * Hq, (Tq + BQ - 1) / BQ);
-  attn_kernel<T, D, ASYNC><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), B, Tq, Tk, Hq, Hk,
-      causal, q_offset,
+  attn_kernel<D, ASYNC><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, Tq, Tk, Hq,
+      Hk, causal, q_offset,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_aligned(const void* q, const void* k, const void* v,
                            void* o, int B, int Tq, int Tk, int Hq, int Hk,
                            int causal, int q_offset, cudaStream_t stream) {
   return bident::aligned16(k) && bident::aligned16(v)
-             ? launch<T, D, true>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal,
-                                  q_offset, stream)
-             : launch<T, D, false>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal,
-                                   q_offset, stream);
+             ? launch<D, true>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal,
+                               q_offset, stream)
+             : launch<D, false>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal,
+                                q_offset, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -771,16 +837,376 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace wg
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// f32 at D 64 and 128: 3xTF32 wgmma fed by TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int BQ = 64;         // query rows a block, both warpgroups' rows
+constexpr int NT = 288;        // two consumer warpgroups + one producer warp
+constexpr int RING = 3;        // K / V stages in flight, where they fit
+constexpr double LOG2E = 1.4426950408889634;
+
+// kv rows a tile (flash_attention.f32_kv_tile in the Python module): a
+// consumer thread holds O (D / 2 registers), P V's accumulator, S (BK / 2)
+// and P's two TF32 terms (BK), and each warpgroup's K lo and V^T tiles
+// fit beside the ring
+__host__ __device__ constexpr int kv_tile(int D) { return D == 128 ? 32 : 64; }
+
+template <int D>
+struct Cfg {
+  static constexpr int BK = kv_tile(D);
+  // O's columns a P V pass: its fresh accumulator takes DH / 2 registers
+  // (32 columns: the fewest spills, and the fastest on the card)
+  static constexpr int DH = 32;
+  static constexpr int NSUB = D / 32;                // 32-float sub-tiles of a row
+  static constexpr uint32_t Q_SUB = BQ * 128, KV_SUB = BK * 128;
+  static constexpr uint32_t Q_BYTES = NSUB * Q_SUB;      // = BQ x D x 4
+  static constexpr uint32_t KV_BYTES = NSUB * KV_SUB;    // one K or V tile
+  static constexpr uint32_t VT_SUB = D * 128;            // D rows of 32 kv
+  static constexpr uint32_t VT_BYTES = BK / 32 * VT_SUB; // = KV_BYTES
+  // a consumer warpgroup's own tiles: K lo, V^T hi, V^T lo
+  static constexpr uint32_t WG_BYTES = KV_BYTES + 2 * VT_BYTES;
+  // 1024 bytes of slack to align the tiles; Q, its lo tile, the two
+  // warpgroups' tiles and Q's mbarrier; per stage K, V and two mbarriers
+  static constexpr size_t FIXED = 1024 + 2 * Q_BYTES + 2 * WG_BYTES + 8;
+  static constexpr size_t PER_STAGE = 2 * KV_BYTES + 16;
+  static constexpr int STAGES =
+      FIXED + RING * PER_STAGE <= 232448 ? RING : RING - 1;
+  static constexpr size_t SMEM = FIXED + STAGES * PER_STAGE;
+  static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
+  static_assert(D % 32 == 0 && BK % 32 == 0, "128-byte rows of 32 floats");
+  // warpgroup 1 hands O, m and l to warpgroup 0 through its own tiles
+  static_assert(WG_BYTES >= 4 * 128 * (D / 2 + 4), "the merge's buffer");
+};
+
+// the byte offset of element (row, col) of a 32-float sub-tile in the
+// 128-byte swizzle (hopper.cuh)
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  const uint32_t off = row * 128 + col * 4;
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
+// x - (what the tensor cores read of x: its top 19 bits), exactly
+__device__ __forceinline__ float lo19(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+__device__ __forceinline__ float4 lo19(float4 x) {
+  return make_float4(lo19(x.x), lo19(x.y), lo19(x.z), lo19(x.w));
+}
+
+// A landed kv tile's K lo tile and V^T's two tiles, by the 128 threads of
+// the warpgroup that consumes it (thread i).  V^T (D rows of BK kv, K-major
+// for P V) holds each 8 kv positions in the order 0, 2, 4, 6, 1, 3, 5, 7,
+// so that A's k index t stands for kv 2t and t + 4 for kv 2t + 1 (P's
+// registers as S's accumulator left them).  A warp reads one kv row of 32
+// consecutive d and writes 32 rows of V^T: both spread over all banks.
+template <int D>
+__device__ __forceinline__ void split_tile(const uint8_t* ks, const uint8_t* vs,
+                                           uint8_t* klo, uint8_t* vth,
+                                           uint8_t* vtl, int i) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int e = i; e < C::KV_BYTES / 16; e += 128)
+    reinterpret_cast<float4*>(klo)[e] =
+        lo19(reinterpret_cast<const float4*>(ks)[e]);
+#pragma unroll
+  for (int e = i; e < D * C::BK / 8; e += 128) {
+    const int d = e % D, kv0 = e / D * 8;   // 8 kv rows from kv0, column d
+    const uint8_t* src = vs + d / 32 * C::KV_SUB;
+    float x[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      x[r] = *reinterpret_cast<const float*>(src + swz(kv0 + r, d % 32));
+    const float4 even = make_float4(x[0], x[2], x[4], x[6]);
+    const float4 odd = make_float4(x[1], x[3], x[5], x[7]);
+    const uint32_t off = kv0 / 32 * C::VT_SUB;
+    const uint32_t a0 = off + swz(d, kv0 % 32), a4 = off + swz(d, kv0 % 32 + 4);
+    *reinterpret_cast<float4*>(vth + a0) = even;
+    *reinterpret_cast<float4*>(vth + a4) = odd;
+    *reinterpret_cast<float4*>(vtl + a0) = lo19(even);
+    *reinterpret_cast<float4*>(vtl + a4) = lo19(odd);
+  }
+}
+
+// S = Q K^T for one kv tile, issued and committed: per k8 step Q_lo.K,
+// Q.K_lo, Q.K (raw tiles are their own hi terms)
+template <int D>
+__device__ __forceinline__ void s_mma(float (&sc)[Cfg<D>::BK / 2], uint32_t qs,
+                                      uint32_t ql, uint32_t ks, uint32_t kl) {
+  using C = Cfg<D>;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t qo = kk / 4 * C::Q_SUB + kk % 4 * 32;
+    const uint32_t ko = kk / 4 * C::KV_SUB + kk % 4 * 32;
+    const uint64_t dq = hopper::make_desc(qs + qo, 16, 1024, 128);
+    const uint64_t dk = hopper::make_desc(ks + ko, 16, 1024, 128);
+    hopper::WgmmaTf32<C::BK>::ss(sc, hopper::make_desc(ql + qo, 16, 1024, 128),
+                                 dk, kk > 0);
+    hopper::WgmmaTf32<C::BK>::ss(sc, dq, hopper::make_desc(kl + ko, 16, 1024, 128), 1);
+    hopper::WgmmaTf32<C::BK>::ss(sc, dq, dk, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// pv = P V over DH of O's columns (V^T's rows from vth / vtl) for one kv
+// tile, in a fresh accumulator, issued and committed: per k8 step
+// P_lo.V^T, P_hi.V^T_lo, P_hi.V^T (V^T's raw tile is its hi term)
+template <int D, int DH, int BK>
+__device__ __forceinline__ void pv_mma(float (&pv)[DH / 2],
+                                       uint32_t (&hi)[BK / 8][4],
+                                       uint32_t (&lo)[BK / 8][4],
+                                       uint32_t vth, uint32_t vtl) {
+  using C = Cfg<D>;
+  hopper::reg_fence(hi);
+  hopper::reg_fence(lo);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    const uint32_t off = kk / 4 * C::VT_SUB + kk % 4 * 32;
+    const uint64_t dh = hopper::make_desc(vth + off, 16, 1024, 128);
+    hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);
+    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 1024, 128), 1);
+    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// One block owns one (batch, head, 64-row query tile); see the note at
+// the head of the file.  Consumer warpgroup w walks kv tiles w, w + 2, ...
+// with its own m, l and O: each tile landed, its K lo and V^T split off,
+// S, its stage freed, the online softmax in base 2, O scaled by alpha, P
+// split into TF32 hi and lo, P V into O.  Warpgroup 1 then hands (m, l, O)
+// to warpgroup 0, which merges and writes the tile.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    attn_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     float* __restrict__ o, int Tq, int Tk, int Hq, int Hk,
+                     int causal, int q_offset, float scale) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, DH = C::DH, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* Qs = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Ql = Qs + C::Q_BYTES;
+  uint8_t* Wt = Ql + C::Q_BYTES;               // warpgroup w's at w x WG_BYTES
+  uint8_t* Ks = Wt + 2 * C::WG_BYTES;          // stage s at s x KV_BYTES
+  uint8_t* Vs = Ks + STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  const int hk = h / (Hq / Hk);
+  int nk = (Tk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q_offset + q0 + BQ - 1) / BK + 1);
+  const int tid = threadIdx.x;
+  // warpgroups 0 and 1 consume, warp 8 (role 2) produces; warp-uniform
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);   // the 4 warps of the tile's warpgroup
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight ----
+    if (tid != 256) return;
+    hopper::mbar_expect_tx(q_full, C::Q_BYTES);
+    for (int st = 0; st < C::NSUB; ++st)
+      hopper::tma_load_4d(Qs + st * C::Q_SUB, &qmap, q_full, st * 32, h, q0, b);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % STAGES;
+      if (j >= STAGES) hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      hopper::mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+      for (int st = 0; st < C::NSUB; ++st) {
+        hopper::tma_load_4d(Ks + s * C::KV_BYTES + st * C::KV_SUB, &kmap,
+                            &full[s], st * 32, hk, j * BK, b);
+        hopper::tma_load_4d(Vs + s * C::KV_BYTES + st * C::KV_SUB, &vmap,
+                            &full[s], st * 32, hk, j * BK, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int w = role, i = tid % 128;
+  const int warp = i / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g;            // and row0 + 8
+  const int qpos0 = q_offset + row0;
+  uint8_t* Klo = Wt + w * C::WG_BYTES;
+  uint8_t* Vth = Klo + C::KV_BYTES;
+  uint8_t* Vtl = Vth + C::VT_BYTES;
+
+  // q scaled by 1/sqrt(D) in place, and its lo tile, by both warpgroups
+  hopper::mbar_wait(q_full, 0);
+  for (int e = tid; e < C::Q_BYTES / 16; e += 256) {
+    float4 x = reinterpret_cast<float4*>(Qs)[e];
+    x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    reinterpret_cast<float4*>(Qs)[e] = x;
+    reinterpret_cast<float4*>(Ql)[e] = lo19(x);
+  }
+  hopper::fence_proxy_async();
+  hopper::named_bar_sync(1, 256);
+
+  const uint32_t qs = hopper::smem_u32(Qs), ql = hopper::smem_u32(Ql);
+  const uint32_t kl = hopper::smem_u32(Klo);
+  const uint32_t vth = hopper::smem_u32(Vth), vtl = hopper::smem_u32(Vtl);
+  float acc[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+  // running max (in units of S log2(e)) and this thread's share of l
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+  const float log2e = static_cast<float>(LOG2E);
+  for (int j = w; j < nk; j += 2) {
+    const int s = j % STAGES;
+    const uint8_t* ks = Ks + s * C::KV_BYTES;
+    // this warpgroup's last P V has finished reading its tiles
+    hopper::named_bar_sync(2 + w, 128);
+    hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+    split_tile<D>(ks, Vs + s * C::KV_BYTES, Klo, Vth, Vtl, i);
+    hopper::fence_proxy_async();
+    hopper::named_bar_sync(2 + w, 128);
+    float sc[BK / 2];
+    s_mma<D>(sc, qs, ql, hopper::smem_u32(ks), kl);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);   // K and V read
+    const bool masked = (j + 1) * BK > Tk ||
+                        (causal && (j + 1) * BK - 1 > q_offset + q0);
+    wg::softmax<BK>(sc, m, l, alpha, log2e, masked, j * BK, qpos0, Tk,
+                    causal, t);
+    // P in the A fragment of k8 step kk: (g, kv 2t), (g + 8, kv 2t),
+    // (g, kv 2t + 1), (g + 8, kv 2t + 1) of kv slice kk
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      bident::split_tf32(sc[4 * kk], hi[kk][0], lo[kk][0]);
+      bident::split_tf32(sc[4 * kk + 2], hi[kk][1], lo[kk][1]);
+      bident::split_tf32(sc[4 * kk + 1], hi[kk][2], lo[kk][2]);
+      bident::split_tf32(sc[4 * kk + 3], hi[kk][3], lo[kk][3]);
+    }
+    // O = O alpha + P V with an f32 add, DH columns a pass
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += DH) {
+      float pv[DH / 2];
+      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * 128, vtl + c0 * 128);
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(pv);
+#pragma unroll
+      for (int x = 0; x < DH / 2; ++x)
+        acc[c0 / 2 + x] = acc[c0 / 2 + x] * alpha[(x >> 1) & 1] + pv[x];
+    }
+  }
+  // l of each row over its quad
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+
+  // warpgroup 1 hands (O, m, l) to warpgroup 0 through its own tiles,
+  // element x of thread i at x x 128 + i; warpgroup 0 merges them
+  float* hand = reinterpret_cast<float*>(Wt + C::WG_BYTES);
+  if (w == 1) {
+    hopper::named_bar_sync(3, 128);   // every P V of warpgroup 1 is done
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) hand[x * 128 + i] = acc[x];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      hand[(D / 2 + hr) * 128 + i] = m[hr];
+      hand[(D / 2 + 2 + hr) * 128 + i] = l[hr];
+    }
+    hopper::named_bar_sync(1, 256);
+    return;
+  }
+  hopper::named_bar_sync(1, 256);
+  float a0[2], a1[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float m1 = hand[(D / 2 + hr) * 128 + i];
+    const float l1 = hand[(D / 2 + 2 + hr) * 128 + i];
+    const float mm = fmaxf(m[hr], m1);
+    a0[hr] = wg::ex2(m[hr] - mm);
+    a1[hr] = wg::ex2(m1 - mm);
+    l[hr] = l[hr] * a0[hr] + l1 * a1[hr];
+  }
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x)
+    acc[x] = acc[x] * a0[(x >> 1) & 1] + hand[x * 128 + i] * a1[(x >> 1) & 1];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    if (row >= Tq) continue;
+    const float lc = fmaxf(l[hr], 1e-30f);
+    float* out = o + ((size_t)(b * Tq + row) * Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<float2*>(out + 8 * jn) =
+          make_float2(acc[4 * jn + 2 * hr] / lc, acc[4 * jn + 2 * hr + 1] / lc);
+  }
+}
+
+// The f32 route's rule, decided before the launch: this kernel where it is
+// instantiated (D 64, 128) and TMA reads q, k and v (16-byte aligned
+// bases; o is written by plain stores); the mma.sync attn_kernel elsewhere.
+inline bool tma_route(const void* q, const void* k, const void* v, int D) {
+  return (D == 64 || D == 128) && bident::aligned16(q) &&
+         bident::aligned16(k) && bident::aligned16(v);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Tq, int Tk, int Hq, int Hk, int causal,
+                   int q_offset, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap qm{}, km{}, vm{};
+  if (!(hopper::encode_bthd(&qm, q, B, Tq, Hq, D, 32, BQ, 4) &&
+        hopper::encode_bthd(&km, k, B, Tk, Hk, D, 32, C::BK, 4) &&
+        hopper::encode_bthd(&vm, v, B, Tk, Hk, D, 32, C::BK, 4)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = bident::allow_smem(attn_tf32_kernel<D>, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Tq + BQ - 1) / BQ);
+  attn_tf32_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<float*>(o), Tq, Tk, Hq, Hk, causal, q_offset,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* o, int B, int Tq, int Tk, int Hq, int Hk,
                      int causal, int q_offset, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_aligned<T, 16>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
-    case 32: return launch_aligned<T, 32>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
-    case 64: return launch_aligned<T, 64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
-    case 128: return launch_aligned<T, 128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
-    case 160: return launch_aligned<T, 160>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 64: return launch<64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 128: return launch<128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf
+
+// f32 on the mma.sync kernel (attn_kernel)
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* o, int B, int Tq, int Tk, int Hq, int Hk,
+                     int causal, int q_offset, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_aligned<16>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 32: return launch_aligned<32>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 64: return launch_aligned<64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 128: return launch_aligned<128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 160: return launch_aligned<160>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -799,6 +1225,11 @@ extern "C" int bident_flash_attention(const void* q, const void* k,
       q_offset < 0 || (Tq + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? wg::dispatch(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s)
-              : dispatch<float>(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s);
+  if (bf16)
+    return wg::dispatch(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s);
+  // f32: TF32 wgmma where the rule says TMA reads every operand at an
+  // instantiated D, else the mma.sync kernel (never on error)
+  if (tf::tma_route(q, k, v, D))
+    return tf::dispatch(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s);
+  return dispatch(D, q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, s);
 }

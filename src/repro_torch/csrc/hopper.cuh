@@ -4,9 +4,10 @@
 //
 // Shared-memory tiles are stored in the layout that both TMA (with
 // `CU_TENSOR_MAP_SWIZZLE_{32,64,128}B`) and `wgmma` (layout types B32,
-// B64, B128) read: rows of `sw` bytes (16, 32 or 64 bf16), each 16-byte
-// chunk of a row moved by the swizzle, `chunk ^= (byte offset >> 7) &
-// (sw / 16 - 1)`, over a tile whose base is aligned to 1024 bytes.  A
+// B64, B128) read: rows of `sw` bytes (16, 32 or 64 bf16; 32 floats),
+// each 16-byte chunk of a row moved by the swizzle, `chunk ^= (byte
+// offset >> 7) & (sw / 16 - 1)`, over a tile whose base is aligned to
+// 1024 bytes.  A
 // tile wider than `sw` bytes is kept as sub-tiles of `sw`-byte rows, one
 // after the other.
 #pragma once
@@ -379,13 +380,60 @@ struct Wgmma<160> {
 // above.  TF32 takes no transpose: B (N x 8) is K-major in shared memory
 // (N rows of K, by descriptor).  `rs`: A from registers, the m16n8k8 TF32
 // A fragment of the warp's 16 rows (g = lane / 4, t = lane % 4): a[0]
-// (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4);
-// `accumulate` 0 overwrites d.
+// (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4).  `ss`:
+// A (64 x 8) K-major in shared memory too.  `accumulate` 0 overwrites d.
 template <int N>
 struct WgmmaTf32;
 
 template <>
+struct WgmmaTf32<32> {
+  // d = A B (`accumulate` 0) or d += A B: A (64 x 8) and B (32 x 8),
+  // both K-major, by descriptor
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
 struct WgmmaTf32<64> {
+  // d = A B (`accumulate` 0) or d += A B: A (64 x 8) and B (64 x 8),
+  // both K-major, by descriptor
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -460,22 +508,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 (B, T, H, D) tensor as a 4-D map over (D, H, T, B), read in
-// boxes of `cols` x 1 x `rows` x 1 with a swizzle of 2 * cols bytes;
-// rows past T read as zeros.  False if the driver refuses it.
+// A (B, T, H, D) tensor of bf16 (`elem` 2) or f32 (`elem` 4) as a 4-D
+// map over (D, H, T, B), read in boxes of `cols` x 1 x `rows` x 1 with a
+// swizzle of the box's row, cols x elem bytes (128, 64 or 32: 64 bf16 or
+// 32 floats fill the 128-byte swizzle); rows past T read as zeros, within
+// their own batch.  False if the driver refuses it.
 inline bool encode_bthd(CUtensorMap* map, const void* base, int B, int T,
-                        int H, int D, int cols, int rows) {
+                        int H, int D, int cols, int rows, int elem = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T),
                               cuuint64_t(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * T};
+  const cuuint64_t e = elem;
+  const cuuint64_t strides[3] = {e * D, e * D * H, e * D * H * T};
   const cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const int row_bytes = cols * elem;
+  const CUtensorMapSwizzle sw = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map,
+            elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -154,3 +154,46 @@ def test_expert_glu_variants_match_the_sources():
     assert "WgmmaTf32<BM>::rs(" not in got["no_mma"]
     assert "q < 0; ++q" in got["no_bsplit"]
     assert "warps16" not in kv.VARIANTS
+
+
+def test_f32_attention_variants_match_the_sources():
+    """The f32 attention's baseline, tile, ring and split variants and its
+    ablations in ``kernel_variants.py`` each change the source of the
+    TF32 wgmma design (or its route), every header copied beside it; the
+    C entry's rule names the head dims ``flash_attention.f32_kernel``
+    routes to it."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attention as fa
+    path = Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    shipped = kv.sources("shipped", "flash_attention")["flash_attention.cu"]
+    rule = re.search(r"inline bool tma_route\(.*?\{\s*return (.*?);", shipped,
+                     re.S).group(1)
+    dims = tuple(int(d) for d in re.findall(r"D == (\d+)", rule))
+    assert dims == fa.F32_WGMMA_HEAD_DIMS
+    assert all(f"bident::aligned16({x})" in rule for x in "qkv")
+    got = {}
+    for variant in kv.ATTN_F32[1:]:
+        files = kv.sources(variant, "flash_attention")
+        assert set(files) == {"flash_attention.cu", "common.cuh",
+                              "hopper.cuh"}, variant
+        assert files != kv.sources("shipped", "flash_attention"), variant
+        got[variant] = files["flash_attention.cu"]
+    assert "if (false && tf::tma_route(q, k, v, D))" in got["mma_sync"]
+    assert got["one_tf32"].count("WgmmaTf32<C::BK>::ss(") == 1
+    assert got["one_tf32"].count("WgmmaTf32<DH>::rs(") == 1
+    assert "bident::mma_tf32(c, al, bh)" not in got["one_tf32"]
+    assert "WgmmaTf32<" not in got["no_mma"]
+    assert "return D == 128 ? 32 : 64;" not in got["f32_kv32"]
+    assert "constexpr int RING = 2;" in got["f32_stages2"]
+    assert "(w == 0 ? nk : 0)" in got["kv_one_wg"]
+    assert "pv_mma<D, D, BK>(acc, hi, lo, vth, vtl);" in got["o_in_place"]
+    assert "float pv[DH / 2];" not in got["o_in_place"]
+    # the bf16 design's variants leave the f32 one as shipped
+    bf16_ring = kv.sources("stages2", "flash_attention")["flash_attention.cu"]
+    assert "constexpr int RING = 3;" in bf16_ring

@@ -118,6 +118,80 @@ def test_bf16_attention_kernel_matches_plain(cuda, D, case):
     assert fa.bf16_ulps(got, ref) <= 1.0
 
 
+F32_ATTN_CASES = {     # B, Tq, Tk, Hq, Hk, causal, q_offset, k/v unaligned
+    "causal, GQA 4/2, padded T": (2, 200, 200, 4, 2, True, 0, False),
+    "non-causal, Tq != Tk": (1, 96, 150, 4, 2, False, 0, False),
+    "decode Tq = 1, q_offset": (2, 1, 300, 4, 1, True, 299, False),
+    "q_offset, a partial q tile": (1, 37, 300, 8, 2, True, 263, False),
+    "k, v unaligned (mma.sync by the rule)": (1, 96, 96, 4, 2, True, 0,
+                                              True),
+}
+
+
+def _launched(fn) -> list:
+    """The port's attention kernels one ``fn()`` launched, by name, from
+    a device trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("attn_kernel", "attn_tf32_kernel", "attn_wgmma_kernel")
+    return sorted({n for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   for n in names if f"::{n}<" in ev.key})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(F32_ATTN_CASES))
+@pytest.mark.parametrize("D", [64, 128])
+def test_f32_attention_kernel_matches_plain(cuda, D, case):
+    """The f32 attention at D 64 and 128: 3xTF32 wgmma fed by TMA where q,
+    k, v lie on 16-byte boundaries, the mma.sync kernel where they do
+    not (the C entry's rule, ``f32_kernel``, read from a device trace);
+    within the f32 bucket of the plain version, bitwise run to run, one
+    counted launch a call."""
+    B, Tq, Tk, Hq, Hk, causal, off, unaligned = F32_ATTN_CASES[case]
+    rng = np.random.default_rng(17 + D)
+    f32 = torch.float32
+    q = _rand(rng, (B, Tq, Hq, D), cuda, f32)
+    k, v = (_rand(rng, (B, Tk, Hk, D), cuda, f32) for _ in range(2))
+    if unaligned:
+        k, v = _unaligned(k), _unaligned(v)
+
+    def call():
+        return fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    kernels.reset_launch_counts()
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(
+        got, fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off),
+        **TOL[f32])
+    want = "attn_kernel" if unaligned else "attn_tf32_kernel"
+    assert fa.f32_kernel(q, k, v) == want
+    assert _launched(call) == [want]
+
+
+@pytest.mark.gpu
+def test_f32_attention_other_head_dims_take_the_mma_sync_kernel(cuda):
+    """D 16, 32 and 160 take the mma.sync kernel by the rule, within
+    the f32 bucket of the plain version."""
+    rng = np.random.default_rng(19)
+    for D in (16, 32, 160):
+        q = _rand(rng, (1, 130, 4, D), cuda, torch.float32)
+        k, v = (_rand(rng, (1, 130, 2, D), cuda, torch.float32)
+                for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v)
+        torch.testing.assert_close(got, fa.flash_attention_plain(q, k, v),
+                                   **TOL[torch.float32])
+        assert _launched(lambda: fa.flash_attention_cuda(q, k, v)) == [
+            "attn_kernel"], D
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_expert_glu_beyond_d_1024(cuda, dtype):

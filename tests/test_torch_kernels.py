@@ -103,6 +103,44 @@ def test_bf16_attention_within_one_ulp_of_jax(D, Tq, Tk, causal, off):
     assert fa.bf16_ulps(got, ref) <= 1.0
 
 
+# The f32 wgmma design's arithmetic (q scaled before the product, base-2
+# exponentials with log2(e) on S, kv tiles of f32_kv_tile(D) walked by two
+# streams, even and odd tiles, merged at the end), which the plain version
+# follows for f32 inputs, against the Pallas kernel at the f32 bucket: at
+# the design's head dims, over several kv tiles of each stream, a stream
+# whose first tile is wholly masked for some rows, and q_offset.
+@pytest.mark.parametrize("D", fa.F32_WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("Tq,Tk,causal,off", [
+    (200, 200, True, 0),          # ragged T, causal: 4-7 tiles a block
+    (96, 150, False, 0),          # non-causal, ragged Tk
+    (37, 300, True, 263),         # q_offset > 0: the last 37 of 300
+])
+def test_f32_attention_streams_match_jax(D, Tq, Tk, causal, off):
+    rng = np.random.default_rng(D + Tq + off)
+    (jq, q), (jk, k), (jv, v) = (
+        pair(rng.standard_normal(s, dtype=np.float32), "float32")
+        for s in ((2, Tq, 4, D), (2, Tk, 2, D), (2, Tk, 2, D)))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, q_offset=off,
+                                block_q=64, block_k=64, interpret=True)
+    got = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    assert got.dtype == torch.float32 and got.shape == (2, Tq, 4, D)
+    close(got, want, TOL["float32"])
+
+
+def test_f32_kernel_rule():
+    """Which f32 design a call takes (``f32_kernel``, the C entry's rule):
+    wgmma at D 64 and 128 on 16-byte boundaries, mma.sync elsewhere."""
+    def z(D, shift=0):
+        flat = torch.zeros(1 * 8 * 2 * D + shift)
+        return flat[shift:].view(1, 8, 2, D)
+    for D in fa.HEAD_DIMS:
+        want = "attn_tf32_kernel" if D in (64, 128) else "attn_kernel"
+        assert fa.f32_kernel(z(D), z(D), z(D)) == want, D
+    assert fa.f32_kernel(z(64), z(64, 1), z(64, 1)) == "attn_kernel"
+    assert fa.f32_kernel(z(128, 1), z(128), z(128)) == "attn_kernel"
+    assert fa.f32_kv_tile(64) == 64 and fa.f32_kv_tile(128) == 32
+
+
 def test_bf16_ulps_measures_in_bf16_ulps():
     """One ulp of bf16 at x is 2^(floor(log2 x) - 7), floored at 1e-3 of
     the largest |ref|."""

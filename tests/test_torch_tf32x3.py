@@ -1,7 +1,8 @@
 """Why the port's tensor-core kernels may use 3xTF32 and not TF32.
 
 ``expert_glu`` and ``flash_attention`` (``src/repro_torch/csrc``) run
-their f32 products on the tensor cores as ``mma.sync`` TF32 tiles.  TF32
+their f32 products on the tensor cores as TF32 tiles (``mma.sync``, and
+``wgmma`` where TMA reads the operands).  TF32
 keeps 10 explicit mantissa bits, so one TF32 product per f32 product
 misses the f32 bucket of 3e-5 (``chip_smoke.py`` ``F32_TOL``, normalised
 by the largest output).  The 3xTF32 split a = hi + lo, hi = tf32(a),
@@ -230,3 +231,178 @@ def test_transposed_fold_depth(case):
     chained = _err(transposed(a, b, a.shape[1]), a, b)
     assert folded <= F32_TOL / 10, folded
     assert chained > 3 * folded, (chained, folded)
+
+
+# ---- the f32 wgmma attention's two chains -----------------------------------
+#
+# ``tf::attn_tf32_kernel`` (csrc/flash_attention.cu) runs S = Q K^T and
+# P V on TF32 wgmma in 3xTF32, with raw tiles as their own hi terms (read
+# truncated) beside lo tiles x - trunc(x): Q scaled by 1/sqrt(D) and its
+# lo tile, K and its lo tile, V^T's raw bits and its lo tile, each 8 kv
+# positions of V^T in the order 0, 2, 4, 6, 1, 3, 5, 7 so that P's
+# registers are the A fragment as S's accumulator left them; P split in
+# registers into hi (rounded) and lo.  Two streams of kv tiles (even,
+# odd), each with its own online softmax in base 2, merged at the end.
+# The emulation weighs P V accumulated into O scaled by alpha against a
+# fresh accumulator a tile folded as O alpha + pv (the kernel's choice), at
+# the main path's width (D 64) and Qwen3-8B's (D 128): both hold the
+# bucket, but summed straight into O the truncations of the whole kv walk
+# shrink the outputs several times as far.
+
+_ATTN_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+             "csrc" / "flash_attention.cu").read_text().split(
+                 "namespace tf {")[1]
+_KV = re.search(r"constexpr int kv_tile\(int D\) \{ return D == 128 \? "
+                r"(\d+) : (\d+); \}", _ATTN_SRC)
+ATTN_KV_TILE = {128: int(_KV.group(1)), 64: int(_KV.group(2))}
+PERM = (0, 2, 4, 6, 1, 3, 5, 7)     # position c of 8 holds kv PERM[c]
+LOG2E = float(np.log2(np.e))
+THREE = ("lo.hi", "hi.lo", "hi.hi")
+
+
+def _chain(part, x, y, products):
+    """part += x @ y over k8 steps, each named product (x term . y term)
+    into the truncating accumulator."""
+    for k0 in range(0, x[0].shape[1], MMA_K):
+        ks = slice(k0, k0 + MMA_K)
+        for name in products:
+            a_, b_ = name.split(".")
+            xa = x[a_ == "lo"][:, ks].double()
+            yb = y[b_ == "lo"][ks].double()
+            part = rz32(part.double() + xa @ yb)
+    return part
+
+
+def wgmma_attention(q, k, v, bk, o_mode="scaled", s_products=THREE,
+                    pv_products=THREE, streams=2):
+    """One causal head (T, D) as the kernel computes it (see above)."""
+    T, D = q.shape
+    qs = q * torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32)
+    Q = (trunc(qs), trunc(qs - trunc(qs)))
+    kt = k.t().contiguous()
+    K = (trunc(kt), trunc(kt - trunc(kt)))
+    perm = torch.tensor([8 * (i // 8) + PERM[i % 8] for i in range(T)])
+    vp = v[perm]                     # V^T's rows of k, in the kernel's order
+    V = (trunc(vp), trunc(vp - trunc(vp)))
+    st = [[torch.full((T, 1), -1e30), torch.zeros(T, 1), torch.zeros(T, D)]
+          for _ in range(streams)]
+    rows = torch.arange(T)[:, None]
+    for j in range(-(-T // bk)):
+        m, l, o = st[j % streams]
+        cols = slice(j * bk, min((j + 1) * bk, T))
+        s = _chain(torch.zeros(T, cols.stop - cols.start), Q,
+                   (K[0][:, cols], K[1][:, cols]), s_products).float()
+        s = s.masked_fill(rows < torch.arange(cols.start, cols.stop)[None],
+                          -1e30) * LOG2E
+        m_new = torch.maximum(m, s.amax(1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)[:, perm[cols] - cols.start]
+        l = l * alpha + p.sum(1, keepdim=True)
+        P = (tf32(p), trunc(p - tf32(p)))
+        Vt = (V[0][cols], V[1][cols])
+        if o_mode == "scaled":
+            o = _chain(o * alpha, P, Vt, pv_products).float()
+        else:
+            o = o * alpha + _chain(torch.zeros(T, D), P, Vt,
+                                   pv_products).float()
+        st[j % streams] = [m_new, l, o]
+    mm = st[0][0]
+    for m_i, _, _ in st[1:]:
+        mm = torch.maximum(mm, m_i)
+    a = [torch.exp2(m_i - mm) for m_i, _, _ in st]
+    l = sum(l_i * a_i for (_, l_i, _), a_i in zip(st, a))
+    o = sum(o_i * a_i for (_, _, o_i), a_i in zip(st, a))
+    return (o / l.clamp_min(1e-30)).double()
+
+
+def _attn_operands(D: int, T: int = 256):
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((T, D))).float()
+               for _ in range(3))
+    s = (q.double() @ k.double().t() / np.sqrt(D)).masked_fill(
+        torch.ones(T, T, dtype=torch.bool).triu(1), -np.inf)
+    return (q, k, v), torch.softmax(s, -1) @ v.double()
+
+
+def _shrink(got, want) -> float:
+    """The mean of (got - want) / want over the larger outputs of the
+    second half of the rows (the longest kv walks): a truncating
+    accumulator's pull toward zero."""
+    half = slice(want.shape[0] // 2, None)
+    big = want[half].abs() > 0.05
+    return float(((got[half] - want[half]) / want[half])[big].mean())
+
+
+@pytest.mark.parametrize("o_mode", ["scaled", "fresh"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_attention_holds_the_bucket(D, o_mode):
+    """Both ways of accumulating P V hold the f32 bucket tenfold at the
+    kernel's kv tiles (~1e-6 of the largest output)."""
+    (q, k, v), want = _attn_operands(D)
+    got = wgmma_attention(q, k, v, ATTN_KV_TILE[D], o_mode=o_mode)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= F32_TOL / 10, err
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_attention_fresh_accumulator_halves_the_shrink(D):
+    """Over a kv walk of 1024 the truncations summed straight into O pull
+    the outputs toward zero by ~4e-6 of themselves; a fresh accumulator a
+    tile, folded with an f32 add, by less than half that.  The main
+    path's chain on the card held its oracle only with the fresh one, so
+    the kernel takes it."""
+    (q, k, v), want = _attn_operands(D, 1024)
+    scaled = _shrink(wgmma_attention(q, k, v, ATTN_KV_TILE[D]), want)
+    fresh = _shrink(wgmma_attention(q, k, v, ATTN_KV_TILE[D],
+                                    o_mode="fresh"), want)
+    assert scaled < 0 and fresh < 0, (scaled, fresh)
+    assert abs(fresh) < abs(scaled) / 2, (scaled, fresh)
+
+
+@pytest.mark.parametrize("dropped", ["lo.hi", "hi.lo"])
+@pytest.mark.parametrize("chain", ["s", "pv"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_attention_needs_every_product(D, chain, dropped):
+    """Without either cross product of either chain the error is that of
+    one TF32 side: outside the f32 bucket."""
+    (q, k, v), want = _attn_operands(D)
+    kept = tuple(p for p in THREE if p != dropped)
+    got = wgmma_attention(q, k, v, ATTN_KV_TILE[D],
+                          **{f"{chain}_products": kept})
+    assert float((got - want).abs().max() / want.abs().max()) > F32_TOL
+
+
+def test_wgmma_attention_fragment_relabelling():
+    """P's registers as S's accumulator leaves them (thread (g, t) of a
+    warp: (g, kv 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) of an
+    8-column slice), passed in the kernel's order sc[0], sc[2], sc[1],
+    sc[3] as the TF32 A fragment ((g, t), (g + 8, t), (g, t + 4), (g + 8,
+    t + 4)), against V^T with 8 kv positions in the order 0, 2, 4, 6, 1,
+    3, 5, 7 as B, give P V exactly."""
+    rng = np.random.default_rng(0)
+    P = torch.from_numpy(rng.integers(-8, 8, (16, 8))).double()
+    V = torch.from_numpy(rng.integers(-8, 8, (8, 8))).double()
+    A = torch.zeros(16, 8, dtype=torch.float64)
+    for g in range(8):
+        for t in range(4):
+            sc = [P[g, 2 * t], P[g, 2 * t + 1], P[g + 8, 2 * t],
+                  P[g + 8, 2 * t + 1]]
+            a = [sc[0], sc[2], sc[1], sc[3]]
+            A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a
+    Bt = V[list(PERM)].t()           # V^T: row n, position c holds kv PERM[c]
+    assert torch.equal(A @ Bt.t(), P @ V)
+
+
+if __name__ == "__main__":
+    # the numbers behind the f32 attention's choice (PERF.md):
+    # error over the largest output and shrink of each way to accumulate
+    # P V, and of one stream of kv tiles, at the kernel's kv tiles
+    for D in (64, 128):
+        for T in (256, 1024):
+            (q, k, v), want = _attn_operands(D, T)
+            for label, kw in (("O scaled", {}), ("fresh", {"o_mode": "fresh"}),
+                              ("one stream", {"streams": 1})):
+                got = wgmma_attention(q, k, v, ATTN_KV_TILE[D], **kw)
+                err = float((got - want).abs().max() / want.abs().max())
+                print(f"D {D} T {T} {label}: {err:.2e} of the largest "
+                      f"output, shrink {_shrink(got, want):.2e}", flush=True)
