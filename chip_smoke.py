@@ -12,20 +12,21 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    torch and CUDA versions; builds the three kernels from the sources in
    ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
    and spills per instantiation, and whether each instantiation of the
-   bf16 attention, the f32 attention at D 64 / 128, the bf16 SSD scan and
-   the f32 expert GLU holds ``HGMMA`` (wgmma) in its SASS and, where it
-   loads by TMA, ``UTMALDG``;
+   bf16 attention, the f32 attention at D 64 / 128, the bf16 SSD scan,
+   the f32 SSD scan at N = 64 and the f32 expert GLU holds ``HGMMA``
+   (wgmma) in its SASS and, where it loads by TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
    main-path shapes, at d = 2048 for the expert GLU and at chunks 128
    and 256 (one case under strong decay) for the SSD scan, in f32 and
    bf16; checks that each kernel is bitwise equal between two runs on
-   the same inputs, and that each f32 attention call launched the design
-   the C entry's rule names (from a device trace); and times kernel,
-   plain version, (where one exists) a library call and, for the f32
-   attention and expert GLU, the earlier ``mma.sync`` kernel on the same
-   operands;
+   the same inputs, and that each f32 attention call and the f32 scan at
+   the main path launched the design the C entry's rule names (from a
+   device trace); and times kernel, plain version, (where one exists) a
+   library call and, for the f32 attention, SSD scan and expert GLU, the
+   earlier ``mma.sync`` kernels on the same operands (the scan also by
+   kernel on the device, in a child process);
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
    torch-cpu, cuda:0, cuda-kernels; the CUDA lanes' cells timed as
@@ -238,7 +239,7 @@ HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "attn_tf32_kernel",
                 "gemm_kernel",
                 "glu_wgmma_kernel", "state_kernel", "pass_kernel",
                 "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
-                "out_wgmma_kernel")
+                "out_wgmma_kernel", "state_tf32_kernel", "out_tf32_kernel")
 
 _log_lines: list[str] = []
 
@@ -399,13 +400,13 @@ def phase_environment() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows and the
+    # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows, the
     # mma.sync f32 attention (attn_kernel) at D 64 / 128 on aligned
-    # operands, phase 2's and 8's baselines, built beside the kernels
-    # (kernel_variants.py's mma_sync)
+    # operands and the mma.sync f32 scan at N = 64, phase 2's and 8's
+    # baselines, built beside the kernels (kernel_variants.py's mma_sync)
     import kernel_variants
-    baseline = kernel_variants.start(("expert_glu", "flash_attention"),
-                                     ("mma_sync",))
+    baseline = kernel_variants.start(
+        ("expert_glu", "flash_attention", "ssd_scan"), ("mma_sync",))
     paths = _build.build_all()
     for name in _build.KERNELS:
         _build.function(name)
@@ -415,6 +416,8 @@ def phase_environment() -> dict:
                                         "expert_glu")
     attn_baseline = kernel_variants.bind(
         baselines["mma_sync", "flash_attention"], "flash_attention")
+    ssd_baseline = kernel_variants.bind(baselines["mma_sync", "ssd_scan"],
+                                        "ssd_scan")
     log(f"built the baselines in {time.perf_counter() - t0:.1f}s")
     log("ptxas, per instantiation (registers a thread, static shared "
         "memory, spill stores / loads):")
@@ -434,17 +437,19 @@ def phase_environment() -> dict:
     _hopper_sass(paths["flash_attention"], ("attn_tf32_kernel",),
                  "the f32 wgmma attention", "attn_tf32_kernel")
     # the bf16 scan: its chunk states and carry, then its chunk outputs
-    # (a block a chunk at N <= 64, a block a q tile above); f32 takes the
-    # 3xTF32 kernels, and no bf16 shape does
+    # (a block a chunk at N <= 64, a block a q tile above)
     _hopper_sass(paths["ssd_scan"], ("state_wgmma_kernel", "chunk_out_kernel",
                                      "out_wgmma_kernel"),
                  "the bf16 SSD scan", "ILb1E")
+    # the f32 scan at N = 64: 3xTF32 wgmma, every instantiation fed by TMA
+    _hopper_sass(paths["ssd_scan"], ("state_tf32_kernel", "out_tf32_kernel"),
+                 "the f32 wgmma SSD scan", "tf32_kernel")
     # the f32 expert GLU on 16-byte rows: TF32 wgmma, every
     # instantiation fed by TMA
     _hopper_sass(paths["expert_glu"], ("glu_wgmma_kernel",),
                  "the f32 expert GLU", "glu_wgmma_kernel")
     return {"card": card, "glu_baseline": glu_baseline,
-            "attn_baseline": attn_baseline}
+            "attn_baseline": attn_baseline, "ssd_baseline": ssd_baseline}
 
 
 def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
@@ -452,9 +457,9 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each instantiation of
     the wgmma ``kernels``: every one must run wgmma, and the TMA ones
     (whose mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D,
-    true>``, the scan's kernels with their first template argument
-    ``true``, c and b or b by TMA, every ``glu_wgmma_kernel`` and
-    ``attn_tf32_kernel``) must load by TMA."""
+    true>``, the bf16 scan's kernels with their first template argument
+    ``true``, c and b or b by TMA, every ``glu_wgmma_kernel``,
+    ``attn_tf32_kernel`` and f32 scan kernel) must load by TMA."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -470,7 +475,8 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     n_tma = 0
     for (mangled, body), full in zip(wg, names):
         kernel = next(k for k in kernels if k in full)
-        short = full[full.find(kernel):full.find(">(") + 1]
+        k0 = full.find(kernel)
+        short = full[k0:full.find(">(") + 1 or full.find("(", k0)]
         hgmma, utmaldg = body.count("HGMMA"), body.count("UTMALDG")
         tma = tma_mark in mangled
         n_tma += tma
@@ -521,6 +527,28 @@ def _ssd_case(rng, B, T, H, N, P, chunk, with_s0, dtype, decay=None):
     y, s = ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=chunk)
     yp, sp = ss.ssd_scan_plain(c, b, v, la, initial_state=s0, chunk=chunk)
     return (c, b, v, la, s0), (y, s), (yp, sp)
+
+
+def _ssd_entry(fn, c, b, v, la, chunk):
+    """A call of the scan's C entry point ``fn`` (the shipped library's or
+    a baseline's) on c, b, v, log_a at ``chunk``, no initial state, into
+    its own y (``.y``) and final state; fails on a cudaError_t."""
+    import torch
+    B, T, H, N = c.shape
+    P = v.shape[-1]
+    y = torch.empty_like(v)
+    s = torch.empty((B, H, N, P), device=v.device)
+    work = torch.empty(B * H * -(-T // chunk) * (N * P + 1), device=v.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(c.data_ptr(), b.data_ptr(), v.data_ptr(), la.data_ptr(),
+                 None, y.data_ptr(), s.data_ptr(), work.data_ptr(), B, T, H,
+                 N, P, chunk, int(v.dtype == torch.bfloat16), stream)
+        if err != 0:
+            check(False, f"ssd_scan's C entry: cudaError_t {err}")
+    call.y = y
+    return call
 
 
 def _glu_case(rng, E, cap, d, F, dtype, scale):
@@ -593,6 +621,7 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F_
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gather as mg
     from repro_torch.kernels import ops, ref
@@ -722,6 +751,20 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
                      + B * H * N * D)
     b_ms, b_by = tc_bound(ssd_ops, ssd_bytes, f32)
     cc_ms = bound(ssd_ops, ssd_bytes, PEAK_F32)[0]
+    # the C entry point of the shipped kernels and of the mma.sync
+    # kernels (phase 1's baseline) on the same operands; the device time
+    # by kernel, and which kernels the rule launched, from a child's trace
+    entry = _ssd_entry(_build.function("ssd_scan"), c, b, v, la, C_)
+    base = _ssd_entry(env["ssd_baseline"], c, b, v, la, C_)
+    base()
+    _hold("ssd_scan", "main path, the mma.sync kernels", base.y,
+          ss.ssd_scan_plain(c, b, v, la, chunk=C_)[0], f32, False)
+    by_kernel = _scan_device_times(B, T, H, N, D, C_, "float32")
+    check(sorted(by_kernel) == sorted(ss.f32_kernels(c, b, v)),
+          f"ssd_scan main path float32: launched {sorted(by_kernel)}, the "
+          f"rule's {sorted(ss.f32_kernels(c, b, v))}")
+    log("  ssd_scan main path float32, device ms a launch by kernel: "
+        + ", ".join(f"{k} {ms:.4f}" for k, ms in by_kernel.items()))
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu",
@@ -732,7 +775,9 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         plain_ms=time_ms(lambda: ss.ssd_scan_plain(
             c, b, v, la, chunk=main_cfg["chunk"]), iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        cuda_core_bound_ms=cc_ms)
+        cuda_core_bound_ms=cc_ms, c_entry_ms=time_ms(entry, iters=50),
+        mma_sync_ms=time_ms(base, iters=50), by_kernel=by_kernel,
+        device_ms=sum(by_kernel.values()))
 
     # -- expert GLU ---------------------------------------------------------
     glu_cases = [
@@ -815,8 +860,11 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         cc = r.get("cuda_core_bound_ms")
         tc = "" if cc is None else \
             f", 3xTF32 tensor cores; f32 CUDA-core bound {cc:.4f} ms"
-        old = r.get("mma_sync_ms")
+        old, entry = r.get("mma_sync_ms"), r.get("c_entry_ms")
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms"
+            + ("" if entry is None else
+               f" (by its C entry {entry:.4f} ms, {r['device_ms']:.4f} on "
+               "the device)")
             + ("" if old is None else
                f" (the mma.sync kernel {old:.4f} ms)")
             + f", plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
@@ -2325,13 +2373,16 @@ def _zoo_call_shapes(arch, cfg) -> tuple[str, dict]:
 
 
 def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False,
-                      attn_baseline=None) -> dict:
+                      attn_baseline=None, ssd_baseline=None) -> dict:
     """The kernel of ``arch``'s prefill at its shapes (random inputs of
     those shapes, in ``dtype``, default bf16): held against its plain
     version within the dtype's bucket (and, with ``repeat``, bitwise
     between two runs); kernel, plain version, library call and bound.
-    In f32, given ``attn_baseline`` (phase 1's build of the mma.sync
-    attention), that kernel is held and timed on the same operands."""
+    In f32, given ``attn_baseline`` or ``ssd_baseline`` (phase 1's builds
+    of the mma.sync attention and scan), that kernel is held and timed on
+    the same operands where the rule sends the call elsewhere; with
+    ``repeat`` the scan's device time by kernel is read from a child's
+    trace, and its kernels must be the rule's."""
     import torch
     import torch.nn.functional as F_
     from repro_torch.kernels import flash_attention as fa
@@ -2449,6 +2500,18 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False,
               f" plain {extra['plain_state_err']:.2e})")
         if repeat:
             extra["by_kernel"] = _scan_device_times(B, T, H, N, P, C)
+    elif repeat:
+        extra["by_kernel"] = _scan_device_times(B, T, H, N, P, C, "float32")
+        rule = ss.f32_kernels(c, b, v)
+        check(sorted(extra["by_kernel"]) == sorted(rule),
+              f"ssd_scan at {name}'s prefill shapes: launched "
+              f"{sorted(extra['by_kernel'])}, the rule's {sorted(rule)}")
+        if ssd_baseline is not None and rule == ss.F32_WGMMA_KERNELS:
+            base = _ssd_entry(ssd_baseline, c, b, v, la, C)
+            base()
+            _hold("ssd_scan", f"at {arch}'s shapes, the mma.sync kernels",
+                  base.y, yp, dtype, False)
+            extra["mma_sync_ms"] = time_ms(base)
     if repeat:
         check_repeatable("ssd_scan", f"at {arch}'s shapes",
                          lambda *a: ss.ssd_scan_cuda(*a, chunk=C),
@@ -2495,34 +2558,36 @@ def _device_times(fn, calls: int = 5) -> dict:
     return out
 
 
-# _scan_device_times's child: the bf16 scan at one shape, inputs drawn as
-# _zoo_kernel_times draws them, its device ms a launch by kernel as JSON
+# _scan_device_times's child: the scan at one shape and dtype, inputs
+# drawn as _zoo_kernel_times draws them, its device ms a launch by kernel
+# as JSON
 _SCAN_TIMES_CHILD = """
 import json, sys
 import numpy as np, torch
 import chip_smoke as cs
 from repro_torch.kernels import ssd_scan as ss
-B, T, H, N, P, C = map(int, sys.argv[1:])
-rng, bf16 = np.random.default_rng(1), torch.bfloat16
-c, b = (cs.rand(rng, (B, T, H, N), bf16, 0.5) for _ in range(2))
-v = cs.rand(rng, (B, T, H, P), bf16)
+B, T, H, N, P, C = map(int, sys.argv[1:7])
+rng, dt = np.random.default_rng(1), getattr(torch, sys.argv[7])
+c, b = (cs.rand(rng, (B, T, H, N), dt, 0.5) for _ in range(2))
+v = cs.rand(rng, (B, T, H, P), dt)
 la = -torch.nn.functional.softplus(cs.rand(rng, (B, T, H), torch.float32))
 fn = lambda: ss.ssd_scan_cuda(c, b, v, la, chunk=C)
 print(json.dumps(cs._device_times(fn)))
 """
 
 
-def _scan_device_times(B, T, H, N, P, C) -> dict:
-    """The bf16 scan's device ms a launch by kernel at (B, T, H, N, P,
-    chunk C), from ``_device_times`` in a child process: in a whole run,
+def _scan_device_times(B, T, H, N, P, C, dtype="bfloat16") -> dict:
+    """The scan's device ms a launch by kernel at (B, T, H, N, P, chunk C)
+    in ``dtype`` (a torch dtype's name), from ``_device_times`` in a
+    child process: in a whole run,
     after the traced prefills and captured decodes, this process's traces
     of the scan held some of its kernels or none, while a fresh process's
     hold each.  The child loads the library this run built."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     run = subprocess.run(
-        [sys.executable, "-c", _SCAN_TIMES_CHILD, *map(str, (B, T, H, N, P,
-                                                             C))],
+        [sys.executable, "-c", _SCAN_TIMES_CHILD,
+         *map(str, (B, T, H, N, P, C)), dtype],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     check(run.returncode == 0,
           f"ssd_scan's device times by kernel in a child process: exit "
@@ -2855,7 +2920,8 @@ def _zoo_kernel_shapes(env: dict) -> list:
         for dtype in (torch.bfloat16, torch.float32):
             kernels.reset_launch_counts()
             t = _zoo_kernel_times(arch, cfg, dtype, repeat=True,
-                                  attn_baseline=env.get("attn_baseline"))
+                                  attn_baseline=env.get("attn_baseline"),
+                                  ssd_baseline=env.get("ssd_baseline"))
             torch.cuda.synchronize()
             t["launches"] = kernels.launch_counts()[t["name"]]
             t["arch"], t["dtype"] = arch, str(dtype)[6:]
@@ -2967,7 +3033,7 @@ def phase_zoo(env: dict) -> dict:
 
 
 # One child process's prefill timing (prefill_turns): one arch of the zoo
-# at its published widths and depth in bf16 with the kernels, phase 8's
+# at its published widths and depth in a dtype with the kernels, phase 8's
 # batch; one warm-up prefill, then three timed.  Only entry points that
 # every slice of the port has: it runs on an earlier checkout too.
 _PREFILL_CHILD = """
@@ -2975,8 +3041,8 @@ import dataclasses, json, sys, time
 import numpy as np, torch
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-arch, (B, T, new) = sys.argv[1], map(int, sys.argv[2:])
-cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+arch, dtype, (B, T, new) = sys.argv[1], sys.argv[2], map(int, sys.argv[3:])
+cfg = dataclasses.replace(get_config(arch), use_kernels=True, dtype=dtype)
 params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
 tokens = torch.from_numpy(np.random.default_rng(0).integers(
     0, cfg.vocab, (B, T), dtype=np.int32)).to("cuda")
@@ -2991,8 +3057,9 @@ print(json.dumps({"ms": [run() for _ in range(3)]}))
 """
 
 
-def prefill_turns(parent, arch: str = "zamba2-2.7b") -> dict:
-    """``arch``'s bf16 prefill with the kernels (phase 8's batch)
+def prefill_turns(parent, arch: str = "zamba2-2.7b",
+                  dtype: str = "bfloat16") -> dict:
+    """``arch``'s prefill in ``dtype`` with the kernels (phase 8's batch)
     timed in child processes of ``parent`` (the root of another checkout
     inside this one, such as the parent commit unpacked into a directory
     that .gitignore lists) and of this checkout, in turns parent, change,
@@ -3006,14 +3073,14 @@ def prefill_turns(parent, arch: str = "zamba2-2.7b") -> dict:
     check(roots["parent"].is_relative_to(ROOT)
           and (roots["parent"] / "src" / "repro_torch").is_dir(),
           f"{parent}: a checkout inside {ROOT}")
-    log(f"== {arch} prefill, the parent's kernels against this "
+    log(f"== {arch} {dtype} prefill, the parent's kernels against this "
         "checkout's (parent, change, change, parent)")
     out = {"parent": [], "change": []}
     for which in ("parent", "change", "change", "parent"):
         env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
         run = subprocess.run(
-            [sys.executable, "-c", _PREFILL_CHILD, arch, str(N_PROMPTS),
-             str(PROMPT_LEN), str(MAX_NEW)],
+            [sys.executable, "-c", _PREFILL_CHILD, arch, dtype,
+             str(N_PROMPTS), str(PROMPT_LEN), str(MAX_NEW)],
             cwd=roots[which], env=env, capture_output=True, text=True,
             timeout=900)
         check(run.returncode == 0,
@@ -3022,7 +3089,7 @@ def prefill_turns(parent, arch: str = "zamba2-2.7b") -> dict:
         ms = json.loads(run.stdout.strip().splitlines()[-1])["ms"]
         out[which] += ms
         log(f"  {which}: prefill ms {[round(t, 2) for t in ms]}")
-    log(f"  {arch} prefill on {torch.cuda.get_device_name(0)}: parent "
+    log(f"  {arch} {dtype} prefill on {torch.cuda.get_device_name(0)}: parent "
         f"{min(out['parent']):.2f}-{max(out['parent']):.2f} ms, change "
         f"{min(out['change']):.2f}-{max(out['change']):.2f} ms")
     return out

@@ -35,10 +35,25 @@ call for the same function where there is one, all in one process:
   ``no_lohi`` — no a_lo.b_hi product, ``no_bsplit`` — no split pass (B's
   lo tile left as it lies), ``no_mma`` — no products at all (the loads,
   splits and barriers alone);
-* ``fold64`` — the SSD scan's fresh accumulator spans 64 of K instead of
-  32: at the main path (N = 64, kv tiles of 64, chunk 64) every product
-  is one chain, so this shows what the fold costs there and how far the
-  truncating accumulator drifts without it;
+* for the f32 SSD scan (``state_tf32_kernel`` and ``out_tf32_kernel``,
+  3xTF32 ``wgmma`` fed by TMA at N = 64): ``mma_sync`` — the three
+  ``mma.sync`` kernels on the same operands, the baseline; ``one_tf32``
+  — hi.hi alone in every chain; ``fold64`` — the fresh accumulators of
+  the chunk states and of c b^T and c S_in span 64 of K instead of 32
+  (one chain over N); ``st32`` and ``st64`` — the state kernel's block
+  over 32 or 64 state rows at every grid (the shipped rule takes 32
+  where 64 would leave half the SMs without a walker); ``f32_stages2``
+  — the outputs kernel's ring two deep instead of three;
+  ``st_stages3`` — the state kernel's ring three deep instead of six;
+  ``out_1buf`` — the outputs kernel with one split buffer, two blocks
+  an SM; and the ablations ``no_mma`` — no products in any chain (the
+  loads, the splits and transposes, the decay and the barriers alone),
+  ``no_stage`` — the state kernel without its staging of (w o b)^T,
+  ``walk_loads`` — the state kernel with neither staging nor products
+  (the walk's loads, fragment reads and barriers alone), ``no_kv_split`` —
+  the outputs kernel without its kv tiles' split, ``no_decay_f32`` —
+  without the decay; each at the main path's widths and at Zamba2-2.7B's
+  f32 prefill shape, bitwise run to run or not;
 * for the f32 attention (``attn_tf32_kernel``, 3xTF32 ``wgmma`` fed by
   TMA at D 64 and 128): ``mma_sync`` — the ``mma.sync`` kernel
   (``attn_kernel``) on the same operands, the baseline; ``one_tf32`` —
@@ -71,10 +86,7 @@ call for the same function where there is one, all in one process:
   rows instead of 32 in both; ``s_three`` and ``w_three`` — S_in, and
   w o v in the chunk states, as three bf16 terms instead of two;
   ``g_two`` — G as two bf16 terms instead of three (fails one ulp at the
-  mLSTM's shape);
-  ``tf32`` — the bf16 scan this design replaced, the f32 design's three
-  3xTF32 ``mma.sync`` kernels fed bf16; and the ablations (wrong
-  results, timed only) ``g_one_bf16`` — G as one bf16 term — ``no_inter``
+  mLSTM's shape); and the ablations (wrong results, timed only) ``g_one_bf16`` — G as one bf16 term — ``no_inter``
   — S_in in no terms, no inter term — ``no_decay`` — G without its decay
   and mask — ``no_gv`` — no G v products — and ``score_p0`` — the
   score c b^T skipped by ``out_wgmma_kernel``'s blocks of P's column tiles
@@ -164,11 +176,32 @@ TF_IN_PLACE = """#pragma unroll
     hopper::reg_fence(acc);
 """
 TF_PV_FIRST = "hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);"
-SSD_THREE = ("  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);\n"
-             "  if constexpr (!B_EXACT) bident::mma_tf32(c, ah, bl);\n"
-             "  bident::mma_tf32(c, ah, bh);")
-SSD_ONE = "  bident::mma_tf32(c, ah, bh);"
-SSD_FOLD = "constexpr int FOLD_K8 = 4;"
+# the f32 SSD scan on TF32 wgmma (namespace tf of ssd_scan.cu): its
+# route, the three products of each of its chains (the chunk states, c b^T
+# and c S_in, G v), its folds, the state tile's rule and the rings
+SSD_ROUTE = "if (tf::tma_route(c, b, v, N, P))"
+SSD_ST_THREE = ("      hopper::WgmmaTf32<NS>::rs(part, ah[kk], bl, !(fresh && kk == 0));\n"
+                "      hopper::WgmmaTf32<NS>::rs(part, al[kk], bh, 1);\n"
+                "      hopper::WgmmaTf32<NS>::rs(part, ah[kk], bh, 1);\n")
+SSD_ST_ONE = "      hopper::WgmmaTf32<NS>::rs(part, ah[kk], bh, !(fresh && kk == 0));\n"
+SSD_C_THREE = ("      M::rs(d, cl[kk], dh, kk > k0);\n"
+               "      M::rs(d, ch[kk], dl, 1);\n"
+               "      M::rs(d, ch[kk], dh, 1);\n")
+SSD_C_ONE = "      M::rs(d, ch[kk], dh, kk > k0);\n"
+SSD_GV_THREE = ("      hopper::WgmmaTf32<PW>::rs(part, gl[kk], dh, kk > 0);\n"
+                "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], kdesc(vtl, kk), 1);\n"
+                "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], dh, 1);\n")
+SSD_GV_ONE = "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], dh, kk > 0);\n"
+SSD_FOLDS = ("constexpr int ST_FOLD = 32;", "constexpr int N_FOLD = 32;")
+SSD_COLS = "return 2 * blocks64 <= SMS ? 32 : 64;"
+SSD_OUT_RING = "constexpr int OUT_STAGES = 3;"
+SSD_ST_RING = "constexpr int ST_STAGES = 6;    // b / v tiles in flight, state kernel"
+SSD_NSPLIT = "constexpr int NSPLIT = 2;"
+SSD_STAGE = "      for (int e = si; e < NS * KVT / 8; e += 128)"
+SSD_SPLIT = ("    round_tile(st, bf + L::BL, 2 * SUB, i);\n#pragma unroll\n"
+             "    for (int e = i; e < PW * KVT / 8; e += 128)")
+SSD_DECAY_F32 = ("        const float gv = x * expf(cum_i[hr] - cum[col]);\n"
+                 "        gx[e] = !mask || (col <= row && row < Cv) ? gv : 0.f;")
 PV_LO = ("#pragma unroll\n"
          "  for (int kk = 0; kk < BK / 16; ++kk)\n"
          "    hopper::Wgmma<D>::rs(acc, lo[kk],\n"
@@ -190,8 +223,6 @@ SSD_DECAY = ("                                      int Cv, int kbase, "
 SSD_GV = """  hopper::wgmma_fence();
 #pragma unroll
   for (int term = 0; term < G_TERMS; ++term)"""
-SSD_BF16_ROUTE = ("return bf16 ? wg::launch(c, b, v, la, st, y, sf, wk, B, "
-                  "T_len, H, N, P, C,\n                           s)")
 SSD_W_TERMS = "constexpr int W_TERMS = 2;"
 SSD_SCORE = ", L.c_sub(), nsub);"   # out_wgmma_kernel's two score calls
 
@@ -213,6 +244,8 @@ VARIANTS = {
         "if (", "if (false && ")), ("return run<float, false>(",
                                      "return dispatch<float>(")],
                  "flash_attention.cu": [(ATTN_ROUTE, ATTN_ROUTE.replace(
+                     "if (", "if (false && "))],
+                 "ssd_scan.cu": [(SSD_ROUTE, SSD_ROUTE.replace(
                      "if (", "if (false && "))]},
     "fold1": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace("4", "1"))]},
     "no_fold": {"expert_glu.cu": [(GLU_FOLD, GLU_FOLD.replace(
@@ -222,14 +255,19 @@ VARIANTS = {
     "no_bsplit": {"expert_glu.cu": [(GLU_SPLIT, GLU_SPLIT.replace(
         "q < STEPS", "q < 0"))]},
     "no_mma": {"expert_glu.cu": [(GLU_THREE, "")],
-               "flash_attention.cu": [(TF_S_THREE, ""), (TF_PV_THREE, "")]},
+               "flash_attention.cu": [(TF_S_THREE, ""), (TF_PV_THREE, "")],
+               "ssd_scan.cu": [(SSD_ST_THREE, ""), (SSD_C_THREE, ""),
+                               (SSD_GV_THREE, "")]},
     "ring4": {"expert_glu.cu": [(GLU_RING, GLU_RING.replace("3;", "4;"))]},
     "one_tf32": {"expert_glu.cu": [(GLU_THREE, GLU_ONE)],
                  "flash_attention.cu": [(ATTN_THREE, ATTN_ONE),
                                         (TF_S_THREE, TF_S_ONE),
                                         (TF_PV_THREE, TF_PV_ONE)],
-                 "ssd_scan.cu": [(SSD_THREE, SSD_ONE)]},
-    "fold64": {"ssd_scan.cu": [(SSD_FOLD, "constexpr int FOLD_K8 = 8;")]},
+                 "ssd_scan.cu": [(SSD_ST_THREE, SSD_ST_ONE),
+                                 (SSD_C_THREE, SSD_C_ONE),
+                                 (SSD_GV_THREE, SSD_GV_ONE)]},
+    "fold64": {"ssd_scan.cu": [(f, f.replace("32;", "64;"))
+                               for f in SSD_FOLDS]},
     "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
     "stages2": {"flash_attention.cu": [(STAGES, STAGES.replace("3", "2"))],
                 "ssd_scan.cu": [(STAGES, STAGES.replace("3", "2"))]},
@@ -238,15 +276,11 @@ VARIANTS = {
              "ssd_scan.cu": [(SSD_KV, SSD_KV.replace("32", "64"))]},
     "kv128": {"flash_attention.cu": [(KV_TILE, "return 128;")]},
     # the bf16 SSD scan: the chunk outputs through the q-tile kernel, or a
-    # block a chunk; S_in, w o v as three bf16 terms, G as two; the bf16
-    # scan this design replaced (the f32 design's 3xTF32 mma.sync kernels
-    # fed bf16)
+    # block a chunk; S_in, w o v as three bf16 terms, G as two
     "qtile": {"ssd_scan.cu": [(SSD_CHUNK, "if (false)")]},
     "s_three": {"ssd_scan.cu": [(SSD_S_TERMS, SSD_S_TERMS.replace("2", "3"))]},
     "w_three": {"ssd_scan.cu": [(SSD_W_TERMS, SSD_W_TERMS.replace("2", "3"))]},
     "g_two": {"ssd_scan.cu": [(SSD_G_TERMS, SSD_G_TERMS.replace("3", "2"))]},
-    "tf32": {"ssd_scan.cu": [(SSD_BF16_ROUTE, SSD_BF16_ROUTE.replace(
-        "wg::launch", "launch_aligned<__nv_bfloat16>"))]},
     # ablations of the bf16 SSD scan (wrong results, timed only): G as one
     # bf16 term (must fail one ulp), no inter term, no decay, no G v, the
     # q-tile kernel's score only in the blocks of P's first column tile
@@ -263,7 +297,29 @@ VARIANTS = {
     # tile (warpgroup 1 none: no split of the kv walk, nothing to merge)
     "f32_kv32": {"flash_attention.cu": [(TF_KV, "return 32;")]},
     "f32_stages2": {"flash_attention.cu": [(TF_RING, TF_RING.replace(
-        "3", "2"))]},
+        "3", "2"))],
+                    "ssd_scan.cu": [(SSD_OUT_RING, SSD_OUT_RING.replace(
+                        "3", "2"))]},
+    # the f32 SSD scan on TF32 wgmma: the state kernel's block over 32 or
+    # 64 state rows at every grid (shipped: 32 where 64 would leave half
+    # the SMs without a walker), its ring 3 deep (of 6)
+    "st32": {"ssd_scan.cu": [(SSD_COLS, "return 32;")]},
+    "st64": {"ssd_scan.cu": [(SSD_COLS, "return 64;")]},
+    "st_stages3": {"ssd_scan.cu": [(SSD_ST_RING, SSD_ST_RING.replace(
+        "6;", "3;"))]},
+    # ... and its outputs kernel with one split buffer, two blocks an SM
+    "out_1buf": {"ssd_scan.cu": [(SSD_NSPLIT, SSD_NSPLIT.replace("2", "1"))]},
+    # ablations of the f32 SSD scan (wrong results, timed only): the state
+    # kernel without its staging of (w o b)^T, and with neither staging
+    # nor products (its loads, fragment reads and barriers alone); the
+    # outputs kernel without its kv tiles' split, and without the decay
+    "no_stage": {"ssd_scan.cu": [(SSD_STAGE, SSD_STAGE.replace(
+        "e < NS * KVT / 8", "e < 0"))]},
+    "walk_loads": {"ssd_scan.cu": [(SSD_STAGE, SSD_STAGE.replace(
+        "e < NS * KVT / 8", "e < 0")), (SSD_ST_THREE, "")]},
+    "no_kv_split": {"ssd_scan.cu": [(SSD_SPLIT, "#pragma unroll\n    for (int e = i; "
+                                  "e < 0; e += 128)")]},
+    "no_decay_f32": {"ssd_scan.cu": [(SSD_DECAY_F32, "        gx[e] = x;")]},
     "kv_one_wg": {"flash_attention.cu": [(TF_WALK, (
         "for (int j = 0; j < (w == 0 ? nk : 0); ++j) {"))]},
     # P V summed straight into O scaled by alpha (no fresh accumulator)
@@ -289,9 +345,15 @@ ZOO_ATTENTION_F32 = "qwen3-8b"
 # shape, v shape, v's last column ones), and its variants
 ZOO_SSD = (("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64), False),
            ("xlstm-125m", (4, 1024, 4, 384), (4, 1024, 4, 385), True))
-SSD_BF16 = ("shipped", "tf32", "qtile", "stages2", "kv64", "s_three",
-            "w_three", "g_two", "g_one_bf16", "no_inter", "no_decay",
-            "no_gv", "score_p0")
+SSD_BF16 = ("shipped", "qtile", "stages2", "kv64", "s_three", "w_three",
+            "g_two", "g_one_bf16", "no_inter", "no_decay", "no_gv",
+            "score_p0")
+# the f32 SSD scan's variants, at the main path's widths and at
+# Zamba2-2.7B's f32 prefill shape
+SSD_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold64", "no_mma",
+           "st32", "st64", "f32_stages2", "st_stages3", "out_1buf",
+           "no_stage", "walk_loads", "no_kv_split", "no_decay_f32")
+ZOO_SSD_F32 = ("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64))
 KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
 
 _log_lines: list[str] = []
@@ -546,14 +608,8 @@ def _zoo_ssd(libs, rand, stream) -> None:
         for variant in SSD_BF16:
             if (variant, "ssd_scan") not in libs:
                 continue
-            fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
-
-            def call():
-                err = fn(c.data_ptr(), b.data_ptr(), v.data_ptr(),
-                         la.data_ptr(), None, y.data_ptr(), s.data_ptr(),
-                         work.data_ptr(), B, T, H, N, P, C, 1, stream)
-                if err:
-                    raise RuntimeError(f"{variant}: cudaError_t {err}")
+            call = _ssd_call(libs, variant, c, b, v, la, y, s, work, C,
+                             stream)
             try:
                 call()
                 torch.cuda.synchronize()
@@ -563,6 +619,60 @@ def _zoo_ssd(libs, rand, stream) -> None:
             log(f"  {variant:10s} {time_ms(call, iters=20):.4f} ms, "
                 f"{fa.bf16_ulps(y, y_ref):.2f} ulps ({fa.bf16_ulps(y, y64):.2f}"
                 f" from f64), state {norm_err(s, s_ref)[1]:.2e}")
+
+
+def _ssd_call(libs, variant, c, b, v, la, y, s, work, chunk, stream):
+    """A call of ``variant``'s scan C entry point on these buffers (no
+    initial state), raising on a cudaError_t."""
+    import torch
+    fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
+    B, T, H, N = c.shape
+    P = v.shape[-1]
+    bf = int(v.dtype == torch.bfloat16)
+
+    def call():
+        err = fn(c.data_ptr(), b.data_ptr(), v.data_ptr(), la.data_ptr(),
+                 None, y.data_ptr(), s.data_ptr(), work.data_ptr(), B, T, H,
+                 N, P, chunk, bf, stream)
+        if err:
+            raise RuntimeError(f"{variant}: cudaError_t {err}")
+    return call
+
+
+def _zoo_ssd_f32(libs, rand, stream) -> None:
+    """The f32 SSD scan's variants at Zamba2-2.7B's f32 prefill shape
+    (chunk 256): time of the C entry point, error of y over the plain
+    version's largest output and over the f64 algebra's, the final
+    state's error, and whether two runs agree bitwise."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err, time_ms
+    from repro_torch.kernels import ssd_scan as ss
+    f32, C = torch.float32, 256
+    arch, cb, vs = ZOO_SSD_F32
+    B, T, H, N = cb
+    c, b = rand(cb, f32, .5), rand(cb, f32, .5)
+    v = rand(vs, f32)
+    la = -F_.softplus(rand((B, T, H), f32))
+    yp, sp = ss.ssd_scan_plain(c, b, v, la, chunk=C)
+    y64 = _ssd_f64(c, b, v, la, C)
+    log(f"ssd_scan float32 at {arch}'s prefill, c/b {cb}, v {vs}, chunk "
+        f"{C}: plain {norm_err(yp, y64)[1]:.2e} from the f64 algebra")
+    y, s = torch.empty_like(v), torch.empty_like(sp)
+    work = torch.empty(B * H * -(-T // C) * (N * vs[-1] + 1), device="cuda")
+    for variant in SSD_F32:
+        if (variant, "ssd_scan") not in libs:
+            continue
+        call = _ssd_call(libs, variant, c, b, v, la, y, s, work, C, stream)
+        call()
+        torch.cuda.synchronize()
+        first = y.clone()
+        call()
+        torch.cuda.synchronize()
+        log(f"  {variant:11s} {time_ms(call, iters=20):.4f} ms, error / "
+            f"max|plain| {norm_err(y, yp)[1]:.3e} ({norm_err(y, y64)[1]:.3e}"
+            f" from f64), state {norm_err(s, sp)[1]:.2e}"
+            + ("" if torch.equal(y, first) else ", NOT bitwise run to run"))
 
 
 def _tf32_hi(x, rounding: str):
@@ -719,23 +829,21 @@ def main() -> int:
                                    device="cuda")
                 log(f"ssd_scan {name} at (B, T, H, N, P) = ({B}, {T}, {H}, {N},"
                     f" {P}), chunk {chunk}:")
-                for variant in VARIANTS:
+                for variant in SSD_F32 if dtype == torch.float32 else SSD_BF16:
                     if (variant, "ssd_scan") not in libs:
                         continue
-                    fn = bind(libs[variant, "ssd_scan"], "ssd_scan")
-
-                    def call():
-                        err = fn(c_.data_ptr(), b_.data_ptr(), v_.data_ptr(),
-                                 la.data_ptr(), None, y_.data_ptr(),
-                                 s_.data_ptr(), work.data_ptr(), B, T, H, N, P,
-                                 chunk, bf, stream)
-                        if err:
-                            raise RuntimeError(f"{variant}: cudaError_t {err}")
+                    call = _ssd_call(libs, variant, c_, b_, v_, la, y_, s_,
+                                     work, chunk, stream)
                     call()
                     torch.cuda.synchronize()
                     rel = norm_err(y_, want)[1]
-                    log(f"  {variant:9s} {time_ms(call, iters=50):.4f} ms, error "
-                        f"/ max|plain| {rel:.3e}")
+                    again = y_.clone()
+                    call()
+                    torch.cuda.synchronize()
+                    log(f"  {variant:11s} {time_ms(call, iters=50):.4f} ms, "
+                        f"error / max|plain| {rel:.3e}"
+                        + ("" if torch.equal(y_, again) else ", NOT bitwise "
+                           "run to run"))
                     if variant == "shipped" and chunk == 64:
                         raw_call = call
                 # host time a call (no sync), of the C entry point and of the
@@ -750,6 +858,7 @@ def main() -> int:
         _zoo_attention_f32(libs, rand, stream)
     if "ssd_scan" in chosen:
         _zoo_ssd(libs, rand, stream)
+        _zoo_ssd_f32(libs, rand, stream)
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("\n".join(_log_lines) + "\n")
     return 0

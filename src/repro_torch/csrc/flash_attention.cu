@@ -881,12 +881,7 @@ struct Cfg {
   static_assert(WG_BYTES >= 4 * 128 * (D / 2 + 4), "the merge's buffer");
 };
 
-// the byte offset of element (row, col) of a 32-float sub-tile in the
-// 128-byte swizzle (hopper.cuh)
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  const uint32_t off = row * 128 + col * 4;
-  return off ^ (((off >> 7) & 7) << 4);
-}
+using hopper::swz;
 
 // x - (what the tensor cores read of x: its top 19 bits), exactly
 __device__ __forceinline__ float lo19(float x) {

@@ -22,6 +22,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the byte offset of element (row, col) of a tile of 32-float rows in the
+// 128-byte swizzle
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  const uint32_t off = row * 128 + col * 4;
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
 // ---------------------------------------------------------------------------
 // mbarriers
 // ---------------------------------------------------------------------------

@@ -13,8 +13,11 @@
 // (N, P) state is f32; padded tail steps (t >= T) get log_a = 0 and b = 0
 // so they carry the state through unchanged.  y is written in v's dtype,
 // the final state in f32.  Chunk <= 256, N <= 496, any P; no atomics and
-// no split reductions, so two runs give the same bits.  Two designs, one
-// for each dtype.
+// no split reductions, so two runs give the same bits.  Three designs,
+// chosen before the launch by an explicit rule of the C entry (never on
+// error): bf16 on wgmma fed by TMA; f32 at N = 64 with c, b, v readable
+// by TMA (tf::tma_route) on 3xTF32 wgmma fed by TMA; every other f32 call
+// on the three 3xTF32 mma.sync kernels.
 //
 // ---- bf16: wgmma and TMA (state_wgmma_kernel, then chunk_out_kernel at
 // N <= 64 or out_wgmma_kernel above) ----
@@ -79,7 +82,89 @@
 // at 989 TFLOP/s: bound by the bytes.  The kernels add the S_in round trip (21 MB) and G
 // v's third term.
 //
-// ---- f32: 3xTF32 mma.sync (state_kernel, pass_kernel, out_kernel) ----
+// ---- f32 at N = 64: 3xTF32 wgmma fed by TMA (tf::state_tf32_kernel,
+// then tf::out_tf32_kernel) ----
+//
+// The rule: N = 64, P a multiple of 4 and at least 32 (rows on 16 bytes,
+// one 32-column box), c, b, v on 16-byte boundaries: the main path
+// (B H = 16, T 1024, N = P = 64, chunk 64) and Zamba2-2.7B (chunk 128,
+// 256).  f32-accurate products take three TF32 ones, per k8 step lo.hi,
+// hi.lo, hi.hi (common.cuh).  The choices, each emulated on the CPU first
+// (tests/test_torch_tf32x3.py):
+//
+// (1) Two kernels.  The state kernel walks the chunks as the bf16 one
+// does: a block owns one (b, h, 64 columns of P, NS state rows), keeps
+// S^T (64 x NS) in f32 registers, sums each chunk's own state in a fresh
+// accumulator, writes S_in^T, then carries S = S exp(tot) + state, a
+// product and then a sum, each rounded.  The ring keeps b and v tiles in
+// flight across chunk boundaries, and a warp of its own computes each
+// chunk's cum and w = exp(tot - cum) up to SLOTS chunks ahead of the
+// walk.  the mma.sync design's pass kernel and its chunk-state round trip go away.
+// (2) TF32 wgmma takes no transpose: its shared-memory operands are
+// K-major.  The chunk state is accumulated transposed, S^T = v^T (w o b)
+// over the chunk's rows: v^T is the register A operand, its fragments read
+// straight from the landed v tile, and (w o b)^T is written K-major by a
+// staging warpgroup.  S_in^T then lands in `work` K-major, (B, H, nc, P,
+// N), and the outputs kernel loads it by TMA as the B operand of c S_in.
+// The score c b^T takes c's fragments from registers (read once from its
+// TMA tile) and b from its TMA tile (K-major over N); v is N-major for G
+// v, so the consumers write v^T K-major.  Every A operand comes from
+// registers: a TF32 wgmma that reads A and B from shared memory (each
+// three times, for the hi and lo products) took the SM's shared-memory
+// bandwidth, and TMA's writes of the next tile landed only as the
+// products ended (a device timeline, PERF.md).
+// (3) G stays in registers as the A operand: the score's accumulator
+// gives thread (g, t) kv columns 2t and 2t + 1 of each 8-column slice,
+// so v^T holds each 8 kv positions in the order 0, 2, 4, 6, 1, 3, 5, 7
+// and G's hi and lo are its registers as they lie; masked above the
+// diagonal and past the chunk's rows.
+// (4) Every operand is taken as its TF32 hi term rounded to nearest
+// beside lo = x - hi, as the mma.sync kernels split theirs: in registers (v^T,
+// c, G), rounded in place with a lo tile beside it (b, S_in^T), or
+// written so (w o b, v^T in G v).  A raw tile read as its own hi term (the
+// tensor cores truncate it) would leave lo terms whose truncation always
+// pulls toward zero: 2-3x the mma.sync kernels' shrink at T 1024 on the CPU.  The fresh
+// accumulators are the mma.sync kernels': 32 rows of a chunk state (ST_FOLD), 32 of N
+// in c b^T and c S_in (N_FOLD, two accumulators added), a kv tile of 32
+// rows in G v (KVT); one chain over N doubles the shrink.  So the
+// emulated arithmetic is the mma.sync kernels', and the decay stays expf in difference
+// form, as there.
+// (5) Parallelism.  The state kernel has B H (P / 64) (64 / NS) walkers:
+// NS = 32 where 64-row tiles would leave half the SMs without one (the
+// main path: 32 walkers of 32 tiles), else 64 (Zamba2-2.7B: 320).  The
+// outputs kernel is one consumer warpgroup and a producer warp a block
+// per (b, h, chunk, 64-row q tile, 64 columns of P), heaviest q tiles
+// first: 256 blocks at the main path, 5120 at Zamba2; at chunk 256 each
+// q tile's block reads the chunk's b and v up to its diagonal again, from
+// L2.  Tile j + 1's split (b rounded in place, v^T) runs while the score
+// of tile j does, and the score of tile j + 1 behind G v of tile j.
+// (6) Budgets.  State kernel (320 threads, at most 168 registers a
+// thread): the MMA warpgroup holds S^T, the chunk's state and the fresh
+// accumulator (3 x NS / 2 registers) and two tiles' v^T fragments (64);
+// shared memory 6 ring stages of b and v (6 x 12 KB at NS 32), 3 staged
+// (w o b)^T tiles (3 x 8 KB) and the w slots (4 KB): 100 KB (149 KB at NS
+// 64, which spills 132 bytes).  Outputs kernel (160 threads, 204
+// registers): c's fragments (64), acc, G v's fresh accumulator, the
+// score's two halves and G's two terms (128); c's tile (then S_in^T's lo
+// tile) and S_in^T (32 KB), 3 ring stages of b and v (48 KB), two split
+// buffers of b lo, v^T hi and lo (48 KB) and cum: 129 KB, one block an SM
+// (two, with one split buffer, measured no faster).  N = 384 (the mLSTM)
+// does not fit: c's fragments alone would take 384 registers a thread,
+// and a q tile's S_in^T with its lo tile 2 x 64 x 384 x 4 = 192 KB; it
+// stays on the mma.sync kernels, which stream S_in and b in slices of 128
+// state rows.
+// (7) No atomics, and no order that varies: bitwise repeatable.
+//
+// Bound: as below for the mma.sync design (5.1 us at the main path, by
+// the bytes); this design adds the S_in^T round trip through `work` (4 MB
+// at the main path, 21 MB at Zamba2-2.7B's prefill, mostly in L2).  What
+// holds it (PERF.md): with no products the loads and splits keep 3/4 of
+// the time at the main path; there the state kernel with neither its
+// staging nor its products (kernel_variants.py's walk_loads) still takes
+// most of the scan: each of the 32 walks paces its tiles' loads.
+//
+// ---- f32 elsewhere: 3xTF32 mma.sync (state_kernel, pass_kernel,
+// out_kernel) ----
 //
 // Design for the card.  The Pallas grid (B, H, chunks) runs its chunk
 // axis sequentially with the state in VMEM scratch.  Here only the carry
@@ -133,9 +218,8 @@
 // exp(cum_i) exp(-cum_j) overflows at chunk 256 under strong decay.
 //
 // Products.  Every product runs on the tensor cores as `m16n8k8` TF32
-// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy
-// (the templates' branches for exact bf16 operands are not instantiated:
-// bf16 takes the design above).  The accumulator truncates, so every
+// `mma.sync` in the 3xTF32 split (common.cuh), which keeps f32 accuracy.
+// The accumulator truncates, so every
 // chain is at most 32 deep in K: a fresh accumulator per 32-deep stage,
 // added to the running sum in f32 (FOLD_K8 below).  Every sum runs in a
 // fixed order and nothing uses atomics, so two runs give the same bits.
@@ -172,26 +256,13 @@ __host__ __device__ inline int round_up(int x, int m) {
 // rows of N in one slice: at most SL
 __host__ __device__ inline int slice_rows(int N) { return N < SL ? N : SL; }
 
-// The TF32 operand(s) of one value: hi and lo for f32; for an exact value
-// (a bf16 operand) the value itself and no lo.
-template <bool EXACT>
-__device__ __forceinline__ void operand(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    bident::split_tf32(x, hi, lo);
-  }
-}
-
-// c += a.b in 3xTF32; the lo product of an exact operand is skipped.
-template <bool A_EXACT, bool B_EXACT>
+// c += a.b in 3xTF32: a_lo.b_hi, a_hi.b_lo, a_hi.b_hi (common.cuh)
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4],
                                      const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
-  if constexpr (!A_EXACT) bident::mma_tf32(c, al, bh);
-  if constexpr (!B_EXACT) bident::mma_tf32(c, ah, bl);
+  bident::mma_tf32(c, al, bh);
+  bident::mma_tf32(c, ah, bl);
   bident::mma_tf32(c, ah, bh);
 }
 
@@ -246,14 +317,14 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ log_a,
   }
 }
 
-// Elements cc .. cc + 16 / sizeof(T) of a tile row in shared memory from
-// device row `src`, of which the first `n_valid` elements exist (0 for a
-// row past the chunk or the sequence; `src` then only needs to be a
-// valid pointer); the rest are set to zero.
-template <bool ASYNC, typename T>
-__device__ __forceinline__ void load_row_chunk(T* dst, const T* src, int cc,
-                                               int n_valid) {
-  constexpr int VEC = 16 / sizeof(T);
+// Elements cc .. cc + 3 of a tile row in shared memory from device row
+// `src`, of which the first `n_valid` elements exist (0 for a row past
+// the chunk or the sequence; `src` then only needs to be a valid
+// pointer); the rest are set to zero.
+template <bool ASYNC>
+__device__ __forceinline__ void load_row_chunk(float* dst, const float* src,
+                                               int cc, int n_valid) {
+  constexpr int VEC = 4;
   const int nv = min(max(n_valid - cc, 0), VEC);
   bident::load_chunk<ASYNC>(dst + cc, nv > 0 ? src + cc : src, nv);
 }
@@ -262,9 +333,8 @@ __device__ __forceinline__ void load_row_chunk(T* dst, const T* src, int cc,
 // kernel 1: chunk states
 // ---------------------------------------------------------------------------
 
-template <typename T>
 struct StateLayout {
-  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int VEC = 4;
   static constexpr int VS = PT + 8;   // row stride of the v stages
   // row stride of the b stages: a slice's NP16 + 8, so the column reads
   // of a warp (rows t, columns g) hit distinct banks
@@ -273,20 +343,19 @@ struct StateLayout {
   }
   static size_t smem(int N) {
     return 2 * CMAX * sizeof(float) +
-           2 * KS * (size_t)(bs(N) + VS) * sizeof(T);
+           2 * KS * (size_t)(bs(N) + VS) * sizeof(float);
   }
 };
 
 // MT: m16 tiles of the slice's rows per warp (1 for N <= 64, else 2)
-template <typename T, bool ASYNC, int MT>
+template <bool ASYNC, int MT>
 __global__ void __launch_bounds__(NT)
-    state_kernel(const T* __restrict__ b, const T* __restrict__ v,
+    state_kernel(const float* __restrict__ b, const float* __restrict__ v,
                  const float* __restrict__ log_a, float* __restrict__ states,
                  float* __restrict__ tot, int T_len, int H, int N, int P,
                  int C, int nc) {
-  using L = StateLayout<T>;
+  using L = StateLayout;
   constexpr int VEC = L::VEC, VS = L::VS;
-  constexpr bool EXACT = sizeof(T) == 2;
   // blockIdx.z: the 64-column tile of P, then the 128-row slice of N
   const int pt = (P + PT - 1) / PT;
   const int p0 = blockIdx.z % pt * PT, n0 = blockIdx.z / pt * SL;
@@ -294,7 +363,7 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ float4 smem4[];
   float* cum = reinterpret_cast<float*>(smem4);   // CMAX
   float* w = cum + CMAX;                          // CMAX, exp(tot - cum)
-  T* stage = reinterpret_cast<T*>(w + CMAX);      // 2 x (b KS x BS, v KS x VS)
+  float* stage = w + CMAX;                        // 2 x (b KS x BS, v KS x VS)
 
   const int ci = blockIdx.x, bh = blockIdx.y;
   const int bb = bh / H, h = bh % H;
@@ -304,8 +373,8 @@ __global__ void __launch_bounds__(NT)
   const int n_stages = (C + KS - 1) / KS;
 
   auto load_stage = [&](int s, int buf) {
-    T* bs_ = stage + buf * KS * (BS + VS);
-    T* vs_ = bs_ + KS * BS;
+    float* bs_ = stage + buf * KS * (BS + VS);
+    float* vs_ = bs_ + KS * BS;
     for (int e = tid; e < KS * (NP16 / VEC); e += NT) {
       const int r = e / (NP16 / VEC), cc = e % (NP16 / VEC) * VEC;
       const int i = s * KS + r, tt = t0 + i;
@@ -351,8 +420,8 @@ __global__ void __launch_bounds__(NT)
     bident::cp_async_commit();
     bident::cp_async_wait<1>();   // stage s has landed
     __syncthreads();              // ... for every thread, and w is written
-    const T* bs_ = stage + (s & 1) * KS * (BS + VS);
-    const T* vs_ = bs_ + KS * BS;
+    const float* bs_ = stage + (s & 1) * KS * (BS + VS);
+    const float* vs_ = bs_ + KS * BS;
     const float* ws = w + s * KS;
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) {
@@ -363,24 +432,18 @@ __global__ void __launch_bounds__(NT)
         // A(m, k) = b[k][m] w[k]: row m of (b o w)^T
         const int k0 = kk * 8 + t;
         uint32_t ah[4], al[4];
-        bident::split_tf32(bident::to_f32(bs_[k0 * BS + m0 + g]) * ws[k0],
-                           ah[0], al[0]);
-        bident::split_tf32(bident::to_f32(bs_[k0 * BS + m0 + g + 8]) * ws[k0],
-                           ah[1], al[1]);
-        bident::split_tf32(
-            bident::to_f32(bs_[(k0 + 4) * BS + m0 + g]) * ws[k0 + 4], ah[2],
-            al[2]);
-        bident::split_tf32(
-            bident::to_f32(bs_[(k0 + 4) * BS + m0 + g + 8]) * ws[k0 + 4],
-            ah[3], al[3]);
+        bident::split_tf32(bs_[k0 * BS + m0 + g] * ws[k0], ah[0], al[0]);
+        bident::split_tf32(bs_[k0 * BS + m0 + g + 8] * ws[k0], ah[1], al[1]);
+        bident::split_tf32(bs_[(k0 + 4) * BS + m0 + g] * ws[k0 + 4], ah[2],
+                           al[2]);
+        bident::split_tf32(bs_[(k0 + 4) * BS + m0 + g + 8] * ws[k0 + 4],
+                           ah[3], al[3]);
 #pragma unroll
         for (int j = 0; j < PT / 8; ++j) {
           uint32_t bh[2], bl[2];
-          operand<EXACT>(bident::to_f32(vs_[k0 * VS + j * 8 + g]), bh[0],
-                         bl[0]);
-          operand<EXACT>(bident::to_f32(vs_[(k0 + 4) * VS + j * 8 + g]),
-                         bh[1], bl[1]);
-          mma3<false, EXACT>(part[mi % PARTS][j], ah, al, bh, bl);
+          bident::split_tf32(vs_[k0 * VS + j * 8 + g], bh[0], bl[0]);
+          bident::split_tf32(vs_[(k0 + 4) * VS + j * 8 + g], bh[1], bl[1]);
+          mma3(part[mi % PARTS][j], ah, al, bh, bl);
         }
       }
       if ((s + 1) % FOLD_STAGES == 0 || s + 1 == n_stages)
@@ -442,9 +505,8 @@ __global__ void __launch_bounds__(256)
 // kernel 3: chunk outputs
 // ---------------------------------------------------------------------------
 
-template <typename T>
 struct OutLayout {
-  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int VEC = 4;
   static constexpr int VS = PT + VEC;   // row stride of the v tiles
   static constexpr int SS = PT + 8;     // row stride of the S_in slices
   // row stride of the c rows: NP8 + VEC, so a warp's fragment loads
@@ -454,36 +516,35 @@ struct OutLayout {
   static __host__ __device__ int bs(int N) { return cs(slice_rows(N)); }
   // one stage buffer: a b slice (and v tile), or an S_in slice
   static __host__ __device__ size_t buf(int N) {
-    const size_t kv = sizeof(T) * BK * (size_t)(bs(N) + VS);
+    const size_t kv = sizeof(float) * BK * (size_t)(bs(N) + VS);
     const size_t st = sizeof(float) * (size_t)slice_rows(round_up(N, 8)) * SS;
     return kv > st ? kv : st;
   }
   static size_t smem(int N) {
-    return sizeof(float) * CMAX + sizeof(T) * (size_t)BQ * cs(N) +
+    return sizeof(float) * CMAX + sizeof(float) * (size_t)BQ * cs(N) +
            2 * buf(N);
   }
 };
 
-template <typename T, bool ASYNC>
+template <bool ASYNC>
 __global__ void __launch_bounds__(NT, 2)
-    out_kernel(const T* __restrict__ c, const T* __restrict__ b,
-               const T* __restrict__ v, const float* __restrict__ log_a,
-               const float* __restrict__ states, T* __restrict__ y,
+    out_kernel(const float* __restrict__ c, const float* __restrict__ b,
+               const float* __restrict__ v, const float* __restrict__ log_a,
+               const float* __restrict__ states, float* __restrict__ y,
                int T_len, int H, int N, int P, int C, int nc) {
-  using L = OutLayout<T>;
+  using L = OutLayout;
   constexpr int VEC = L::VEC, VS = L::VS, SS = L::SS;
   constexpr int DJ = PT / 8;          // n8 tiles of y per warp
   constexpr int SJ = BK / 8;          // n8 tiles of the score per warp
   constexpr int SK8 = SL / 8;         // k8 steps per slice of N
   static_assert(SK8 % FOLD_K8 == 0, "slices must end on a fold");
-  constexpr bool EXACT = sizeof(T) == 2;
   const int CS = L::cs(N), BS = L::bs(N), NP8 = round_up(N, 8);
   const int NK8 = NP8 / 8;
   const int NSL = (NP8 + SL - 1) / SL;            // slices of N
   const size_t BUF = L::buf(N);
   extern __shared__ float4 smem4[];
   float* cum = reinterpret_cast<float*>(smem4);   // CMAX
-  T* cs = reinterpret_cast<T*>(cum + CMAX);       // BQ x CS, c
+  float* cs = cum + CMAX;                         // BQ x CS, c
   char* bufs = reinterpret_cast<char*>(cs + BQ * CS);   // 2 x BUF
 
   const int QT = (C + BQ - 1) / BQ;
@@ -498,7 +559,8 @@ __global__ void __launch_bounds__(NT, 2)
   // rows r0 .. r0 + BK of the chunk from x (row length n, of which
   // n_valid from column col0 on) into a tile of stride `stride` (zero
   // past the chunk and T)
-  auto load_rows = [&](T* dst, const T* x, int r0, int n, int stride,
+  auto load_rows = [&](float* dst, const float* x, int r0, int n,
+                       int stride,
                        int width, int col0) {
     for (int e = tid; e < BK * (width / VEC); e += NT) {
       const int r = e / (width / VEC), cc = e % (width / VEC) * VEC;
@@ -527,7 +589,7 @@ __global__ void __launch_bounds__(NT, 2)
       }
     } else {
       const int kt = (st - NSL) / NSL, ns = (st - NSL) % NSL;
-      T* bs_ = reinterpret_cast<T*>(base);
+      float* bs_ = reinterpret_cast<float*>(base);
       load_rows(bs_, b, kt * BK, N, BS, slice_rows(NP8 - ns * SL), ns * SL);
       if (ns == NSL - 1) load_rows(bs_ + BK * BS, v, kt * BK, P, VS, PT, p0);
     }
@@ -551,13 +613,13 @@ __global__ void __launch_bounds__(NT, 2)
   }
   // A fragment of k8 step kk of the warp's 16 c rows: (g, t), (g + 8, t),
   // (g, t + 4), (g + 8, t + 4)
-  const T* c_row = cs + r_lo * CS + t;
+  const float* c_row = cs + r_lo * CS + t;
   auto c_frag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
-    const T* cr = c_row + kk * 8;
-    operand<EXACT>(bident::to_f32(cr[0]), ah[0], al[0]);
-    operand<EXACT>(bident::to_f32(cr[8 * CS]), ah[1], al[1]);
-    operand<EXACT>(bident::to_f32(cr[4]), ah[2], al[2]);
-    operand<EXACT>(bident::to_f32(cr[8 * CS + 4]), ah[3], al[3]);
+    const float* cr = c_row + kk * 8;
+    bident::split_tf32(cr[0], ah[0], al[0]);
+    bident::split_tf32(cr[8 * CS], ah[1], al[1]);
+    bident::split_tf32(cr[4], ah[2], al[2]);
+    bident::split_tf32(cr[8 * CS + 4], ah[3], al[3]);
   };
 
   float acc[DJ][4], part[DJ][4];
@@ -592,7 +654,7 @@ __global__ void __launch_bounds__(NT, 2)
             uint32_t bh[2], bl[2];
             bident::split_tf32(sr[dj * 8], bh[0], bl[0]);
             bident::split_tf32(sr[4 * SS + dj * 8], bh[1], bl[1]);
-            mma3<EXACT, false>(part[dj], ah, al, bh, bl);
+            mma3(part[dj], ah, al, bh, bl);
           }
         }
 #pragma unroll
@@ -606,7 +668,7 @@ __global__ void __launch_bounds__(NT, 2)
     } else {
       // intra: y += ((c b^T) o L) v, kv tile kt, b slice ns
       const int kt = (st - NSL) / NSL, ns = (st - NSL) % NSL;
-      const T* bs_ = reinterpret_cast<const T*>(base);
+      const float* bs_ = reinterpret_cast<const float*>(base);
       const int k0 = ns * SK8, k1 = min(k0 + SK8, NK8);
       for (int k8 = k0; k8 < k1; k8 += FOLD_K8) {
         for (int kk = k8; kk < min(k8 + FOLD_K8, k1); ++kk) {
@@ -615,18 +677,18 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
           for (int j = 0; j < SJ; ++j) {
             // B(k, n) = b[n][k]
-            const T* br = bs_ + (j * 8 + g) * BS + (kk - k0) * 8 + t;
+            const float* br = bs_ + (j * 8 + g) * BS + (kk - k0) * 8 + t;
             uint32_t bh[2], bl[2];
-            operand<EXACT>(bident::to_f32(br[0]), bh[0], bl[0]);
-            operand<EXACT>(bident::to_f32(br[4]), bh[1], bl[1]);
-            mma3<EXACT, EXACT>(sp[j], ah, al, bh, bl);
+            bident::split_tf32(br[0], bh[0], bl[0]);
+            bident::split_tf32(br[4], bh[1], bl[1]);
+            mma3(sp[j], ah, al, bh, bl);
           }
         }
         fold(s, sp);
       }
 
       if (ns == NSL - 1) {
-        const T* vs_ = bs_ + BK * BS;
+        const float* vs_ = bs_ + BK * BS;
         // G = s o L: element x of tile j is row g + 8 (x / 2), kv column
         // 8j + 2t + x % 2 of the chunk's tile kt; zero above the diagonal
 #pragma unroll
@@ -651,13 +713,13 @@ __global__ void __launch_bounds__(NT, 2)
             bident::split_tf32(s[j][2], gh[1], gl[1]);   // (g + 8, kv 2t)
             bident::split_tf32(s[j][1], gh[2], gl[2]);   // (g,     kv 2t + 1)
             bident::split_tf32(s[j][3], gh[3], gl[3]);   // (g + 8, kv 2t + 1)
-            const T* vr = vs_ + (j * 8 + 2 * t) * VS + g;
+            const float* vr = vs_ + (j * 8 + 2 * t) * VS + g;
 #pragma unroll
             for (int dj = 0; dj < DJ; ++dj) {
               uint32_t bh[2], bl[2];
-              operand<EXACT>(bident::to_f32(vr[dj * 8]), bh[0], bl[0]);
-              operand<EXACT>(bident::to_f32(vr[VS + dj * 8]), bh[1], bl[1]);
-              mma3<false, EXACT>(part[dj], gh, gl, bh, bl);
+              bident::split_tf32(vr[dj * 8], bh[0], bl[0]);
+              bident::split_tf32(vr[VS + dj * 8], bh[1], bl[1]);
+              mma3(part[dj], gh, gl, bh, bl);
             }
           }
           fold(acc, part);
@@ -672,13 +734,13 @@ __global__ void __launch_bounds__(NT, 2)
   for (int hr = 0; hr < 2; ++hr) {
     const int i = i_row[hr], tt = t0 + i;
     if (i >= C || tt >= T_len) continue;
-    T* out = y + ((size_t)(bb * T_len + tt) * H + h) * P;
+    float* out = y + ((size_t)(bb * T_len + tt) * H + h) * P;
 #pragma unroll
     for (int dj = 0; dj < DJ; ++dj)
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
         const int p = p0 + dj * 8 + 2 * t + cc;
-        if (p < P) out[p] = bident::from_f32<T>(acc[dj][2 * hr + cc]);
+        if (p < P) out[p] = acc[dj][2 * hr + cc];
       }
   }
 }
@@ -1749,34 +1811,729 @@ cudaError_t launch(const void* c, const void* b, const void* v,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
+// f32 at N = 64: 3xTF32 wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int NW = 64;          // the route's N: c and b rows of 64 floats
+constexpr int PW = 64;          // columns of P a block
+constexpr int KVT = 32;         // chunk rows a tile, in both kernels
+constexpr int ST_FOLD = 32;     // chunk rows a fresh accumulator of a chunk state
+constexpr int N_FOLD = 32;      // N a fresh accumulator of c b^T and c S_in
+constexpr int ST_STAGES = 6;    // b / v tiles in flight, state kernel
+constexpr int SBUF = 3;         // staged tiles in flight, state kernel
+constexpr int OUT_STAGES = 3;   // b / v tiles in flight, outputs kernel
+constexpr int NSPLIT = 2;       // its split kv tiles (1: two blocks an SM)
+constexpr int SLOTS = 4;        // chunks whose w the state kernel's cum warp keeps
+constexpr int SMS = 132;        // the card's SMs: the state tile's rule
+constexpr uint32_t SUB = KVT * 128;   // a tile of KVT rows of 32 floats
+constexpr uint32_t SUB64 = 64 * 128; // a tile of 64 rows of 32 floats
+static_assert(KVT == 32 && ST_FOLD % KVT == 0 && N_FOLD % 8 == 0 &&
+                  NW % N_FOLD == 0,
+              "tiles of one 128-byte swizzle row; folds on tile bounds");
+
+using hopper::swz;
+
+// x as its TF32 hi term (rounded, split_tf32: low 13 bits zero, so the
+// tensor cores read it exactly) and lo = x - hi
+__device__ __forceinline__ float hi_of(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// a landed tile's TF32 terms in place: hi over x, lo into `lo` (the same
+// layout), by the 128 threads of the consumer warpgroup (thread i)
+__device__ __forceinline__ void round_tile(uint8_t* x, uint8_t* lo,
+                                           uint32_t bytes, int i) {
+  for (uint32_t e = i; e < bytes / 16; e += 128) {
+    const float4 v = reinterpret_cast<const float4*>(x)[e];
+    const float4 h = make_float4(hi_of(v.x), hi_of(v.y), hi_of(v.z),
+                                 hi_of(v.w));
+    reinterpret_cast<float4*>(x)[e] = h;
+    reinterpret_cast<float4*>(lo)[e] =
+        make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+  }
+}
+
+// 8 consecutive rows r0 .. r0 + 7 of column `col` of a tile of KVT rows
+// (sub-tiles of 32 columns, `sub` bytes apart), each times w[r] (w null:
+// 1), as a K-major row of the transposed tile: its hi and lo terms at
+// (row, r0) of `hi` and `lo`; `perm`: in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (the G v fragment's kv order, see the note at the head of the file)
+__device__ __forceinline__ void transpose8(const uint8_t* src, uint32_t sub,
+                                           int col, int r0, const float* w,
+                                           bool perm, uint8_t* hi,
+                                           uint8_t* lo, int row) {
+  const uint8_t* s = src + col / 32 * sub;
+  float x[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    x[r] = *reinterpret_cast<const float*>(s + swz(r0 + r, col % 32));
+    if (w != nullptr) x[r] *= w[r0 + r];
+  }
+  const float4 a = perm ? make_float4(x[0], x[2], x[4], x[6])
+                        : make_float4(x[0], x[1], x[2], x[3]);
+  const float4 b = perm ? make_float4(x[1], x[3], x[5], x[7])
+                        : make_float4(x[4], x[5], x[6], x[7]);
+  const float4 ah = make_float4(hi_of(a.x), hi_of(a.y), hi_of(a.z),
+                                hi_of(a.w));
+  const float4 bh = make_float4(hi_of(b.x), hi_of(b.y), hi_of(b.z),
+                                hi_of(b.w));
+  const uint32_t o0 = swz(row, r0), o4 = swz(row, r0 + 4);
+  *reinterpret_cast<float4*>(hi + o0) = ah;
+  *reinterpret_cast<float4*>(hi + o4) = bh;
+  *reinterpret_cast<float4*>(lo + o0) =
+      make_float4(a.x - ah.x, a.y - ah.y, a.z - ah.z, a.w - ah.w);
+  *reinterpret_cast<float4*>(lo + o4) =
+      make_float4(b.x - bh.x, b.y - bh.y, b.z - bh.z, b.w - bh.w);
+}
+
+// a K-major tile's descriptor at k8 step kk (32 floats a swizzled row)
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr, int kk) {
+  return hopper::make_desc(addr + kk % 4 * 32, 16, 1024, 128);
+}
+
+// ---- the chunk states and the carry (state_tf32_kernel) ----
+
+// Shared memory of the state kernel, from a 1024-byte aligned base: the
+// ring's b tiles (KVT rows of NS columns) and v tiles (KVT rows of 64),
+// SBUF staged (w o b)^T tiles (hi and lo, NS rows of KVT), the cum warp's
+// SLOTS chunks of w and tot, and the mbarriers.
+template <int NS>
+struct StateSmem {
+  static constexpr uint32_t B_BYTES = NS / 32 * SUB, V_BYTES = PW / 32 * SUB;
+  static constexpr uint32_t STAGE = B_BYTES + V_BYTES;
+  static constexpr uint32_t BH = 0, BL = NS * 128, BUF = 2 * NS * 128;
+  static constexpr uint32_t BUF_OFF = ST_STAGES * STAGE;
+  static constexpr uint32_t W_OFF = BUF_OFF + SBUF * BUF;
+  static constexpr uint32_t W_SLOT = CMAX + 4;      // floats: w, then tot
+  static constexpr uint32_t BAR_OFF = W_OFF + 4 * SLOTS * W_SLOT;
+  static constexpr size_t BYTES =
+      1024 + BAR_OFF + 8 * 2 * (ST_STAGES + SBUF + SLOTS);
+  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+// One block owns one (b, h, 64 columns of P, NS state rows) and walks the
+// chunks in order with S^T (64 x NS) in f32 registers, wgmma's
+// accumulator layout; 320 threads.  Warp 8 loads each tile's b and v into
+// the ring by TMA; warp 9 computes each chunk's cum and w = exp(tot -
+// cum) into a slot ahead of the others; warpgroup 1 stages each tile's
+// (w o b)^T as TF32 hi and lo, K-major, up to SBUF tiles ahead;
+// warpgroup 0 reads v^T's A fragments straight from the landed v tile
+// (split into TF32 hi and lo in registers, the next tile's while this
+// tile's wgmmas run) and runs per k8 step v^T_hi.(wb)_lo,
+// v^T_lo.(wb)_hi, v^T_hi.(wb)_hi into a fresh accumulator every ST_FOLD
+// rows, added to the chunk's state in f32.  After a chunk's last tile,
+// S^T goes out as the state entering the chunk (S_in^T, K-major for the
+// outputs kernel) and is carried, S = S exp(tot) + state, a product and
+// then a sum, each rounded.
+template <int NS>
+__global__ void __launch_bounds__(320, 1)
+    state_tf32_kernel(const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const float* __restrict__ log_a,
+                      const float* __restrict__ s0, float* __restrict__ work,
+                      float* __restrict__ s_final, int T_len, int H, int P,
+                      int C, int nc) {
+  using L = StateSmem<NS>;
+  const int PTL = (P + PW - 1) / PW;
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int nt = idx % (NW / NS), bh = idx / (NW / NS);
+  const int bb = bh / H, h = bh % H, p0 = pt * PW, n0 = nt * NS;
+  const int kt = (C + KVT - 1) / KVT, ntiles = nc * kt;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Buf = base + L::BUF_OFF;
+  float* W = reinterpret_cast<float*>(base + L::W_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* empty = full + ST_STAGES;
+  uint64_t* s_full = empty + ST_STAGES;
+  uint64_t* s_empty = s_full + SBUF;
+  uint64_t* w_full = s_empty + SBUF;
+  uint64_t* w_empty = w_full + SLOTS;
+
+  const int tid = threadIdx.x;
+  const int wid = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);    // the staging and MMA warps
+    }
+    for (int s = 0; s < SBUF; ++s) {
+      hopper::mbar_init(&s_full[s], 4);   // the staging warps
+      hopper::mbar_init(&s_empty[s], 4);  // the MMA warps
+    }
+    for (int s = 0; s < SLOTS; ++s) {
+      hopper::mbar_init(&w_full[s], 32);  // the cum warp's lanes
+      hopper::mbar_init(&w_empty[s], 8);  // the staging and MMA warps
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wid == 8) {
+    // ---- producer: every chunk's b and v tiles, in order ----
+    if (lane != 0) return;
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST_STAGES, r0 = j / kt * C + j % kt * KVT;
+      if (j >= ST_STAGES)
+        hopper::mbar_wait(&empty[s], ((j / ST_STAGES) & 1) ^ 1);
+      uint8_t* st = base + s * L::STAGE;
+      hopper::mbar_expect_tx(&full[s], L::STAGE);
+      for (int k = 0; k < NS / 32; ++k)
+        hopper::tma_load_4d(st + k * SUB, &bmap, &full[s], n0 + 32 * k, h,
+                            r0, bb);
+      for (int k = 0; k < PW / 32; ++k)
+        hopper::tma_load_4d(st + L::B_BYTES + k * SUB, &vmap, &full[s],
+                            p0 + 32 * k, h, r0, bb);
+    }
+    return;
+  }
+  if (wid == 9) {
+    // ---- cum warp: each chunk's w = exp(tot - cum) (0 past C) and tot ----
+    for (int ci = 0; ci < nc; ++ci) {
+      const int slot = ci % SLOTS;
+      if (ci >= SLOTS)
+        hopper::mbar_wait(&w_empty[slot], ((ci / SLOTS) & 1) ^ 1);
+      float* w = W + slot * L::W_SLOT;
+      chunk_cumsum(log_a, w, bb, h, ci * C, T_len, H, C, lane);
+      __syncwarp();
+      const float tot = w[C - 1];
+      __syncwarp();
+      for (int i = lane; i < kt * KVT; i += 32)
+        w[i] = i < C ? expf(tot - w[i]) : 0.f;
+      if (lane == 0) w[CMAX] = tot;
+      __syncwarp();
+      hopper::mbar_arrive(&w_full[slot]);
+    }
+    return;
+  }
+  if (wid >= 4) {
+    // ---- staging warpgroup: tile j's (w o b)^T into buffer j % SBUF ----
+    const int si = tid - 128;
+    for (int j = 0; j < ntiles; ++j) {
+      const int ci = j / kt, jj = j % kt, slot = ci % SLOTS;
+      const int s = j % ST_STAGES, sb = j % SBUF;
+      if (jj == 0) hopper::mbar_wait(&w_full[slot], (ci / SLOTS) & 1);
+      const float* w = W + slot * L::W_SLOT + jj * KVT;
+      hopper::mbar_wait(&full[s], (j / ST_STAGES) & 1);
+      if (j >= SBUF) hopper::mbar_wait(&s_empty[sb], ((j / SBUF) & 1) ^ 1);
+      const uint8_t* st = base + s * L::STAGE;
+      uint8_t* bf = Buf + sb * L::BUF;
+#pragma unroll
+      for (int e = si; e < NS * KVT / 8; e += 128)
+        transpose8(st, SUB, e % NS, e / NS * 8, w, false, bf + L::BH,
+                   bf + L::BL, e % NS);
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive(&empty[s]);
+        hopper::mbar_arrive(&s_full[sb]);
+        if (jj == kt - 1) hopper::mbar_arrive(&w_empty[slot]);
+      }
+    }
+    return;
+  }
+
+  // ---- MMA warpgroup: the chunk states, S_in^T and the carry ----
+  const int warp = tid / 32, g = lane / 4, t = lane % 4;
+  // element x of S^T and of a chunk's state: row p (of P), column n (of
+  // N) of this block's tile
+  auto at = [&](int x, int& p, int& n) {
+    p = p0 + 16 * warp + g + 8 * ((x >> 1) & 1);
+    n = n0 + 8 * (x >> 2) + 2 * t + (x & 1);
+  };
+  float S[NS / 2], cs[NS / 2], part[NS / 2];
+#pragma unroll
+  for (int x = 0; x < NS / 2; ++x) {
+    int p, n;
+    at(x, p, n);
+    S[x] = s0 != nullptr && p < P ? s0[((size_t)bh * NW + n) * P + p] : 0.f;
+  }
+  const uint32_t buf_addr = hopper::smem_u32(Buf);
+  // v^T's A fragments of tile j, k8 step kk: (p, t), (p + 8, t), (p, t +
+  // 4), (p + 8, t + 4) with p = 16 warp + g, t the tile's row, as TF32 hi
+  // and lo; read from the landed v tile, whose ring stage is then freed
+  const int pc = 16 * warp + g;
+  auto frags = [&](int j, uint32_t (&ah)[KVT / 8][4],
+                   uint32_t (&al)[KVT / 8][4]) {
+    const int s = j % ST_STAGES;
+    hopper::mbar_wait(&full[s], (j / ST_STAGES) & 1);
+    const uint8_t* vs = base + s * L::STAGE + L::B_BYTES + pc / 32 * SUB;
+#pragma unroll
+    for (int kk = 0; kk < KVT / 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 8 * kk + t + 4 * (r >> 1), col = pc % 32 + 8 * (r & 1);
+        bident::split_tf32(*reinterpret_cast<const float*>(vs + swz(row, col)),
+                           ah[kk][r], al[kk][r]);
+      }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  };
+  float tot = 0.f;
+  // tile j's products with the A fragments (ah, al), the next tile's
+  // fragments read into (nh, nl) while they run; then its fold, and after
+  // a chunk's last tile S_in^T and the carry
+  auto tile = [&](int j, uint32_t (&ah)[KVT / 8][4], uint32_t (&al)[KVT / 8][4],
+                  uint32_t (&nh)[KVT / 8][4], uint32_t (&nl)[KVT / 8][4]) {
+    const int ci = j / kt, jj = j % kt, slot = ci % SLOTS, sb = j % SBUF;
+    if (jj == 0) {
+      hopper::mbar_wait(&w_full[slot], (ci / SLOTS) & 1);
+      tot = W[slot * L::W_SLOT + CMAX];
+    }
+    hopper::mbar_wait(&s_full[sb], (j / SBUF) & 1);
+    // a fresh accumulator where a fold begins
+    const bool fresh = jj * KVT % ST_FOLD == 0;
+    const uint32_t bf = buf_addr + sb * L::BUF;
+    hopper::reg_fence(ah);
+    hopper::reg_fence(al);
+    hopper::reg_fence(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KVT / 8; ++kk) {
+      const uint64_t bh = kdesc(bf + L::BH, kk), bl = kdesc(bf + L::BL, kk);
+      hopper::WgmmaTf32<NS>::rs(part, ah[kk], bl, !(fresh && kk == 0));
+      hopper::WgmmaTf32<NS>::rs(part, al[kk], bh, 1);
+      hopper::WgmmaTf32<NS>::rs(part, ah[kk], bh, 1);
+    }
+    hopper::wgmma_commit();
+    if (j + 1 < ntiles) frags(j + 1, nh, nl);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(part);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&s_empty[sb]);
+    if ((jj + 1) * KVT % ST_FOLD == 0 || jj == kt - 1) {
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x)
+        cs[x] = (jj + 1) * KVT <= ST_FOLD ? part[x] : cs[x] + part[x];
+    }
+    if (jj == kt - 1) {
+      // S_in^T of this chunk, then the carry
+      float* out = work + (size_t)(bh * nc + ci) * P * NW;
+      const float d = expf(tot);
+#pragma unroll
+      for (int x = 0; x < NS / 2; x += 2) {
+        int p, n;
+        at(x, p, n);
+        if (p < P)
+          *reinterpret_cast<float2*>(out + (size_t)p * NW + n) =
+              make_float2(S[x], S[x + 1]);
+      }
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x)
+        S[x] = __fadd_rn(__fmul_rn(S[x], d), cs[x]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&w_empty[slot]);
+    }
+  };
+  uint32_t ah0[KVT / 8][4], al0[KVT / 8][4], ah1[KVT / 8][4], al1[KVT / 8][4];
+  frags(0, ah0, al0);
+  for (int j = 0; j < ntiles; j += 2) {
+    tile(j, ah0, al0, ah1, al1);
+    if (j + 1 < ntiles) tile(j + 1, ah1, al1, ah0, al0);
+  }
+#pragma unroll
+  for (int x = 0; x < NS / 2; ++x) {
+    int p, n;
+    at(x, p, n);
+    if (p < P) s_final[((size_t)bh * NW + n) * P + p] = S[x];
+  }
+}
+
+// ---- the chunk outputs (out_tf32_kernel) ----
+
+// Shared memory of the outputs kernel, from a 1024-byte aligned base: c
+// (64 rows), whose tile then holds S_in^T's lo tile, S_in^T (64 rows of
+// P), the ring's b and v tiles (KVT rows), NSPLIT buffers of a kv tile's
+// split (b lo; v^T hi and lo, 64 rows of KVT), cum, and the mbarriers.
+struct OutSmem {
+  static constexpr uint32_t C_OFF = 0, SL_OFF = 0;
+  static constexpr uint32_t S_OFF = 2 * SUB64;
+  static constexpr uint32_t RING_OFF = 4 * SUB64, STAGE = 4 * SUB;
+  static constexpr uint32_t BL = 0, VTH = 2 * SUB, VTL = VTH + SUB64;
+  static constexpr uint32_t BUF = VTL + SUB64;
+  static constexpr uint32_t BUF_OFF = RING_OFF + OUT_STAGES * STAGE;
+  static constexpr uint32_t CUM_OFF = BUF_OFF + NSPLIT * BUF;
+  static constexpr uint32_t BAR_OFF = CUM_OFF + 4 * CMAX;
+  static constexpr size_t BYTES = 1024 + BAR_OFF + 8 * (3 + 2 * OUT_STAGES);
+  static_assert(BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+// One block owns one (b, h, chunk, 64-row q tile, 64 columns of P): one
+// consumer warpgroup and a producer warp.  The producer loads c and
+// S_in^T once, the kv tiles' b and v into the ring, and the chunk's cum.
+// The consumers hold c's A fragments for all of N in registers as TF32 hi
+// and lo (read once from its landed tile) and round S_in^T in place to
+// its hi term beside a lo tile (over c's); the inter term c S_in in two
+// fresh accumulators over N (N_FOLD each), acc = exp(cum_i) (c S_in)_i;
+// then per kv tile j: the score c b^T (two fresh accumulators over N,
+// added), G = score o exp(cum_i - cum_j) masked and split in registers,
+// G v into a fresh accumulator added to acc.  With NSPLIT = 2, tile j +
+// 1's split (b rounded in place with its lo tile, v^T hi and lo) runs
+// while the score of tile j does, and the score of tile j + 1 behind G v
+// of tile j; with one buffer, tile j + 1 is split once G v of tile j is
+// done, and two blocks share an SM instead.  Only B operands come from
+// shared memory, so the wgmmas leave its bandwidth to the TMA loads and
+// the splits.
+__global__ void __launch_bounds__(160, 3 - NSPLIT)
+    out_tf32_kernel(const __grid_constant__ CUtensorMap cmap,
+                    const __grid_constant__ CUtensorMap bmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap smap,
+                    const float* __restrict__ log_a, float* __restrict__ y,
+                    int T_len, int H, int P, int C, int nc) {
+  using L = OutSmem;
+  const int PTL = (P + PW - 1) / PW, QT = (C + 63) / 64;
+  // the block: the P tile fastest, then the q tiles of a chunk, heaviest
+  // first
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int qt = QT - 1 - idx % QT;
+  idx /= QT;
+  const int ci = idx % nc, bh = idx / nc;
+  const int bb = bh / H, h = bh % H;
+  const int t0 = ci * C, q0 = qt * 64, p0 = pt * PW;
+  const int Cv = min(C, T_len - t0);   // the chunk's rows within T
+  if (q0 >= Cv) return;                // the whole q tile is padding
+  const int nk = (min(Cv, q0 + 64) + KVT - 1) / KVT;   // kv tiles
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* ring = base + L::RING_OFF;
+  uint8_t* Buf = base + L::BUF_OFF;
+  float* cum = reinterpret_cast<float*>(base + L::CUM_OFF);
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* s_full = c_full + 1;
+  uint64_t* cum_full = s_full + 1;
+  uint64_t* full = cum_full + 1;
+  uint64_t* empty = full + OUT_STAGES;
+
+  const int tid = threadIdx.x;
+  const int wid = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  if (tid == 0) {
+    hopper::mbar_init(c_full, 1);
+    hopper::mbar_init(s_full, 1);
+    hopper::mbar_init(cum_full, 32);      // the producer's lanes
+    for (int s = 0; s < OUT_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);    // the consumer warps
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wid == 4) {
+    // ---- producer: c, S_in^T and the first kv tiles, cum, the rest ----
+    auto issue = [&](int j) {
+      const int s = j % OUT_STAGES, r0 = t0 + j * KVT;
+      uint8_t* st = ring + s * L::STAGE;
+      hopper::mbar_expect_tx(&full[s], L::STAGE);
+      for (int k = 0; k < 2; ++k) {
+        hopper::tma_load_4d(st + k * SUB, &bmap, &full[s], 32 * k, h, r0, bb);
+        hopper::tma_load_4d(st + (2 + k) * SUB, &vmap, &full[s], p0 + 32 * k,
+                            h, r0, bb);
+      }
+    };
+    if (lane == 0) {
+      hopper::mbar_expect_tx(c_full, 2 * SUB64);
+      hopper::mbar_expect_tx(s_full, 2 * SUB64);
+      for (int k = 0; k < 2; ++k) {
+        hopper::tma_load_4d(base + L::C_OFF + k * SUB64, &cmap, c_full,
+                            32 * k, h, t0 + q0, bb);
+        hopper::tma_load_3d(base + L::S_OFF + k * SUB64, &smap, s_full,
+                            32 * k, p0, bh * nc + ci);
+      }
+      for (int j = 0; j < min(OUT_STAGES, nk); ++j) issue(j);
+    }
+    chunk_cumsum(log_a, cum, bb, h, t0, T_len, H, C, lane);
+    __syncwarp();
+    hopper::mbar_arrive(cum_full);
+    if (lane == 0)
+      for (int j = OUT_STAGES; j < nk; ++j) {
+        const int s = j % OUT_STAGES;
+        hopper::mbar_wait(&empty[s], ((j / OUT_STAGES) & 1) ^ 1);
+        issue(j);
+      }
+    return;
+  }
+
+  // ---- consumers: one warpgroup ----
+  const int i = tid, warp = i / 32, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 16 * warp + g;   // and row0 + 8
+  // kv tile j landed: b rounded in place, its lo tile, v^T hi and lo (kv
+  // order permuted) into buffer j % 2; the ring stage stays until the
+  // score has read b
+  auto split = [&](int j) {
+    const int s = j % OUT_STAGES;
+    hopper::mbar_wait(&full[s], (j / OUT_STAGES) & 1);
+    uint8_t* st = ring + s * L::STAGE;
+    uint8_t* bf = Buf + j % NSPLIT * L::BUF;
+    round_tile(st, bf + L::BL, 2 * SUB, i);
+#pragma unroll
+    for (int e = i; e < PW * KVT / 8; e += 128)
+      transpose8(st + 2 * SUB, SUB, e % PW, e / PW * 8, nullptr, true,
+                 bf + L::VTH, bf + L::VTL, e % PW);
+    hopper::fence_proxy_async();
+  };
+  // c's A fragments of k8 step kk (N's columns 8 kk ..): (g, t), (g + 8,
+  // t), (g, t + 4), (g + 8, t + 4) of the warp's 16 rows, TF32 hi and lo
+  uint32_t ch[NW / 8][4], cl[NW / 8][4];
+  hopper::mbar_wait(c_full, 0);
+#pragma unroll
+  for (int kk = 0; kk < NW / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * warp + g + 8 * (r & 1), col = 8 * kk + t + 4 * (r >> 1);
+      bident::split_tf32(*reinterpret_cast<const float*>(
+                             base + L::C_OFF + col / 32 * SUB64 +
+                             swz(row, col % 32)),
+                         ch[kk][r], cl[kk][r]);
+    }
+  hopper::named_bar_sync(1, 128);        // c's tile read by every thread
+  hopper::mbar_wait(s_full, 0);
+  round_tile(base + L::S_OFF, base + L::SL_OFF, 2 * SUB64, i);
+  split(0);
+  hopper::named_bar_sync(1, 128);
+  const uint32_t s_addr = hopper::smem_u32(base + L::S_OFF);
+  const uint32_t sl_addr = hopper::smem_u32(base + L::SL_OFF);
+  const uint32_t ring_addr = hopper::smem_u32(ring);
+  const uint32_t buf_addr = hopper::smem_u32(Buf);
+  // per k8 step c_lo.x_hi, c_hi.x_lo, c_hi.x_hi against a K-major tile x
+  // (its hi term at xh, lo at xl; 32-float sub-tiles `sub` bytes apart)
+  // for N's k8 steps k0 .. k1 - 1, the first into a fresh accumulator
+  auto c_mma = [&](auto& d, uint32_t xh, uint32_t xl, uint32_t sub, int k0,
+                   int k1) {
+#pragma unroll
+    for (int kk = k0; kk < k1; ++kk) {
+      const uint32_t xo = kk / 4 * sub;
+      const uint64_t dh = kdesc(xh + xo, kk), dl = kdesc(xl + xo, kk);
+      using M = hopper::WgmmaTf32<sizeof(d) / sizeof(float) * 2>;
+      M::rs(d, cl[kk], dh, kk > k0);
+      M::rs(d, ch[kk], dl, 1);
+      M::rs(d, ch[kk], dh, 1);
+    }
+  };
+  // the score of kv tile j, over N in folds of N_FOLD: sc, then sp
+  float sc[KVT / 2], sp[KVT / 2];
+  auto score = [&](int j) {
+    const uint32_t bh = ring_addr + j % OUT_STAGES * L::STAGE;
+    const uint32_t bl = buf_addr + j % NSPLIT * L::BUF + L::BL;
+    hopper::reg_fence(sc);
+    hopper::reg_fence(sp);
+    hopper::wgmma_fence();
+    c_mma(sc, bh, bl, SUB, 0, N_FOLD / 8);
+    c_mma(sp, bh, bl, SUB, N_FOLD / 8, NW / 8);
+    hopper::wgmma_commit();
+  };
+
+  // inter: c S_in over N in folds of N_FOLD, acc then part
+  float acc[PW / 2], part[PW / 2];
+  hopper::reg_fence(ch);
+  hopper::reg_fence(cl);
+  hopper::wgmma_fence();
+  c_mma(acc, s_addr, sl_addr, SUB64, 0, N_FOLD / 8);
+  c_mma(part, s_addr, sl_addr, SUB64, N_FOLD / 8, NW / 8);
+  hopper::wgmma_commit();
+  score(0);
+  hopper::mbar_wait(cum_full, 0);
+  float cum_i[2], e_i[2];   // each row's cum and exp(cum) (0 past Cv)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    cum_i[hr] = row < Cv ? cum[row] : 0.f;
+    e_i[hr] = row < Cv ? expf(cum_i[hr]) : 0.f;
+  }
+  hopper::wgmma_wait<1>();
+  hopper::reg_fence(acc);
+  hopper::reg_fence(part);
+#pragma unroll
+  for (int x = 0; x < PW / 2; ++x) {
+    acc[x] = e_i[(x >> 1) & 1] * acc[x];
+    if (N_FOLD < NW) acc[x] += e_i[(x >> 1) & 1] * part[x];
+  }
+  // a tile needs the mask where it reaches above the q tile's first row,
+  // or where the q tile has rows past the chunk's
+  const bool rows_past = q0 + 64 > Cv;
+  for (int j = 0; j < nk; ++j) {
+    if (NSPLIT == 2 && j + 1 < nk) split(j + 1);
+    hopper::wgmma_wait<0>();             // the score of tile j
+    hopper::reg_fence(sc);
+    hopper::reg_fence(sp);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[j % OUT_STAGES]);
+    // G = score o exp(cum_i - cum_j): element 4 jn + e is row row0 + 8 (e
+    // / 2), kv column j KVT + 8 jn + 2t + e % 2; then its TF32 terms in
+    // the A fragment of k8 step jn: (g, kv 2t), (g + 8, kv 2t), (g, kv 2t
+    // + 1), (g + 8, kv 2t + 1)
+    const bool mask = (j + 1) * KVT - 1 > q0 || rows_past;
+    uint32_t gh[KVT / 8][4], gl[KVT / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < KVT / 8; ++jn) {
+      float gx[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1, row = row0 + 8 * hr;
+        const int col = j * KVT + 8 * jn + 2 * t + (e & 1);
+        float x = sc[4 * jn + e];
+        if (N_FOLD < NW) x += sp[4 * jn + e];
+        const float gv = x * expf(cum_i[hr] - cum[col]);
+        gx[e] = !mask || (col <= row && row < Cv) ? gv : 0.f;
+      }
+      bident::split_tf32(gx[0], gh[jn][0], gl[jn][0]);
+      bident::split_tf32(gx[2], gh[jn][1], gl[jn][1]);
+      bident::split_tf32(gx[1], gh[jn][2], gl[jn][2]);
+      bident::split_tf32(gx[3], gh[jn][3], gl[jn][3]);
+    }
+    if (NSPLIT == 2)
+      hopper::named_bar_sync(1, 128);    // tile j + 1 split by every thread
+    // G v of tile j into a fresh accumulator: G_lo.v_hi, G_hi.v_lo,
+    // G_hi.v_hi per k8 step; then the score of tile j + 1
+    const uint32_t vth = buf_addr + j % NSPLIT * L::BUF + L::VTH;
+    const uint32_t vtl = buf_addr + j % NSPLIT * L::BUF + L::VTL;
+    hopper::reg_fence(gh);
+    hopper::reg_fence(gl);
+    hopper::reg_fence(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KVT / 8; ++kk) {
+      const uint64_t dh = kdesc(vth, kk);
+      hopper::WgmmaTf32<PW>::rs(part, gl[kk], dh, kk > 0);
+      hopper::WgmmaTf32<PW>::rs(part, gh[kk], kdesc(vtl, kk), 1);
+      hopper::WgmmaTf32<PW>::rs(part, gh[kk], dh, 1);
+    }
+    hopper::wgmma_commit();
+    if (NSPLIT == 1) {
+      hopper::wgmma_wait<0>();
+      if (j + 1 < nk) {      // the buffer is free: tile j + 1's split, score
+        split(j + 1);
+        hopper::named_bar_sync(1, 128);
+        score(j + 1);
+      }
+    } else if (j + 1 < nk) {
+      score(j + 1);
+      hopper::wgmma_wait<1>();
+    } else {
+      hopper::wgmma_wait<0>();
+    }
+    hopper::reg_fence(part);
+#pragma unroll
+    for (int x = 0; x < PW / 2; ++x) acc[x] += part[x];
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    if (row >= Cv) continue;
+    float* out = y + ((size_t)(bb * T_len + t0 + row) * H + h) * P;
+#pragma unroll
+    for (int jn = 0; jn < PW / 8; ++jn) {
+      const int p = p0 + 8 * jn + 2 * t;
+      if (p < P)
+        *reinterpret_cast<float2*>(out + p) =
+            make_float2(acc[4 * jn + 2 * hr], acc[4 * jn + 2 * hr + 1]);
+    }
+  }
+}
+
+// The rule, decided before the launch: this design where N is 64 and TMA
+// reads c, b and v (16-byte aligned bases, P a multiple of 4 and at least
+// one 32-column box); the mma.sync kernels elsewhere.
+inline bool tma_route(const void* c, const void* b, const void* v, int N,
+                      int P) {
+  return N == NW && P % 4 == 0 && P >= 32 && bident::aligned16(c) &&
+         bident::aligned16(b) && bident::aligned16(v);
+}
+
+// state rows a block of the state kernel: 32 where 64-row tiles would
+// leave half the card's SMs without a walker, else 64
+inline int state_cols(long long blocks64) {
+  return 2 * blocks64 <= SMS ? 32 : 64;
+}
+
+template <int NS>
+cudaError_t launch_state(const CUtensorMap& bm, const CUtensorMap& vm,
+                         const float* log_a, const float* s0, float* work,
+                         float* s_final, int B, int T_len, int H, int P,
+                         int C, int nc, cudaStream_t stream) {
+  cudaError_t err =
+      bident::allow_smem(state_tf32_kernel<NS>, StateSmem<NS>::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * (NW / NS) * ((P + PW - 1) / PW);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  state_tf32_kernel<NS><<<(unsigned)blocks, 320, StateSmem<NS>::BYTES,
+                          stream>>>(bm, vm, log_a, s0, work, s_final, T_len, H,
+                                    P, C, nc);
+  return cudaGetLastError();
+}
+
+// The f32 scan at N = 64: the state kernel (S_in^T of every chunk into
+// `work`, (B, H, nc, P, N); the final state), then the chunk outputs.
+cudaError_t launch(const void* c, const void* b, const void* v,
+                   const float* log_a, const float* s0, void* y,
+                   float* s_final, float* work, int B, int T_len, int H,
+                   int P, int C, cudaStream_t stream) {
+  const int nc = (T_len + C - 1) / C, PTL = (P + PW - 1) / PW;
+  CUtensorMap cm{}, bm{}, vm{}, sm{};
+  if (!(hopper::encode_bthd(&cm, c, B, T_len, H, NW, 32, 64, 4) &&
+        hopper::encode_bthd(&bm, b, B, T_len, H, NW, 32, KVT, 4) &&
+        hopper::encode_bthd(&vm, v, B, T_len, H, P, 32, KVT, 4) &&
+        hopper::encode_f32_3d(&sm, work, NW, P, B * H * nc, 64)))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      state_cols((long long)B * H * PTL) == 32
+          ? launch_state<32>(bm, vm, log_a, s0, work, s_final, B, T_len, H,
+                             P, C, nc, stream)
+          : launch_state<64>(bm, vm, log_a, s0, work, s_final, B, T_len, H,
+                             P, C, nc, stream);
+  if (err != cudaSuccess) return err;
+  err = bident::allow_smem(out_tf32_kernel, OutSmem::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)B * H * nc * ((C + 63) / 64) * PTL;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  out_tf32_kernel<<<(unsigned)blocks, 160, OutSmem::BYTES, stream>>>(
+      cm, bm, vm, sm, log_a, static_cast<float*>(y), T_len, H, P, C, nc);
+  return cudaGetLastError();
+}
+
+}  // namespace tf
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, bool ASYNC>
-cudaError_t launch(const void* c, const void* b, const void* v,
-                   const float* log_a, const float* s0, void* y,
+// The f32 scan on the mma.sync kernels (ASYNC: rows by cp.async)
+template <bool ASYNC>
+cudaError_t launch(const float* c, const float* b, const float* v,
+                   const float* log_a, const float* s0, float* y,
                    float* s_final, float* work, int B, int T_len, int H,
                    int N, int P, int C, cudaStream_t stream) {
   const int nc = (T_len + C - 1) / C, BH = B * H;
   const int pt = (P + PT - 1) / PT, nsl = (N + SL - 1) / SL;
   float* states = work;                          // BH x nc x N x P
   float* tot = work + (size_t)BH * nc * N * P;   // BH x nc
-  const T* ct = static_cast<const T*>(c);
-  const T* bt = static_cast<const T*>(b);
-  const T* vt = static_cast<const T*>(v);
 
   cudaError_t err;
-  const size_t smem1 = StateLayout<T>::smem(N);
+  const size_t smem1 = StateLayout::smem(N);
   if (N <= 64) {
-    err = bident::allow_smem(state_kernel<T, ASYNC, 1>, smem1);
+    err = bident::allow_smem(state_kernel<ASYNC, 1>, smem1);
     if (err != cudaSuccess) return err;
-    state_kernel<T, ASYNC, 1><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
-        bt, vt, log_a, states, tot, T_len, H, N, P, C, nc);
+    state_kernel<ASYNC, 1><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
+        b, v, log_a, states, tot, T_len, H, N, P, C, nc);
   } else {
-    err = bident::allow_smem(state_kernel<T, ASYNC, 2>, smem1);
+    err = bident::allow_smem(state_kernel<ASYNC, 2>, smem1);
     if (err != cudaSuccess) return err;
-    state_kernel<T, ASYNC, 2><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
-        bt, vt, log_a, states, tot, T_len, H, N, P, C, nc);
+    state_kernel<ASYNC, 2><<<dim3(nc, BH, pt * nsl), NT, smem1, stream>>>(
+        b, v, log_a, states, tot, T_len, H, N, P, C, nc);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -1785,29 +2542,30 @@ cudaError_t launch(const void* c, const void* b, const void* v,
       s0, states, tot, s_final, BH, N * P, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t smem3 = OutLayout<T>::smem(N);
-  err = bident::allow_smem(out_kernel<T, ASYNC>, smem3);
+  const size_t smem3 = OutLayout::smem(N);
+  err = bident::allow_smem(out_kernel<ASYNC>, smem3);
   if (err != cudaSuccess) return err;
   const int QT = (C + BQ - 1) / BQ;
-  out_kernel<T, ASYNC><<<dim3(QT * nc, BH, pt), NT, smem3, stream>>>(
-      ct, bt, vt, log_a, states, static_cast<T*>(y), T_len, H, N, P, C,
-      nc);
+  out_kernel<ASYNC><<<dim3(QT * nc, BH, pt), NT, smem3, stream>>>(
+      c, b, v, log_a, states, y, T_len, H, N, P, C, nc);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_aligned(const void* c, const void* b, const void* v,
                            const float* log_a, const float* s0, void* y,
                            float* s_final, float* work, int B, int T_len,
                            int H, int N, int P, int C, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
+  const float* cf = static_cast<const float*>(c);
+  const float* bf = static_cast<const float*>(b);
+  const float* vf = static_cast<const float*>(v);
+  float* yf = static_cast<float*>(y);
   // cp.async needs every row of c, b and v to start on a 16-byte boundary
   return bident::aligned16(c) && bident::aligned16(b) &&
-                 bident::aligned16(v) && N % VEC == 0 && P % VEC == 0
-             ? launch<T, true>(c, b, v, log_a, s0, y, s_final, work, B,
-                               T_len, H, N, P, C, stream)
-             : launch<T, false>(c, b, v, log_a, s0, y, s_final, work, B,
-                                T_len, H, N, P, C, stream);
+                 bident::aligned16(v) && N % 4 == 0 && P % 4 == 0
+             ? launch<true>(cf, bf, vf, log_a, s0, yf, s_final, work, B,
+                            T_len, H, N, P, C, stream)
+             : launch<false>(cf, bf, vf, log_a, s0, yf, s_final, work, B,
+                             T_len, H, N, P, C, stream);
 }
 
 }  // namespace
@@ -1816,11 +2574,17 @@ cudaError_t launch_aligned(const void* c, const void* b, const void* v,
 // float32 or (bf16 != 0) bfloat16; log_a (B,T,H) float32; s0 (B,H,N,P)
 // float32 or NULL for a zero initial state; y (B,T,H,P) in v's dtype;
 // s_final (B,H,N,P) float32; work, float32 scratch of B*H*nc*(N*P + 1)
-// elements with nc = ceil(T / C).  All contiguous device buffers.  The
-// chunk length C is at most 256 and N at most 496; P is tiled 64 columns
-// a block (at most 65535 blocks of grid z in kernel 1: ceil(P / 64)
-// times ceil(N / 128)).  Runs the three kernels on `stream`; returns the
-// first cudaError_t (0 on success).
+// elements with nc = ceil(T / C): each chunk's S_in, (B,H,nc,N,P) for PR
+// 13's kernels and the bf16 design, (B,H,nc,P,N) for the f32 wgmma
+// design; then the mma.sync design's tot.  All contiguous device buffers.  The chunk
+// length C is at most 256 and N at most 496; P is tiled 64 columns a
+// block (at most 65535 blocks of grid z in the mma.sync design's state kernel:
+// ceil(P / 64) times ceil(N / 128)).  The design is chosen before the
+// launch by an explicit rule, never on error: bf16 takes the wgmma
+// design; f32 with N = 64 and c, b, v readable by TMA (tf::tma_route)
+// the 3xTF32 wgmma design; every other f32 call the three mma.sync
+// kernels.  Runs its kernels on `stream`; returns the first cudaError_t
+// (0 on success).
 extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
                                const void* log_a, const void* s0, void* y,
                                void* s_final, void* work, int B, int T_len,
@@ -1835,8 +2599,9 @@ extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
   const float* st = static_cast<const float*>(s0);
   float* sf = static_cast<float*>(s_final);
   float* wk = static_cast<float*>(work);
-  return bf16 ? wg::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C,
-                           s)
-              : launch_aligned<float>(c, b, v, la, st, y, sf, wk, B, T_len,
-                                      H, N, P, C, s);
+  if (bf16)
+    return wg::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C, s);
+  if (tf::tma_route(c, b, v, N, P))
+    return tf::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, P, C, s);
+  return launch_aligned(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C, s);
 }

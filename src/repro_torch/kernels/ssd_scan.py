@@ -1,21 +1,24 @@
 """Chunked Mamba-2 SSD scan: the CUDA kernel and its plain version.
 
 Port of ``repro.kernels.ssd_scan`` (the Pallas TPU kernel).  The kernel
-(``csrc/ssd_scan.cu``) has one design for each dtype.  In f32 it runs in
-three phases, the first and last parallel over chunks: every chunk's own
-state contribution, then a short sequential pass that carries the state
-across chunks, then every chunk's outputs, on 3xTF32 ``mma.sync``.  In
-bf16 it runs two ``wgmma`` kernels fed by TMA: the chunk states and the
+(``csrc/ssd_scan.cu``) has three designs, chosen before the launch by an
+explicit rule of the C entry (:func:`f32_kernels` says which an f32 call
+takes).  bf16: two ``wgmma`` kernels fed by TMA, the chunk states and the
 carry in one (each block walks its chunks in order), then the chunk
 outputs (a block a chunk at N <= 64, a block a 128-row q tile above),
 with the f32 operands (G = (c b^T) o L, S_in, w o v) taken as bf16
-terms.  Its source states the design and what bounds it.
-:func:`ssd_scan_plain` repeats the same chunked algebra in
-PyTorch in the same phase order (chunk states ``(b o e^(tot-cum))^T v``
-for all chunks at once, the carry ``S e^tot + chunk_state`` chunk by
-chunk, then intra-chunk ``((c b^T) o L) v`` plus inter-chunk
-``(c o e^cum) S_in``), so the kernel can be held against it on the card
-and the CPU path runs the same algorithm.
+terms.  f32 at N = 64 with c, b, v on 16-byte boundaries (P a multiple
+of 4, at least 32): the same two phases on 3xTF32 ``wgmma`` fed by TMA,
+every operand rounded to its TF32 hi term beside a lo term.  Every other
+f32 call: three 3xTF32 ``mma.sync`` kernels, every chunk's own state,
+then a short sequential pass that carries the state across chunks, then
+every chunk's outputs.  Its source states each design and what bounds
+it.  :func:`ssd_scan_plain` repeats the same chunked algebra in PyTorch
+in the same phase order (chunk states ``(b o e^(tot-cum))^T v`` for all
+chunks at once, the carry ``S e^tot + chunk_state`` chunk by chunk, then
+intra-chunk ``((c b^T) o L) v`` plus inter-chunk ``(c o e^cum) S_in``),
+so the kernel can be held against it on the card and the CPU path runs
+the same algorithm.
 """
 from __future__ import annotations
 
@@ -28,6 +31,24 @@ MAX_CHUNK = 256
 # shared memory beside its stage buffers (227 KB in f32 at N = 496); P is
 # tiled 64 columns a block and has no such limit
 MAX_STATE = 496
+
+
+# the f32 wgmma design's N, and the kernels each f32 design launches
+F32_WGMMA_STATE = 64
+F32_WGMMA_KERNELS = ("state_tf32_kernel", "out_tf32_kernel")
+F32_MMA_SYNC_KERNELS = ("state_kernel", "pass_kernel", "out_kernel")
+
+
+def f32_kernels(c, b, v) -> tuple[str, ...]:
+    """The kernels an f32 call launches, by the C entry's rule
+    (``tf::tma_route``): the 3xTF32 ``wgmma`` design at N =
+    :data:`F32_WGMMA_STATE` where TMA reads c, b and v (16-byte aligned
+    bases, P a multiple of 4 and at least 32), else the ``mma.sync``
+    design."""
+    P = v.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (c, b, v))
+    return F32_WGMMA_KERNELS if b.shape[-1] == F32_WGMMA_STATE and \
+        P % 4 == 0 and P >= 32 and aligned else F32_MMA_SYNC_KERNELS
 
 
 def _chunk(chunk: int, T: int) -> int:
@@ -104,7 +125,8 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
     _build.check_operands("ssd_scan", **operands)
     y = torch.empty_like(v)
     s_final = torch.empty((B, H, N, P), dtype=torch.float32, device=v.device)
-    # the chunk states (B, H, nc, N, P), then each chunk's tot (B, H, nc)
+    # each chunk's S_in ((B, H, nc, N, P); (B, H, nc, P, N) on the f32
+    # wgmma design), then each chunk's tot (B, H, nc) for the mma.sync one
     nc = -(-T // C)
     work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float32,
                        device=v.device)

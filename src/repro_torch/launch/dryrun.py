@@ -178,17 +178,6 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     starts its own."""
     import dataclasses
 
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    from ..models import model as M
-    from ..optim import adamw
-    from ..serving import engine as E
-    from ..sharding import NamedSharding, P, Policy, make_rules
-    from ..train import trainer as T
-    from .mesh import make_production_mesh
-    from .roofline import OpCounter, collective_bytes
-
     cfg = cfg if cfg is not None else get_config(arch)
     cell = SHAPE_CELLS[shape]
     if batch is not None or seq is not None:
@@ -203,6 +192,26 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec
+
+    # bf16 optimizer state for the giant configs
+    state_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
+    # the global count runs in a child process beside the mesh run; it
+    # starts first, so the child's start overlaps this process's imports,
+    # group and mesh
+    own = pool is None
+    pool = count_pool() if own else pool
+    counts = pool.submit(global_counts, cfg, cell, microbatches, state_dtype)
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..models import model as M
+    from ..optim import adamw
+    from ..serving import engine as E
+    from ..sharding import NamedSharding, P, Policy, make_rules
+    from ..train import trainer as T
+    from .mesh import make_production_mesh
+    from .roofline import OpCounter, collective_bytes
 
     if serve_layout in ("1d", "2d"):
         fsdp = False        # params stationary; no per-step FSDP gathers
@@ -225,14 +234,8 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     params_shapes = M.param_shapes(cfg)
     specs = input_specs(cfg, cell)
     rep = NamedSharding(mesh, P())
-    # bf16 optimizer state for the giant configs
-    state_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
     tc = T.TrainConfig(microbatches=microbatches,
                        opt=adamw.AdamWConfig(state_dtype=state_dtype))
-    # the global count runs in a child process beside the mesh run
-    own = pool is None
-    pool = count_pool() if own else pool
-    counts = pool.submit(global_counts, cfg, cell, microbatches, state_dtype)
     t0 = time.time()
     counter = OpCounter()
     with implicit_replication():

@@ -56,8 +56,9 @@ def test_kernel_variants_still_match_the_sources():
     for variant, kernel in (("fold64", "ssd_scan"), ("one_tf32", "ssd_scan"),
                             ("cvt_rna", "ssd_scan")):
         assert kv.sources(variant, kernel) is not None, (variant, kernel)
-    assert "constexpr int FOLD_K8 = 8;" in \
-        kv.sources("fold64", "ssd_scan")["ssd_scan.cu"]
+    fold64 = kv.sources("fold64", "ssd_scan")["ssd_scan.cu"]
+    assert "constexpr int ST_FOLD = 64;" in fold64
+    assert "constexpr int N_FOLD = 64;" in fold64
     # the bf16 attention's variants, each a copy with every header
     for variant in kv.ATTN_BF16:
         files = kv.sources(variant, "flash_attention")
@@ -113,7 +114,6 @@ def test_ssd_scan_bf16_variants_match_the_sources():
     assert "constexpr int G_TERMS = 1;" in got["g_one_bf16"]
     assert "constexpr int G_TERMS = 2;" in got["g_two"]
     assert "constexpr int MAX_STAGES = 2;" in got["stages2"]
-    assert "return bf16 ? launch_aligned<__nv_bfloat16>(" in got["tf32"]
     assert "constexpr int W_TERMS = 3;" in got["w_three"]
     assert "if (false)" in got["qtile"]
     assert "constexpr int S_TERMS = 0;" in got["no_inter"]
@@ -197,3 +197,83 @@ def test_f32_attention_variants_match_the_sources():
     # the bf16 design's variants leave the f32 one as shipped
     bf16_ring = kv.sources("stages2", "flash_attention")["flash_attention.cu"]
     assert "constexpr int RING = 3;" in bf16_ring
+
+
+def _kernel_variants():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    kv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kv)
+    return kv
+
+
+def test_f32_ssd_scan_variants_match_the_sources():
+    """The f32 SSD scan's baseline (the mma.sync kernels), product,
+    fold, state-tile and ring variants and its ablation in
+    ``kernel_variants.py`` each change the source of the TF32 wgmma
+    design (or its route), every header copied beside it, ``hopper.cuh``
+    in the build key; the bf16 design's variants leave it as shipped."""
+    kv = _kernel_variants()
+    assert [f.name for f in _build.sources("ssd_scan")] == [
+        "ssd_scan.cu", "common.cuh", "hopper.cuh"]
+    shipped = kv.sources("shipped", "ssd_scan")["ssd_scan.cu"]
+    assert "state_tf32_kernel" in shipped and "out_tf32_kernel" in shipped
+    got = {}
+    for variant in kv.SSD_F32[1:]:
+        files = kv.sources(variant, "ssd_scan")
+        assert set(files) == {"ssd_scan.cu", "common.cuh", "hopper.cuh"}
+        assert files != kv.sources("shipped", "ssd_scan"), variant
+        got[variant] = files["ssd_scan.cu"]
+    assert "if (false && tf::tma_route(c, b, v, N, P))" in got["mma_sync"]
+    for variant, n in (("one_tf32", 1), ("no_mma", 0)):
+        assert got[variant].count("WgmmaTf32<NS>::rs(part") == n, variant
+        assert got[variant].count("M::rs(d, ") == n, variant
+        assert got[variant].count("WgmmaTf32<PW>::rs(part") == n, variant
+    assert shipped.count("WgmmaTf32<NS>::rs(part") == 3
+    assert "return 32;" in got["st32"] and "return 64;" in got["st64"]
+    assert "constexpr int OUT_STAGES = 2;" in got["f32_stages2"]
+    assert "constexpr int ST_STAGES = 3;    // b / v tiles in flight, " \
+        "state kernel" in got["st_stages3"]
+    # the mma.sync kernels' bf16 branches are gone, and so is the variant that fed them
+    assert "EXACT" not in shipped and "tf32" not in kv.VARIANTS
+    for variant in kv.SSD_BF16[1:]:
+        assert "state_tf32_kernel" in kv.sources(variant, "ssd_scan")[
+            "ssd_scan.cu"]
+        tf = kv.sources(variant, "ssd_scan")["ssd_scan.cu"].split(
+            "namespace tf {")[1]
+        assert tf == shipped.split("namespace tf {")[1], variant
+
+
+def test_f32_ssd_scan_rule_mirrors_the_c_entry():
+    """``ssd_scan.f32_kernels`` states the C entry's rule
+    (``tf::tma_route``): N = 64 with c, b, v on 16-byte boundaries and P a
+    multiple of 4, at least 32, takes the wgmma design; every other f32
+    call the mma.sync kernels."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ss
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    rule = re.search(r"inline bool tma_route\(.*?\{\s*return (.*?);", src,
+                     re.S).group(1)
+    assert re.sub(r"\s+", " ", rule) == (
+        "N == NW && P % 4 == 0 && P >= 32 && bident::aligned16(c) && "
+        "bident::aligned16(b) && bident::aligned16(v)")
+    nw = int(re.search(r"constexpr int NW = (\d+);", src).group(1))
+    assert nw == ss.F32_WGMMA_STATE
+    assert "if (tf::tma_route(c, b, v, N, P))" in src
+
+    def x(*shape, offset=0):
+        flat = torch.zeros(offset + int(torch.tensor(shape).prod()))
+        return flat[offset:].view(shape)
+    cb = x(1, 8, 2, 64)
+    assert ss.f32_kernels(cb, cb, x(1, 8, 2, 64)) == ss.F32_WGMMA_KERNELS
+    assert ss.f32_kernels(cb, cb, x(1, 8, 2, 32)) == ss.F32_WGMMA_KERNELS
+    for c, b, v in ((x(1, 8, 2, 16), x(1, 8, 2, 16), x(1, 8, 2, 64)),
+                    (cb, cb, x(1, 8, 2, 385)), (cb, cb, x(1, 8, 2, 16)),
+                    (x(1, 8, 2, 64, offset=1), cb, x(1, 8, 2, 64)),
+                    (cb, cb, x(1, 8, 2, 64, offset=1))):
+        assert ss.f32_kernels(c, b, v) == ss.F32_MMA_SYNC_KERNELS

@@ -347,6 +347,94 @@ def test_bf16_ssd_scan_kernel_matches_plain(cuda, case):
     assert float((s - sf).abs().max() / sf.abs().max()) <= 3e-5
 
 
+F32_SSD_CASES = {   # B, T, H, N, P, chunk, initial state, decay, unaligned
+    "main path widths, chunk 64": (1, 1024, 16, 64, 64, 64, False, None, ()),
+    "main path widths, initial_state": (1, 256, 4, 64, 64, 64, True, None,
+                                        ()),
+    "chunk 128, padded": (1, 300, 2, 64, 64, 128, True, None, ()),
+    "Zamba2 widths, chunk 256": (2, 600, 2, 64, 64, 256, False, None, ()),
+    "strong decay, chunk 256": (1, 600, 2, 64, 64, 256, True, -5.0, ()),
+    "T=17 < chunk": (1, 17, 2, 64, 64, 64, True, None, ()),
+    "chunk 100, P 96 (a ragged P tile)": (1, 250, 2, 64, 96, 100, True,
+                                          None, ()),
+    "P 128 (two P tiles), chunk 32": (2, 160, 1, 64, 128, 32, True, None,
+                                      ()),
+    # the rule's other side: the mma.sync kernels
+    "N 16 (mma.sync by the rule)": (1, 100, 3, 16, 32, 32, True, None, ()),
+    "N 384, P 385 (mma.sync by the rule)": (1, 300, 2, 384, 385, 256, False,
+                                            None, ()),
+    "P 385 at N 64 (mma.sync by the rule)": (1, 200, 2, 64, 385, 64, True,
+                                             None, ()),
+    "c, b, v unaligned (mma.sync by the rule)": (1, 96, 2, 64, 64, 64,
+                                                 False, None,
+                                                 ("c", "b", "v")),
+    "v unaligned (mma.sync by the rule)": (1, 96, 2, 64, 64, 64, True, None,
+                                           ("v",)),
+}
+
+
+def _scan_launched(fn) -> tuple:
+    """The port's scan kernels one ``fn()`` launched, by name, from a
+    device trace (in the order of ``ssd_scan``'s f32 designs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ss.F32_WGMMA_KERNELS + ss.F32_MMA_SYNC_KERNELS
+    ran = {n for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           for n in names if f"::{n}<" in ev.key or f"::{n}(" in ev.key}
+    return tuple(n for n in names if n in ran)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(F32_SSD_CASES))
+def test_f32_ssd_scan_kernel_matches_plain(cuda, case):
+    """The f32 scan: 3xTF32 wgmma fed by TMA at N = 64 where TMA reads c,
+    b and v, the mma.sync kernels elsewhere (the C entry's rule,
+    ``ssd_scan.f32_kernels``, read from a device trace); y and the final
+    state within the f32 bucket of the plain version's largest value,
+    bitwise run to run, one counted launch a call."""
+    B, T, H, N, P, chunk, with_s0, decay, unaligned = F32_SSD_CASES[case]
+    rng = np.random.default_rng(23 + N + T + P)
+    f32 = torch.float32
+    scale = 0.1 if N > 64 else 0.5
+    x = dict(c=_rand(rng, (B, T, H, N), cuda, f32, scale),
+             b=_rand(rng, (B, T, H, N), cuda, f32, scale),
+             v=_rand(rng, (B, T, H, P), cuda, f32))
+    for name in unaligned:
+        x[name] = _unaligned(x[name])
+    c, b, v = x["c"], x["b"], x["v"]
+    if decay is None:
+        la = -torch.nn.functional.softplus(_rand(rng, (B, T, H), cuda, f32))
+    else:
+        la = (decay + 0.5 * _rand(rng, (B, T, H), cuda, f32)).clamp(max=0)
+    s0 = _rand(rng, (B, H, N, P), cuda, f32) if with_s0 else None
+
+    def call():
+        return ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=chunk)
+    kernels.reset_launch_counts()
+    (y, s), (y2, s2) = call(), call()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_scan"] == 2
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+    yp, sp = ss.ssd_scan_plain(c, b, v, la, initial_state=s0, chunk=chunk)
+    for got, want in ((y, yp), (s, sp)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert bool(torch.isfinite(got).all())
+        rel = float((got.double() - want.double()).abs().max()
+                    / want.double().abs().max())
+        assert rel <= TOL[f32]["rtol"], rel
+    want = ss.f32_kernels(c, b, v)
+    assert want == (ss.F32_MMA_SYNC_KERNELS if "mma.sync" in case
+                    else ss.F32_WGMMA_KERNELS)
+    assert _scan_launched(call) == want
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros

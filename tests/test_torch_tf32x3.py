@@ -393,6 +393,251 @@ def test_wgmma_attention_fragment_relabelling():
     assert torch.equal(A @ Bt.t(), P @ V)
 
 
+
+# ---- the f32 wgmma SSD scan's four chains -----------------------------------
+#
+# ``tf::state_tf32_kernel`` and ``tf::out_tf32_kernel`` (csrc/ssd_scan.cu)
+# run the scan's four products on TF32 wgmma in 3xTF32: the chunk states
+# S^T = v^T (w o b) over a chunk's rows, the score c b^T over N, G v over
+# a kv tile's rows, and the inter term c S_in over N.  Every operand is
+# taken as its TF32 hi term rounded to nearest (split_tf32; a tile is
+# rounded in place, or written rounded where the consumers transpose it)
+# beside a lo term x - hi that the tensor cores read truncated: so each
+# product's terms are those of the mma.sync kernels, whose fresh
+# accumulators (every 32 of K) the design keeps in every chain.  The
+# emulation below holds that design to the f32 bucket against the chunked
+# algebra in f64 at the main path's N = P = 64, chunk 64 to 256 and T 256
+# to 1024, its shrink to the mma.sync kernels' at T 1024 (the state is carried through
+# 16 chunks on the main path), and shows what the choices avoid: raw
+# tiles as their own hi terms (the f32 expert GLU's and attention's way) and one chain over N
+# each pull the outputs toward zero further, and without either cross
+# product of any chain the bucket is missed.
+
+_SCAN_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+             "csrc" / "ssd_scan.cu").read_text()
+_SCAN_TF = _SCAN_SRC.split("namespace tf {")[1]
+
+
+def _const(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# the design's fresh accumulators (rows or N of K), read from its source,
+# and the mma.sync kernels' (FOLD_K8 k8 steps in every chain)
+SCAN_FOLDS = {"state": _const(_SCAN_TF, "ST_FOLD"),
+              "score": _const(_SCAN_TF, "N_FOLD"),
+              "inter": _const(_SCAN_TF, "N_FOLD"),
+              "gv": _const(_SCAN_TF, "KVT")}
+MMA_SYNC_FOLDS = dict.fromkeys(SCAN_FOLDS,
+                           MMA_K * _const(_SCAN_SRC, "FOLD_K8"))
+CHAINS = tuple(SCAN_FOLDS)
+
+
+def rounded(x):
+    """The design's terms of x: hi rounded to TF32, lo = x - hi as the
+    tensor cores read it (truncated)."""
+    h = tf32(x)
+    return h, trunc(x - h)
+
+
+def raw(x):
+    """A raw tile as its own hi term (read truncated), lo = x - trunc(x)."""
+    return trunc(x), trunc(x - trunc(x))
+
+
+def _folded(x, y, fold, products):
+    """x (M, K) @ y (K, N), both as (hi, lo), into a truncating
+    accumulator that starts afresh every ``fold`` of K; the partials added
+    in f32."""
+    out = torch.zeros(x[0].shape[0], y[0].shape[1])
+    for f0 in range(0, x[0].shape[1], fold):
+        sl = slice(f0, f0 + fold)
+        out = out + _chain(torch.zeros_like(out), (x[0][:, sl], x[1][:, sl]),
+                           (y[0][sl], y[1][sl]), products).float()
+    return out
+
+
+def wgmma_scan(c, b, v, la, C, folds=None, tiles=rounded, drop=None):
+    """One (batch, head) of the scan as the kernels compute it: c, b (T,
+    N), v (T, P), log_a (T,) in f32; returns y (T, P) and the final state
+    (N, P) in f64.  ``tiles``: the terms of the shared-memory operands
+    (the register operand G is always ``rounded``); ``drop``: (chain, a
+    cross product) left out."""
+    folds = folds or SCAN_FOLDS
+    T, N = c.shape
+    P = v.shape[1]
+    nc = -(-T // C)
+    pad = nc * C - T
+    c, b, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (c, b, v))
+    la = torch.nn.functional.pad(la, (0, pad))
+    prods = {k: tuple(p for p in THREE if (k, p) != drop) for k in CHAINS}
+    S = torch.zeros(N, P)
+    y = torch.zeros(nc * C, P)
+    low = torch.ones(C, C, dtype=torch.bool).tril()
+    for ci in range(nc):
+        r = slice(ci * C, (ci + 1) * C)
+        cc, bb, vv = c[r], b[r], v[r]
+        cum = torch.cumsum(la[r], 0)
+        tot = cum[-1]
+        w = torch.exp(tot - cum)
+        # chunk state S^T = v^T (w o b), carried as a product then a sum
+        st = _folded(tiles(vv.t().contiguous()), tiles(bb * w[:, None]),
+                     folds["state"], prods["state"]).t()
+        s_in = S
+        S = S * torch.exp(tot) + st
+        # inter: exp(cum_i) (c S_in), then + G v a kv tile at a time
+        e = torch.exp(cum)[:, None]
+        acc = torch.zeros(C, P)
+        for f0 in range(0, N, folds["inter"]):
+            sl = slice(f0, f0 + folds["inter"])
+            ct, stt = tiles(cc), tiles(s_in)
+            acc = acc + e * _chain(torch.zeros(C, P), (ct[0][:, sl], ct[1][:, sl]),
+                                   (stt[0][sl], stt[1][sl]),
+                                   prods["inter"]).float()
+        score = _folded(tiles(cc), tiles(bb.t().contiguous()), folds["score"],
+                        prods["score"])
+        d = torch.where(low, cum[:, None] - cum[None, :], torch.zeros(C, C))
+        G = torch.where(low, score * torch.exp(d), torch.zeros(C, C))
+        for j0 in range(0, C, folds["gv"]):
+            sl = slice(j0, j0 + folds["gv"])
+            acc = acc + _chain(torch.zeros(C, P), rounded(G[:, sl].contiguous()),
+                               tiles(vv[sl]), prods["gv"]).float()
+        y[r] = acc
+    return y[:T].double(), S.double()
+
+
+def ssd_f64(c, b, v, la, C):
+    """The chunked algebra in f64: y (T, P) and the final state."""
+    T, N = c.shape
+    nc = -(-T // C)
+    pad = nc * C - T
+    c, b, v = (torch.nn.functional.pad(x.double(), (0, 0, 0, pad))
+               for x in (c, b, v))
+    la = torch.nn.functional.pad(la.double(), (0, pad))
+    S = torch.zeros(N, v.shape[1], dtype=torch.float64)
+    y = torch.zeros(nc * C, v.shape[1], dtype=torch.float64)
+    low = torch.ones(C, C, dtype=torch.bool).tril()
+    for ci in range(nc):
+        r = slice(ci * C, (ci + 1) * C)
+        cum = torch.cumsum(la[r], 0)
+        d = torch.where(low, cum[:, None] - cum[None, :],
+                        torch.zeros(C, C, dtype=torch.float64))
+        L = torch.where(low, torch.exp(d), torch.zeros_like(d))
+        y[r] = ((c[r] @ b[r].t()) * L) @ v[r] \
+            + (c[r] * torch.exp(cum)[:, None]) @ S
+        S = S * torch.exp(cum[-1]) \
+            + (b[r] * torch.exp(cum[-1] - cum)[:, None]).t() @ v[r]
+    return y[:T], S
+
+
+def _scan_operands(T: int):
+    """c, b (0.5 N(0, 1)), v (N(0, 1)) at N = P = 64, log_a = -softplus
+    (N(0, 1)), as chip_smoke.py draws the main path's scan."""
+    rng = np.random.default_rng(T)
+
+    def n(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).float()
+    return (n(T, 64, scale=0.5), n(T, 64, scale=0.5), n(T, 64),
+            -torch.nn.functional.softplus(n(T)))
+
+
+_SCAN_RUNS: dict = {}
+
+
+def _scan_run(C, T, **kw):
+    """(y, state, f64 y, f64 state) of one emulated run, memoised."""
+    key = (C, T, tuple(sorted((k, str(v)) for k, v in kw.items())))
+    if key not in _SCAN_RUNS:
+        ops = _scan_operands(T)
+        _SCAN_RUNS[key] = wgmma_scan(*ops, C, **kw) + ssd_f64(*ops, C)
+    return _SCAN_RUNS[key]
+
+
+def _scan_err(run) -> float:
+    y, s, wy, ws = run
+    return max(float((y - wy).abs().max() / wy.abs().max()),
+               float((s - ws).abs().max() / ws.abs().max()))
+
+
+@pytest.mark.parametrize("C,T", [(64, 256), (64, 1024), (128, 512),
+                                 (256, 256), (256, 1024)])
+def test_wgmma_scan_holds_the_bucket(C, T):
+    """The design's folds hold y and the final state within 3e-5 of the
+    largest value of the chunked algebra in f64 (~1e-6 at chunk 64, ~8e-6
+    at chunk 256, f32's own order there)."""
+    assert _scan_err(_scan_run(C, T)) <= F32_TOL
+
+
+@pytest.mark.parametrize("C", [64, 256])
+def test_wgmma_scan_shrink_at_most_the_mma_sync_kernels(C):
+    """At T 1024 the truncating accumulators pull the outputs toward zero
+    by no more than the mma.sync kernels do (~2.6e-7 of themselves)."""
+    want = _scan_run(C, 1024)[2]
+    design = _shrink(_scan_run(C, 1024)[0], want)
+    mma_sync = _shrink(_scan_run(C, 1024, folds=MMA_SYNC_FOLDS)[0], want)
+    assert design < 0 and abs(design) <= abs(mma_sync), (design, mma_sync)
+
+
+@pytest.mark.parametrize("alternative", ["raw tiles", "one chain over N"])
+@pytest.mark.parametrize("C", [64, 256])
+def test_wgmma_scan_alternatives_shrink_further(C, alternative):
+    """Raw tiles as their own hi terms (their lo terms' truncation always
+    pulls toward zero) and one chain over N in c b^T and c S_in each hold
+    the bucket but pull the outputs toward zero at least half as far
+    again as the design does; the main path's route oracle is sensitive
+    to that drift (the f32 attention showed it), so the design rounds and folds."""
+    want = _scan_run(C, 1024)[2]
+    kw = {"tiles": raw} if alternative == "raw tiles" else \
+        {"folds": dict(SCAN_FOLDS, score=64, inter=64)}
+    run = _scan_run(C, 1024, **kw)
+    design = _shrink(_scan_run(C, 1024)[0], want)
+    assert _scan_err(run) <= F32_TOL
+    assert _shrink(run[0], want) < 1.5 * design, (_shrink(run[0], want),
+                                                  design)
+
+
+@pytest.mark.parametrize("dropped", ["lo.hi", "hi.lo"])
+@pytest.mark.parametrize("chain", CHAINS)
+def test_wgmma_scan_needs_every_product(chain, dropped):
+    """Without either cross product of any of the four chains, y or the
+    final state misses the f32 bucket."""
+    assert _scan_err(_scan_run(64, 256, drop=(chain, dropped))) > F32_TOL
+
+
+def test_wgmma_scan_permuted_kv_order_gives_g_v():
+    """G's registers as the score's accumulator leaves them, passed as the
+    TF32 A fragment in the kernel's order (sc[4 jn], sc[4 jn + 2], sc[4 jn
+    + 1], sc[4 jn + 3]), against v^T written by ``transpose8`` with each 8
+    kv positions in the order 0, 2, 4, 6, 1, 3, 5, 7, give G v exactly,
+    over a kv tile of 32 rows and 64 columns of P."""
+    rng = np.random.default_rng(1)
+    kv = SCAN_FOLDS["gv"]
+    G = torch.from_numpy(rng.integers(-8, 8, (64, kv))).double()
+    V = torch.from_numpy(rng.integers(-8, 8, (kv, 64))).double()
+    # v^T as transpose8 writes it: row p, position 8 k + c holds kv 8 k +
+    # PERM[c]
+    vt = torch.zeros(64, kv, dtype=torch.float64)
+    for p in range(64):
+        for r0 in range(0, kv, 8):
+            x = [V[r0 + r, p] for r in range(8)]
+            vt[p, r0:r0 + 8] = torch.stack([x[0], x[2], x[4], x[6],
+                                            x[1], x[3], x[5], x[7]])
+    A = torch.zeros(64, kv, dtype=torch.float64)
+    for warp in range(4):
+        for g in range(8):
+            for t in range(4):
+                r = 16 * warp + g
+                for jn in range(kv // 8):
+                    sc = [G[r, 8 * jn + 2 * t], G[r, 8 * jn + 2 * t + 1],
+                          G[r + 8, 8 * jn + 2 * t],
+                          G[r + 8, 8 * jn + 2 * t + 1]]
+                    a = [sc[0], sc[2], sc[1], sc[3]]
+                    k = 8 * jn
+                    A[r, k + t], A[r + 8, k + t] = a[0], a[1]
+                    A[r, k + t + 4], A[r + 8, k + t + 4] = a[2], a[3]
+    assert torch.equal(A @ vt.t(), G @ V)
+
+
 if __name__ == "__main__":
     # the numbers behind the f32 attention's choice (PERF.md):
     # error over the largest output and shrink of each way to accumulate
@@ -406,3 +651,15 @@ if __name__ == "__main__":
                 err = float((got - want).abs().max() / want.abs().max())
                 print(f"D {D} T {T} {label}: {err:.2e} of the largest "
                       f"output, shrink {_shrink(got, want):.2e}", flush=True)
+    # the numbers behind the f32 scan's choices: error (y and the final
+    # state, over the f64 algebra's largest value) and shrink of the
+    # design, the mma.sync folds, raw tiles and one chain over N
+    for C in (64, 256):
+        for label, kw in (("design", {}), ("the mma.sync folds",
+                                           {"folds": MMA_SYNC_FOLDS}),
+                          ("raw tiles", {"tiles": raw}),
+                          ("one chain over N",
+                           {"folds": dict(SCAN_FOLDS, score=64, inter=64)})):
+            run = _scan_run(C, 1024, **kw)
+            print(f"scan chunk {C} T 1024 {label}: {_scan_err(run):.2e}, "
+                  f"shrink {_shrink(run[0], run[2]):.2e}", flush=True)
