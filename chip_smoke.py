@@ -13,8 +13,8 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
    and spills per instantiation, and whether each instantiation of the
    bf16 attention, the f32 attention at D 64 / 128, the bf16 SSD scan,
-   the f32 SSD scan at N = 64 and the f32 expert GLU holds ``HGMMA``
-   (wgmma) in its SASS and, where it loads by TMA, ``UTMALDG``;
+   the f32 SSD scan at N = 64 and the f32 and bf16 expert GLU holds
+   ``HGMMA`` (wgmma) in its SASS and, where it loads by TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
@@ -26,7 +26,11 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    device trace); and times kernel, plain version, (where one exists) a
    library call and, for the f32 attention, SSD scan and expert GLU, the
    earlier ``mma.sync`` kernels on the same operands (the scan also by
-   kernel on the device, in a child process);
+   kernel on the device, in a child process); the bf16 expert GLU at the
+   main path's widths, Granite's decode (cap 16) and DeepSeek-V3's expert
+   widths beside the ``mma.sync`` kernel and the bmm GLU, with its bound
+   and each kernel's distance in bf16 ulps from the plain version, and the
+   kernels its rule launched from a child's device trace;
 3. main path — ``kernel_chain`` at the Granite-3.0-1B-A400M widths:
    ``MeasuredProfiler(strict=True)`` over the four lanes (numpy-eager,
    torch-cpu, cuda:0, cuda-kernels; the CUDA lanes' cells timed as
@@ -237,7 +241,8 @@ ROUTE_BUCKET, SPREAD = 3e-4, 4.0
 # the stream each one ran on)
 HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "attn_tf32_kernel",
                 "gemm_kernel",
-                "glu_wgmma_kernel", "state_kernel", "pass_kernel",
+                "glu_wgmma_kernel", "glu_bf16_kernel", "state_kernel",
+                "pass_kernel",
                 "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
                 "out_wgmma_kernel", "state_tf32_kernel", "out_tf32_kernel")
 
@@ -448,6 +453,10 @@ def phase_environment() -> dict:
     # instantiation fed by TMA
     _hopper_sass(paths["expert_glu"], ("glu_wgmma_kernel",),
                  "the f32 expert GLU", "glu_wgmma_kernel")
+    # the bf16 expert GLU on 16-byte rows: bf16 wgmma, every
+    # instantiation fed by TMA
+    _hopper_sass(paths["expert_glu"], ("glu_bf16_kernel",),
+                 "the bf16 expert GLU", "glu_bf16_kernel")
     return {"card": card, "glu_baseline": glu_baseline,
             "attn_baseline": attn_baseline, "ssd_baseline": ssd_baseline}
 
@@ -459,7 +468,8 @@ def _hopper_sass(lib, kernels: tuple, what: str, tma_mark: str) -> None:
     (whose mangled name holds ``tma_mark``: ``attn_wgmma_kernel<D,
     true>``, the bf16 scan's kernels with their first template argument
     ``true``, c and b or b by TMA, every ``glu_wgmma_kernel``,
-    ``attn_tf32_kernel`` and f32 scan kernel) must load by TMA."""
+    ``glu_bf16_kernel``, ``attn_tf32_kernel`` and f32 scan kernel) must
+    load by TMA."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
@@ -613,6 +623,140 @@ def _f32_routes(cases: dict) -> None:
             run.stdout.strip().splitlines()[-1]).items():
         check(ran == [want], f"flash_attention {label} float32: launched "
                              f"{ran}, the rule's {want}")
+
+
+# _bf16_glu_rows's child: the bf16 expert GLU's kernels by name, from a
+# device trace, beside the kernels the C entry's rule names
+_GLU_ROUTE_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import moe_gather as mg
+out = {}
+for label, (E, cap, d, F, unaligned) in json.loads(sys.argv[1]).items():
+    x, wu, wd = cs._bf16_glu_operands(E, cap, d, F)
+    if unaligned:
+        x = cs._unaligned(x)
+    ran = cs._device_times(lambda: mg.expert_glu_cuda(x, wu, wd), calls=1)
+    out[label] = [sorted(ran), sorted(mg.bf16_kernels(x, wu, wd))]
+print(json.dumps(out))
+"""
+
+def _bf16_glu_operands(E, cap, d, F):
+    """x (E, cap, d), w_up (E, d, 2F), w_down (E, F, d) in bf16, drawn on
+    the card from a seeded generator (DeepSeek-V3's 2.8 GB of weights in
+    a moment), the weights at scale 0.5."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return tuple((s * torch.randn(shape, device="cuda", generator=g)).to(
+        torch.bfloat16) for shape, s in (((E, cap, d), 1.0),
+                                         ((E, d, 2 * F), 0.5),
+                                         ((E, F, d), 0.5)))
+
+
+def _bf16_glu_rows(env: dict, main_shape: tuple) -> dict:
+    """The bf16 expert GLU at the main path's widths, at Granite's decode
+    (cap 16) and at DeepSeek-V3's expert widths, operands drawn on the
+    card: the call (the design the C entry's rule names) within the bf16
+    bucket of the plain version and bitwise run to run; the C entry's
+    time beside the mma.sync kernel's (phase 1's baseline) on the same
+    operands, the plain version's and the bmm GLU's, the bound (bf16
+    tensor cores, each byte
+    once), and each kernel's largest distance in bf16 ulps from the plain
+    version (``bf16_ulps``), the call's no larger than the mma.sync
+    kernel's and whether the two give the same bits.  A child's device
+    trace shows the rule's kernels at the main path's widths, and the
+    mma.sync one for x off 16 bytes.  Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F_
+
+    import kernel_variants
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gather as mg
+    bf16 = torch.bfloat16
+    E, cap, d, F = main_shape
+    shapes = {"main path": main_shape,
+              # Granite's decode: 64 tokens x top-8 over its 32 experts
+              "Granite decode, cap 16": (E, 16, d, F),
+              "DeepSeek-V3 experts": kernel_variants.DEEPSEEK_GLU}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, (E, cap, d, F) in shapes.items():
+        x, w_up, w_down = _bf16_glu_operands(E, cap, d, F)
+        check(mg.bf16_kernels(x, w_up, w_down) == mg.BF16_WGMMA_KERNELS,
+              f"expert_glu {label} bfloat16: the rule names the wgmma design")
+        want = mg.expert_glu_plain(x, w_up, w_down)
+        got = mg.expert_glu_cuda(x, w_up, w_down)
+        _hold("expert_glu", label, got, want, bf16, False)
+        check_repeatable("expert_glu", label, mg.expert_glu_cuda,
+                         (x, w_up, w_down))
+        act = torch.empty((E, cap, F), dtype=bf16, device="cuda")
+        y, y_base = torch.empty_like(x), torch.empty_like(x)
+
+        def entry(fn, y):
+            def call():
+                err = fn(x.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                         act.data_ptr(), y.data_ptr(), E, cap, d, F, 1,
+                         stream)
+                if err:        # no check line a call: it would be timed
+                    check(False, f"expert_glu {label}: cudaError_t {err}")
+            return call
+        shipped = entry(_build.function("expert_glu"), y)
+        base = entry(env["glu_baseline"], y_base)
+        shipped()
+        base()
+        _hold("expert_glu", f"{label}, the mma.sync kernel", y_base, want,
+              bf16, False)
+        check(torch.equal(y, got), f"expert_glu {label} bfloat16: the C "
+                                   "entry gives the wrapper's bits")
+
+        def bmm_glu():
+            h = torch.bmm(x, w_up)
+            return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], w_down)
+        flops = E * cap * (4 * d * F + 2 * F * d)
+        nbytes = 2 * (2 * x.numel() + w_up.numel() + w_down.numel())
+        b_ms, b_by = tc_bound(flops, nbytes, bf16)
+        row = dict(shape=(E, cap, d, F), ms=time_ms(shipped, iters=20),
+                   mma_sync_ms=time_ms(base, iters=20),
+                   plain_ms=time_ms(lambda: mg.expert_glu_plain(
+                       x, w_up, w_down), iters=3),
+                   library_ms=time_ms(bmm_glu, iters=20), bound_ms=b_ms,
+                   bound_by=b_by, ops_ms=1e3 * flops / PEAK_BF16,
+                   ulps=fa.bf16_ulps(got, want),
+                   mma_sync_ulps=fa.bf16_ulps(y_base, want),
+                   mma_sync_bits=bitwise_equal(got, y_base))
+        log(f"  expert_glu bf16 {label} {row['shape']}: kernel "
+            f"{row['ms']:.4f} ms, the mma.sync kernel "
+            f"{row['mma_sync_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bmm GLU {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; operations {row['ops_ms']:.4f} ms); "
+            f"{row['ulps']:.2f} bf16 ulps from "
+            f"plain (the mma.sync kernel {row['mma_sync_ulps']:.2f}"
+            + (", the same bits" if row["mma_sync_bits"] else "") + ")")
+        check(row["ulps"] <= row["mma_sync_ulps"],
+              f"expert_glu {label} bfloat16: no further from plain in bf16 "
+              f"ulps than the mma.sync kernel")
+        out[label] = row
+        del x, w_up, w_down, want, got, act, y, y_base
+    torch.cuda.empty_cache()     # DeepSeek's plain version held ~9 GB
+    # which kernels the rule launched, in a child's device trace
+    env_c = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    E, cap, d, F = main_shape
+    cases = {"main path": (E, cap, d, F, False),
+             "x off 16 bytes": (2, 64, 64, 32, True)}
+    run = subprocess.run([sys.executable, "-c", _GLU_ROUTE_CHILD,
+                          json.dumps(cases)], cwd=ROOT, env=env_c,
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0,
+          f"the bf16 expert GLU's kernels by name in a child process: exit "
+          f"{run.returncode} {run.stderr.strip()[-400:]}")
+    for label, (ran, want) in json.loads(
+            run.stdout.strip().splitlines()[-1]).items():
+        check(ran == want, f"expert_glu {label} bfloat16: launched {ran}, "
+                           f"the rule's {want}")
+    return out
 
 
 def phase_kernels(main_cfg: dict, env: dict) -> dict:
@@ -795,6 +939,10 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
          False),
         ("E=1", (1, cap, d, F), 0.5, False),
         ("E=3 cap=70 d=36 F=20", (3, 70, 36, 20), 0.1, True),
+        # Granite's decode: 64 tokens x top-8 over 32 experts; the bf16
+        # design's 128-row token tile
+        ("cap=16 (decode)", (E, 16, d, F), 0.5, False),
+        ("cap=100", (E, 100, d, F), 0.5, False),
     ]
     for dtype in (f32, bf16):
         for label, shape, scale, small in glu_cases:
@@ -855,6 +1003,7 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(bmm_glu, iters=5), cuda_core_bound_ms=cc_ms,
         mma_sync_ms=time_ms(baseline, iters=5))
+    rows["expert_glu"]["bf16"] = _bf16_glu_rows(env, (E, cap, d, F))
     for r in rows.values():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         cc = r.get("cuda_core_bound_ms")

@@ -95,10 +95,15 @@ def _chain(n, salt):
 
 gA, inA = _chain(5, 1)
 gB, inB = _chain(4, 2)
+# the breaker's cooldown and the chaos script run on the serving clock; a
+# drift rescale reads wall-clock op times (a loaded host slows the CPU lane
+# past the threshold, its cost grows and no plan probes it again), so it
+# is off here and the re-admission follows the serving clock alone
 eng3 = ServingEngine(Orchestrator(EdgeSoCCostModel()), {"A": gA, "B": gB},
                      execution="real", inputs={"A": inA, "B": inB},
                      exec_policy=ExecutionPolicy(timeout=20.0),
-                     health_policy=HealthPolicy(cooldown=0.005),
+                     health_policy=HealthPolicy(
+                         cooldown=0.005, rescale_threshold=float("inf")),
                      max_concurrent=2)
 trace3 = ArrivalTrace.poisson(["A", "B"], rate=50.0, n=12, seed=3)
 chaos = ChaosTrace([

@@ -12,8 +12,9 @@ undone at a time, by a textual substitution of the sources (each
 substitution must match, so a variant cannot silently become the shipped
 kernel), into ``build/kernels/variants/``.  Each variant runs at the
 main-path shapes (``GRANITE_MAIN_PATH``; the SSD scan at chunks 64, the
-main path's, 128 and 256) in f32 and bf16 (the expert GLU's variants,
-which change its f32 path, in f32) and prints its time (CUDA events),
+main path's, 128 and 256) in f32 and bf16 (the expert GLU's in the dtype
+whose design each changes, ``GLU_F32`` and ``GLU_BF16``) and prints its
+time (CUDA events),
 its error over the largest output of the plain version (the expert
 GLU's also whether two runs agree bitwise), and the time of one library
 call for the same function where there is one, all in one process:
@@ -35,6 +36,16 @@ call for the same function where there is one, all in one process:
   ``no_lohi`` — no a_lo.b_hi product, ``no_bsplit`` — no split pass (B's
   lo tile left as it lies), ``no_mma`` — no products at all (the loads,
   splits and barriers alone);
+* for the bf16 expert GLU (``glu_bf16_kernel``, bf16 ``wgmma`` fed by
+  TMA, the weights read N-major), at the main path's widths and at
+  DeepSeek-V3's expert widths (``DEEPSEEK_GLU``), each with its distance
+  in bf16 ulps from the plain version: ``mma_sync`` — the ``mma.sync``
+  kernel (``gemm_kernel``) on the same operands, the baseline;
+  ``ring3`` — a ring of 3 stages (of 4; 5 do not fit beside the
+  256-token tile); ``bm128`` — the 128-token tile at every cap (one m64
+  slab a warpgroup, each weight tile read by two blocks at cap 256;
+  shipped: at caps up to 128); and the ablation
+  ``no_mma`` — no products (the loads and barriers alone);
 * for the f32 SSD scan (``state_tf32_kernel`` and ``out_tf32_kernel``,
   3xTF32 ``wgmma`` fed by TMA at N = 64): ``mma_sync`` — the three
   ``mma.sync`` kernels on the same operands, the baseline; ``one_tf32``
@@ -136,6 +147,15 @@ GLU_ONE = "hopper::WgmmaTf32<BM>::rs(part, ah[kk], dh, !(fresh && kk == 0));"
 GLU_BM = "constexpr int BM = 128;     // token rows a block: the wgmma's N"
 GLU_SPLIT = "  for (int q = 0; q < STEPS; ++q) {"
 GLU_RING = "constexpr int STAGES = 3;   // the ring"
+# the bf16 expert GLU (namespace bf of expert_glu.cu): its route, ring,
+# token-tile rule and products
+BF_ROUTE = "if (bf::tma_route(x, w_up, w_down, act, y, d, F))"
+BF_RING = "constexpr int STAGES = 4;   // the ring of TMA stages"
+BF_NARROW = "const bool narrow = cap <= 128;"
+BF_MMA = ("        hopper::Wgmma<128>::ss_t(\n"
+          "            acc[i], hopper::make_desc(a + i * 8192 + kk * 32, 16, "
+          "1024, 128),\n"
+          "            db, kt > 0 || kk > 0);")
 # the mma.sync f32 attention (attn_kernel)
 ATTN_THREE = ("  bident::mma_tf32(c, al, bh);\n"
               "  bident::mma_tf32(c, ah, bl);\n"
@@ -242,7 +262,9 @@ VARIANTS = {
     # and barriers alone)
     "mma_sync": {"expert_glu.cu": [(GLU_ROUTE, GLU_ROUTE.replace(
         "if (", "if (false && ")), ("return run<float, false>(",
-                                     "return dispatch<float>(")],
+                                     "return dispatch<float>("),
+                                    (BF_ROUTE, BF_ROUTE.replace(
+                                        "if (", "if (false && "))],
                  "flash_attention.cu": [(ATTN_ROUTE, ATTN_ROUTE.replace(
                      "if (", "if (false && "))],
                  "ssd_scan.cu": [(SSD_ROUTE, SSD_ROUTE.replace(
@@ -254,11 +276,16 @@ VARIANTS = {
     "no_lohi": {"expert_glu.cu": [(GLU_THREE, GLU_TWO)]},
     "no_bsplit": {"expert_glu.cu": [(GLU_SPLIT, GLU_SPLIT.replace(
         "q < STEPS", "q < 0"))]},
-    "no_mma": {"expert_glu.cu": [(GLU_THREE, "")],
+    "no_mma": {"expert_glu.cu": [(GLU_THREE, ""), (BF_MMA, "        ;")],
                "flash_attention.cu": [(TF_S_THREE, ""), (TF_PV_THREE, "")],
                "ssd_scan.cu": [(SSD_ST_THREE, ""), (SSD_C_THREE, ""),
                                (SSD_GV_THREE, "")]},
     "ring4": {"expert_glu.cu": [(GLU_RING, GLU_RING.replace("3;", "4;"))]},
+    # the bf16 expert GLU: a ring of 3 stages (of 4; 5 do not fit); the
+    # 128-row token tile at every cap (each weight tile read by two blocks
+    # at cap 256)
+    "ring3": {"expert_glu.cu": [(BF_RING, BF_RING.replace("4;", "3;"))]},
+    "bm128": {"expert_glu.cu": [(BF_NARROW, "const bool narrow = true;")]},
     "one_tf32": {"expert_glu.cu": [(GLU_THREE, GLU_ONE)],
                  "flash_attention.cu": [(ATTN_THREE, ATTN_ONE),
                                         (TF_S_THREE, TF_S_ONE),
@@ -354,6 +381,15 @@ SSD_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold64", "no_mma",
            "st32", "st64", "f32_stages2", "st_stages3", "out_1buf",
            "no_stage", "walk_loads", "no_kv_split", "no_decay_f32")
 ZOO_SSD_F32 = ("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64))
+# the expert GLU's variants in each dtype (the f32 ones change the TF32
+# design, the bf16 ones the bf16 design; mma_sync and no_mma both)
+GLU_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold1", "no_fold",
+           "bm64", "ring4", "no_lohi", "no_bsplit", "no_mma")
+GLU_BF16 = ("shipped", "mma_sync", "ring3", "bm128", "no_mma")
+# (E, cap, d, F) of DeepSeek-V3's experts (configs/deepseek_v3_671b.py):
+# one rank's 32 of 256 experts under an 8-way expert split, 8192 routed
+# tokens of a prefill (top-8) spread over the 256
+DEEPSEEK_GLU = (32, 256, 7168, 2048)
 KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
 
 _log_lines: list[str] = []
@@ -675,6 +711,94 @@ def _zoo_ssd_f32(libs, rand, stream) -> None:
             + ("" if torch.equal(y, first) else ", NOT bitwise run to run"))
 
 
+def _glu_variants(libs, variants, shape, rand, stream, dtype) -> None:
+    """The expert GLU's ``variants`` at (E, cap, d, F) = ``shape`` in
+    ``dtype`` (operands from ``rand``): the C entry's time, the error over
+    the plain version's largest output, whether two runs agree bitwise and,
+    in bf16, the largest distance in bf16 ulps from the plain version
+    (``bf16_ulps``) and whether it gives the ``mma.sync`` kernel's bits,
+    beside the bmm GLU's time."""
+    import torch
+    import torch.nn.functional as F_
+    from chip_smoke import norm_err, time_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gather as mg
+    E, cap, d, F = shape
+    bf = int(dtype == torch.bfloat16)
+    x, wu, wd = (rand((E, cap, d), dtype), rand((E, d, 2 * F), dtype, .5),
+                 rand((E, F, d), dtype, .5))
+    want = mg.expert_glu_plain(x, wu, wd)
+    act, y = torch.empty((E, cap, F), dtype=dtype, device="cuda"), \
+        torch.empty_like(x)
+
+    def bmm_glu():
+        h = torch.bmm(x, wu)
+        return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], wd)
+    # the card's copy rate on the weights: what the bytes can move at
+    w_copy = torch.empty_like(wu)
+    copy_ms = time_ms(lambda: w_copy.copy_(wu), iters=5)
+    del w_copy
+    log(f"expert_glu {str(dtype)[6:]} at (E, cap, d, F) = {shape}: bmm GLU "
+        f"{time_ms(bmm_glu, iters=20):.4f} ms; a copy of w_up "
+        f"{copy_ms:.4f} ms ({2 * wu.numel() * wu.element_size() / copy_ms / 1e9:.3f}"
+        f" TB/s read + written)")
+    outs = {}
+    for variant in variants:
+        if (variant, "expert_glu") not in libs:
+            continue
+        fn = bind(libs[variant, "expert_glu"], "expert_glu")
+
+        def call():
+            err = fn(x.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                     act.data_ptr(), y.data_ptr(), E, cap, d, F, bf, stream)
+            if err:
+                raise RuntimeError(f"{variant}: cudaError_t {err}")
+        call()
+        torch.cuda.synchronize()
+        rel = norm_err(y, want)[1]
+        ulps = fa.bf16_ulps(y, want) if bf else None
+        again = y.clone()
+        call()
+        torch.cuda.synchronize()
+        log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
+            f"/ max|plain| {rel:.3e}"
+            + ("" if ulps is None else f", {ulps:.2f} ulps from plain")
+            + ("" if torch.equal(y, again) else ", NOT bitwise run to run"))
+        if variant == "one_tf32":
+            _glu_truncation(y, x, wu, wd)
+        if bf:
+            outs[variant] = again
+        if variant in ("shipped", "mma_sync"):
+            log("    device ms a call by kernel: " + ", ".join(
+                f"{k} {ms:.4f}" for k, ms in _device_ms(call).items()))
+    if "mma_sync" in outs:
+        same = [v for v, o in outs.items() if torch.equal(o, outs["mma_sync"])]
+        log(f"  bitwise the mma.sync kernel's output: {same}")
+
+
+def _device_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel instantiation ``fn()`` launches, by
+    its name with template arguments, from a device trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            out[name] = us / 1e3 / calls
+    return out
+
+
 def _tf32_hi(x, rounding: str):
     """x's TF32 hi term: its top 19 bits (``trunc``) or x rounded to
     them, ties away from zero (``rna``, as ``split_tf32``)."""
@@ -723,7 +847,6 @@ def main() -> int:
     from chip_smoke import norm_err, time_ms
     from repro_torch.core import GRANITE_MAIN_PATH
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gather as mg
     from repro_torch.kernels import ssd_scan as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -753,42 +876,20 @@ def main() -> int:
         bf = int(dtype == torch.bfloat16)
         name = str(dtype)[6:]
         if "expert_glu" in chosen:
-            x, wu, wd = (rand((E, cap, d), dtype), rand((E, d, 2 * F), dtype, .5),
-                         rand((E, F, d), dtype, .5))
-            want = mg.expert_glu_plain(x, wu, wd)
-            act, y = torch.empty((E, cap, F), dtype=dtype, device="cuda"), \
-                torch.empty_like(x)
+            if dtype == torch.float32:
+                _glu_variants(libs, GLU_F32, (E, cap, d, F), rand, stream,
+                              dtype)
+            else:
+                # bf16 at the main path's widths and at DeepSeek-V3's,
+                # whose 2.8 GB of weights are drawn on the card
+                gen = torch.Generator(device="cuda").manual_seed(0)
 
-            def bmm_glu():
-                h = torch.bmm(x, wu)
-                return torch.bmm(F_.silu(h[..., :F]) * h[..., F:], wd)
-            log(f"expert_glu {name} at (E, cap, d, F) = ({E}, {cap}, {d}, {F}):"
-                f" bmm GLU {time_ms(bmm_glu, iters=20):.4f} ms")
-            # the variants change the f32 path only (cvt_rna the split of
-            # f32 values): bf16 times the shipped kernel
-            for variant in VARIANTS if dtype == torch.float32 else ("shipped",):
-                if (variant, "expert_glu") not in libs:
-                    continue
-                fn = bind(libs[variant, "expert_glu"], "expert_glu")
-
-                def call():
-                    err = fn(x.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-                             act.data_ptr(), y.data_ptr(), E, cap, d, F, bf,
-                             stream)
-                    if err:
-                        raise RuntimeError(f"{variant}: cudaError_t {err}")
-                call()
-                torch.cuda.synchronize()
-                rel = norm_err(y, want)[1]
-                again = y.clone()
-                call()
-                torch.cuda.synchronize()
-                log(f"  {variant:9s} {time_ms(call, iters=20):.4f} ms, error "
-                    f"/ max|plain| {rel:.3e}"
-                    + ("" if torch.equal(y, again) else ", NOT bitwise "
-                       "run to run"))
-                if variant == "one_tf32":
-                    _glu_truncation(y, x, wu, wd)
+                def drand(shape, dtype, scale=1.0):
+                    return (scale * torch.randn(shape, device="cuda",
+                                                generator=gen)).to(dtype)
+                for shape, make in (((E, cap, d, F), rand),
+                                    (DEEPSEEK_GLU, drand)):
+                    _glu_variants(libs, GLU_BF16, shape, make, stream, dtype)
 
         if "flash_attention" in chosen:
             q, k, v = (rand((B, T, H, D), dtype) for _ in range(3))

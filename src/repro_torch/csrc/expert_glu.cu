@@ -20,7 +20,8 @@
 // 201 MB of f32 weights): the up projection with the GLU in its epilogue
 // (silu(g) * u in f32, rounded to x's dtype, written as the activation),
 // then the down projection.  No atomics, no split-K: each output is one
-// thread's fixed-order sum, so a run is bitwise repeatable.  Two designs:
+// thread's fixed-order sum, so a run is bitwise repeatable.  Three designs,
+// chosen by an explicit rule of the C entry (never on error):
 //
 // ---- f32, rows on 16-byte strides: TF32 wgmma fed by TMA (namespace tc) ----
 //
@@ -75,7 +76,55 @@
 // loading half of it by TMA multicast (25% fewer bytes from L2), were
 // each slower, and so was a 64-token tile (PERF.md).
 //
-// ---- bf16, and f32 rows off 16-byte strides: mma.sync (gemm_kernel) ----
+// ---- bf16, rows on 16-byte strides: bf16 wgmma fed by TMA (namespace bf) ----
+//
+// bf16 `wgmma` reads B from shared memory N-major (its transpose bit), so
+// the products take their natural orientation: A is x (or the
+// activation), K-major, and B the weights as they lie, N-major, both
+// tiles landed by TMA with the 128-byte swizzle and read by descriptor; no
+// operand passes through registers and no transposed copy is made.  A
+// block is BM token rows x 128 product columns of one expert (for the
+// GLU: 64 gate columns and the 64 up columns that match them, two TMA
+// boxes that one m64n128k16 reads as its B's two 64-column sub-tiles), 288
+// threads: warp 8 keeps a ring of 4 stages of depth 64 (one swizzled row
+// of bf16: the x / activation tile and two 64 x 64 weight boxes) in flight
+// by TMA, and consumer warpgroup w runs one m64n128k16 a k16 step for each
+// 64-row slab of its BM / 2 token rows.  BM is 256 (48 KB a stage; at cap
+// 256 a block covers every token of its expert, so each weight tile is
+// read once), or 128 where that holds every token: at decode's cap 16
+// two blocks then fit an SM and the whole grid runs in one wave.  A box
+// of x / activation rows covers the tile, or at a smaller cap only the
+// m64 slabs that hold tokens (TMA's zero fill of the rest costs as much
+// as a load); a warpgroup with no tokens in its rows drops out.  Gate
+// column c and up column c land in one thread at accumulator elements
+// 4j + q and 4 (j + 8) + q, so silu(g) * u is formed in f32 and rounded to
+// bf16 there, as the Pallas kernel rounds.  A stage's products stay in
+// flight while the next stage's are issued (the ring slot is released one
+// stage late).  Outputs go out as bf16 pairs, 4-byte stores, masked at the
+// ragged edges.
+//
+// Numerics: each output is one chain over K of the tensor cores' k16
+// steps in K order.  On the card that gives the mma.sync kernel's bits
+// exactly (its m16n8k16 steps sum the same 16 products a step in the same
+// order; kernel_variants.py and chip_smoke.py compare them).  A fresh
+// accumulator every 4 stages, as the f32 design folds, moved the largest
+// distance from plain at d = 7168 from 115 to 79 bf16 ulps and the largest
+// error not at all (3.07e-3 of the largest output: the output's rounding),
+// but a second set of accumulators leaves room for one 64-row slab a
+// warpgroup: the 128-row tile, 10-30% slower at cap 256 (PERF.md).
+//
+// What bounds it is the data path: with no products at all (no_mma) it
+// takes as long as with them, streaming the weights from HBM at ~2.4 TB/s
+// where a device copy of them moves 3.0 (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).  Neither fewer bytes into shared memory nor more of them in
+// flight moved that: on the card, a 2- or 4-block cluster loading each x
+// tile once by TMA multicast, a 192-column tile (22% fewer bytes a
+// product; 192 accumulators a thread, the producer warpgroup's registers
+// handed over by setmaxnreg), separate rings for x and the weights, a
+// deeper ring at small caps, L2 eviction hints (weights first, x last)
+// and a 256-byte L2 promotion were each no faster, or slower.
+//
+// ---- bf16 and f32 rows TMA cannot read: mma.sync (gemm_kernel) ----
 //
 // Both projections as one tensor-core GEMM: a block tile is 128 token
 // rows x 128 product columns (for the GLU, 64 gate and the 64 up columns
@@ -96,7 +145,10 @@
 // F = 512, f32) the work is 25.8 GFLOP of products against ~268 MB of
 // traffic (the f32 weights dominate).  f32-accurate products cost three
 // TF32 ones: 3 x 25.8 GFLOP / 495 TFLOP/s = 156 us on the tensor cores,
-// against 80 us for the bytes, so the kernel is bound by operations.
+// against 80 us for the bytes, so the kernel is bound by operations.  In
+// bf16 the same call moves 134 MB, 40 us at 3.35 TB/s, against 26 us of
+// products at 989 TFLOP/s: bound by bytes, as at DeepSeek-V3's expert
+// widths (3.05 GB, 0.91 ms) and at decode.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -607,6 +659,219 @@ cudaError_t run(const void* x, const void* w_up, const void* w_down,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bf16: bf16 wgmma fed by TMA, the weights read N-major (namespace bf)
+// ---------------------------------------------------------------------------
+namespace bf {
+
+constexpr int BK = 64;      // K a stage: one 128-byte swizzled row of bf16
+constexpr int NT = 288;     // two consumer warpgroups + one producer warp
+constexpr int STAGES = 4;   // the ring of TMA stages
+constexpr uint32_t B_SUB = BK * 128;         // a 64-column weight box
+
+// Shared memory of a block whose stages hold `a_rows` x / act rows and two
+// weight boxes.
+constexpr size_t smem_bytes(int a_rows) {
+  return 1024 + STAGES * (a_rows * 128 + 2 * B_SUB + 16);
+}
+static_assert(smem_bytes(256) <= 232448,
+              "over the 227 KB of shared memory a block may use");
+
+// A consumer warpgroup's outputs from its sums r: slab i holds rows
+// row0 + 64 i (+ 8) (row0 carries the thread's g), element 4j + q column
+// c0 + 8j + 2t + q % 2 of the tile.  GLU: elements j < 8 are gate columns
+// and 4 (j + 8) + q the up column that matches each, so silu(g) * u pairs
+// in one thread, in f32, rounded to bf16.  Two columns a 4-byte store.
+template <bool GLU, int MW>
+__device__ __forceinline__ void store(const float (&r)[MW][64],
+                                      __nv_bfloat16* __restrict__ C,
+                                      int row0, int c0, int M, int N, int t) {
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row0 + 64 * i + 8 * h;
+      if (m >= M) continue;
+      __nv_bfloat16* out = C + (size_t)m * N;
+#pragma unroll
+      for (int j = 0; j < (GLU ? 8 : 16); ++j) {
+        const int n = c0 + 8 * j + 2 * t;
+        if (n >= N) continue;
+        float v0 = r[i][4 * j + 2 * h], v1 = r[i][4 * j + 2 * h + 1];
+        if constexpr (GLU) {
+          v0 = v0 / (1.f + expf(-v0)) * r[i][4 * (j + 8) + 2 * h];
+          v1 = v1 / (1.f + expf(-v1)) * r[i][4 * (j + 8) + 2 * h + 1];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + n) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+}
+
+// One block computes a BM-token x 128-column tile of one expert's product
+// A B over K: A (M x K, K-major) through `amap` as (K, M, E), B (K x cols,
+// N-major, as the weights lie) through `bmap` as (cols, K, E), two boxes
+// of 64 columns a stage that one m64n128k16 `wgmma` reads as its N-major
+// B.  GLU: the boxes are gate columns c0 .. c0 + 63 and the up columns
+// N + c0 .. that match them, and the block writes the BM x 64 activation
+// silu(gate) * up into C (E, M, N).  Otherwise: columns c0 .. c0 + 127,
+// written into C (E, M, N).  `amap` reads `a_rows` (BM, or fewer where M
+// is: 64 at decode) rows a box; rows past them are never stored.  A
+// 128-row tile fits two blocks an SM.  See the note at the head of the
+// file.
+template <bool GLU, int BM>
+__global__ void __launch_bounds__(NT, BM == 128 ? 2 : 1)
+    glu_bf16_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap bmap,
+                    __nv_bfloat16* __restrict__ C, int M, int K, int N,
+                    int a_rows) {
+  constexpr int MW = BM / 128;   // m64 row slabs a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  // stage s: the x / act tile's a_rows, then the two weight boxes
+  uint8_t* tiles = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t stage_bytes = a_rows * 128 + 2 * B_SUB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + STAGES * stage_bytes);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.x * BM, e = blockIdx.z;
+  const int c0 = blockIdx.y * (GLU ? 64 : 128);
+  const int nk = (K + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // the consumer warpgroups whose rows hold tokens (at decode, the first)
+  const int live = M - m0 > BM / 2 ? 2 : 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * live);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 2) {
+    // ---- producer: one thread keeps the ring's TMA loads in flight ----
+    if (tid != 256) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      if (kt >= STAGES) hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+      uint8_t* st = tiles + s * stage_bytes;
+      uint8_t* w_st = st + a_rows * 128;
+      hopper::mbar_expect_tx(&full[s], stage_bytes);
+      hopper::tma_load_3d(st, &amap, &full[s], kt * BK, m0, e);
+      hopper::tma_load_3d(w_st, &bmap, &full[s], c0, kt * BK, e);
+      hopper::tma_load_3d(w_st + B_SUB, &bmap, &full[s],
+                          GLU ? N + c0 : c0 + 64, kt * BK, e);
+    }
+    return;
+  }
+  if (role >= live) return;
+
+  // ---- consumers: warpgroup w takes rows [w BM / 2, (w + 1) BM / 2) ----
+  const int w = role, warp = (tid / 32) % 4, lane = tid % 32;
+  float acc[MW][64] = {};   // one chain over K an output
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t st = hopper::smem_u32(tiles + s * stage_bytes);
+    const uint32_t a = st + w * (BM / 2) * 128;
+    const uint32_t b = st + a_rows * 128;
+    const bool last = kt == nk - 1;
+    hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+#pragma unroll
+    for (int i = 0; i < MW; ++i) hopper::reg_fence(acc[i]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = hopper::make_desc(b + kk * 2048, B_SUB, 1024, 128);
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+        hopper::Wgmma<128>::ss_t(
+            acc[i], hopper::make_desc(a + i * 8192 + kk * 32, 16, 1024, 128),
+            db, kt > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+    // this stage's group stays in flight, so stage kt - 1's products are
+    // done: its ring slot is free (the last stage waits for its own)
+    if (last)
+      hopper::wgmma_wait<0>();
+    else
+      hopper::wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < MW; ++i) hopper::reg_fence(acc[i]);
+    __syncwarp();
+    if (lane == 0) {
+      if (kt > 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
+      if (last) hopper::mbar_arrive(&empty[s]);
+    }
+  }
+
+  const int row0 = m0 + w * (BM / 2) + 16 * warp + lane / 4;
+  store<GLU, MW>(acc, C + (size_t)e * M * N, row0, c0, M, N, lane % 4);
+}
+
+// TMA reads every operand: rows of d and F bf16 on 16-byte strides,
+// 16-byte aligned bases (y, written two columns a store, too)
+inline bool tma_route(const void* x, const void* w_up, const void* w_down,
+                      const void* act, const void* y, int d, int F) {
+  return d % 8 == 0 && F % 8 == 0 && bident::aligned16(x) &&
+         bident::aligned16(w_up) && bident::aligned16(w_down) &&
+         bident::aligned16(act) && bident::aligned16(y);
+}
+
+template <bool GLU, int BM>
+cudaError_t launch(const CUtensorMap& am, const CUtensorMap& bm, void* C,
+                   int E, int M, int K, int N, int a_rows,
+                   cudaStream_t stream) {
+  constexpr int COLS = GLU ? 64 : 128;   // output columns a block
+  const dim3 grid((M + BM - 1) / BM, (N + COLS - 1) / COLS, E);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      bident::allow_smem(glu_bf16_kernel<GLU, BM>, smem_bytes(BM));
+  if (err != cudaSuccess) return err;
+  glu_bf16_kernel<GLU, BM><<<grid, NT, smem_bytes(a_rows), stream>>>(
+      am, bm, static_cast<__nv_bfloat16*>(C), M, K, N, a_rows);
+  return cudaGetLastError();
+}
+
+// Both projections at token tile BM; x and act are read `a_rows` rows a box
+template <int BM>
+cudaError_t run(const void* x, const void* w_up, const void* w_down,
+                void* act, void* y, int E, int cap, int d, int F, int a_rows,
+                cudaStream_t stream) {
+  CUtensorMap xm{}, um{}, am{}, dm{};
+  if (!(hopper::encode_bf16_3d(&xm, x, d, cap, E, a_rows) &&
+        hopper::encode_bf16_3d(&um, w_up, 2 * F, d, E, BK) &&
+        hopper::encode_bf16_3d(&am, act, F, cap, E, a_rows) &&
+        hopper::encode_bf16_3d(&dm, w_down, d, F, E, BK)))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      launch<true, BM>(xm, um, act, E, cap, d, F, a_rows, stream);
+  if (err != cudaSuccess) return err;
+  return launch<false, BM>(am, dm, y, E, cap, F, d, a_rows, stream);
+}
+
+// The token tile: 256 rows (at cap 256 every token of an expert, so each
+// weight tile is read once), or 128 where they hold every token (two
+// blocks an SM); a box of x / act rows covers the tile or, at a cap under
+// it, the m64 slabs that hold tokens (TMA's zero fill of the rest is not
+// free)
+cudaError_t run(const void* x, const void* w_up, const void* w_down,
+                void* act, void* y, int E, int cap, int d, int F,
+                cudaStream_t stream) {
+  const bool narrow = cap <= 128;
+  const int bm = narrow ? 128 : 256;
+  const int a_rows = cap < bm ? (cap + 63) / 64 * 64 : bm;
+  return narrow ? run<128>(x, w_up, w_down, act, y, E, cap, d, F, a_rows,
+                           stream)
+                : run<256>(x, w_up, w_down, act, y, E, cap, d, F, a_rows,
+                           stream);
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // C entry point (bound with ctypes).  x (E, cap, d), w_up (E, d, 2F),
@@ -621,8 +886,12 @@ extern "C" int bident_expert_glu(const void* x, const void* w_up,
       (cap + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
+  // bf16: wgmma fed by TMA where TMA reads every operand, else mma.sync
+  if (bf16) {
+    if (bf::tma_route(x, w_up, w_down, act, y, d, F))
+      return bf::run(x, w_up, w_down, act, y, E, cap, d, F, s);
     return dispatch<__nv_bfloat16>(x, w_up, w_down, act, y, E, cap, d, F, s);
+  }
   // f32: TF32 wgmma where TMA reads every operand, else mma.sync with
   // plain loads (cp.async needs the 16-byte rows TMA takes)
   if (tc::tma_route(x, w_up, w_down, act, d, F))

@@ -5,7 +5,10 @@ Port of ``repro.kernels.moe_gather`` (the Pallas TPU kernel and its XLA
 glue).  The kernel (``csrc/expert_glu.cu``) is two grouped tensor-core
 GEMMs launched by one C call: the up projection with the GLU in its
 epilogue, writing the activation to a scratch buffer, then the down
-projection; its source states the design and what bounds it.
+projection; its source states each design and what bounds it.  The C
+entry chooses the design by an explicit rule before the launch:
+:func:`bf16_kernels` says which a bf16 call takes (bf16 ``wgmma`` fed by
+TMA where TMA reads every row, else the ``mma.sync`` kernel).
 :func:`expert_glu_plain` is the same function in PyTorch, rounding
 the activation to x's dtype before the down projection exactly where
 the kernel does.  :func:`dispatch_indices` stays PyTorch glue, as it was
@@ -28,6 +31,24 @@ def _shapes(x, w_up, w_down):
                          f"{tuple(w_up.shape)}, w_down {tuple(w_down.shape)} "
                          f"disagree (want w_up (E,d,2F), w_down (E,F,d))")
     return E, cap, d, F
+
+
+# the kernels each bf16 design launches (both projections are one
+# template, so a device trace names each design once)
+BF16_WGMMA_KERNELS = ("glu_bf16_kernel",)
+BF16_MMA_SYNC_KERNELS = ("gemm_kernel",)
+
+
+def bf16_kernels(x, w_up, w_down) -> tuple[str, ...]:
+    """The kernels a bf16 call launches, by the C entry's rule
+    (``bf::tma_route``): the ``wgmma`` design where TMA reads every
+    operand (d and F multiples of 8, x, w_up and w_down on 16-byte
+    boundaries; the wrapper's own act and y always are), else the
+    ``mma.sync`` design."""
+    d, F = x.shape[-1], w_down.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w_up, w_down))
+    return BF16_WGMMA_KERNELS if d % 8 == 0 and F % 8 == 0 and aligned \
+        else BF16_MMA_SYNC_KERNELS
 
 
 def expert_glu_plain(x, w_up, w_down):

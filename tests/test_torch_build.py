@@ -121,10 +121,12 @@ def test_ssd_scan_bf16_variants_match_the_sources():
 
 
 def test_expert_glu_variants_match_the_sources():
-    """The f32 expert GLU's baseline, fold, token-tile variants and its
-    ablations in ``kernel_variants.py`` each change its source, every
-    header copied beside it (it includes ``hopper.cuh`` since its f32 path
-    runs on wgmma and TMA, so an edit of that header rebuilds it)."""
+    """The f32 and bf16 expert GLU's baselines, fold, chain, ring and
+    token-tile variants and their ablations in ``kernel_variants.py``
+    each change its source, every header copied beside it (it includes
+    ``hopper.cuh`` since both wgmma designs run on it and TMA, so an edit
+    of that header rebuilds it); the bf16 variants leave the f32 design
+    as shipped."""
     import importlib.util
     from pathlib import Path
     assert [f.name for f in _build.sources("expert_glu")] == [
@@ -135,9 +137,10 @@ def test_expert_glu_variants_match_the_sources():
     spec.loader.exec_module(kv)
     shipped = kv.sources("shipped", "expert_glu")["expert_glu.cu"]
     assert "glu_wgmma_kernel" in shipped
+    assert "glu_bf16_kernel" in shipped
     got = {}
-    for variant in ("mma_sync", "fold1", "no_fold", "bm64", "ring4",
-                    "no_lohi", "no_bsplit", "no_mma", "one_tf32", "cvt_rna"):
+    assert set(kv.GLU_F32) | set(kv.GLU_BF16) <= set(kv.VARIANTS)
+    for variant in sorted(set(kv.GLU_F32[1:]) | set(kv.GLU_BF16[1:])):
         files = kv.sources(variant, "expert_glu")
         assert set(files) == {"expert_glu.cu", "common.cuh", "hopper.cuh"}
         assert files != kv.sources("shipped", "expert_glu"), variant
@@ -154,6 +157,56 @@ def test_expert_glu_variants_match_the_sources():
     assert "WgmmaTf32<BM>::rs(" not in got["no_mma"]
     assert "q < 0; ++q" in got["no_bsplit"]
     assert "warps16" not in kv.VARIANTS
+    # the bf16 design: its route off (the same build times the mma.sync
+    # kernel), rings, token tile and chain, and no products
+    assert ("if (false && bf::tma_route(x, w_up, w_down, act, y, d, F))"
+            in got["mma_sync"])
+    assert "constexpr int STAGES = 3;   // the ring of TMA stages" in got["ring3"]
+    assert "const bool narrow = true;" in got["bm128"]
+    assert shipped.count("Wgmma<128>::ss_t(") == 1
+    assert "Wgmma<128>::ss_t(" not in got["no_mma"]
+    tc = shipped.split("namespace tc {")[1].split("namespace bf {")[0]
+    for variant in ("ring3", "bm128"):
+        assert got[variant].split("namespace tc {")[1].split(
+            "namespace bf {")[0] == tc, variant
+
+
+def test_bf16_expert_glu_rule_mirrors_the_c_entry():
+    """``moe_gather.bf16_kernels`` states the C entry's rule
+    (``bf::tma_route``): d and F multiples of 8 with x, w_up, w_down (and
+    the wrapper's own act and y) on 16-byte boundaries take the wgmma
+    design; every other bf16 call the mma.sync kernel."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import moe_gather as mg
+    src = (_build.CSRC / "expert_glu.cu").read_text()
+    bf = src.split("namespace bf {")[1]
+    rule = re.search(r"inline bool tma_route\(.*?\{\s*return (.*?);", bf,
+                     re.S).group(1)
+    assert re.sub(r"\s+", " ", rule) == (
+        "d % 8 == 0 && F % 8 == 0 && bident::aligned16(x) && "
+        "bident::aligned16(w_up) && bident::aligned16(w_down) && "
+        "bident::aligned16(act) && bident::aligned16(y)")
+    entry = src.split('extern "C" int bident_expert_glu(')[1]
+    assert "if (bf::tma_route(x, w_up, w_down, act, y, d, F))" in entry
+    assert entry.index("bf::tma_route") < entry.index(
+        "dispatch<__nv_bfloat16>")
+
+    def t(*shape, offset=0):
+        flat = torch.zeros(offset + int(torch.tensor(shape).prod()),
+                           dtype=torch.bfloat16)
+        return flat[offset:].view(shape)
+    for E, cap, d, F in ((32, 256, 1024, 512), (1, 16, 8, 8), (3, 70, 64, 40)):
+        assert mg.bf16_kernels(t(E, cap, d), t(E, d, 2 * F), t(E, F, d)) \
+            == mg.BF16_WGMMA_KERNELS
+    for x, wu, wd in ((t(3, 70, 36), t(3, 36, 40), t(3, 20, 36)),
+                      (t(3, 20, 18), t(3, 18, 20), t(3, 10, 18)),
+                      (t(2, 64, 64, offset=1), t(2, 64, 64), t(2, 32, 64)),
+                      (t(2, 64, 64), t(2, 64, 64, offset=4), t(2, 32, 64)),
+                      (t(2, 64, 64), t(2, 64, 64), t(2, 32, 64, offset=2))):
+        assert mg.bf16_kernels(x, wu, wd) == mg.BF16_MMA_SYNC_KERNELS
 
 
 def test_f32_attention_variants_match_the_sources():

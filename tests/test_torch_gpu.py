@@ -128,9 +128,12 @@ F32_ATTN_CASES = {     # B, Tq, Tk, Hq, Hk, causal, q_offset, k/v unaligned
 }
 
 
-def _launched(fn) -> list:
-    """The port's attention kernels one ``fn()`` launched, by name, from
-    a device trace."""
+ATTN_KERNELS = ("attn_kernel", "attn_tf32_kernel", "attn_wgmma_kernel")
+
+
+def _launched(fn, names=ATTN_KERNELS) -> list:
+    """The port's kernels of ``names`` (default: the attention's) one
+    ``fn()`` launched, by name, from a device trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -138,7 +141,6 @@ def _launched(fn) -> list:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = ("attn_kernel", "attn_tf32_kernel", "attn_wgmma_kernel")
     return sorted({n for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
                    for n in names if f"::{n}<" in ev.key})
@@ -260,6 +262,54 @@ def test_f32_expert_glu_matches_plain(cuda, case):
     want = mg.expert_glu_plain(x, wu, wd).double()
     rel = float((got.double() - want).abs().max() / want.abs().max())
     assert rel <= TOL[f32]["rtol"], rel
+
+
+BF16_GLU_CASES = {         # E, cap, d, F, weight scale, x unaligned
+    "main-path widths": (32, 256, 1024, 512, 0.5, False),
+    "cap 200, a ragged token tile": (4, 200, 1024, 512, 0.5, False),
+    "cap 16, Granite's decode": (32, 16, 1024, 512, 0.5, False),
+    "cap 100, a 128-row token tile": (4, 100, 1024, 512, 0.5, False),
+    "cap 160, a box of 192 token rows": (4, 160, 1024, 512, 0.5, False),
+    "E = 1": (1, 256, 1024, 512, 0.5, False),
+    "d = 2048": (2, 256, 2048, 512, 0.5, False),
+    "d 36, F 20 (mma.sync)": (3, 70, 36, 20, 0.1, False),
+    "d 18, F 10: rows off 16 bytes (mma.sync)": (3, 20, 18, 10, 0.1, False),
+    "x off 16 bytes (mma.sync)": (2, 64, 64, 32, 0.1, True),
+}
+GLU_KERNELS = ("gemm_kernel", "glu_bf16_kernel", "glu_wgmma_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BF16_GLU_CASES))
+def test_bf16_expert_glu_matches_plain(cuda, case):
+    """The bf16 expert GLU (bf16 wgmma fed by TMA where d and F are
+    multiples of 8 on 16-byte boundaries, the mma.sync kernel elsewhere:
+    the C entry's rule, ``bf16_kernels``, read from a device trace)
+    against the plain version within 3e-2 of its largest output, bitwise
+    run to run, one counted launch a call."""
+    E, cap, d, F, scale, unaligned = BF16_GLU_CASES[case]
+    rng = np.random.default_rng(15)
+    bf16 = torch.bfloat16
+    x = _rand(rng, (E, cap, d), cuda, bf16)
+    if unaligned:
+        x = _unaligned(x)
+    wu = _rand(rng, (E, d, 2 * F), cuda, bf16, scale)
+    wd = _rand(rng, (E, F, d), cuda, bf16, scale)
+
+    def call():
+        return mg.expert_glu_cuda(x, wu, wd)
+    kernels.reset_launch_counts()
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["expert_glu"] == 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    want = mg.expert_glu_plain(x, wu, wd).double()
+    rel = float((got.double() - want).abs().max() / want.abs().max())
+    assert rel <= TOL[bf16]["rtol"], rel
+    tma = d % 8 == 0 and F % 8 == 0 and not unaligned
+    assert mg.bf16_kernels(x, wu, wd) == (
+        mg.BF16_WGMMA_KERNELS if tma else mg.BF16_MMA_SYNC_KERNELS)
+    assert _launched(call, GLU_KERNELS) == sorted(mg.bf16_kernels(x, wu, wd))
 
 
 @pytest.mark.gpu

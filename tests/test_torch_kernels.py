@@ -381,11 +381,17 @@ def test_top_k_gates_break_ties_like_jax():
         np.testing.assert_array_equal(gi.numpy(), np.asarray(jgi))
 
 
-def test_expert_glu_rounds_activation_to_input_dtype():
+@pytest.mark.parametrize("E, cap, d, F", [
+    (2, 16, 32, 16),      # cap 16: a decode batch's
+    (2, 24, 32, 16),      # a ragged cap (the Pallas kernel pads a tile)
+    (1, 32, 64, 32),      # one expert
+], ids=["cap 16", "ragged cap 24", "E = 1"])
+def test_expert_glu_rounds_activation_to_input_dtype(E, cap, d, F):
     """In bf16 the activation is rounded before the down projection, as
-    the Pallas kernel does (moe_gather.py:50)."""
+    the Pallas kernel does (moe_gather.py:50): the plain version within
+    the bf16 bucket (3e-2) of the Pallas kernel in interpret mode, and
+    apart from the same products unrounded."""
     rng = np.random.default_rng(4)
-    E, cap, d, F = 2, 16, 32, 16
     arrays = [rng.standard_normal(s, dtype=np.float32) * sc for s, sc in
               (((E, cap, d), 1.0), ((E, d, 2 * F), 0.3), ((E, F, d), 0.3))]
     jx, jwu, jwd = (pair(a, "bfloat16")[0] for a in arrays)
