@@ -12,7 +12,7 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    torch and CUDA versions; builds the three kernels from the sources in
    ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
    and spills per instantiation, and whether each instantiation of the
-   bf16 attention, the f32 attention at D 64 / 128, the bf16 SSD scan,
+   bf16 attention, the f32 attention at D 64 / 128 / 160, the bf16 SSD scan,
    the f32 SSD scan at N = 64 and the f32 and bf16 expert GLU holds
    ``HGMMA`` (wgmma) in its SASS and, where it loads by TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
@@ -406,7 +406,7 @@ def phase_environment() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     # the mma.sync expert GLU (gemm_kernel) on the aligned f32 rows, the
-    # mma.sync f32 attention (attn_kernel) at D 64 / 128 on aligned
+    # mma.sync f32 attention (attn_kernel) at D 64 / 128 / 160 on aligned
     # operands and the mma.sync f32 scan at N = 64, phase 2's and 8's
     # baselines, built beside the kernels (kernel_variants.py's mma_sync)
     import kernel_variants
@@ -438,7 +438,7 @@ def phase_environment() -> dict:
                 f"{short[:100]}")
     _hopper_sass(paths["flash_attention"], ("attn_wgmma_kernel",),
                  "the bf16 attention", "Lb1E")
-    # the f32 attention at D 64 and 128: 3xTF32 wgmma, fed by TMA
+    # the f32 attention at D 64, 128 and 160: 3xTF32 wgmma, fed by TMA
     _hopper_sass(paths["flash_attention"], ("attn_tf32_kernel",),
                  "the f32 wgmma attention", "attn_tf32_kernel")
     # the bf16 scan: its chunk states and carry, then its chunk outputs
@@ -607,7 +607,7 @@ def _f32_routes(cases: dict) -> None:
     """Each f32 attention call of ``cases`` ({label: (B, Tq, Tk, Hq, Hk,
     D, k/v unaligned)}) launched, in a device trace, the one kernel the C
     entry's rule names (``flash_attention.f32_kernel``: the wgmma design
-    at D 64 and 128 on 16-byte boundaries, else the mma.sync one).  The
+    at D 64, 128 and 160 on 16-byte boundaries, else the mma.sync one).  The
     traces are taken in a child process: late in a whole run this
     process's traces can hold none of the port's kernels (PERF.md §7).
     The child loads the library this run built."""
@@ -792,6 +792,12 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
          (2, 200, 200, 4, 2, 128, True, 0), True),
         ("decode Tq=1 q_offset=299 D=128",
          (1, 1, 300, 4, 2, 128, True, 299), True),
+        ("causal D=160, GQA 4/2, padded T=200",
+         (2, 200, 200, 4, 2, 160, True, 0), True),
+        ("non-causal D=160, Tq != Tk", (1, 96, 150, 4, 2, 160, False, 0),
+         True),
+        ("q_offset=263 D=160, a partial q tile",
+         (1, 37, 300, 8, 2, 160, True, 263), True),
         ("Granite GQA 16/8", (B, T, T, H, 8, D, True, 0), False),
         ("main path", (B, T, T, H, H, D, True, 0), False),
     ]
@@ -816,6 +822,7 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
     from repro_torch.configs import get_config
     routes = {label: shape[:6] + (False,) for label, shape, _ in attn_cases}
     routes["k, v not 16-byte aligned"] = (1, 96, 96, 4, 2, 64, True)
+    routes["D=160, k, v not 16-byte aligned"] = (1, 96, 96, 4, 2, 160, True)
     for arch in ZOO_SHAPES[:3]:
         sh = _zoo_call_shapes(arch, get_config(arch))[1]
         routes[f"at {arch}'s prefill shapes"] = (
@@ -831,7 +838,8 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         err = env["attn_baseline"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    o_base.data_ptr(), B, T, T, H, H, D, 1, 0,
                                    0, stream)
-        check(err == 0, f"the mma.sync f32 attention: cudaError_t {err}")
+        if err:   # no log line a call: the timing would read the host
+            check(False, f"the mma.sync f32 attention: cudaError_t {err}")
     attn_baseline()
     _hold("flash_attention", "main path, the mma.sync kernel", o_base,
           fa.flash_attention_plain(q, k, v), f32, False)
@@ -988,7 +996,8 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
         err = env["glu_baseline"](x.data_ptr(), w_up.data_ptr(),
                                   w_down.data_ptr(), act.data_ptr(),
                                   y.data_ptr(), E, cap, d, F, 0, stream)
-        check(err == 0, f"the mma.sync expert GLU: cudaError_t {err}")
+        if err:   # no log line a call: the timing would read the host
+            check(False, f"the mma.sync expert GLU: cudaError_t {err}")
     baseline()
     _hold("expert_glu", "main path, the mma.sync kernel", y,
           mg.expert_glu_plain(x, w_up, w_down), f32, False)
@@ -2557,19 +2566,28 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False,
                              fa.flash_attention_cuda, (q, k, v))
         extra = {}
         if dtype == torch.float32 and attn_baseline is not None:
+            from repro_torch.kernels import _build
             o = torch.empty_like(q)
             stream = torch.cuda.current_stream().cuda_stream
 
-            def base():
-                e = attn_baseline(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  o.data_ptr(), B, T, T, Hq, Hk, D, 1, 0, 0,
-                                  stream)
-                check(e == 0, f"the mma.sync f32 attention: cudaError_t {e}")
+            def entry(fn):
+                def call():
+                    e = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), B, T, T, Hq, Hk, D, 1, 0, 0, stream)
+                    if e:   # no log line a call: the timing would read the host
+                        check(False, f"the f32 attention's C entry: "
+                                     f"cudaError_t {e}")
+                return call
+            base = entry(attn_baseline)
             base()
             _hold("flash_attention", f"at {arch}'s shapes, the mma.sync "
                   "kernel", o, fa.flash_attention_plain(q, k, v), dtype,
                   False)
+            # the mma.sync kernel's time, and the shipped C entry's (the
+            # rule's kernel without the wrapper)
+            shipped = entry(_build.function("flash_attention"))
             extra["mma_sync_ms"] = time_ms(base)
+            extra["c_entry_ms"] = time_ms(shipped)
         pairs = Hq * B * T * (T + 1) // 2
         # q, k, v read once and o written once; bf16 under the contract
         # (P above bf16): 2 D for Q K^T and 2 x 2 D for P as two bf16
@@ -2751,6 +2769,8 @@ def _log_kernel_times(arch, times, n_launch) -> None:
         f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, library "
         f"{lib} ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}), "
         f"launches per prefill {n_launch}"
+        + (f"; the C entry {times['c_entry_ms']:.4f} ms"
+           if "c_entry_ms" in times else "")
         + (f"; the mma.sync kernel {times['mma_sync_ms']:.4f} ms"
            if "mma_sync_ms" in times else ""))
     if "bytes_ms" in times:
@@ -3182,16 +3202,20 @@ def phase_zoo(env: dict) -> dict:
 
 
 # One child process's prefill timing (prefill_turns): one arch of the zoo
-# at its published widths and depth in a dtype with the kernels, phase 8's
-# batch; one warm-up prefill, then three timed.  Only entry points that
-# every slice of the port has: it runs on an earlier checkout too.
+# at its published widths and depth (or the first `layers`) in a dtype with
+# the kernels, phase 8's batch; one warm-up prefill, then three timed.
+# Only entry points that every slice of the port has: it runs on an
+# earlier checkout too.
 _PREFILL_CHILD = """
 import dataclasses, json, sys, time
 import numpy as np, torch
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-arch, dtype, (B, T, new) = sys.argv[1], sys.argv[2], map(int, sys.argv[3:])
+arch, dtype = sys.argv[1], sys.argv[2]
+B, T, new, layers = map(int, sys.argv[3:])
 cfg = dataclasses.replace(get_config(arch), use_kernels=True, dtype=dtype)
+if layers:
+    cfg = dataclasses.replace(cfg, n_layers=layers)
 params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
 tokens = torch.from_numpy(np.random.default_rng(0).integers(
     0, cfg.vocab, (B, T), dtype=np.int32)).to("cuda")
@@ -3207,8 +3231,10 @@ print(json.dumps({"ms": [run() for _ in range(3)]}))
 
 
 def prefill_turns(parent, arch: str = "zamba2-2.7b",
-                  dtype: str = "bfloat16") -> dict:
-    """``arch``'s prefill in ``dtype`` with the kernels (phase 8's batch)
+                  dtype: str = "bfloat16", layers: int = 0) -> dict:
+    """``arch``'s prefill in ``dtype`` with the kernels (phase 8's batch;
+    its first ``layers`` layers where that is not 0, for a model whose
+    whole depth does not fit the card, as StableLM-12B's in f32 does not)
     timed in child processes of ``parent`` (the root of another checkout
     inside this one, such as the parent commit unpacked into a directory
     that .gitignore lists) and of this checkout, in turns parent, change,
@@ -3222,14 +3248,15 @@ def prefill_turns(parent, arch: str = "zamba2-2.7b",
     check(roots["parent"].is_relative_to(ROOT)
           and (roots["parent"] / "src" / "repro_torch").is_dir(),
           f"{parent}: a checkout inside {ROOT}")
-    log(f"== {arch} {dtype} prefill, the parent's kernels against this "
-        "checkout's (parent, change, change, parent)")
+    depth = f", {layers} layers" if layers else ""
+    log(f"== {arch} {dtype} prefill{depth}, the parent's kernels against "
+        "this checkout's (parent, change, change, parent)")
     out = {"parent": [], "change": []}
     for which in ("parent", "change", "change", "parent"):
         env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
         run = subprocess.run(
             [sys.executable, "-c", _PREFILL_CHILD, arch, dtype,
-             str(N_PROMPTS), str(PROMPT_LEN), str(MAX_NEW)],
+             str(N_PROMPTS), str(PROMPT_LEN), str(MAX_NEW), str(layers)],
             cwd=roots[which], env=env, capture_output=True, text=True,
             timeout=900)
         check(run.returncode == 0,
@@ -3238,7 +3265,8 @@ def prefill_turns(parent, arch: str = "zamba2-2.7b",
         ms = json.loads(run.stdout.strip().splitlines()[-1])["ms"]
         out[which] += ms
         log(f"  {which}: prefill ms {[round(t, 2) for t in ms]}")
-    log(f"  {arch} {dtype} prefill on {torch.cuda.get_device_name(0)}: parent "
+    log(f"  {arch} {dtype} prefill{depth} on "
+        f"{torch.cuda.get_device_name(0)}: parent "
         f"{min(out['parent']):.2f}-{max(out['parent']):.2f} ms, change "
         f"{min(out['change']):.2f}-{max(out['change']):.2f} ms")
     return out

@@ -66,18 +66,21 @@ call for the same function where there is one, all in one process:
   without the decay; each at the main path's widths and at Zamba2-2.7B's
   f32 prefill shape, bitwise run to run or not;
 * for the f32 attention (``attn_tf32_kernel``, 3xTF32 ``wgmma`` fed by
-  TMA at D 64 and 128): ``mma_sync`` — the ``mma.sync`` kernel
+  TMA at D 64, 128 and 160): ``mma_sync`` — the ``mma.sync`` kernel
   (``attn_kernel``) on the same operands, the baseline; ``one_tf32`` —
   hi.hi alone in both chains (the mma.sync kernel's too); ``f32_kv32`` — kv
-  tiles of 32 rows at D 64 (of 64); ``f32_stages2`` — a ring of 2
-  stages where 3 fit; ``kv_one_wg`` — warpgroup 0 walks every kv tile
-  (no split of the kv walk between the two consumer warpgroups);
-  ``o_in_place`` — P V summed straight into O scaled by alpha, with no
-  fresh accumulator (fewer registers; the truncating accumulator's drift
-  over the whole kv walk, which the main path's chain does not hold); and the
-  ablation ``no_mma`` — no products in either chain (the loads, the
-  splits of K lo and V^T, the softmax and the barriers alone); each also
-  at Qwen3-8B's f32 prefill shape, bitwise run to run or not;
+  tiles of 32 rows at D 64 (of 64); ``f32_ring3`` — a ring of 3 stages
+  (one shallower at D 160, where 4 fit); ``f32_stages2`` — a ring of 2
+  stages at every D; ``pv_ahead`` — P V's next pass issued before the
+  last is folded in (two fresh accumulators in turn); ``kv_one_wg`` —
+  warpgroup 0 walks every kv tile (no split of the kv walk between the
+  two consumer warpgroups); ``o_in_place`` — P V summed straight into O
+  scaled by alpha, with no fresh accumulator (fewer registers; the
+  truncating accumulator's drift over the whole kv walk, which the main
+  path's chain does not hold); and the ablation ``no_mma`` — no products
+  in either chain (the loads, the splits of K lo and V^T, the softmax
+  and the barriers alone); each also at Qwen3-8B's and StableLM-12B's
+  f32 prefill shapes (D 128 and 160), bitwise run to run or not;
 * ``p_one_bf16`` — the bf16 attention's P V with P as one bf16 term (hi
   only): the speed that rounding P to bf16, as SDPA does, buys; it must
   fail the one-ulp check;
@@ -171,17 +174,17 @@ TF_S_THREE = ("    hopper::WgmmaTf32<C::BK>::ss(sc, hopper::make_desc(ql + qo, 1
               "    hopper::WgmmaTf32<C::BK>::ss(sc, dq, dk, 1);")
 TF_S_ONE = "    hopper::WgmmaTf32<C::BK>::ss(sc, dq, dk, kk > 0);"
 TF_PV_THREE = ("    hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);\n"
-               "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 1024, 128), 1);\n"
+               "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 8 * C::VT_SW, C::VT_SW), 1);\n"
                "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, 1);")
 TF_PV_ONE = "    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, kk > 0);"
-TF_KV = "return D == 128 ? 32 : 64;"
-TF_RING = "constexpr int RING = 3;"
+TF_KV = "return D == 160 ? 16 : D == 128 ? 32 : 64;"
+TF_RING = "constexpr int RING = 4;"
 TF_WALK = "for (int j = w; j < nk; j += 2) {"
 TF_FOLD = """    // O = O alpha + P V with an f32 add, DH columns a pass
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += DH) {
       float pv[DH / 2];
-      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * 128, vtl + c0 * 128);
+      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * C::VT_SW, vtl + c0 * C::VT_SW);
       hopper::wgmma_wait<0>();
       hopper::reg_fence(pv);
 #pragma unroll
@@ -194,6 +197,26 @@ TF_IN_PLACE = """#pragma unroll
     pv_mma<D, D, BK>(acc, hi, lo, vth, vtl);
     hopper::wgmma_wait<0>();
     hopper::reg_fence(acc);
+"""
+TF_PV_AHEAD = """    // O = O alpha + P V with an f32 add, DH columns a pass, each pass
+    // issued before the last is folded in
+    float pv[2][DH / 2];
+    pv_mma<D, DH, BK>(pv[0], hi, lo, vth, vtl);
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += DH) {
+      float (&cur)[DH / 2] = pv[c0 / DH & 1];
+      if (c0 + DH < D) {
+        pv_mma<D, DH, BK>(pv[(c0 / DH + 1) & 1], hi, lo,
+                          vth + (c0 + DH) * C::VT_SW, vtl + (c0 + DH) * C::VT_SW);
+        hopper::wgmma_wait<1>();
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::reg_fence(cur);
+#pragma unroll
+      for (int x = 0; x < DH / 2; ++x)
+        acc[c0 / 2 + x] = acc[c0 / 2 + x] * alpha[(x >> 1) & 1] + cur[x];
+    }
 """
 TF_PV_FIRST = "hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);"
 # the f32 SSD scan on TF32 wgmma (namespace tf of ssd_scan.cu): its
@@ -320,11 +343,17 @@ VARIANTS = {
     "score_p0": {"ssd_scan.cu": [(SSD_SCORE, SSD_SCORE.replace(
         "nsub)", "pt ? 0 : nsub)"))]},
     # the f32 attention on TF32 wgmma: kv tiles of 32 rows at D 64 (of
-    # 64), a ring of 2 stages where 3 fit, and warpgroup 0 walking every kv
-    # tile (warpgroup 1 none: no split of the kv walk, nothing to merge)
-    "f32_kv32": {"flash_attention.cu": [(TF_KV, "return 32;")]},
+    # 64), a ring of 2 stages at every D, one stage shallower at D 160 (3
+    # of 4), and warpgroup 0 walking every kv tile (warpgroup 1 none: no
+    # split of the kv walk, nothing to merge)
+    "f32_kv32": {"flash_attention.cu": [(TF_KV, "return D == 160 ? 16 : 32;")]},
+    "f32_ring3": {"flash_attention.cu": [(TF_RING, TF_RING.replace(
+        "4;", "3;"))]},
+    # P V's passes each issued before the last is folded in (two fresh
+    # accumulators in turn)
+    "pv_ahead": {"flash_attention.cu": [(TF_FOLD, TF_PV_AHEAD)]},
     "f32_stages2": {"flash_attention.cu": [(TF_RING, TF_RING.replace(
-        "3", "2"))],
+        "4;", "2;"))],
                     "ssd_scan.cu": [(SSD_OUT_RING, SSD_OUT_RING.replace(
                         "3", "2"))]},
     # the f32 SSD scan on TF32 wgmma: the state kernel's block over 32 or
@@ -363,11 +392,12 @@ VARIANTS = {
 ZOO_ATTENTION = ("llama3.2-1b", "qwen3-8b", "stablelm-12b")
 ATTN_BF16 = ("shipped", "p_one_bf16", "stages2", "kv32", "kv64", "kv128",
              "no_split", "no_softmax")
-# the f32 attention's variants, at the main path and at Qwen3-8B's f32
-# prefill shape
+# the f32 attention's variants, at the main path and at Qwen3-8B's and
+# StableLM-12B's f32 prefill shapes
 ATTN_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "no_mma",
-            "f32_kv32", "f32_stages2", "kv_one_wg", "o_in_place")
-ZOO_ATTENTION_F32 = "qwen3-8b"
+            "f32_kv32", "f32_ring3", "f32_stages2", "pv_ahead", "kv_one_wg",
+            "o_in_place")
+ZOO_ATTENTION_F32 = ("qwen3-8b", "stablelm-12b")
 # the bf16 SSD scan at the zoo's prefill shapes, chunk 256: (arch, c/b
 # shape, v shape, v's last column ones), and its variants
 ZOO_SSD = (("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64), False),
@@ -540,46 +570,49 @@ def _zoo_attention(libs, rand, stream) -> None:
 
 
 def _zoo_attention_f32(libs, rand, stream) -> None:
-    """The f32 attention's variants at Qwen3-8B's f32 prefill shape (q (4,
-    1024, 32, 128), k/v 8 heads, causal): time, error over the plain
-    version's largest output, and whether two runs agree bitwise, beside
-    SDPA's time."""
+    """The f32 attention's variants at Qwen3-8B's and StableLM-12B's f32
+    prefill shapes (q (4, 1024, 32, D), k/v 8 heads, causal; D 128 and
+    160): time, error over the plain version's largest output, and whether
+    two runs agree bitwise, beside SDPA's time."""
     import torch
     import torch.nn.functional as F_
     from chip_smoke import norm_err, time_ms
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     f32 = torch.float32
-    cfg = get_config(ZOO_ATTENTION_F32)
-    B, T, Hq, Hk, D = 4, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = rand((B, T, Hq, D), f32)
-    k, v = rand((B, T, Hk, D), f32), rand((B, T, Hk, D), f32)
-    want = fa.flash_attention_plain(q, k, v)
-    qh = q.transpose(1, 2)
-    kh, vh = (x.repeat_interleave(Hq // Hk, dim=2).transpose(1, 2)
-              for x in (k, v))
-    log(f"flash_attention float32 at {ZOO_ATTENTION_F32}'s prefill, q "
-        f"{tuple(q.shape)}, k/v {tuple(k.shape)}, causal: SDPA "
-        f"{time_ms(lambda: F_.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=20):.4f} ms")
-    o = torch.empty_like(q)
-    for variant in ATTN_F32:
-        if (variant, "flash_attention") not in libs:
-            continue
-        fn = bind(libs[variant, "flash_attention"], "flash_attention")
+    for arch in ZOO_ATTENTION_F32:
+        cfg = get_config(arch)
+        B, T, Hq, Hk, D = 4, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        q = rand((B, T, Hq, D), f32)
+        k, v = rand((B, T, Hk, D), f32), rand((B, T, Hk, D), f32)
+        want = fa.flash_attention_plain(q, k, v)
+        qh = q.transpose(1, 2)
+        kh, vh = (x.repeat_interleave(Hq // Hk, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        log(f"flash_attention float32 at {arch}'s prefill, q "
+            f"{tuple(q.shape)}, k/v {tuple(k.shape)}, causal: SDPA "
+            f"{time_ms(lambda: F_.scaled_dot_product_attention(qh, kh, vh, is_causal=True), iters=20):.4f} ms")
+        o = torch.empty_like(q)
+        for variant in ATTN_F32:
+            if (variant, "flash_attention") not in libs:
+                continue
+            fn = bind(libs[variant, "flash_attention"], "flash_attention")
 
-        def call():
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     B, T, T, Hq, Hk, D, 1, 0, 0, stream)
-            if err:
-                raise RuntimeError(f"{variant}: cudaError_t {err}")
-        call()
-        torch.cuda.synchronize()
-        first = o.clone()
-        call()
-        torch.cuda.synchronize()
-        log(f"  {variant:11s} {time_ms(call, iters=20):.4f} ms, error / "
-            f"max|plain| {norm_err(o, want)[1]:.3e}"
-            + ("" if torch.equal(o, first) else ", NOT bitwise run to run"))
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), B, T, T, Hq, Hk, D, 1, 0, 0, stream)
+                if err:
+                    raise RuntimeError(f"{variant}: cudaError_t {err}")
+            call()
+            torch.cuda.synchronize()
+            first = o.clone()
+            call()
+            torch.cuda.synchronize()
+            log(f"  {variant:11s} {time_ms(call, iters=20):.4f} ms, error / "
+                f"max|plain| {norm_err(o, want)[1]:.3e}"
+                + ("" if torch.equal(o, first) else
+                   ", NOT bitwise run to run"))
+        del q, k, v, want, o, qh, kh, vh
 
 
 def _ssd_f64(c, b, v, la, C):

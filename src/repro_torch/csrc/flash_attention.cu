@@ -10,9 +10,9 @@
 // wholly above the diagonal are skipped; output in q's dtype.  As in the
 // Pallas kernel, the products are f32-accurate and p is never rounded to
 // bf16.  Three designs, chosen before the launch by an explicit rule in
-// the C entry (never on error): bf16 on `wgmma` fed by TMA; f32 at D 64
-// and 128 with q, k, v on 16-byte boundaries on 3xTF32 `wgmma` fed by TMA
-// (`tf::tma_route`); every other f32 call (D 16, 32, 160, operands off 16
+// the C entry (never on error): bf16 on `wgmma` fed by TMA; f32 at D 64,
+// 128 and 160 with q, k, v on 16-byte boundaries on 3xTF32 `wgmma` fed by
+// TMA (`tf::tma_route`); every other f32 call (D 16, 32, operands off 16
 // bytes) on 3xTF32 `mma.sync`.
 //
 // ---- bf16: wgmma and TMA (attn_wgmma_kernel) ----
@@ -58,7 +58,7 @@
 // heaviest first, and a warpgroup skips the kv tiles that lie wholly above
 // its own rows.  No atomics: a run is bitwise repeatable.
 //
-// ---- f32 at D 64 and 128: 3xTF32 wgmma fed by TMA (tf::attn_tf32_kernel) ----
+// ---- f32 at D 64, 128, 160: 3xTF32 wgmma fed by TMA (tf::attn_tf32_kernel) ----
 //
 // f32-accurate products take three TF32 ones (common.cuh): a.b ~
 // a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, in every k8 step of both products.
@@ -71,8 +71,9 @@
 // (1) TF32 `wgmma` takes no transpose: both shared-memory operands are
 // K-major.  S = Q K^T reads Q (rows x D) and K (kv x D) straight from their
 // TMA tiles.  V (kv x D) is N-major for P V, so the warpgroup that
-// consumes a kv tile writes V^T itself as two K-major tiles in the 128-byte
-// swizzle: V^T hi (the raw bits) and V^T lo.  The alternative, O^T = V^T
+// consumes a kv tile writes V^T itself as two K-major tiles: V^T hi (the
+// raw bits) and V^T lo, rows of 32 kv in the 128-byte swizzle (of 16 in the
+// 64-byte one where kv tiles have 16 rows).  The alternative, O^T = V^T
 // P^T with V^T from registers, would send P through shared memory every
 // tile and move alpha across threads (the accumulator's rows would be O's
 // columns).
@@ -93,15 +94,23 @@
 // attention) carried that shift past its oracle's bound on the card.
 // (4) Budgets.  A consumer thread holds O (D / 2 registers), the pass's
 // accumulator (16), S (BK / 2) and P's two terms (BK): 144 at D 64 with
-// kv tiles of 64, 112 at D 128 with 32, within the 168 a thread of 288
-// may have (ptxas spills 76 and 20 bytes).  Shared memory: Q and
-// its lo tile (2 x 64 x D x 4 B), a ring of K and V tiles (2 x BK x D x 4
-// B a stage) and each consumer warpgroup's K lo, V^T hi and V^T lo (3 x BK
-// x D x 4 B): 32 + 3 x 32 + 2 x 48 = 224 KB at D 64 (3 stages), 64 + 2 x
-// 32 + 2 x 48 = 224 KB at D 128 (2 stages), of the 227 KB a block may use.
-// At D 160 one stage of 32 kv rows needs 80 + 40 + 2 x 60 = 240 KB, so D
-// 160 stays on the mma.sync kernel, with D 16 and 32 (rows narrower than
-// the 128-byte swizzle) and operands off 16 bytes (TMA cannot read them).
+// kv tiles of 64, 112 at D 128 with 32, 120 at D 160 with 16, within the
+// 168 a thread of 288 may have (ptxas spills 76, 20 and 16 bytes).
+// Shared memory: Q and its lo tile (2 x 64 x D x 4 B), a ring of K and V
+// tiles (2 x BK x D x 4 B a stage) and each consumer warpgroup's K lo,
+// V^T hi and V^T lo (3 x BK x D x 4 B): 32 + 3 x 32 + 2 x 48 = 224 KB at
+// D 64 (3 stages), 64 + 2 x 32 + 2 x 48 = 224 KB at D 128 (2 stages), of
+// the 227 KB a block may use.  At D 160 one stage of 32 kv rows would need
+// 80 + 40 + 2 x 60 = 240 KB, so its kv tiles have 16 rows: 80 + 4 x 20 +
+// 2 x 30 = 221 KB (4 stages), and warpgroup 1 hands its (m, l, O) (43 KB,
+// more than its own 30) through Q and its lo tile once both walks are
+// done.  The price is S at N 16: an m64n16k8 reads 2 KB of Q for 512 bytes
+// of K, 2.5x the shared-memory bytes an operation of N 64, so a 16-row
+// tile's S, P V, split and TMA store move ~250 KB of shared memory a
+// warpgroup: ~1950 clocks at 128 bytes a clock against ~960 of tensor
+// work (3xTF32): by this count shared memory bounds D 160 (PERF.md).  D
+// 16 and 32 (rows narrower than the 128-byte swizzle) and operands off 16
+// bytes (TMA cannot read them) stay on the mma.sync kernel.
 // (5) The grid.  A block owns one (batch, head, 64-row query tile), and
 // its two consumer warpgroups take alternate kv tiles (even, odd), each
 // with its own m, l and O; warpgroup 1 then hands (m, l, O) to warpgroup
@@ -109,7 +118,9 @@
 // main path (1 x 1024 x 16 x 64, causal) that is 256 blocks, heaviest
 // first, whose heaviest walks 1024 kv rows with two warpgroups: ~13 us at
 // one SM's share of the TF32 rate, where 128-row blocks (128 of them, one
-// wave) would take 27 us in the heaviest.
+// wave) would take 27 us in the heaviest.  Blocks run every head's query
+// tile together; one kv head's query heads side by side (their K and V
+// shared in L2) was slower on the card at D 128 and 160 (PERF.md).
 // (6) No atomics and no order that varies: a run is bitwise repeatable.
 // (7) Tiles are 4-D TMA boxes of 32 floats over (D, H, T, B)
 // (hopper::encode_bthd), so rows past Tq or Tk read zeros within their
@@ -152,9 +163,10 @@
 // `causal` the query tiles run heaviest first, so the last wave of
 // blocks is the lightest.
 //
-// D = 160 (StableLM-12B's head).  In f32 the split q (2 x 64 x 164 x 4 B
-// = 82 KB) and the double-buffered K and V tiles (4 x 64 x 164 x 4 B =
-// 164 KB) come to 246 KB, over the 227 KB a block may have.  There q is
+// D = 160 (StableLM-12B's head) with an operand off 16 bytes (the rule
+// sends aligned ones to tf::attn_tf32_kernel).  The split q (2 x 64 x 164
+// x 4 B = 82 KB) and the double-buffered K and V tiles (4 x 64 x 164 x 4
+// B = 164 KB) come to 246 KB, over the 227 KB a block may have.  There q is
 // kept once, scaled, as f32 (41 KB; 205 KB in all) and each `ldmatrix`
 // fragment is split into hi and lo in registers: the same bits as the
 // stored split, for 12 more integer and float operations per 8-deep step
@@ -845,14 +857,21 @@ namespace tf {
 
 constexpr int BQ = 64;         // query rows a block, both warpgroups' rows
 constexpr int NT = 288;        // two consumer warpgroups + one producer warp
-constexpr int RING = 3;        // K / V stages in flight, where they fit
+constexpr int RING = 4;        // K / V stages in flight: the most that fit, up to this
 constexpr double LOG2E = 1.4426950408889634;
 
 // kv rows a tile (flash_attention.f32_kv_tile in the Python module): a
 // consumer thread holds O (D / 2 registers), P V's accumulator, S (BK / 2)
 // and P's two TF32 terms (BK), and each warpgroup's K lo and V^T tiles
-// fit beside the ring
-__host__ __device__ constexpr int kv_tile(int D) { return D == 128 ? 32 : 64; }
+// fit beside the ring (at D 160 only with 16 rows: note (4))
+__host__ __device__ constexpr int kv_tile(int D) { return D == 160 ? 16 : D == 128 ? 32 : 64; }
+
+// the deepest ring of at most RING stages that fits beside `fixed` bytes
+constexpr int ring_stages(size_t fixed, size_t per_stage) {
+  int s = RING;
+  while (s > 2 && fixed + s * per_stage > 232448) --s;
+  return s;
+}
 
 template <int D>
 struct Cfg {
@@ -864,21 +883,30 @@ struct Cfg {
   static constexpr uint32_t Q_SUB = BQ * 128, KV_SUB = BK * 128;
   static constexpr uint32_t Q_BYTES = NSUB * Q_SUB;      // = BQ x D x 4
   static constexpr uint32_t KV_BYTES = NSUB * KV_SUB;    // one K or V tile
-  static constexpr uint32_t VT_SUB = D * 128;            // D rows of 32 kv
-  static constexpr uint32_t VT_BYTES = BK / 32 * VT_SUB; // = KV_BYTES
+  // V^T: D rows of BK kv, as sub-tiles of VT_W kv whose rows of VT_SW
+  // bytes take the VT_SW-byte swizzle (32 kv and 128 bytes; 16 and 64 at
+  // BK 16)
+  static constexpr int VT_W = BK < 32 ? BK : 32;
+  static constexpr int VT_SW = 4 * VT_W;
+  static constexpr uint32_t VT_SUB = D * VT_SW;
+  static constexpr uint32_t VT_BYTES = BK / VT_W * VT_SUB;   // = KV_BYTES
   // a consumer warpgroup's own tiles: K lo, V^T hi, V^T lo
   static constexpr uint32_t WG_BYTES = KV_BYTES + 2 * VT_BYTES;
+  // warpgroup 1 hands O, m and l to warpgroup 0 through its own tiles or,
+  // where they are too small (D 160), through Q and its lo tile
+  static constexpr uint32_t HAND_BYTES = 4 * 128 * (D / 2 + 4);
+  static constexpr bool HAND_IN_Q = WG_BYTES < HAND_BYTES;
   // 1024 bytes of slack to align the tiles; Q, its lo tile, the two
   // warpgroups' tiles and Q's mbarrier; per stage K, V and two mbarriers
   static constexpr size_t FIXED = 1024 + 2 * Q_BYTES + 2 * WG_BYTES + 8;
   static constexpr size_t PER_STAGE = 2 * KV_BYTES + 16;
-  static constexpr int STAGES =
-      FIXED + RING * PER_STAGE <= 232448 ? RING : RING - 1;
+  static constexpr int STAGES = ring_stages(FIXED, PER_STAGE);
   static constexpr size_t SMEM = FIXED + STAGES * PER_STAGE;
   static_assert(SMEM <= 232448, "over the 227 KB of shared memory a block may use");
-  static_assert(D % 32 == 0 && BK % 32 == 0, "128-byte rows of 32 floats");
-  // warpgroup 1 hands O, m and l to warpgroup 0 through its own tiles
-  static_assert(WG_BYTES >= 4 * 128 * (D / 2 + 4), "the merge's buffer");
+  static_assert(D % 32 == 0 && BK % 16 == 0 && BK % VT_W == 0,
+                "128-byte rows of 32 floats; V^T rows of 64 or 128 bytes");
+  static_assert((HAND_IN_Q ? 2 * Q_BYTES : WG_BYTES) >= HAND_BYTES,
+                "the merge's buffer");
 };
 
 using hopper::swz;
@@ -893,10 +921,11 @@ __device__ __forceinline__ float4 lo19(float4 x) {
 
 // A landed kv tile's K lo tile and V^T's two tiles, by the 128 threads of
 // the warpgroup that consumes it (thread i).  V^T (D rows of BK kv, K-major
-// for P V) holds each 8 kv positions in the order 0, 2, 4, 6, 1, 3, 5, 7,
-// so that A's k index t stands for kv 2t and t + 4 for kv 2t + 1 (P's
-// registers as S's accumulator left them).  A warp reads one kv row of 32
-// consecutive d and writes 32 rows of V^T: both spread over all banks.
+// for P V, in sub-tiles of VT_W kv) holds each 8 kv positions in the order
+// 0, 2, 4, 6, 1, 3, 5, 7, so that A's k index t stands for kv 2t and t + 4
+// for kv 2t + 1 (P's registers as S's accumulator left them).  A warp reads
+// one kv row of 32 consecutive d and writes 32 rows of V^T: both spread
+// over all banks (in either swizzle).
 template <int D>
 __device__ __forceinline__ void split_tile(const uint8_t* ks, const uint8_t* vs,
                                            uint8_t* klo, uint8_t* vth,
@@ -916,8 +945,9 @@ __device__ __forceinline__ void split_tile(const uint8_t* ks, const uint8_t* vs,
       x[r] = *reinterpret_cast<const float*>(src + swz(kv0 + r, d % 32));
     const float4 even = make_float4(x[0], x[2], x[4], x[6]);
     const float4 odd = make_float4(x[1], x[3], x[5], x[7]);
-    const uint32_t off = kv0 / 32 * C::VT_SUB;
-    const uint32_t a0 = off + swz(d, kv0 % 32), a4 = off + swz(d, kv0 % 32 + 4);
+    const uint32_t off = kv0 / C::VT_W * C::VT_SUB;
+    const uint32_t a0 = off + swz<C::VT_SW>(d, kv0 % C::VT_W);
+    const uint32_t a4 = off + swz<C::VT_SW>(d, kv0 % C::VT_W + 4);
     *reinterpret_cast<float4*>(vth + a0) = even;
     *reinterpret_cast<float4*>(vth + a4) = odd;
     *reinterpret_cast<float4*>(vtl + a0) = lo19(even);
@@ -960,10 +990,10 @@ __device__ __forceinline__ void pv_mma(float (&pv)[DH / 2],
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk) {
-    const uint32_t off = kk / 4 * C::VT_SUB + kk % 4 * 32;
-    const uint64_t dh = hopper::make_desc(vth + off, 16, 1024, 128);
+    const uint32_t off = kk / (C::VT_W / 8) * C::VT_SUB + kk % (C::VT_W / 8) * 32;
+    const uint64_t dh = hopper::make_desc(vth + off, 16, 8 * C::VT_SW, C::VT_SW);
     hopper::WgmmaTf32<DH>::rs(pv, lo[kk], dh, kk > 0);
-    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 1024, 128), 1);
+    hopper::WgmmaTf32<DH>::rs(pv, hi[kk], hopper::make_desc(vtl + off, 16, 8 * C::VT_SW, C::VT_SW), 1);
     hopper::WgmmaTf32<DH>::rs(pv, hi[kk], dh, 1);
   }
   hopper::wgmma_commit();
@@ -1096,7 +1126,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int c0 = 0; c0 < D; c0 += DH) {
       float pv[DH / 2];
-      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * 128, vtl + c0 * 128);
+      pv_mma<D, DH, BK>(pv, hi, lo, vth + c0 * C::VT_SW, vtl + c0 * C::VT_SW);
       hopper::wgmma_wait<0>();
       hopper::reg_fence(pv);
 #pragma unroll
@@ -1111,11 +1141,15 @@ __global__ void __launch_bounds__(NT, 1)
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
   }
 
-  // warpgroup 1 hands (O, m, l) to warpgroup 0 through its own tiles,
-  // element x of thread i at x x 128 + i; warpgroup 0 merges them
-  float* hand = reinterpret_cast<float*>(Wt + C::WG_BYTES);
+  // warpgroup 1 hands (O, m, l) to warpgroup 0, element x of thread i at
+  // x x 128 + i, through its own tiles or (HAND_IN_Q) through Q and its lo
+  // tile once both walks are done (warpgroup 0's last S has read them);
+  // warpgroup 0 merges them
+  float* hand = reinterpret_cast<float*>(C::HAND_IN_Q ? Qs : Wt + C::WG_BYTES);
+  if constexpr (C::HAND_IN_Q) hopper::named_bar_sync(1, 256);
   if (w == 1) {
-    hopper::named_bar_sync(3, 128);   // every P V of warpgroup 1 is done
+    // every P V of warpgroup 1 is done
+    if constexpr (!C::HAND_IN_Q) hopper::named_bar_sync(3, 128);
 #pragma unroll
     for (int x = 0; x < D / 2; ++x) hand[x * 128 + i] = acc[x];
 #pragma unroll
@@ -1154,10 +1188,10 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // The f32 route's rule, decided before the launch: this kernel where it is
-// instantiated (D 64, 128) and TMA reads q, k and v (16-byte aligned
+// instantiated (D 64, 128, 160) and TMA reads q, k and v (16-byte aligned
 // bases; o is written by plain stores); the mma.sync attn_kernel elsewhere.
 inline bool tma_route(const void* q, const void* k, const void* v, int D) {
-  return (D == 64 || D == 128) && bident::aligned16(q) &&
+  return (D == 64 || D == 128 || D == 160) && bident::aligned16(q) &&
          bident::aligned16(k) && bident::aligned16(v);
 }
 
@@ -1186,6 +1220,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 64: return launch<64>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     case 128: return launch<128>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
+    case 160: return launch<160>(q, k, v, o, B, Tq, Tk, Hq, Hk, causal, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }

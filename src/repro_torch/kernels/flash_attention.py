@@ -8,11 +8,11 @@ and its C entry picks one before the launch by an explicit rule
 (:func:`f32_kernel` says which for f32).  bf16: warp-specialised ``wgmma``
 fed by TMA, 128-row query tiles, kv tiles of :func:`bf16_kv_tile` rows,
 the 1/sqrt(D) scale (with log2(e)) on S after the product, and P kept
-above bf16 as two bf16 terms.  f32 at D 64 and 128 on 16-byte aligned
-operands: 3xTF32 ``wgmma`` fed by TMA, 64-row query tiles whose two
-consumer warpgroups walk alternate kv tiles of :func:`f32_kv_tile` rows
-(even, odd) and merge their (m, l, O) at the end.  Other f32 calls (D
-16, 32, 160, operands off 16 bytes): one block a 64-row query tile over
+above bf16 as two bf16 terms.  f32 at D 64, 128 and 160 on 16-byte
+aligned operands: 3xTF32 ``wgmma`` fed by TMA, 64-row query tiles whose
+two consumer warpgroups walk alternate kv tiles of :func:`f32_kv_tile`
+rows (even, odd) and merge their (m, l, O) at the end.  Other f32 calls
+(D 16, 32, operands off 16 bytes): one block a 64-row query tile over
 64-row kv tiles, both products in 3xTF32 ``mma.sync``.
 :func:`flash_attention_plain` repeats the arithmetic tile by tile in
 PyTorch (the same tiles, mask, causal tile skip, ``l`` clamp, base-2
@@ -44,13 +44,15 @@ def bf16_kv_tile(D: int) -> int:
 
 
 # head dims of the f32 wgmma design (``tf::tma_route`` in the source)
-F32_WGMMA_HEAD_DIMS = (64, 128)
+F32_WGMMA_HEAD_DIMS = (64, 128, 160)
 
 
 def f32_kv_tile(D: int) -> int:
     """kv rows a tile of the f32 ``wgmma`` kernel (``tf::kv_tile`` in the
-    source), and of the plain version's f32 arithmetic at every D."""
-    return 32 if D == 128 else 64
+    source), and of the plain version's f32 arithmetic at every D: at D
+    160 only 16-row tiles leave room in shared memory for both consumer
+    warpgroups' own tiles beside Q and its lo tile."""
+    return 16 if D == 160 else 32 if D == 128 else 64
 
 
 def f32_kernel(q, k, v) -> str:

@@ -242,14 +242,16 @@ def test_f32_attention_variants_match_the_sources():
     assert got["one_tf32"].count("WgmmaTf32<DH>::rs(") == 1
     assert "bident::mma_tf32(c, al, bh)" not in got["one_tf32"]
     assert "WgmmaTf32<" not in got["no_mma"]
-    assert "return D == 128 ? 32 : 64;" not in got["f32_kv32"]
+    assert kv.TF_KV not in got["f32_kv32"]
+    assert "return D == 160 ? 16 : 32;" in got["f32_kv32"]
+    assert kv.TF_RING.replace("4;", "3;") in got["f32_ring3"]
     assert "constexpr int RING = 2;" in got["f32_stages2"]
     assert "(w == 0 ? nk : 0)" in got["kv_one_wg"]
     assert "pv_mma<D, D, BK>(acc, hi, lo, vth, vtl);" in got["o_in_place"]
     assert "float pv[DH / 2];" not in got["o_in_place"]
     # the bf16 design's variants leave the f32 one as shipped
     bf16_ring = kv.sources("stages2", "flash_attention")["flash_attention.cu"]
-    assert "constexpr int RING = 3;" in bf16_ring
+    assert kv.TF_RING in bf16_ring
 
 
 def _kernel_variants():

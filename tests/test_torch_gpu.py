@@ -131,30 +131,37 @@ F32_ATTN_CASES = {     # B, Tq, Tk, Hq, Hk, causal, q_offset, k/v unaligned
 ATTN_KERNELS = ("attn_kernel", "attn_tf32_kernel", "attn_wgmma_kernel")
 
 
-def _launched(fn, names=ATTN_KERNELS) -> list:
+def _launched(fn, names=ATTN_KERNELS, traces: int = 3) -> list:
     """The port's kernels of ``names`` (default: the attention's) one
-    ``fn()`` launched, by name, from a device trace."""
+    ``fn()`` launched, by name, from a device trace.  A trace that holds
+    none of them is taken again, up to ``traces`` in all: the profiler
+    at times records no kernel of a call in a process that has traced
+    many (PERF.md §7), which says nothing of the route."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({n for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA
-                   for n in names if f"::{n}<" in ev.key})
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = sorted({n for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      for n in names if f"::{n}<" in ev.key})
+        if got:
+            break
+    return got
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(F32_ATTN_CASES))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_f32_attention_kernel_matches_plain(cuda, D, case):
-    """The f32 attention at D 64 and 128: 3xTF32 wgmma fed by TMA where q,
-    k, v lie on 16-byte boundaries, the mma.sync kernel where they do
-    not (the C entry's rule, ``f32_kernel``, read from a device trace);
-    within the f32 bucket of the plain version, bitwise run to run, one
-    counted launch a call."""
+    """The f32 attention at D 64, 128 and 160: 3xTF32 wgmma fed by TMA
+    where q, k, v lie on 16-byte boundaries, the mma.sync kernel where
+    they do not (the C entry's rule, ``f32_kernel``, read from a device
+    trace); within the f32 bucket of the plain version, bitwise run to
+    run, one counted launch a call."""
     B, Tq, Tk, Hq, Hk, causal, off, unaligned = F32_ATTN_CASES[case]
     rng = np.random.default_rng(17 + D)
     f32 = torch.float32
@@ -180,10 +187,10 @@ def test_f32_attention_kernel_matches_plain(cuda, D, case):
 
 @pytest.mark.gpu
 def test_f32_attention_other_head_dims_take_the_mma_sync_kernel(cuda):
-    """D 16, 32 and 160 take the mma.sync kernel by the rule, within
-    the f32 bucket of the plain version."""
+    """D 16 and 32 take the mma.sync kernel by the rule, within the f32
+    bucket of the plain version."""
     rng = np.random.default_rng(19)
-    for D in (16, 32, 160):
+    for D in (16, 32):
         q = _rand(rng, (1, 130, 4, D), cuda, torch.float32)
         k, v = (_rand(rng, (1, 130, 2, D), cuda, torch.float32)
                 for _ in range(2))

@@ -129,16 +129,20 @@ def test_f32_attention_streams_match_jax(D, Tq, Tk, causal, off):
 
 def test_f32_kernel_rule():
     """Which f32 design a call takes (``f32_kernel``, the C entry's rule):
-    wgmma at D 64 and 128 on 16-byte boundaries, mma.sync elsewhere."""
+    wgmma at D 64, 128 and 160 on 16-byte boundaries, mma.sync
+    elsewhere."""
     def z(D, shift=0):
         flat = torch.zeros(1 * 8 * 2 * D + shift)
         return flat[shift:].view(1, 8, 2, D)
     for D in fa.HEAD_DIMS:
-        want = "attn_tf32_kernel" if D in (64, 128) else "attn_kernel"
+        want = "attn_tf32_kernel" if D in (64, 128, 160) else "attn_kernel"
         assert fa.f32_kernel(z(D), z(D), z(D)) == want, D
     assert fa.f32_kernel(z(64), z(64, 1), z(64, 1)) == "attn_kernel"
     assert fa.f32_kernel(z(128, 1), z(128), z(128)) == "attn_kernel"
+    assert fa.f32_kernel(z(160), z(160, 1), z(160, 1)) == "attn_kernel"
+    assert fa.f32_kernel(z(160, 2), z(160), z(160)) == "attn_kernel"
     assert fa.f32_kv_tile(64) == 64 and fa.f32_kv_tile(128) == 32
+    assert fa.f32_kv_tile(160) == 16
 
 
 def test_bf16_ulps_measures_in_bf16_ulps():

@@ -245,16 +245,18 @@ def test_transposed_fold_depth(case):
 # odd), each with its own online softmax in base 2, merged at the end.
 # The emulation weighs P V accumulated into O scaled by alpha against a
 # fresh accumulator a tile folded as O alpha + pv (the kernel's choice), at
-# the main path's width (D 64) and Qwen3-8B's (D 128): both hold the
-# bucket, but summed straight into O the truncations of the whole kv walk
-# shrink the outputs several times as far.
+# the main path's width (D 64), Qwen3-8B's (D 128) and StableLM-12B's (D
+# 160, whose kv tiles of 16 rows are what fits in shared memory): both
+# hold the bucket, but summed straight into O the truncations of the
+# whole kv walk shrink the outputs several times as far.
 
 _ATTN_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
              "csrc" / "flash_attention.cu").read_text().split(
                  "namespace tf {")[1]
-_KV = re.search(r"constexpr int kv_tile\(int D\) \{ return D == 128 \? "
-                r"(\d+) : (\d+); \}", _ATTN_SRC)
-ATTN_KV_TILE = {128: int(_KV.group(1)), 64: int(_KV.group(2))}
+_KV = re.search(r"constexpr int kv_tile\(int D\) \{ return D == 160 \? "
+                r"(\d+) : D == 128 \? (\d+) : (\d+); \}", _ATTN_SRC)
+ATTN_KV_TILE = {160: int(_KV.group(1)), 128: int(_KV.group(2)),
+                64: int(_KV.group(3))}
 PERM = (0, 2, 4, 6, 1, 3, 5, 7)     # position c of 8 holds kv PERM[c]
 LOG2E = float(np.log2(np.e))
 THREE = ("lo.hi", "hi.lo", "hi.hi")
@@ -334,7 +336,7 @@ def _shrink(got, want) -> float:
 
 
 @pytest.mark.parametrize("o_mode", ["scaled", "fresh"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_wgmma_attention_holds_the_bucket(D, o_mode):
     """Both ways of accumulating P V hold the f32 bucket tenfold at the
     kernel's kv tiles (~1e-6 of the largest output)."""
@@ -344,7 +346,7 @@ def test_wgmma_attention_holds_the_bucket(D, o_mode):
     assert err <= F32_TOL / 10, err
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_wgmma_attention_fresh_accumulator_halves_the_shrink(D):
     """Over a kv walk of 1024 the truncations summed straight into O pull
     the outputs toward zero by ~4e-6 of themselves; a fresh accumulator a
@@ -361,7 +363,7 @@ def test_wgmma_attention_fresh_accumulator_halves_the_shrink(D):
 
 @pytest.mark.parametrize("dropped", ["lo.hi", "hi.lo"])
 @pytest.mark.parametrize("chain", ["s", "pv"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_wgmma_attention_needs_every_product(D, chain, dropped):
     """Without either cross product of either chain the error is that of
     one TF32 side: outside the f32 bucket."""
