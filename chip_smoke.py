@@ -13,17 +13,21 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    ``src/repro_torch/csrc`` and times the build; prints ptxas's registers
    and spills per instantiation, and whether each instantiation of the
    bf16 attention, the f32 attention at D 64 / 128 / 160, the bf16 SSD scan,
-   the f32 SSD scan at N = 64 and the f32 and bf16 expert GLU holds
+   the f32 SSD scan at N = 64 and at N 128-448 and the f32 and bf16
+   expert GLU holds
    ``HGMMA`` (wgmma) in its SASS and, where it loads by TMA, ``UTMALDG``;
 2. kernels — holds each CUDA kernel against its plain PyTorch version on
    the card, at shapes of ``tests/test_kernels.py`` (GQA, padded T,
    decode with ``q_offset``, ``initial_state``, capacity drop), at the
    main-path shapes, at d = 2048 for the expert GLU and at chunks 128
    and 256 (one case under strong decay) for the SSD scan, in f32 and
-   bf16; checks that each kernel is bitwise equal between two runs on
-   the same inputs, and that each f32 attention call and the f32 scan at
-   the main path launched the design the C entry's rule names (from a
-   device trace); and times kernel, plain version, (where one exists) a
+   bf16, and the f32 scan above N = 64 at small sizes
+   (``F32_WIDE_SSD_CASES``: N 128-448, P 385 and 384, initial states,
+   ragged T, operands off 16 bytes); checks that each kernel is bitwise
+   equal between two runs on the same inputs, and that each f32 attention
+   call and each f32 scan call at the main path and above N = 64 launched
+   the design the C entry's rule names (from a child's device trace); and
+   times kernel, plain version, (where one exists) a
    library call and, for the f32 attention, SSD scan and expert GLU, the
    earlier ``mma.sync`` kernels on the same operands (the scan also by
    kernel on the device, in a child process); the bf16 expert GLU at the
@@ -132,7 +136,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    causal: Llama-3.2-1B's D 64, Qwen3-8B's 128, StableLM-12B's 160) and
    xLSTM-125M's mLSTM scan (c/b (4, 1024, 4, 384), v (4, 1024, 4, 385),
    chunk 256) — in bf16 and f32 against the plain versions, bitwise run
-   to run, with kernel, plain, SDPA and bound times (the bf16 attention's
+   to run, with kernel, plain, SDPA and bound times (in f32, each
+   design's C entry beside the earlier ``mma.sync`` kernels' on the same
+   operands, and the kernels by name and device time from a child's
+   trace, which must be the rule's; the bf16 attention's
    bound counts P as two bf16 terms: 6 D operations a pair); the bf16
    attention also within one bf16 ulp of the f32 kernel on the upcast
    inputs, element by element (SDPA's distance printed beside it);
@@ -244,7 +251,8 @@ HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "attn_tf32_kernel",
                 "glu_wgmma_kernel", "glu_bf16_kernel", "state_kernel",
                 "pass_kernel",
                 "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
-                "out_wgmma_kernel", "state_tf32_kernel", "out_tf32_kernel")
+                "out_wgmma_kernel", "state_tf32_kernel", "out_tf32_kernel",
+                "out_wide_tf32_kernel", "pad_v_kernel")
 
 _log_lines: list[str] = []
 
@@ -446,8 +454,10 @@ def phase_environment() -> dict:
     _hopper_sass(paths["ssd_scan"], ("state_wgmma_kernel", "chunk_out_kernel",
                                      "out_wgmma_kernel"),
                  "the bf16 SSD scan", "ILb1E")
-    # the f32 scan at N = 64: 3xTF32 wgmma, every instantiation fed by TMA
-    _hopper_sass(paths["ssd_scan"], ("state_tf32_kernel", "out_tf32_kernel"),
+    # the f32 scan at N = 64 and at N 128-448: 3xTF32 wgmma, every
+    # instantiation fed by TMA (b always, v where TMA reads it)
+    _hopper_sass(paths["ssd_scan"], ("state_tf32_kernel", "out_tf32_kernel",
+                                     "out_wide_tf32_kernel"),
                  "the f32 wgmma SSD scan", "tf32_kernel")
     # the f32 expert GLU on 16-byte rows: TF32 wgmma, every
     # instantiation fed by TMA
@@ -548,7 +558,8 @@ def _ssd_entry(fn, c, b, v, la, chunk):
     P = v.shape[-1]
     y = torch.empty_like(v)
     s = torch.empty((B, H, N, P), device=v.device)
-    work = torch.empty(B * H * -(-T // chunk) * (N * P + 1), device=v.device)
+    from repro_torch.kernels import ssd_scan as ss
+    work = torch.empty(ss.scratch_floats(c, b, v, chunk), device=v.device)
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():
@@ -623,6 +634,82 @@ def _f32_routes(cases: dict) -> None:
             run.stdout.strip().splitlines()[-1]).items():
         check(ran == [want], f"flash_attention {label} float32: launched "
                              f"{ran}, the rule's {want}")
+
+
+# phase 2's f32 scan above N = 64 at small sizes, (B, T, H, N, P, chunk,
+# initial state, operands off 16 bytes): the wide design at xLSTM-125M's
+# mLSTM widths (N 384, P 385: v copied into padded rows first) and beside
+# them (P 384: v read as it lies; N 128, 448; N 256 with v off 16 bytes),
+# ragged T, and b off 16 bytes, which the rule sends to the mma.sync
+# kernels
+F32_WIDE_SSD_CASES = {
+    "N 384 P 385, T 300 chunk 256, initial_state":
+        (1, 300, 2, 384, 385, 256, True, ()),
+    "N 384 P 384, T 200 chunk 64": (2, 200, 1, 384, 384, 64, False, ()),
+    "N 128 P 385, T 300 chunk 128, initial_state":
+        (1, 300, 2, 128, 385, 128, True, ()),
+    "N 128 P 384, T 100 < chunk, initial_state":
+        (1, 100, 3, 128, 384, 256, True, ()),
+    "N 256 P 100, v off 16 bytes": (1, 150, 2, 256, 100, 64, True, ("v",)),
+    "N 448 P 200, T 333 chunk 128, initial_state":
+        (1, 333, 2, 448, 200, 128, True, ()),
+    "N 384 P 385, b off 16 bytes (the mma.sync kernels)":
+        (1, 200, 2, 384, 385, 256, False, ("b",)),
+}
+
+
+def _f32_wide_ssd_case(rng, B, T, H, N, P, chunk, with_s0, off):
+    """One case of ``F32_WIDE_SSD_CASES`` in f32: (c, b, v, log_a, s0),
+    the operands named in ``off`` copied off a 16-byte boundary."""
+    import torch
+    f32 = torch.float32
+    x = dict(c=rand(rng, (B, T, H, N), f32, 0.5),
+             b=rand(rng, (B, T, H, N), f32, 0.5), v=rand(rng, (B, T, H, P), f32))
+    for name in off:
+        x[name] = _unaligned(x[name])
+    la = -torch.nn.functional.softplus(rand(rng, (B, T, H), f32))
+    s0 = rand(rng, (B, H, N, P), f32) if with_s0 else None
+    return x["c"], x["b"], x["v"], la, s0
+
+
+# _f32_scan_routes's child: each f32 scan case's kernels by name, from a
+# device trace, beside the kernels the C entry's rule names
+_SCAN_ROUTE_CHILD = """
+import json, sys
+import numpy as np
+import chip_smoke as cs
+from repro_torch.kernels import ssd_scan as ss
+out = {}
+for label, case in json.loads(sys.argv[1]).items():
+    c, b, v, la, s0 = cs._f32_wide_ssd_case(np.random.default_rng(0), *case)
+    ran = cs._device_times(lambda: ss.ssd_scan_cuda(
+        c, b, v, la, initial_state=s0, chunk=case[5]), calls=1)
+    out[label] = [sorted(ran), sorted(ss.f32_kernels(c, b, v))]
+print(json.dumps(out))
+"""
+
+
+def _f32_scan_routes(cases: dict) -> None:
+    """Each f32 scan call of ``cases`` (``F32_WIDE_SSD_CASES``'s form)
+    launched, in a child's device trace, the kernels the C entry's rule
+    names (``ssd_scan.f32_kernels``), and the rule named the wide design
+    (with v's padded copy where TMA cannot read v) for every case but
+    those labelled for the mma.sync kernels."""
+    from repro_torch.kernels import ssd_scan as ss
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    run = subprocess.run([sys.executable, "-c", _SCAN_ROUTE_CHILD,
+                          json.dumps(cases)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0,
+          f"the f32 scan's kernels by name in a child process: exit "
+          f"{run.returncode} {run.stderr.strip()[-400:]}")
+    for label, (ran, want) in json.loads(
+            run.stdout.strip().splitlines()[-1]).items():
+        designs = (ss.F32_MMA_SYNC_KERNELS,) if "mma.sync" in label else \
+            (ss.F32_WIDE_KERNELS, ss.F32_WIDE_PAD_KERNELS)
+        check(ran == want and any(want == sorted(d) for d in designs),
+              f"ssd_scan {label} float32: launched {ran}, the rule's {want}")
 
 
 # _bf16_glu_rows's child: the bf16 expert GLU's kernels by name, from a
@@ -895,6 +982,21 @@ def phase_kernels(main_cfg: dict, env: dict) -> dict:
                         c, b, v, la, initial_state=s0, chunk=ch), args)
             if label == "main path" and dtype == f32:
                 main_err = err
+    # the f32 scan above N = 64 (F32_WIDE_SSD_CASES): within F32_TOL of
+    # the plain version, bitwise run to run, the rule's kernels
+    for label, case in F32_WIDE_SSD_CASES.items():
+        args = _f32_wide_ssd_case(rng, *case)
+
+        def scan(c, b, v, la, s0, ch=case[5]):
+            return ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=ch)
+        (y, s), (yp, sp) = scan(*args), ss.ssd_scan_plain(
+            *args[:4], initial_state=args[4], chunk=case[5])
+        _hold("ssd_scan", label, y, yp, f32, False)
+        _hold("ssd_scan", label + " state", s, sp, f32, False)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"ssd_scan {label} float32: finite outputs")
+        check_repeatable("ssd_scan", label, scan, args)
+    _f32_scan_routes(F32_WIDE_SSD_CASES)
     (c, b, v, la, _), _, _ = _ssd_case(rng, B, T, H, N, D,
                                        main_cfg["chunk"], False, f32)
     C_ = main_cfg["chunk"]
@@ -2673,12 +2775,17 @@ def _zoo_kernel_times(arch, cfg, dtype=None, repeat=False,
         check(sorted(extra["by_kernel"]) == sorted(rule),
               f"ssd_scan at {name}'s prefill shapes: launched "
               f"{sorted(extra['by_kernel'])}, the rule's {sorted(rule)}")
-        if ssd_baseline is not None and rule == ss.F32_WGMMA_KERNELS:
+        if ssd_baseline is not None and rule != ss.F32_MMA_SYNC_KERNELS:
+            from repro_torch.kernels import _build
             base = _ssd_entry(ssd_baseline, c, b, v, la, C)
             base()
             _hold("ssd_scan", f"at {arch}'s shapes, the mma.sync kernels",
                   base.y, yp, dtype, False)
+            # the mma.sync kernels' time, and the shipped C entry's (the
+            # rule's kernels without the wrapper), in turns
+            shipped = _ssd_entry(_build.function("ssd_scan"), c, b, v, la, C)
             extra["mma_sync_ms"] = time_ms(base)
+            extra["c_entry_ms"] = time_ms(shipped)
     if repeat:
         check_repeatable("ssd_scan", f"at {arch}'s shapes",
                          lambda *a: ss.ssd_scan_cuda(*a, chunk=C),
@@ -3269,6 +3376,94 @@ def prefill_turns(parent, arch: str = "zamba2-2.7b",
         f"{torch.cuda.get_device_name(0)}: parent "
         f"{min(out['parent']):.2f}-{max(out['parent']):.2f} ms, change "
         f"{min(out['change']):.2f}-{max(out['change']):.2f} ms")
+    return out
+
+
+# One child process's f32 and bf16 scans (scan_bits_turns): inputs drawn
+# on the card from a seeded generator, a digest of each call's y and final
+# state as JSON
+_SCAN_BITS_CHILD = """
+import hashlib, json, sys
+import torch
+from repro_torch.kernels import ssd_scan as ss
+out = {}
+for label, (B, T, H, N, P, C, dt, with_s0) in json.loads(sys.argv[1]).items():
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dtype = getattr(torch, dt)
+    c, b = ((0.5 * torch.randn(B, T, H, N, device="cuda", generator=g)).to(
+        dtype) for _ in range(2))
+    v = torch.randn(B, T, H, P, device="cuda", generator=g).to(dtype)
+    la = -torch.nn.functional.softplus(torch.randn(B, T, H, device="cuda",
+                                                   generator=g))
+    s0 = torch.randn(B, H, N, P, device="cuda", generator=g) \\
+        if with_s0 else None
+    y, s = ss.ssd_scan_cuda(c, b, v, la, initial_state=s0, chunk=C)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in (y, s):
+        digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    out[label] = digest.hexdigest()
+out["module"] = ss.__file__
+print(json.dumps(out))
+"""
+# (B, T, H, N, P, chunk, dtype, initial state): the main path's f32 scan,
+# Zamba2-2.7B's prefill scan in f32 and bf16, and the mLSTM's in bf16,
+# which a change to the f32 design above N = 64 leaves as they were; the
+# mLSTM's f32 call, which such a change moves
+SCAN_BITS_CASES = {
+    "main path f32": (1, 1024, 16, 64, 64, 64, "float32", False),
+    "main path f32, initial_state": (1, 1024, 16, 64, 64, 64, "float32",
+                                     True),
+    "Zamba2-2.7B f32": (4, 1024, 80, 64, 64, 256, "float32", False),
+    "Zamba2-2.7B bf16": (4, 1024, 80, 64, 64, 256, "bfloat16", False),
+    "mLSTM bf16": (4, 1024, 4, 384, 385, 256, "bfloat16", False),
+    "mLSTM f32": (4, 1024, 4, 384, 385, 256, "float32", False),
+}
+
+
+def scan_bits_turns(parent, moved=("mLSTM f32",)) -> dict:
+    """Whether the scan gives the parent's bits: each case of
+    ``SCAN_BITS_CASES`` in child processes of ``parent`` (the root of
+    another checkout inside this one, such as the parent commit unpacked
+    into a directory that .gitignore lists) and of this checkout, in turns
+    parent, change, change, parent, on the same card (each child builds
+    its checkout's kernels); every case but those in ``moved`` must give
+    the same digest of y and the final state in all four, and every case
+    the same in the two turns of each checkout.  Not part of the run with
+    no arguments; call it as ``python3 -c 'import chip_smoke as c;
+    c.scan_bits_turns("DIR")'``.  Returns {"parent": [digests, ...],
+    "change": [...]}."""
+    roots = {"parent": Path(parent).resolve(), "change": ROOT}
+    check(roots["parent"].is_relative_to(ROOT)
+          and (roots["parent"] / "src" / "repro_torch").is_dir(),
+          f"{parent}: a checkout inside {ROOT}")
+    log("== the scan's bits, the parent's kernels against this checkout's "
+        "(parent, change, change, parent)")
+    out = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent"):
+        env = dict(os.environ, PYTHONPATH=str(roots[which] / "src"))
+        run = subprocess.run(
+            [sys.executable, "-c", _SCAN_BITS_CHILD,
+             json.dumps(SCAN_BITS_CASES)], cwd=roots[which], env=env,
+            capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0,
+              f"the scans of the {which} ({roots[which]}): exit "
+              f"{run.returncode} {run.stderr.strip()[-400:]}")
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        module = Path(got.pop("module")).resolve()
+        check(module.is_relative_to(roots[which] / "src"),
+              f"the {which}'s scans ran its own module ({module})")
+        out[which].append(got)
+    for label in SCAN_BITS_CASES:
+        digests = {which: {d[label] for d in out[which]} for which in out}
+        same = digests["parent"] == digests["change"]
+        log(f"  {label}: parent {sorted(digests['parent'])[0][:16]}, change "
+            f"{sorted(digests['change'])[0][:16]}: "
+            + ("the same bits" if same else "other bits"))
+        check(all(len(d) == 1 for d in digests.values()),
+              f"ssd_scan {label}: each checkout's two turns bitwise equal")
+        if label not in moved:
+            check(same, f"ssd_scan {label}: bitwise the parent's")
     return out
 
 

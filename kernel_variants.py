@@ -65,6 +65,22 @@ call for the same function where there is one, all in one process:
   the outputs kernel without its kv tiles' split, ``no_decay_f32`` —
   without the decay; each at the main path's widths and at Zamba2-2.7B's
   f32 prefill shape, bitwise run to run or not;
+* for the f32 SSD scan above N = 64 (``state_tf32_kernel`` and
+  ``out_wide_tf32_kernel``, v copied into padded rows by
+  ``pad_v_kernel`` where TMA cannot read it), at xLSTM-125M's mLSTM f32
+  prefill shape (``SSD_F32_WIDE``): ``mma_sync``, ``cvt_rna``,
+  ``one_tf32``, ``fold64``, ``no_mma``, ``st32``, ``st64``,
+  ``st_stages3``, ``no_stage`` and ``walk_loads`` as above; ``wide_ring3``
+  — the outputs kernel's ring 3 deep (of 2); ``wide_splits1`` — one split
+  buffer (of 2: the splits and the products take turns); ``wide_split4``
+  — all four warps of the split warpgroup split, its thread 0 issuing the
+  loads between items (shipped: three split, the fourth loads); and the
+  ablation
+  ``wide_score_p0`` — the score c b^T only in the blocks of P's first
+  column tile: at P = 385 each of the 7 tiles' blocks computes the q
+  tile's score over all of N, so this bounds what computing it once per
+  (chunk, q tile) could save; each with the device time by kernel for
+  ``shipped`` and ``mma_sync``;
 * for the f32 attention (``attn_tf32_kernel``, 3xTF32 ``wgmma`` fed by
   TMA at D 64, 128 and 160): ``mma_sync`` — the ``mma.sync`` kernel
   (``attn_kernel``) on the same operands, the baseline; ``one_tf32`` —
@@ -235,13 +251,33 @@ SSD_GV_THREE = ("      hopper::WgmmaTf32<PW>::rs(part, gl[kk], dh, kk > 0);\n"
                 "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], kdesc(vtl, kk), 1);\n"
                 "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], dh, 1);\n")
 SSD_GV_ONE = "      hopper::WgmmaTf32<PW>::rs(part, gh[kk], dh, kk > 0);\n"
+# the wide outputs kernel's three products (every chain of it: two
+# interleaved, or one in two halves), its ring, its score, and the C
+# entry's route for v where TMA cannot read it
+SSD_WIDE_THREE = ("      M::rs(da, al[kk], h0, kk > 0);\n"
+                  "      if (two) M::rs(db, al[kk + 4], h1, kk > 0);\n"
+                  "      M::rs(da, ah[kk], l0, 1);\n"
+                  "      if (two) M::rs(db, ah[kk + 4], l1, 1);\n"
+                  "      M::rs(da, ah[kk], h0, 1);\n"
+                  "      if (two) M::rs(db, ah[kk + 4], h1, 1);\n")
+SSD_WIDE_ONE = ("      M::rs(da, ah[kk], h0, kk > 0);\n"
+                "      if (two) M::rs(db, ah[kk + 4], h1, kk > 0);\n")
+SSD_WIDE_THREE_B = ("        M::rs(da, al[kk + 4], h1, 1);\n"
+                    "        M::rs(da, ah[kk + 4], kdesc(yl1, kk), 1);\n"
+                    "        M::rs(da, ah[kk + 4], h1, 1);\n")
+SSD_WIDE_ONE_B = "        M::rs(da, ah[kk + 4], h1, 1);\n"
+SSD_WIDE_RING = "constexpr int WIDE_STAGES = 2;"
+SSD_WIDE_SPLITS = "constexpr int WIDE_SPLITS = 2;"
+SSD_WIDE_SPLIT_WARPS = "constexpr int WIDE_SPLIT_WARPS = 3;"
+SSD_WIDE_SCORE = ("    products(sb, sb + 2 * SUB64, sb + SUB64, sb + 3 * SUB64, "
+                  "gv || TWO);")
 SSD_FOLDS = ("constexpr int ST_FOLD = 32;", "constexpr int N_FOLD = 32;")
 SSD_COLS = "return 2 * blocks64 <= SMS ? 32 : 64;"
 SSD_OUT_RING = "constexpr int OUT_STAGES = 3;"
 SSD_ST_RING = "constexpr int ST_STAGES = 6;    // b / v tiles in flight, state kernel"
 SSD_NSPLIT = "constexpr int NSPLIT = 2;"
 SSD_STAGE = "      for (int e = si; e < NS * KVT / 8; e += 128)"
-SSD_SPLIT = ("    round_tile(st, bf + L::BL, 2 * SUB, i);\n#pragma unroll\n"
+SSD_SPLIT = ("    split_tile(st, st, bf + L::BL, 2 * SUB, i, 128);\n#pragma unroll\n"
              "    for (int e = i; e < PW * KVT / 8; e += 128)")
 SSD_DECAY_F32 = ("        const float gv = x * expf(cum_i[hr] - cum[col]);\n"
                  "        gx[e] = !mask || (col <= row && row < Cv) ? gv : 0.f;")
@@ -302,7 +338,8 @@ VARIANTS = {
     "no_mma": {"expert_glu.cu": [(GLU_THREE, ""), (BF_MMA, "        ;")],
                "flash_attention.cu": [(TF_S_THREE, ""), (TF_PV_THREE, "")],
                "ssd_scan.cu": [(SSD_ST_THREE, ""), (SSD_C_THREE, ""),
-                               (SSD_GV_THREE, "")]},
+                               (SSD_GV_THREE, ""), (SSD_WIDE_THREE, ""),
+                               (SSD_WIDE_THREE_B, "")]},
     "ring4": {"expert_glu.cu": [(GLU_RING, GLU_RING.replace("3;", "4;"))]},
     # the bf16 expert GLU: a ring of 3 stages (of 4; 5 do not fit); the
     # 128-row token tile at every cap (each weight tile read by two blocks
@@ -315,7 +352,9 @@ VARIANTS = {
                                         (TF_PV_THREE, TF_PV_ONE)],
                  "ssd_scan.cu": [(SSD_ST_THREE, SSD_ST_ONE),
                                  (SSD_C_THREE, SSD_C_ONE),
-                                 (SSD_GV_THREE, SSD_GV_ONE)]},
+                                 (SSD_GV_THREE, SSD_GV_ONE),
+                                 (SSD_WIDE_THREE, SSD_WIDE_ONE),
+                                 (SSD_WIDE_THREE_B, SSD_WIDE_ONE_B)]},
     "fold64": {"ssd_scan.cu": [(f, f.replace("32;", "64;"))
                                for f in SSD_FOLDS]},
     "p_one_bf16": {"flash_attention.cu": [(PV_LO, "")]},
@@ -376,6 +415,20 @@ VARIANTS = {
     "no_kv_split": {"ssd_scan.cu": [(SSD_SPLIT, "#pragma unroll\n    for (int e = i; "
                                   "e < 0; e += 128)")]},
     "no_decay_f32": {"ssd_scan.cu": [(SSD_DECAY_F32, "        gx[e] = x;")]},
+    # the f32 SSD scan above N = 64: the wide outputs kernel's ring 3
+    # deep (of 2; 4 do not fit beside c and two split buffers at N = 448),
+    # one split buffer (of 2: the splits and the products in turn); and
+    # the ablation (wrong results, timed only) with the score only in the
+    # blocks of P's first column tile: what computing it once per (chunk,
+    # q tile) could save at most
+    "wide_ring3": {"ssd_scan.cu": [(SSD_WIDE_RING, SSD_WIDE_RING.replace(
+        "2;", "3;"))]},
+    "wide_splits1": {"ssd_scan.cu": [(SSD_WIDE_SPLITS, SSD_WIDE_SPLITS.replace(
+        "2;", "1;"))]},
+    "wide_split4": {"ssd_scan.cu": [(SSD_WIDE_SPLIT_WARPS,
+                                     SSD_WIDE_SPLIT_WARPS.replace("3;", "4;"))]},
+    "wide_score_p0": {"ssd_scan.cu": [(SSD_WIDE_SCORE, (
+        "    if (it < NI || gv || pt == 0)\n  " + SSD_WIDE_SCORE))]},
     "kv_one_wg": {"flash_attention.cu": [(TF_WALK, (
         "for (int j = 0; j < (w == 0 ? nk : 0); ++j) {"))]},
     # P V summed straight into O scaled by alpha (no fresh accumulator)
@@ -406,11 +459,17 @@ SSD_BF16 = ("shipped", "qtile", "stages2", "kv64", "s_three", "w_three",
             "g_two", "g_one_bf16", "no_inter", "no_decay", "no_gv",
             "score_p0")
 # the f32 SSD scan's variants, at the main path's widths and at
-# Zamba2-2.7B's f32 prefill shape
+# Zamba2-2.7B's f32 prefill shape (N = 64); above N = 64 (the wide
+# outputs kernel) at xLSTM-125M's mLSTM f32 prefill shape
 SSD_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold64", "no_mma",
            "st32", "st64", "f32_stages2", "st_stages3", "out_1buf",
            "no_stage", "walk_loads", "no_kv_split", "no_decay_f32")
-ZOO_SSD_F32 = ("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64))
+SSD_F32_WIDE = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold64",
+                "no_mma", "st32", "st64", "st_stages3", "no_stage",
+                "walk_loads", "wide_ring3", "wide_splits1", "wide_split4",
+                "wide_score_p0")
+ZOO_SSD_F32 = (("zamba2-2.7b", (4, 1024, 80, 64), (4, 1024, 80, 64), False),
+               ("xlstm-125m", (4, 1024, 4, 384), (4, 1024, 4, 385), True))
 # the expert GLU's variants in each dtype (the f32 ones change the TF32
 # design, the bf16 ones the bf16 design; mma_sync and no_mma both)
 GLU_F32 = ("shipped", "mma_sync", "cvt_rna", "one_tf32", "fold1", "no_fold",
@@ -673,7 +732,7 @@ def _zoo_ssd(libs, rand, stream) -> None:
             f"{fa.bf16_ulps(yp, y64):.2f} ulps")
         del yp, sp
         y, s = torch.empty_like(v), torch.empty_like(s_ref)
-        work = torch.empty(B * H * -(-T // C) * (N * P + 1), device="cuda")
+        work = torch.empty(ss.scratch_floats(c, b, v, C), device="cuda")
         for variant in SSD_BF16:
             if (variant, "ssd_scan") not in libs:
                 continue
@@ -710,38 +769,49 @@ def _ssd_call(libs, variant, c, b, v, la, y, s, work, chunk, stream):
 
 def _zoo_ssd_f32(libs, rand, stream) -> None:
     """The f32 SSD scan's variants at Zamba2-2.7B's f32 prefill shape
-    (chunk 256): time of the C entry point, error of y over the plain
-    version's largest output and over the f64 algebra's, the final
-    state's error, and whether two runs agree bitwise."""
+    (``SSD_F32``) and at xLSTM-125M's mLSTM's (``SSD_F32_WIDE``; v with
+    its column of ones), chunk 256: time of the C entry point, error of y
+    over the plain version's largest output and over the f64 algebra's,
+    the final state's error, and whether two runs agree bitwise."""
     import torch
     import torch.nn.functional as F_
     from chip_smoke import norm_err, time_ms
     from repro_torch.kernels import ssd_scan as ss
     f32, C = torch.float32, 256
-    arch, cb, vs = ZOO_SSD_F32
-    B, T, H, N = cb
-    c, b = rand(cb, f32, .5), rand(cb, f32, .5)
-    v = rand(vs, f32)
-    la = -F_.softplus(rand((B, T, H), f32))
-    yp, sp = ss.ssd_scan_plain(c, b, v, la, chunk=C)
-    y64 = _ssd_f64(c, b, v, la, C)
-    log(f"ssd_scan float32 at {arch}'s prefill, c/b {cb}, v {vs}, chunk "
-        f"{C}: plain {norm_err(yp, y64)[1]:.2e} from the f64 algebra")
-    y, s = torch.empty_like(v), torch.empty_like(sp)
-    work = torch.empty(B * H * -(-T // C) * (N * vs[-1] + 1), device="cuda")
-    for variant in SSD_F32:
-        if (variant, "ssd_scan") not in libs:
-            continue
-        call = _ssd_call(libs, variant, c, b, v, la, y, s, work, C, stream)
-        call()
-        torch.cuda.synchronize()
-        first = y.clone()
-        call()
-        torch.cuda.synchronize()
-        log(f"  {variant:11s} {time_ms(call, iters=20):.4f} ms, error / "
-            f"max|plain| {norm_err(y, yp)[1]:.3e} ({norm_err(y, y64)[1]:.3e}"
-            f" from f64), state {norm_err(s, sp)[1]:.2e}"
-            + ("" if torch.equal(y, first) else ", NOT bitwise run to run"))
+    for arch, cb, vs, ones in ZOO_SSD_F32:
+        B, T, H, N = cb
+        c, b = rand(cb, f32, .5), rand(cb, f32, .5)
+        v = rand(vs, f32)
+        if ones:
+            v[..., -1] = 1
+        la = -F_.softplus(rand((B, T, H), f32))
+        yp, sp = ss.ssd_scan_plain(c, b, v, la, chunk=C)
+        y64 = _ssd_f64(c, b, v, la, C)
+        log(f"ssd_scan float32 at {arch}'s prefill, c/b {cb}, v {vs}, chunk "
+            f"{C}: plain {norm_err(yp, y64)[1]:.2e} from the f64 algebra; "
+            f"the rule's kernels {ss.f32_kernels(c, b, v)}")
+        y, s = torch.empty_like(v), torch.empty_like(sp)
+        work = torch.empty(ss.scratch_floats(c, b, v, C), device="cuda")
+        for variant in SSD_F32 if N == 64 else SSD_F32_WIDE:
+            if (variant, "ssd_scan") not in libs:
+                continue
+            call = _ssd_call(libs, variant, c, b, v, la, y, s, work, C,
+                             stream)
+            call()
+            torch.cuda.synchronize()
+            first = y.clone()
+            call()
+            torch.cuda.synchronize()
+            log(f"  {variant:13s} {time_ms(call, iters=20):.4f} ms, error / "
+                f"max|plain| {norm_err(y, yp)[1]:.3e} "
+                f"({norm_err(y, y64)[1]:.3e} from f64), state "
+                f"{norm_err(s, sp)[1]:.2e}"
+                + ("" if torch.equal(y, first) else
+                   ", NOT bitwise run to run"))
+            if variant in ("shipped", "mma_sync") and N > 64:
+                log("    device ms a call by kernel: " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in _device_ms(call).items()))
+        del c, b, v, yp, sp, y64, y, s, work
 
 
 def _glu_variants(libs, variants, shape, rand, stream, dtype) -> None:
@@ -959,7 +1029,7 @@ def main() -> int:
             y_, s_ = torch.empty_like(v_), torch.empty((B, H, N, P), device="cuda")
             for chunk in (64, 128, 256):
                 want = ss.ssd_scan_plain(c_, b_, v_, la, chunk=chunk)[0]
-                work = torch.empty(B * H * -(-T // chunk) * (N * P + 1),
+                work = torch.empty(ss.scratch_floats(c_, b_, v_, chunk),
                                    device="cuda")
                 log(f"ssd_scan {name} at (B, T, H, N, P) = ({B}, {T}, {H}, {N},"
                     f" {P}), chunk {chunk}:")

@@ -15,9 +15,10 @@
 // the final state in f32.  Chunk <= 256, N <= 496, any P; no atomics and
 // no split reductions, so two runs give the same bits.  Three designs,
 // chosen before the launch by an explicit rule of the C entry (never on
-// error): bf16 on wgmma fed by TMA; f32 at N = 64 with c, b, v readable
-// by TMA (tf::tma_route) on 3xTF32 wgmma fed by TMA; every other f32 call
-// on the three 3xTF32 mma.sync kernels.
+// error): bf16 on wgmma fed by TMA; f32 with c and b readable by TMA, at
+// N = 64 with v readable too or at N 128-448 with any v (tf::tma_route),
+// on 3xTF32 wgmma fed by TMA; every other f32 call on the three 3xTF32
+// mma.sync kernels.
 //
 // ---- bf16: wgmma and TMA (state_wgmma_kernel, then chunk_out_kernel at
 // N <= 64 or out_wgmma_kernel above) ----
@@ -149,10 +150,10 @@
 // tile) and S_in^T (32 KB), 3 ring stages of b and v (48 KB), two split
 // buffers of b lo, v^T hi and lo (48 KB) and cum: 129 KB, one block an SM
 // (two, with one split buffer, measured no faster).  N = 384 (the mLSTM)
-// does not fit: c's fragments alone would take 384 registers a thread,
-// and a q tile's S_in^T with its lo tile 2 x 64 x 384 x 4 = 192 KB; it
-// stays on the mma.sync kernels, which stream S_in and b in slices of 128
-// state rows.
+// does not fit this outputs kernel: c's fragments alone would take 384
+// registers a thread, and a q tile's S_in^T with its lo tile 2 x 64 x
+// 384 x 4 = 192 KB; above N = 64 the outputs kernel is the wide one
+// (below).
 // (7) No atomics, and no order that varies: bitwise repeatable.
 //
 // Bound: as below for the mma.sync design (5.1 us at the main path, by
@@ -162,6 +163,49 @@
 // the time at the main path; there the state kernel with neither its
 // staging nor its products (kernel_variants.py's walk_loads) still takes
 // most of the scan: each of the 32 walks paces its tiles' loads.
+//
+// ---- f32 at N 128-448: 3xTF32 wgmma fed by TMA (tf::pad_v_kernel where
+// v needs it, tf::state_tf32_kernel, then tf::out_wide_tf32_kernel) ----
+//
+// The rule: N a multiple of 64 from 128 to 448 (xLSTM-125M's mLSTM: N
+// 384, P 385, chunk 256), c and b on 16-byte boundaries, v at any P and
+// alignment.  The numerics are the N = 64 design's (every operand's hi
+// term rounded to TF32 beside its lo term; fresh accumulators every 32
+// of N in c b^T and c S_in, every KVT chunk rows in G v and the chunk
+// states), so tests/test_torch_tf32x3.py emulates it at the mLSTM's
+// widths too.
+//
+// (1) v.  TMA reads rows on 16 bytes only; the mLSTM's v rows are 1540
+// bytes.  Where TMA cannot read v (tf::pad_v), the C entry first copies
+// it into `work`, past the chunk states, as rows of padded_p(P) floats
+// (pad_v_kernel, one pass over v); both kernels then read that copy by
+// TMA.  The producers' own 4-byte cp.async copies of v measured slower in
+// development builds (the state kernel's walk paces its tiles' loads).
+// (2) Chunk states: state_tf32_kernel over N, a block a (b, h, 64
+// columns of P, NS state rows): B H (N / NS) (P / 64) walkers, 672 at the
+// mLSTM (NS 64).
+// (3) Chunk outputs: out_wide_tf32_kernel, a block a (b, h, chunk, 64-row
+// q tile, 64 columns of P), 256 threads.  c's 64 rows stay in shared
+// memory (96 KB at N 384); the block's other operands stream through a
+// ring as items of two 64-row sub-tiles: S_in^T by 64 of N, then per pair
+// of kv tiles b by 64 of N and the v tile.  Warpgroup 1 splits each item
+// into TF32 hi and lo tiles (v as v^T, the kv order permuted) and issues
+// the loads; warpgroup 0 runs an item as two interleaved chains of
+// m64n64k8 wgmmas, c's A fragments read from its tile and split in
+// registers a step at a time (G's, once a pair's score is in).  A chain of
+// the three products on 32 of K waits on each product before it, so two
+// chains a step; a warpgroup that issues wgmmas stalls until the tensor
+// cores take them, so the splits have a warpgroup of their own (three
+// warps of it; the fourth issues the loads); eight warps keep 255
+// registers a thread.
+// (4) Budgets (N 448): c 112 KB, WIDE_STAGES ring stages of 16 KB, two
+// split buffers of 32 KB, cum: 210 KB, one block an SM.
+// (5) What holds it: shared memory.  An item moves ~128 KB through it
+// (TMA's 16 KB, the split's 16 KB read and 32 KB written, the products'
+// 48 KB of B tiles, c's 16 KB of fragments), ~1000 clocks at 128 bytes a
+// clock, against ~770 clocks of 3xTF32 tensor work (PERF.md has the
+// times).  Each of the 7 column tiles of P (the mLSTM's P = 385) loads
+// and splits the same b and reads the same c again, for its own score.
 //
 // ---- f32 elsewhere: 3xTF32 mma.sync (state_kernel, pass_kernel,
 // out_kernel) ----
@@ -1816,7 +1860,9 @@ cudaError_t launch(const void* c, const void* b, const void* v,
 
 namespace tf {
 
-constexpr int NW = 64;          // the route's N: c and b rows of 64 floats
+constexpr int NW = 64;          // the route's narrow N: c and b rows of 64 floats
+constexpr int WIDE_MIN = 128;   // the wide design's N: multiples of 64 from
+constexpr int WIDE_MAX = 448;   // ... WIDE_MIN to WIDE_MAX (c's 64 rows in shared memory)
 constexpr int PW = 64;          // columns of P a block
 constexpr int KVT = 32;         // chunk rows a tile, in both kernels
 constexpr int ST_FOLD = 32;     // chunk rows a fresh accumulator of a chunk state
@@ -1826,11 +1872,16 @@ constexpr int SBUF = 3;         // staged tiles in flight, state kernel
 constexpr int OUT_STAGES = 3;   // b / v tiles in flight, outputs kernel
 constexpr int NSPLIT = 2;       // its split kv tiles (1: two blocks an SM)
 constexpr int SLOTS = 4;        // chunks whose w the state kernel's cum warp keeps
+constexpr int WIDE_STAGES = 2;  // items in flight, wide outputs kernel
+constexpr int WIDE_SPLITS = 2;  // its split items
+constexpr int WIDE_SPLIT_WARPS = 3;  // its warps that split (of 4; warp 4 loads)
+constexpr int WI = 64;          // N, kv rows or P of its items (two sub-tiles)
 constexpr int SMS = 132;        // the card's SMs: the state tile's rule
 constexpr uint32_t SUB = KVT * 128;   // a tile of KVT rows of 32 floats
 constexpr uint32_t SUB64 = 64 * 128; // a tile of 64 rows of 32 floats
 static_assert(KVT == 32 && ST_FOLD % KVT == 0 && N_FOLD % 8 == 0 &&
-                  NW % N_FOLD == 0,
+                  NW % N_FOLD == 0 && WIDE_MIN % WI == 0 &&
+                  WI % N_FOLD == 0 && N_FOLD % 32 == 0 && WI == 2 * KVT,
               "tiles of one 128-byte swizzle row; folds on tile bounds");
 
 using hopper::swz;
@@ -1841,15 +1892,16 @@ __device__ __forceinline__ float hi_of(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
-// a landed tile's TF32 terms in place: hi over x, lo into `lo` (the same
-// layout), by the 128 threads of the consumer warpgroup (thread i)
-__device__ __forceinline__ void round_tile(uint8_t* x, uint8_t* lo,
-                                           uint32_t bytes, int i) {
-  for (uint32_t e = i; e < bytes / 16; e += 128) {
+// a landed tile's TF32 terms: hi into `hi` (which may be x: in place),
+// lo into `lo` (the same layout), by `n` threads (thread i)
+__device__ __forceinline__ void split_tile(const uint8_t* x, uint8_t* hi,
+                                           uint8_t* lo, uint32_t bytes,
+                                           int i, int n) {
+  for (uint32_t e = i; e < bytes / 16; e += n) {
     const float4 v = reinterpret_cast<const float4*>(x)[e];
     const float4 h = make_float4(hi_of(v.x), hi_of(v.y), hi_of(v.z),
                                  hi_of(v.w));
-    reinterpret_cast<float4*>(x)[e] = h;
+    reinterpret_cast<float4*>(hi)[e] = h;
     reinterpret_cast<float4*>(lo)[e] =
         make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
   }
@@ -1933,14 +1985,14 @@ __global__ void __launch_bounds__(320, 1)
                       const __grid_constant__ CUtensorMap vmap,
                       const float* __restrict__ log_a,
                       const float* __restrict__ s0, float* __restrict__ work,
-                      float* __restrict__ s_final, int T_len, int H, int P,
-                      int C, int nc) {
+                      float* __restrict__ s_final, int T_len, int H, int N,
+                      int P, int C, int nc) {
   using L = StateSmem<NS>;
   const int PTL = (P + PW - 1) / PW;
   int idx = blockIdx.x;
   const int pt = idx % PTL;
   idx /= PTL;
-  const int nt = idx % (NW / NS), bh = idx / (NW / NS);
+  const int nt = idx % (N / NS), bh = idx / (N / NS);
   const int bb = bh / H, h = bh % H, p0 = pt * PW, n0 = nt * NS;
   const int kt = (C + KVT - 1) / KVT, ntiles = nc * kt;
 
@@ -2053,7 +2105,7 @@ __global__ void __launch_bounds__(320, 1)
   for (int x = 0; x < NS / 2; ++x) {
     int p, n;
     at(x, p, n);
-    S[x] = s0 != nullptr && p < P ? s0[((size_t)bh * NW + n) * P + p] : 0.f;
+    S[x] = s0 != nullptr && p < P ? s0[((size_t)bh * N + n) * P + p] : 0.f;
   }
   const uint32_t buf_addr = hopper::smem_u32(Buf);
   // v^T's A fragments of tile j, k8 step kk: (p, t), (p + 8, t), (p, t +
@@ -2115,14 +2167,14 @@ __global__ void __launch_bounds__(320, 1)
     }
     if (jj == kt - 1) {
       // S_in^T of this chunk, then the carry
-      float* out = work + (size_t)(bh * nc + ci) * P * NW;
+      float* out = work + (size_t)(bh * nc + ci) * P * N;
       const float d = expf(tot);
 #pragma unroll
       for (int x = 0; x < NS / 2; x += 2) {
         int p, n;
         at(x, p, n);
         if (p < P)
-          *reinterpret_cast<float2*>(out + (size_t)p * NW + n) =
+          *reinterpret_cast<float2*>(out + (size_t)p * N + n) =
               make_float2(S[x], S[x + 1]);
       }
 #pragma unroll
@@ -2142,7 +2194,7 @@ __global__ void __launch_bounds__(320, 1)
   for (int x = 0; x < NS / 2; ++x) {
     int p, n;
     at(x, p, n);
-    if (p < P) s_final[((size_t)bh * NW + n) * P + p] = S[x];
+    if (p < P) s_final[((size_t)bh * N + n) * P + p] = S[x];
   }
 }
 
@@ -2277,7 +2329,7 @@ __global__ void __launch_bounds__(160, 3 - NSPLIT)
     hopper::mbar_wait(&full[s], (j / OUT_STAGES) & 1);
     uint8_t* st = ring + s * L::STAGE;
     uint8_t* bf = Buf + j % NSPLIT * L::BUF;
-    round_tile(st, bf + L::BL, 2 * SUB, i);
+    split_tile(st, st, bf + L::BL, 2 * SUB, i, 128);
 #pragma unroll
     for (int e = i; e < PW * KVT / 8; e += 128)
       transpose8(st + 2 * SUB, SUB, e % PW, e / PW * 8, nullptr, true,
@@ -2300,7 +2352,8 @@ __global__ void __launch_bounds__(160, 3 - NSPLIT)
     }
   hopper::named_bar_sync(1, 128);        // c's tile read by every thread
   hopper::mbar_wait(s_full, 0);
-  round_tile(base + L::S_OFF, base + L::SL_OFF, 2 * SUB64, i);
+  split_tile(base + L::S_OFF, base + L::S_OFF, base + L::SL_OFF, 2 * SUB64,
+             i, 128);
   split(0);
   hopper::named_bar_sync(1, 128);
   const uint32_t s_addr = hopper::smem_u32(base + L::S_OFF);
@@ -2444,13 +2497,385 @@ __global__ void __launch_bounds__(160, 3 - NSPLIT)
   }
 }
 
-// The rule, decided before the launch: this design where N is 64 and TMA
-// reads c, b and v (16-byte aligned bases, P a multiple of 4 and at least
-// one 32-column box); the mma.sync kernels elsewhere.
+// ---- the chunk outputs at N above 64 (out_wide_tf32_kernel) ----
+
+// Shared memory of the wide outputs kernel at N, from a 1024-byte aligned
+// base: c (64 rows of N: N / 32 sub-tiles of 32 columns), the ring's
+// WIDE_STAGES stages of one item each (two 64-row sub-tiles, 16 KB),
+// WIDE_SPLITS split buffers (an item's two hi tiles, then its two lo
+// tiles), cum, and the mbarriers.
+struct WideSmem {
+  static constexpr uint32_t STAGE = 2 * SUB64, SPLIT = 4 * SUB64;
+  static constexpr __host__ __device__ uint32_t ring_off(int N) {
+    return N / 32 * SUB64;
+  }
+  static constexpr __host__ __device__ uint32_t split_off(int N) {
+    return ring_off(N) + WIDE_STAGES * STAGE;
+  }
+  static constexpr __host__ __device__ uint32_t cum_off(int N) {
+    return split_off(N) + WIDE_SPLITS * SPLIT;
+  }
+  static constexpr __host__ __device__ uint32_t bar_off(int N) {
+    return cum_off(N) + 4 * CMAX;
+  }
+  static constexpr __host__ __device__ size_t bytes(int N) {
+    return 1024 + bar_off(N) + 8 * (2 + WIDE_STAGES + 2 * WIDE_SPLITS);
+  }
+};
+static_assert(WideSmem::bytes(WIDE_MAX) <= 232448,
+              "over the 227 KB a block may use");
+
+// One block owns one (b, h, chunk, 64-row q tile, 64 columns of P): two
+// warpgroups, 256 threads.  The block's items, each two 64-row sub-tiles
+// of 32 columns, stream through a ring of WIDE_STAGES: S_in^T's 64 rows
+// of P by WI of N, N / WI of them; then for each pair of kv tiles (WI
+// chunk rows) its b by WI of N, N / WI of them, and its v tile, WI
+// columns of P.  Warpgroup 1's last WIDE_SPLIT_WARPS warps split each
+// landed item into one of WIDE_SPLITS buffers as TF32 hi and lo tiles (a
+// v tile as v^T, the kv order permuted), which frees its ring stage; its
+// first warp computes cum, and its thread 0 loads c once by TMA and each
+// item WIDE_STAGES ahead (a split warp that also issued the loads held
+// the splits back: measured slower, kernel_variants.py's wide_split4).
+// Warpgroup 0 runs each split item as a group of m64n64k8 wgmmas in two
+// chains of fresh accumulators (da, db), their instructions interleaved
+// (a chain of three products on 32 of K depends on each product before
+// it, and one chain alone leaves the tensor cores waiting on it), with
+// c's A fragments of the item's WI columns (read from c's tile, split in
+// registers) or G's: an S_in^T item adds exp(cum_i) (c S_in) to acc over
+// two folds of 32 of N (N_FOLD; one chain where N_FOLD is 64), a b item
+// adds c b^T over the same folds to the score of the kv pair (64 x 64 in
+// the accumulator layout), and a v tile adds G v over the pair's two kv
+// tiles of KVT (their fresh accumulators, as the mma.sync kernels'), G =
+// score o exp(cum_i - cum_j) masked and split in registers once the
+// pair's last fold is in.  A warpgroup issuing wgmmas stalls until the
+// tensor cores take them, so the splits run in a warpgroup of their own
+// (one warpgroup splitting the next item behind its products measured
+// slower in development builds).  Eight warps keep 255 registers a thread
+// (a ninth, a producer warp, would cap them at 168: an SM quarter's 16 K
+// registers over its 3 warps).
+__global__ void __launch_bounds__(256, 1)
+    out_wide_tf32_kernel(const __grid_constant__ CUtensorMap cmap,
+                         const __grid_constant__ CUtensorMap bmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap smap,
+                         const float* __restrict__ log_a,
+                         float* __restrict__ y, int T_len, int H, int N,
+                         int P, int C, int nc) {
+  using L = WideSmem;
+  const int PTL = (P + PW - 1) / PW, QT = (C + 63) / 64, NI = N / WI;
+  // the block: the P tile fastest, then the q tiles of a chunk, heaviest
+  // first
+  int idx = blockIdx.x;
+  const int pt = idx % PTL;
+  idx /= PTL;
+  const int qt = QT - 1 - idx % QT;
+  idx /= QT;
+  const int ci = idx % nc, bh = idx / nc;
+  const int bb = bh / H, h = bh % H;
+  const int t0 = ci * C, q0 = qt * 64, p0 = pt * PW;
+  const int Cv = min(C, T_len - t0);   // the chunk's rows within T
+  if (q0 >= Cv) return;                // the whole q tile is padding
+  // kv pairs up to the q tile's last row (a pair's tile past it is masked)
+  const int nkp = (min(Cv, q0 + 64) + WI - 1) / WI;
+  const int n_items = NI + nkp * (NI + 1);
+  // item it: S_in^T's columns WI it .. (it < NI), else kv pair j's b,
+  // columns WI f .. (f < NI), or its v tile (f = NI)
+  auto fold_of = [&](int it) { return it < NI ? it : (it - NI) % (NI + 1); };
+  auto pair_of = [&](int it) { return (it - NI) / (NI + 1); };
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* ring = base + L::ring_off(N);
+  uint8_t* Split = base + L::split_off(N);
+  float* cum = reinterpret_cast<float*>(base + L::cum_off(N));
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(base + L::bar_off(N));
+  uint64_t* cum_full = c_full + 1;
+  uint64_t* full = cum_full + 1;           // an item landed
+  uint64_t* ready = full + WIDE_STAGES;    // an item split
+  uint64_t* sfree = ready + WIDE_SPLITS;   // its split buffer free again
+
+  const int tid = threadIdx.x;
+  const int wid = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  if (tid == 0) {
+    hopper::mbar_init(c_full, 1);
+    hopper::mbar_init(cum_full, 32);      // warp 4's lanes
+    for (int s = 0; s < WIDE_STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    for (int s = 0; s < WIDE_SPLITS; ++s) {
+      hopper::mbar_init(&ready[s], 1);    // the split warpgroup's thread 0
+      hopper::mbar_init(&sfree[s], 4);    // the MMA warps
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wid >= 4) {
+    // ---- split warpgroup: the loads (thread 0), cum (warp 4), and each
+    // landed item's TF32 terms into split buffer it % WIDE_SPLITS ----
+    const int si = tid - 128;
+    auto issue = [&](int it) {      // item it into ring stage it % WIDE_STAGES
+      const int s = it % WIDE_STAGES, f = fold_of(it);
+      uint8_t* st = ring + s * L::STAGE;
+      const int r0 = t0 + (it < NI ? 0 : pair_of(it)) * WI;
+      hopper::mbar_expect_tx(&full[s], L::STAGE);
+      for (int k = 0; k < 2; ++k) {
+        if (it < NI)
+          hopper::tma_load_3d(st + k * SUB64, &smap, &full[s],
+                              WI * f + 32 * k, p0, bh * nc + ci);
+        else if (f < NI)
+          hopper::tma_load_4d(st + k * SUB64, &bmap, &full[s],
+                              WI * f + 32 * k, h, r0, bb);
+        else
+          hopper::tma_load_4d(st + k * SUB64, &vmap, &full[s], p0 + 32 * k,
+                              h, r0, bb);
+      }
+    };
+    if (si == 0) {
+      hopper::mbar_expect_tx(c_full, N / 32 * SUB64);
+      for (int k = 0; k < N / 32; ++k)
+        hopper::tma_load_4d(base + k * SUB64, &cmap, c_full, 32 * k, h,
+                            t0 + q0, bb);
+      for (int it = 0; it < min(WIDE_STAGES, n_items); ++it) issue(it);
+    }
+    if (wid == 4) {
+      chunk_cumsum(log_a, cum, bb, h, t0, T_len, H, C, lane);
+      __syncwarp();
+      hopper::mbar_arrive(cum_full);
+    }
+    // the split threads: the warpgroup's last WIDE_SPLIT_WARPS warps, so
+    // that thread 0's loads do not hold up a warp that splits
+    constexpr int NSP = 32 * WIDE_SPLIT_WARPS;
+    const int sj = tid - (256 - NSP);
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % WIDE_STAGES, sp = it % WIDE_SPLITS;
+      if (sj >= 0) {
+        hopper::mbar_wait(&full[s], (it / WIDE_STAGES) & 1);
+        if (it >= WIDE_SPLITS)
+          hopper::mbar_wait(&sfree[sp], ((it / WIDE_SPLITS) & 1) ^ 1);
+        const uint8_t* st = ring + s * L::STAGE;
+        uint8_t* sb = Split + sp * L::SPLIT;
+        if (fold_of(it) == NI) {
+          // v^T: 64 rows of P by kv 0-31 and 32-63, hi then lo
+          for (int e = sj; e < PW * WI / 8; e += NSP) {
+            const int p = e % PW, r0 = e / PW * 8, half = r0 / 32;
+            transpose8(st + half * 32 * 128, SUB64, p, r0 % 32, nullptr,
+                       true, sb + half * SUB64, sb + (2 + half) * SUB64, p);
+          }
+        } else {
+          split_tile(st, sb, sb + 2 * SUB64, L::STAGE, sj, NSP);
+        }
+        hopper::fence_proxy_async();
+      }
+      hopper::named_bar_sync(2, 128);   // the item split, its stage read
+      if (si == 0) {
+        hopper::mbar_arrive(&ready[sp]);
+        if (it + WIDE_STAGES < n_items) issue(it + WIDE_STAGES);
+      }
+    }
+    return;
+  }
+
+  // ---- MMA warpgroup ----
+  const int warp = wid, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 16 * warp + g;   // and row0 + 8
+  const uint32_t split_addr = hopper::smem_u32(Split);
+  // c's A fragments of item it's WI columns of N: k8 step kk's (g, t), (g
+  // + 8, t), (g, t + 4), (g + 8, t + 4) of the warp's 16 rows, TF32 hi and
+  // lo
+  uint32_t ah[WI / 8][4], al[WI / 8][4];
+  auto c_frags = [&](int it) {
+    const uint8_t* cf = base + fold_of(it) * 2 * SUB64;
+#pragma unroll
+    for (int kk = 0; kk < WI / 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * warp + g + 8 * (r & 1);
+        const int col = 8 * (kk % 4) + t + 4 * (r >> 1);
+        bident::split_tf32(*reinterpret_cast<const float*>(
+                               cf + kk / 4 * SUB64 + swz(row, col)),
+                           ah[kk][r], al[kk][r]);
+      }
+  };
+
+  float acc[PW / 2];              // y's tile
+  float da[WI / 2], db[WI / 2];   // the item's two chains
+  float sc[WI / 2];               // the kv pair's score
+  float cum_i[2], e_i[2];         // each row's cum and exp(cum) (0 past Cv)
+  // a pair needs the mask where it reaches above the q tile's first row,
+  // or where the q tile has rows past the chunk's
+  const bool rows_past = q0 + 64 > Cv;
+  constexpr bool TWO = N_FOLD == 32;   // two folds of N a b or S_in^T item
+  // item it's products: per k8 step x_lo.y_hi, x_hi.y_lo, x_hi.y_hi, the
+  // first half of K into da and the second into db (or on into da where
+  // it is one fold), with the A fragments against the K-major sub-tiles
+  // of y (hi at yh0 / yh1, lo at yl0 / yl1)
+  auto products = [&](uint32_t yh0, uint32_t yl0, uint32_t yh1, uint32_t yl1,
+                      bool two) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t h0 = kdesc(yh0, kk), h1 = kdesc(yh1, kk);
+      const uint64_t l0 = kdesc(yl0, kk), l1 = kdesc(yl1, kk);
+      using M = hopper::WgmmaTf32<WI>;
+      M::rs(da, al[kk], h0, kk > 0);
+      if (two) M::rs(db, al[kk + 4], h1, kk > 0);
+      M::rs(da, ah[kk], l0, 1);
+      if (two) M::rs(db, ah[kk + 4], l1, 1);
+      M::rs(da, ah[kk], h0, 1);
+      if (two) M::rs(db, ah[kk + 4], h1, 1);
+    }
+    if (!two)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t h1 = kdesc(yh1, kk);
+        using M = hopper::WgmmaTf32<WI>;
+        M::rs(da, al[kk + 4], h1, 1);
+        M::rs(da, ah[kk + 4], kdesc(yl1, kk), 1);
+        M::rs(da, ah[kk + 4], h1, 1);
+      }
+  };
+
+  hopper::mbar_wait(c_full, 0);
+  c_frags(0);
+  hopper::mbar_wait(cum_full, 0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    cum_i[hr] = row < Cv ? cum[row] : 0.f;
+    e_i[hr] = row < Cv ? expf(cum_i[hr]) : 0.f;
+  }
+#pragma unroll
+  for (int x = 0; x < PW / 2; ++x) acc[x] = 0.f;
+  for (int it = 0; it < n_items; ++it) {
+    const int sp = it % WIDE_SPLITS, f = fold_of(it);
+    const uint32_t sb = split_addr + sp * L::SPLIT;
+    const bool gv = f == NI;
+    hopper::mbar_wait(&ready[sp], (it / WIDE_SPLITS) & 1);
+    hopper::reg_fence(ah);
+    hopper::reg_fence(al);
+    hopper::reg_fence(da);
+    hopper::reg_fence(db);
+    hopper::wgmma_fence();
+    products(sb, sb + 2 * SUB64, sb + SUB64, sb + 3 * SUB64, gv || TWO);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(da);
+    hopper::reg_fence(db);
+    hopper::reg_fence(ah);
+    hopper::reg_fence(al);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sfree[sp]);
+    if (it < NI) {
+#pragma unroll
+      for (int x = 0; x < PW / 2; ++x) {
+        acc[x] += e_i[(x >> 1) & 1] * da[x];
+        if (TWO) acc[x] += e_i[(x >> 1) & 1] * db[x];
+      }
+    } else if (!gv) {
+#pragma unroll
+      for (int x = 0; x < WI / 2; ++x) {
+        sc[x] = f == 0 ? da[x] : sc[x] + da[x];
+        if (TWO) sc[x] += db[x];
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < PW / 2; ++x) {
+        acc[x] += da[x];
+        acc[x] += db[x];
+      }
+    }
+    if (it + 1 == n_items) break;
+    if (f == NI - 1 && it >= NI) {
+      // G = score o exp(cum_i - cum_j): element 4 jn + e is row row0 + 8
+      // (e / 2), kv column j WI + 8 jn + 2t + e % 2; then its TF32 terms
+      // in the A fragment of k8 step jn: (g, kv 2t), (g + 8, kv 2t), (g,
+      // kv 2t + 1), (g + 8, kv 2t + 1)
+      const int j = pair_of(it);
+      const bool mask = (j + 1) * WI - 1 > q0 || rows_past;
+#pragma unroll
+      for (int jn = 0; jn < WI / 8; ++jn) {
+        float gx[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1, row = row0 + 8 * hr;
+          const int col = j * WI + 8 * jn + 2 * t + (e & 1);
+          const float gv = sc[4 * jn + e] * expf(cum_i[hr] - cum[col]);
+          gx[e] = !mask || (col <= row && row < Cv) ? gv : 0.f;
+        }
+        bident::split_tf32(gx[0], ah[jn][0], al[jn][0]);
+        bident::split_tf32(gx[2], ah[jn][1], al[jn][1]);
+        bident::split_tf32(gx[1], ah[jn][2], al[jn][2]);
+        bident::split_tf32(gx[3], ah[jn][3], al[jn][3]);
+      }
+    } else {
+      c_frags(it + 1);
+    }
+  }
+
+  // y's rows of P floats: pairs of columns on 8 bytes where P is even
+  const bool pairs =
+      P % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    if (row >= Cv) continue;
+    float* out = y + ((size_t)(bb * T_len + t0 + row) * H + h) * P;
+#pragma unroll
+    for (int jn = 0; jn < PW / 8; ++jn) {
+      const int p = p0 + 8 * jn + 2 * t;
+      const float a0 = acc[4 * jn + 2 * hr], a1 = acc[4 * jn + 2 * hr + 1];
+      if (pairs) {
+        if (p < P) *reinterpret_cast<float2*>(out + p) = make_float2(a0, a1);
+      } else {
+        if (p < P) out[p] = a0;
+        if (p + 1 < P) out[p + 1] = a1;
+      }
+    }
+  }
+}
+
+// v's rows (B T H of P floats, at any alignment) into rows of P4 floats
+// at vp (16-byte aligned), zeros past P, for TMA: a thread a 16-byte
+// chunk of vp.
+__global__ void __launch_bounds__(256)
+    pad_v_kernel(const float* __restrict__ v, float* __restrict__ vp,
+                 long long rows, int P, int P4) {
+  const long long q = P4 / 4, n = rows * q;
+  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < n;
+       e += (long long)gridDim.x * 256) {
+    const long long r = e / q;
+    const int c0 = (int)(e - r * q) * 4;
+    const float* src = v + r * P + c0;
+    float x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = c0 + k < P ? src[k] : 0.f;
+    reinterpret_cast<float4*>(vp)[e] = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// The rule, decided before the launch: this design where TMA reads c and
+// b (16-byte aligned bases) and either N is a multiple of 64 from
+// WIDE_MIN to WIDE_MAX (v at any P: by TMA where it can, else by the
+// producers' plain loads) or N is 64 and TMA reads v too (a 16-byte
+// aligned base, P a multiple of 4 and at least one 32-column box); the
+// mma.sync kernels elsewhere.
 inline bool tma_route(const void* c, const void* b, const void* v, int N,
                       int P) {
-  return N == NW && P % 4 == 0 && P >= 32 && bident::aligned16(c) &&
-         bident::aligned16(b) && bident::aligned16(v);
+  return bident::aligned16(c) && bident::aligned16(b) &&
+         ((N % 64 == 0 && N >= WIDE_MIN && N <= WIDE_MAX) ||
+          (N == NW && P % 4 == 0 && P >= 32 && bident::aligned16(v)));
+}
+
+// Where the wide route's v has rows TMA cannot read (P not a multiple of
+// 4 or under 32, or a base off 16 bytes: xLSTM-125M's mLSTM at P = 385),
+// the C entry first copies v into `work` past the chunk states, at
+// pad_offset floats, as rows of padded_p floats (pad_v_kernel).
+inline bool pad_v(const void* v, int N, int P) {
+  return N != NW && !(P % 4 == 0 && P >= 32 && bident::aligned16(v));
+}
+inline int padded_p(int P) { return max(round_up(P, 4), 32); }
+inline size_t pad_offset(int B, int H, int nc, int N, int P) {
+  return ((size_t)B * H * nc * ((size_t)N * P + 1) + 3) / 4 * 4;
 }
 
 // state rows a block of the state kernel: 32 where 64-row tiles would
@@ -2462,46 +2887,74 @@ inline int state_cols(long long blocks64) {
 template <int NS>
 cudaError_t launch_state(const CUtensorMap& bm, const CUtensorMap& vm,
                          const float* log_a, const float* s0, float* work,
-                         float* s_final, int B, int T_len, int H, int P,
-                         int C, int nc, cudaStream_t stream) {
+                         float* s_final, int B, int T_len, int H, int N,
+                         int P, int C, int nc, cudaStream_t stream) {
   cudaError_t err =
       bident::allow_smem(state_tf32_kernel<NS>, StateSmem<NS>::BYTES);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * H * (NW / NS) * ((P + PW - 1) / PW);
+  const long long blocks = (long long)B * H * (N / NS) * ((P + PW - 1) / PW);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   state_tf32_kernel<NS><<<(unsigned)blocks, 320, StateSmem<NS>::BYTES,
-                          stream>>>(bm, vm, log_a, s0, work, s_final, T_len, H,
-                                    P, C, nc);
+                          stream>>>(bm, vm, log_a, s0, work, s_final, T_len,
+                                    H, N, P, C, nc);
   return cudaGetLastError();
 }
 
-// The f32 scan at N = 64: the state kernel (S_in^T of every chunk into
-// `work`, (B, H, nc, P, N); the final state), then the chunk outputs.
+// The f32 scan on this design (the calls tma_route takes): v's padded
+// copy where TMA cannot read v (pad_v), the state kernel (S_in^T of every
+// chunk into `work`, (B, H, nc, P, N); the final state), then the chunk
+// outputs, out_tf32_kernel at N = 64, out_wide_tf32_kernel above.
 cudaError_t launch(const void* c, const void* b, const void* v,
                    const float* log_a, const float* s0, void* y,
                    float* s_final, float* work, int B, int T_len, int H,
-                   int P, int C, cudaStream_t stream) {
+                   int N, int P, int C, cudaStream_t stream) {
   const int nc = (T_len + C - 1) / C, PTL = (P + PW - 1) / PW;
-  CUtensorMap cm{}, bm{}, vm{}, sm{};
-  if (!(hopper::encode_bthd(&cm, c, B, T_len, H, NW, 32, 64, 4) &&
-        hopper::encode_bthd(&bm, b, B, T_len, H, NW, 32, KVT, 4) &&
-        hopper::encode_bthd(&vm, v, B, T_len, H, P, 32, KVT, 4) &&
-        hopper::encode_f32_3d(&sm, work, NW, P, B * H * nc, 64)))
+  const bool wide = N != NW;
+  int PV = P;   // the row length of v as TMA reads it
+  if (pad_v(v, N, P)) {
+    PV = padded_p(P);
+    float* vp = work + pad_offset(B, H, nc, N, P);
+    const long long rows = (long long)B * T_len * H;
+    const long long chunks = rows * (PV / 4);
+    const int grid = (int)(chunks < 132LL * 8 * 256
+                               ? (chunks + 255) / 256 : 132LL * 8);
+    pad_v_kernel<<<grid, 256, 0, stream>>>(static_cast<const float*>(v), vp,
+                                           rows, P, PV);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    v = vp;
+  }
+  CUtensorMap cm{}, bm{}, vm{}, sm{}, bw{}, vw{};
+  if (!(hopper::encode_bthd(&cm, c, B, T_len, H, N, 32, 64, 4) &&
+        hopper::encode_bthd(&bm, b, B, T_len, H, N, 32, KVT, 4) &&
+        hopper::encode_bthd(&vm, v, B, T_len, H, PV, 32, KVT, 4) &&
+        (!wide || (hopper::encode_bthd(&bw, b, B, T_len, H, N, 32, WI, 4) &&
+                   hopper::encode_bthd(&vw, v, B, T_len, H, PV, 32, WI, 4))) &&
+        hopper::encode_f32_3d(&sm, work, N, P, B * H * nc, 64)))
     return cudaErrorInvalidValue;
   cudaError_t err =
-      state_cols((long long)B * H * PTL) == 32
+      state_cols((long long)B * H * (N / 64) * PTL) == 32
           ? launch_state<32>(bm, vm, log_a, s0, work, s_final, B, T_len, H,
-                             P, C, nc, stream)
+                             N, P, C, nc, stream)
           : launch_state<64>(bm, vm, log_a, s0, work, s_final, B, T_len, H,
-                             P, C, nc, stream);
-  if (err != cudaSuccess) return err;
-  err = bident::allow_smem(out_tf32_kernel, OutSmem::BYTES);
+                             N, P, C, nc, stream);
   if (err != cudaSuccess) return err;
   const long long blocks =
       (long long)B * H * nc * ((C + 63) / 64) * PTL;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  out_tf32_kernel<<<(unsigned)blocks, 160, OutSmem::BYTES, stream>>>(
-      cm, bm, vm, sm, log_a, static_cast<float*>(y), T_len, H, P, C, nc);
+  float* yf = static_cast<float*>(y);
+  if (!wide) {
+    err = bident::allow_smem(out_tf32_kernel, OutSmem::BYTES);
+    if (err != cudaSuccess) return err;
+    out_tf32_kernel<<<(unsigned)blocks, 160, OutSmem::BYTES, stream>>>(
+        cm, bm, vm, sm, log_a, yf, T_len, H, P, C, nc);
+  } else {
+    err = bident::allow_smem(out_wide_tf32_kernel, WideSmem::bytes(WIDE_MAX));
+    if (err != cudaSuccess) return err;
+    out_wide_tf32_kernel<<<(unsigned)blocks, 256, WideSmem::bytes(N),
+                           stream>>>(cm, bw, vw, sm, log_a, yf, T_len,
+                                     H, N, P, C, nc);
+  }
   return cudaGetLastError();
 }
 
@@ -2576,15 +3029,17 @@ cudaError_t launch_aligned(const void* c, const void* b, const void* v,
 // s_final (B,H,N,P) float32; work, float32 scratch of B*H*nc*(N*P + 1)
 // elements with nc = ceil(T / C): each chunk's S_in, (B,H,nc,N,P) for PR
 // 13's kernels and the bf16 design, (B,H,nc,P,N) for the f32 wgmma
-// design; then the mma.sync design's tot.  All contiguous device buffers.  The chunk
-// length C is at most 256 and N at most 496; P is tiled 64 columns a
-// block (at most 65535 blocks of grid z in the mma.sync design's state kernel:
-// ceil(P / 64) times ceil(N / 128)).  The design is chosen before the
-// launch by an explicit rule, never on error: bf16 takes the wgmma
-// design; f32 with N = 64 and c, b, v readable by TMA (tf::tma_route)
-// the 3xTF32 wgmma design; every other f32 call the three mma.sync
-// kernels.  Runs its kernels on `stream`; returns the first cudaError_t
-// (0 on success).
+// design; then the mma.sync design's tot; and, where the f32 wgmma design
+// above N = 64 copies v (tf::pad_v), from the next multiple of 4 floats
+// (tf::pad_offset) B*T*H rows of tf::padded_p(P) floats more.  All
+// contiguous device buffers.  The chunk length C is at most 256 and N at
+// most 496; P is tiled 64 columns a block (at most 65535 blocks of grid z
+// in the mma.sync design's state kernel: ceil(P / 64) times ceil(N /
+// 128)).  The design is chosen before the launch by an explicit rule,
+// never on error: bf16 takes the wgmma design; f32 with c and b readable
+// by TMA at N = 64 (v too) or at N 128-448 (tf::tma_route) the 3xTF32
+// wgmma design; every other f32 call the three mma.sync kernels.  Runs
+// its kernels on `stream`; returns the first cudaError_t (0 on success).
 extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
                                const void* log_a, const void* s0, void* y,
                                void* s_final, void* work, int B, int T_len,
@@ -2602,6 +3057,6 @@ extern "C" int bident_ssd_scan(const void* c, const void* b, const void* v,
   if (bf16)
     return wg::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C, s);
   if (tf::tma_route(c, b, v, N, P))
-    return tf::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, P, C, s);
+    return tf::launch(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C, s);
   return launch_aligned(c, b, v, la, st, y, sf, wk, B, T_len, H, N, P, C, s);
 }

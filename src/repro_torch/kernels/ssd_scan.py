@@ -7,10 +7,15 @@ takes).  bf16: two ``wgmma`` kernels fed by TMA, the chunk states and the
 carry in one (each block walks its chunks in order), then the chunk
 outputs (a block a chunk at N <= 64, a block a 128-row q tile above),
 with the f32 operands (G = (c b^T) o L, S_in, w o v) taken as bf16
-terms.  f32 at N = 64 with c, b, v on 16-byte boundaries (P a multiple
-of 4, at least 32): the same two phases on 3xTF32 ``wgmma`` fed by TMA,
-every operand rounded to its TF32 hi term beside a lo term.  Every other
-f32 call: three 3xTF32 ``mma.sync`` kernels, every chunk's own state,
+terms.  f32 with c and b on 16-byte boundaries, at N = 64 with v on one
+too (P a multiple of 4, at least 32), or at N a multiple of 64 from 128
+to 448 with v at any P (xLSTM-125M's mLSTM: N 384, P 385): the same two
+phases on 3xTF32 ``wgmma`` fed by TMA, every operand rounded to its TF32
+hi term beside a lo term; above N = 64 the chunk outputs keep c's rows
+in shared memory, stream S_in and b 64 state rows a step and run two
+interleaved chains of products, and a v that TMA cannot read is first
+copied into the scratch buffer as padded rows.  Every other f32 call:
+three 3xTF32 ``mma.sync`` kernels, every chunk's own state,
 then a short sequential pass that carries the state across chunks, then
 every chunk's outputs.  Its source states each design and what bounds
 it.  :func:`ssd_scan_plain` repeats the same chunked algebra in PyTorch
@@ -33,22 +38,55 @@ MAX_CHUNK = 256
 MAX_STATE = 496
 
 
-# the f32 wgmma design's N, and the kernels each f32 design launches
+# the f32 wgmma design's N: 64, and the wide range (multiples of 64 from
+# F32_WIDE_STATES[0] to F32_WIDE_STATES[1]); the kernels each f32 design
+# launches (the wide one first copies a v that TMA cannot read)
 F32_WGMMA_STATE = 64
+F32_WIDE_STATES = (128, 448)
 F32_WGMMA_KERNELS = ("state_tf32_kernel", "out_tf32_kernel")
+F32_WIDE_KERNELS = ("state_tf32_kernel", "out_wide_tf32_kernel")
+F32_WIDE_PAD_KERNELS = ("pad_v_kernel",) + F32_WIDE_KERNELS
 F32_MMA_SYNC_KERNELS = ("state_kernel", "pass_kernel", "out_kernel")
+
+
+def _tma_rows(t, P: int) -> bool:
+    """TMA reads rows of P floats at t: P a multiple of 4 and at least
+    32 (one 32-column box), a 16-byte aligned base."""
+    return P % 4 == 0 and P >= 32 and t.data_ptr() % 16 == 0
 
 
 def f32_kernels(c, b, v) -> tuple[str, ...]:
     """The kernels an f32 call launches, by the C entry's rule
-    (``tf::tma_route``): the 3xTF32 ``wgmma`` design at N =
-    :data:`F32_WGMMA_STATE` where TMA reads c, b and v (16-byte aligned
-    bases, P a multiple of 4 and at least 32), else the ``mma.sync``
+    (``tf::tma_route``): where TMA reads c and b (16-byte aligned bases),
+    the 3xTF32 ``wgmma`` design, at N a multiple of 64 in
+    :data:`F32_WIDE_STATES` with v at any P (first copied into padded
+    rows where TMA cannot read it, ``tf::pad_v``), or at N =
+    :data:`F32_WGMMA_STATE` where TMA reads v too; else the ``mma.sync``
     design."""
+    N, P = b.shape[-1], v.shape[-1]
+    if not all(t.data_ptr() % 16 == 0 for t in (c, b)):
+        return F32_MMA_SYNC_KERNELS
+    lo, hi = F32_WIDE_STATES
+    if N % 64 == 0 and lo <= N <= hi:
+        return F32_WIDE_KERNELS if _tma_rows(v, P) else F32_WIDE_PAD_KERNELS
+    if N == F32_WGMMA_STATE and _tma_rows(v, P):
+        return F32_WGMMA_KERNELS
+    return F32_MMA_SYNC_KERNELS
+
+
+def scratch_floats(c, b, v, chunk: int = MAX_CHUNK) -> int:
+    """Floats of the C entry's scratch buffer ``work`` for this call: each
+    chunk's S_in and each chunk's tot, B H nc (N P + 1); where the f32
+    wide design copies v (``F32_WIDE_PAD_KERNELS``), then, from the next
+    multiple of 4, v's B T H rows padded to ``tf::padded_p(P)`` floats."""
+    B, T, H, N = b.shape
     P = v.shape[-1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in (c, b, v))
-    return F32_WGMMA_KERNELS if b.shape[-1] == F32_WGMMA_STATE and \
-        P % 4 == 0 and P >= 32 and aligned else F32_MMA_SYNC_KERNELS
+    nc = -(-T // _chunk(chunk, T))
+    n = B * H * nc * (N * P + 1)
+    if v.dtype == torch.float32 and f32_kernels(c, b, v) == \
+            F32_WIDE_PAD_KERNELS:
+        n = -(-n // 4) * 4 + B * T * H * max(-(-P // 4) * 4, 32)
+    return n
 
 
 def _chunk(chunk: int, T: int) -> int:
@@ -126,9 +164,9 @@ def ssd_scan_cuda(c, b, v, log_a, *, initial_state=None,
     y = torch.empty_like(v)
     s_final = torch.empty((B, H, N, P), dtype=torch.float32, device=v.device)
     # each chunk's S_in ((B, H, nc, N, P); (B, H, nc, P, N) on the f32
-    # wgmma design), then each chunk's tot (B, H, nc) for the mma.sync one
-    nc = -(-T // C)
-    work = torch.empty(B * H * nc * (N * P + 1), dtype=torch.float32,
+    # wgmma designs), then each chunk's tot (B, H, nc) for the mma.sync
+    # one; v's padded copy where the f32 wide design makes one
+    work = torch.empty(scratch_floats(c, b, v, C), dtype=torch.float32,
                        device=v.device)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream

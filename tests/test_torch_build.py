@@ -286,11 +286,26 @@ def test_f32_ssd_scan_variants_match_the_sources():
         assert got[variant].count("WgmmaTf32<NS>::rs(part") == n, variant
         assert got[variant].count("M::rs(d, ") == n, variant
         assert got[variant].count("WgmmaTf32<PW>::rs(part") == n, variant
+        # the wide outputs kernel: two interleaved chains, or one
+        assert got[variant].count("M::rs(da, ") == 2 * n, variant
+        assert got[variant].count("M::rs(db, ") == n, variant
     assert shipped.count("WgmmaTf32<NS>::rs(part") == 3
+    assert shipped.count("M::rs(da, ") == 6
+    assert shipped.count("M::rs(db, ") == 3
     assert "return 32;" in got["st32"] and "return 64;" in got["st64"]
     assert "constexpr int OUT_STAGES = 2;" in got["f32_stages2"]
     assert "constexpr int ST_STAGES = 3;    // b / v tiles in flight, " \
         "state kernel" in got["st_stages3"]
+    # the wide design's variants (xLSTM-125M's mLSTM shape)
+    for variant in kv.SSD_F32_WIDE[1:]:
+        files = kv.sources(variant, "ssd_scan")
+        assert set(files) == {"ssd_scan.cu", "common.cuh", "hopper.cuh"}
+        assert files != kv.sources("shipped", "ssd_scan"), variant
+        got[variant] = files["ssd_scan.cu"]
+    assert "constexpr int WIDE_STAGES = 3;" in got["wide_ring3"]
+    assert "constexpr int WIDE_SPLITS = 1;" in got["wide_splits1"]
+    assert "constexpr int WIDE_SPLIT_WARPS = 4;" in got["wide_split4"]
+    assert "if (it < NI || gv || pt == 0)" in got["wide_score_p0"]
     # the mma.sync kernels' bf16 branches are gone, and so is the variant that fed them
     assert "EXACT" not in shipped and "tf32" not in kv.VARIANTS
     for variant in kv.SSD_BF16[1:]:
@@ -303,9 +318,12 @@ def test_f32_ssd_scan_variants_match_the_sources():
 
 def test_f32_ssd_scan_rule_mirrors_the_c_entry():
     """``ssd_scan.f32_kernels`` states the C entry's rule
-    (``tf::tma_route``): N = 64 with c, b, v on 16-byte boundaries and P a
-    multiple of 4, at least 32, takes the wgmma design; every other f32
-    call the mma.sync kernels."""
+    (``tf::tma_route``): with c and b on 16-byte boundaries, N a multiple
+    of 64 from 128 to 448 takes the wgmma design at any P and v (v's
+    padded copy first where TMA cannot read it, ``tf::pad_v``), and N =
+    64 with v on a 16-byte boundary and P a multiple of 4, at least 32;
+    every other f32 call the mma.sync kernels.  The wrapper's scratch
+    (``scratch_floats``) holds the padded copy where the rule makes one."""
     import re
 
     import torch
@@ -315,10 +333,18 @@ def test_f32_ssd_scan_rule_mirrors_the_c_entry():
     rule = re.search(r"inline bool tma_route\(.*?\{\s*return (.*?);", src,
                      re.S).group(1)
     assert re.sub(r"\s+", " ", rule) == (
-        "N == NW && P % 4 == 0 && P >= 32 && bident::aligned16(c) && "
-        "bident::aligned16(b) && bident::aligned16(v)")
+        "bident::aligned16(c) && bident::aligned16(b) && ((N % 64 == 0 && "
+        "N >= WIDE_MIN && N <= WIDE_MAX) || (N == NW && P % 4 == 0 && "
+        "P >= 32 && bident::aligned16(v)))")
+    pad = re.search(r"inline bool pad_v\(.*?\{\s*return (.*?);", src,
+                    re.S).group(1)
+    assert re.sub(r"\s+", " ", pad) == (
+        "N != NW && !(P % 4 == 0 && P >= 32 && bident::aligned16(v))")
     nw = int(re.search(r"constexpr int NW = (\d+);", src).group(1))
     assert nw == ss.F32_WGMMA_STATE
+    wide = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("WIDE_MIN", "WIDE_MAX"))
+    assert wide == ss.F32_WIDE_STATES == (128, 448)
     assert "if (tf::tma_route(c, b, v, N, P))" in src
 
     def x(*shape, offset=0):
@@ -332,3 +358,31 @@ def test_f32_ssd_scan_rule_mirrors_the_c_entry():
                     (x(1, 8, 2, 64, offset=1), cb, x(1, 8, 2, 64)),
                     (cb, cb, x(1, 8, 2, 64, offset=1))):
         assert ss.f32_kernels(c, b, v) == ss.F32_MMA_SYNC_KERNELS
+    # above N = 64: the wide design at any P and v, where c and b are on
+    # 16 bytes; v copied first where TMA cannot read it
+    wide = x(1, 8, 2, 384)
+    assert ss.f32_kernels(wide, wide, x(1, 8, 2, 384)) == \
+        ss.F32_WIDE_KERNELS
+    for v in (x(1, 8, 2, 385), x(1, 8, 2, 384, offset=1), x(1, 8, 2, 16)):
+        assert ss.f32_kernels(wide, wide, v) == ss.F32_WIDE_PAD_KERNELS
+    for N in (128, 192, 320, 448):
+        assert ss.f32_kernels(x(1, 8, 2, N), x(1, 8, 2, N),
+                              x(1, 8, 2, 96)) == ss.F32_WIDE_KERNELS
+    for c, b in ((x(1, 8, 2, 96), x(1, 8, 2, 96)),
+                 (x(1, 8, 2, 496), x(1, 8, 2, 496)),
+                 (x(1, 8, 2, 384, offset=1), wide),
+                 (wide, x(1, 8, 2, 384, offset=2))):
+        assert ss.f32_kernels(c, b, x(1, 8, 2, 385)) == \
+            ss.F32_MMA_SYNC_KERNELS
+    # the scratch: S_in and tot, then from the next multiple of 4 the
+    # padded rows (P 385 -> 388 floats) where the rule copies v
+    B, T, H, nc = 1, 8, 2, 1
+    assert ss.scratch_floats(wide, wide, x(1, 8, 2, 384), 8) == \
+        B * H * nc * (384 * 384 + 1)
+    base = B * H * nc * (384 * 385 + 1)
+    assert ss.scratch_floats(wide, wide, x(1, 8, 2, 385), 8) == \
+        -(-base // 4) * 4 + B * T * H * 388
+    assert ss.scratch_floats(wide, wide, x(1, 8, 2, 16), 8) == \
+        -(-(B * H * nc * (384 * 16 + 1)) // 4) * 4 + B * T * H * 32
+    assert ss.scratch_floats(cb, cb, x(1, 8, 2, 385), 8) == \
+        B * H * nc * (64 * 385 + 1)

@@ -146,8 +146,8 @@ def _launched(fn, names=ATTN_KERNELS, traces: int = 3) -> list:
             fn()
             torch.cuda.synchronize()
         got = sorted({n for ev in prof.key_averages()
-                      if ev.device_type == DeviceType.CUDA
-                      for n in names if f"::{n}<" in ev.key})
+                      if ev.device_type == DeviceType.CUDA for n in names
+                      if f"::{n}<" in ev.key or f"::{n}(" in ev.key})
         if got:
             break
     return got
@@ -416,10 +416,29 @@ F32_SSD_CASES = {   # B, T, H, N, P, chunk, initial state, decay, unaligned
                                           None, ()),
     "P 128 (two P tiles), chunk 32": (2, 160, 1, 64, 128, 32, True, None,
                                       ()),
+    # above N = 64, the wide design: xLSTM-125M's mLSTM widths (P 385: v
+    # copied into padded rows first), P 384 (v by TMA), N 128 to 320,
+    # initial states, ragged T, v off 16 bytes
+    "N 384, P 385": (1, 300, 2, 384, 385, 256, False, None, ()),
+    "N 384, P 385, initial_state": (1, 300, 2, 384, 385, 256, True, None,
+                                    ()),
+    "N 384, P 384, ragged T, chunk 64": (2, 200, 1, 384, 384, 64, True, None,
+                                         ()),
+    "N 128, P 96, initial_state, ragged T": (1, 300, 3, 128, 96, 128, True,
+                                             None, ()),
+    "N 128, P 16, T < chunk": (1, 100, 2, 128, 16, 256, True, None, ()),
+    "N 256, P 65, chunk 100": (1, 250, 2, 256, 65, 100, True, None, ()),
+    "N 320, strong decay, chunk 256": (1, 600, 1, 320, 64, 256, True, -5.0,
+                                       ()),
+    "N 448, P 200, chunk 128": (1, 333, 2, 448, 200, 128, True, None, ()),
+    "N 384, v unaligned": (1, 160, 2, 384, 384, 128, True, None, ("v",)),
     # the rule's other side: the mma.sync kernels
     "N 16 (mma.sync by the rule)": (1, 100, 3, 16, 32, 32, True, None, ()),
-    "N 384, P 385 (mma.sync by the rule)": (1, 300, 2, 384, 385, 256, False,
-                                            None, ()),
+    "N 384, P 385, c unaligned (mma.sync by the rule)": (
+        1, 300, 2, 384, 385, 256, True, None, ("c",)),
+    "N 128, b unaligned (mma.sync by the rule)": (1, 100, 2, 128, 64, 32,
+                                                  False, None, ("b",)),
+    "N 96 (mma.sync by the rule)": (1, 64, 2, 96, 32, 32, False, None, ()),
     "P 385 at N 64 (mma.sync by the rule)": (1, 200, 2, 64, 385, 64, True,
                                              None, ()),
     "c, b, v unaligned (mma.sync by the rule)": (1, 96, 2, 64, 64, 64,
@@ -430,31 +449,25 @@ F32_SSD_CASES = {   # B, T, H, N, P, chunk, initial state, decay, unaligned
 }
 
 
-def _scan_launched(fn) -> tuple:
-    """The port's scan kernels one ``fn()`` launched, by name, from a
-    device trace (in the order of ``ssd_scan``'s f32 designs)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = ss.F32_WGMMA_KERNELS + ss.F32_MMA_SYNC_KERNELS
-    ran = {n for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA
-           for n in names if f"::{n}<" in ev.key or f"::{n}(" in ev.key}
-    return tuple(n for n in names if n in ran)
+def _scan_launched(fn) -> list:
+    """The port's f32 scan kernels one ``fn()`` launched, by name and
+    sorted, from a device trace (taken again where it holds none, as
+    ``_launched`` does)."""
+    names = tuple(dict.fromkeys(ss.F32_WGMMA_KERNELS + ss.F32_WIDE_PAD_KERNELS
+                                + ss.F32_MMA_SYNC_KERNELS))
+    return _launched(fn, names)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(F32_SSD_CASES))
 def test_f32_ssd_scan_kernel_matches_plain(cuda, case):
     """The f32 scan: 3xTF32 wgmma fed by TMA at N = 64 where TMA reads c,
-    b and v, the mma.sync kernels elsewhere (the C entry's rule,
-    ``ssd_scan.f32_kernels``, read from a device trace); y and the final
-    state within the f32 bucket of the plain version's largest value,
-    bitwise run to run, one counted launch a call."""
+    b and v and at N 128-448 where it reads c and b (v copied into padded
+    rows first where TMA cannot read it), the mma.sync kernels elsewhere
+    (the C entry's rule, ``ssd_scan.f32_kernels``, read from a device
+    trace); y and the final state within the f32 bucket of the plain
+    version's largest value, bitwise run to run, one counted launch a
+    call."""
     B, T, H, N, P, chunk, with_s0, decay, unaligned = F32_SSD_CASES[case]
     rng = np.random.default_rng(23 + N + T + P)
     f32 = torch.float32
@@ -462,6 +475,8 @@ def test_f32_ssd_scan_kernel_matches_plain(cuda, case):
     x = dict(c=_rand(rng, (B, T, H, N), cuda, f32, scale),
              b=_rand(rng, (B, T, H, N), cuda, f32, scale),
              v=_rand(rng, (B, T, H, P), cuda, f32))
+    if P == N + 1:
+        x["v"][..., -1] = 1.0
     for name in unaligned:
         x[name] = _unaligned(x[name])
     c, b, v = x["c"], x["b"], x["v"]
@@ -487,9 +502,14 @@ def test_f32_ssd_scan_kernel_matches_plain(cuda, case):
                     / want.double().abs().max())
         assert rel <= TOL[f32]["rtol"], rel
     want = ss.f32_kernels(c, b, v)
-    assert want == (ss.F32_MMA_SYNC_KERNELS if "mma.sync" in case
-                    else ss.F32_WGMMA_KERNELS)
-    assert _scan_launched(call) == want
+    if "mma.sync" in case:
+        assert want == ss.F32_MMA_SYNC_KERNELS
+    elif N > 64:
+        assert want == (ss.F32_WIDE_KERNELS if P % 4 == 0 and P >= 32
+                        and not unaligned else ss.F32_WIDE_PAD_KERNELS)
+    else:
+        assert want == ss.F32_WGMMA_KERNELS
+    assert _scan_launched(call) == sorted(want)
 
 
 @pytest.mark.gpu

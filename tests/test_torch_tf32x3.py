@@ -413,7 +413,11 @@ def test_wgmma_attention_fragment_relabelling():
 # 16 chunks on the main path), and shows what the choices avoid: raw
 # tiles as their own hi terms (the f32 expert GLU's and attention's way) and one chain over N
 # each pull the outputs toward zero further, and without either cross
-# product of any chain the bucket is missed.
+# product of any chain the bucket is missed.  The wide design above N =
+# 64 (``tf::out_wide_tf32_kernel``, xLSTM-125M's mLSTM at N 384, P 385)
+# keeps the same fresh accumulators (two chains of 32 of N an item, a kv
+# pair's G v as its two tiles' chains), so the same emulation holds it at
+# the mLSTM's widths, chunk 256 over T 300.
 
 _SCAN_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
              "csrc" / "ssd_scan.cu").read_text()
@@ -532,25 +536,35 @@ def ssd_f64(c, b, v, la, C):
     return y[:T], S
 
 
-def _scan_operands(T: int):
-    """c, b (0.5 N(0, 1)), v (N(0, 1)) at N = P = 64, log_a = -softplus
-    (N(0, 1)), as chip_smoke.py draws the main path's scan."""
-    rng = np.random.default_rng(T)
+# (N, P, scale of c and b): the main path's state (N = P = 64, as
+# chip_smoke.py draws it) and xLSTM-125M's mLSTM (N 384, P 385 with v's
+# column of ones; c and b at the 1/sqrt(N)-like scale of
+# tests/test_torch_kernels.py's mLSTM case)
+MAIN, MLSTM = (64, 64, 0.5), (384, 385, 0.1)
+
+
+def _scan_operands(T: int, shape=MAIN):
+    """c, b (scale N(0, 1)), v (N(0, 1); its last column ones where P = N
+    + 1), log_a = -softplus(N(0, 1)) at ``shape``."""
+    N, P, scale = shape
+    rng = np.random.default_rng(T if shape == MAIN else (T, N, P))
 
     def n(*shape, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape) * scale).float()
-    return (n(T, 64, scale=0.5), n(T, 64, scale=0.5), n(T, 64),
-            -torch.nn.functional.softplus(n(T)))
+    c, b, v = n(T, N, scale=scale), n(T, N, scale=scale), n(T, P)
+    if P == N + 1:
+        v[:, -1] = 1.0
+    return c, b, v, -torch.nn.functional.softplus(n(T))
 
 
 _SCAN_RUNS: dict = {}
 
 
-def _scan_run(C, T, **kw):
+def _scan_run(C, T, shape=MAIN, **kw):
     """(y, state, f64 y, f64 state) of one emulated run, memoised."""
-    key = (C, T, tuple(sorted((k, str(v)) for k, v in kw.items())))
+    key = (C, T, shape, tuple(sorted((k, str(v)) for k, v in kw.items())))
     if key not in _SCAN_RUNS:
-        ops = _scan_operands(T)
+        ops = _scan_operands(T, shape)
         _SCAN_RUNS[key] = wgmma_scan(*ops, C, **kw) + ssd_f64(*ops, C)
     return _SCAN_RUNS[key]
 
@@ -561,49 +575,64 @@ def _scan_err(run) -> float:
                float((s - ws).abs().max() / ws.abs().max()))
 
 
-@pytest.mark.parametrize("C,T", [(64, 256), (64, 1024), (128, 512),
-                                 (256, 256), (256, 1024)])
-def test_wgmma_scan_holds_the_bucket(C, T):
+@pytest.mark.parametrize("C,T,shape", [
+    pytest.param(64, 256, MAIN, id="64-256"),
+    pytest.param(64, 1024, MAIN, id="64-1024"),
+    pytest.param(128, 512, MAIN, id="128-512"),
+    pytest.param(256, 256, MAIN, id="256-256"),
+    pytest.param(256, 1024, MAIN, id="256-1024"),
+    pytest.param(256, 300, MLSTM, id="mlstm-256-300")])
+def test_wgmma_scan_holds_the_bucket(C, T, shape):
     """The design's folds hold y and the final state within 3e-5 of the
     largest value of the chunked algebra in f64 (~1e-6 at chunk 64, ~8e-6
-    at chunk 256, f32's own order there)."""
-    assert _scan_err(_scan_run(C, T)) <= F32_TOL
+    at chunk 256, f32's own order there; ~4e-6 at the mLSTM's widths)."""
+    assert _scan_err(_scan_run(C, T, shape)) <= F32_TOL
 
 
-@pytest.mark.parametrize("C", [64, 256])
-def test_wgmma_scan_shrink_at_most_the_mma_sync_kernels(C):
-    """At T 1024 the truncating accumulators pull the outputs toward zero
-    by no more than the mma.sync kernels do (~2.6e-7 of themselves)."""
-    want = _scan_run(C, 1024)[2]
-    design = _shrink(_scan_run(C, 1024)[0], want)
-    mma_sync = _shrink(_scan_run(C, 1024, folds=MMA_SYNC_FOLDS)[0], want)
+@pytest.mark.parametrize("C,T,shape", [
+    pytest.param(64, 1024, MAIN, id="64"),
+    pytest.param(256, 1024, MAIN, id="256"),
+    pytest.param(256, 300, MLSTM, id="mlstm")])
+def test_wgmma_scan_shrink_at_most_the_mma_sync_kernels(C, T, shape):
+    """At T 1024 (T 300 at the mLSTM's widths) the truncating accumulators
+    pull the outputs toward zero by no more than the mma.sync kernels do
+    (~2.6e-7 of themselves)."""
+    want = _scan_run(C, T, shape)[2]
+    design = _shrink(_scan_run(C, T, shape)[0], want)
+    mma_sync = _shrink(_scan_run(C, T, shape, folds=MMA_SYNC_FOLDS)[0], want)
     assert design < 0 and abs(design) <= abs(mma_sync), (design, mma_sync)
 
 
-@pytest.mark.parametrize("alternative", ["raw tiles", "one chain over N"])
-@pytest.mark.parametrize("C", [64, 256])
-def test_wgmma_scan_alternatives_shrink_further(C, alternative):
+@pytest.mark.parametrize("C,T,shape,alternative", [
+    pytest.param(C, T, shape, alt, id=f"{label}-{alt}")
+    for label, C, T, shape in ((64, 64, 1024, MAIN), (256, 256, 1024, MAIN),
+                               ("mlstm", 256, 300, MLSTM))
+    for alt in ("raw tiles", "one chain over N")])
+def test_wgmma_scan_alternatives_shrink_further(C, T, shape, alternative):
     """Raw tiles as their own hi terms (their lo terms' truncation always
     pulls toward zero) and one chain over N in c b^T and c S_in each hold
     the bucket but pull the outputs toward zero at least half as far
     again as the design does; the main path's route oracle is sensitive
     to that drift (the f32 attention showed it), so the design rounds and folds."""
-    want = _scan_run(C, 1024)[2]
+    want = _scan_run(C, T, shape)[2]
     kw = {"tiles": raw} if alternative == "raw tiles" else \
-        {"folds": dict(SCAN_FOLDS, score=64, inter=64)}
-    run = _scan_run(C, 1024, **kw)
-    design = _shrink(_scan_run(C, 1024)[0], want)
+        {"folds": dict(SCAN_FOLDS, score=shape[0], inter=shape[0])}
+    run = _scan_run(C, T, shape, **kw)
+    design = _shrink(_scan_run(C, T, shape)[0], want)
     assert _scan_err(run) <= F32_TOL
     assert _shrink(run[0], want) < 1.5 * design, (_shrink(run[0], want),
                                                   design)
 
 
-@pytest.mark.parametrize("dropped", ["lo.hi", "hi.lo"])
-@pytest.mark.parametrize("chain", CHAINS)
-def test_wgmma_scan_needs_every_product(chain, dropped):
+@pytest.mark.parametrize("chain,dropped,C,T,shape", [
+    pytest.param(chain, dropped, C, T, shape, id=label + f"{chain}-{dropped}")
+    for label, C, T, shape in (("", 64, 256, MAIN),
+                               ("mlstm-", 256, 300, MLSTM))
+    for chain in CHAINS for dropped in ("lo.hi", "hi.lo")])
+def test_wgmma_scan_needs_every_product(chain, dropped, C, T, shape):
     """Without either cross product of any of the four chains, y or the
-    final state misses the f32 bucket."""
-    assert _scan_err(_scan_run(64, 256, drop=(chain, dropped))) > F32_TOL
+    final state misses the f32 bucket (at the mLSTM's widths too)."""
+    assert _scan_err(_scan_run(C, T, shape, drop=(chain, dropped))) > F32_TOL
 
 
 def test_wgmma_scan_permuted_kv_order_gives_g_v():
@@ -665,3 +694,10 @@ if __name__ == "__main__":
             run = _scan_run(C, 1024, **kw)
             print(f"scan chunk {C} T 1024 {label}: {_scan_err(run):.2e}, "
                   f"shrink {_shrink(run[0], run[2]):.2e}", flush=True)
+    # ... and at xLSTM-125M's mLSTM widths (N 384, P 385), chunk 256
+    for label, kw in (("design", {}), ("raw tiles", {"tiles": raw}),
+                      ("one chain over N",
+                       {"folds": dict(SCAN_FOLDS, score=384, inter=384)})):
+        run = _scan_run(256, 300, MLSTM, **kw)
+        print(f"scan mLSTM chunk 256 T 300 {label}: {_scan_err(run):.2e}, "
+              f"shrink {_shrink(run[0], run[2]):.2e}", flush=True)
