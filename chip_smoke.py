@@ -183,8 +183,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    the card's 80, FLOPs, bytes, collective bytes by kind and the
    dominant term, each cell within 60 s, beside the reference's
    compiled record of the same cell (constants, ``DRYRUN_REFERENCE``):
-   the port's GiB a device within 2x the reference's.  The phase has a
-   time budget;
+   the port's GiB a device within 2x the reference's, its collective B a
+   chip within ``DRYRUN_COLL_CEILING`` times the reference's, and
+   ``select_layer``'s share of them logged.  The phase has a time
+   budget;
 11. the examples — each of ``examples/torch_*.py`` in this process on
    the card (``train_e2e`` at 2 layers of width 256, 40 steps, a
    checkpoint every 20): each must finish and print its last check
@@ -3767,6 +3769,17 @@ DRYRUN_REFERENCE = {
 }
 # the port's GiB a device is held within this multiple of the reference's
 DRYRUN_GIB_CEILING = 2.0
+# the port's collective B a chip, total over kinds, is held within these
+# multiples of the reference's total: 1.1x the ratios this phase measured
+# once sharding.select_layer fetched a layer by broadcast, 0.5142 and
+# 0.2143 (0.5162 and 0.2143 before; PERF.md)
+DRYRUN_COLL_CEILING = {
+    "llama3.2-1b|train_4k|16x16": 0.566,
+    "deepseek-v3-671b|decode_32k|2x16x16": 0.236,
+}
+# the collective kinds that sharding.select_layer alone issues (a layer's
+# broadcast from its owner, its gradient's reduce to it)
+SELECT_LAYER_KINDS = ("broadcast", "reduce")
 
 
 def _local_leaves(tree) -> list:
@@ -4079,18 +4092,27 @@ def _mesh_dryrun() -> dict:
             f"{wall:.1f} s")
         gib, ref_coll, ref_flops = DRYRUN_REFERENCE[key]
         port_gib = rec["bytes_per_device"] / 2**30
+        total = sum(coll.values())
+        ratio = total / sum(ref_coll.values())
         log(f"  (d) {key} reference (compiled, constants of PERF.md): "
             f"{gib:.2f} GiB per device, {ref_flops:.4g} FLOPs per chip, "
             f"collective B per chip {ref_coll}; port / reference: "
-            f"{port_gib / gib:.3f}x GiB, "
-            f"{sum(coll.values()) / sum(ref_coll.values()):.3f}x "
-            f"collective B, {rec['flops_per_chip'] / ref_flops:.3f}x FLOPs")
+            f"{port_gib / gib:.3f}x GiB, {ratio:.4f}x collective B, "
+            f"{rec['flops_per_chip'] / ref_flops:.3f}x FLOPs")
+        fetch = sum(coll.get(k, 0.0) for k in SELECT_LAYER_KINDS)
+        log(f"  (d) {key}: select_layer moves {fetch:.4g} B per chip, "
+            f"{100 * fetch / total:.1f}% of the port's collective B")
         check(port_gib <= DRYRUN_GIB_CEILING * gib,
               f"(d) {key}: {port_gib:.2f} GiB per device within "
               f"{DRYRUN_GIB_CEILING:.0f}x the reference's {gib:.2f}")
+        ceiling = DRYRUN_COLL_CEILING[key]
+        check(ratio <= ceiling,
+              f"(d) {key}: collective B per chip {ratio:.4f}x the "
+              f"reference's, within {ceiling}x")
         check(wall <= DRYRUN_BUDGET_S,
               f"(d) {key} in {wall:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)")
-        out[key] = dict(rec, wall=wall)
+        out[key] = dict(rec, wall=wall, collective_ratio=ratio,
+                        select_layer_bytes=fetch)
     return out
 
 

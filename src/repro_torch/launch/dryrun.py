@@ -50,12 +50,16 @@ production mesh with ``Auto`` axes):
   of the activation; DTensor splits evenly and would gather it, so the
   port splits the weight's column blocks instead (``models.layers``)
   and the record shows an all-gather of the weight.
-* FSDP on the stacked layer dim gathers a layer as a partial sum
-  (``sharding.select_layer``), an all-reduce at twice the wire bytes of
-  the reference's all-gather: at reduced Llama's prefill on a (4, 4)
-  mesh 2.98e5 B a chip of all-reduce against the reference's 1.49e5 B of
-  all-gather (and the bulk of the port's decode record: 2.98e5 of its
-  3.05e5 B of all-reduce).
+* FSDP on the stacked layer dim fetches one layer at a time
+  (``sharding.select_layer``): a broadcast from the rank that holds it,
+  and in the backward a reduce of its gradient to that rank.  The
+  reference's compiled step all-gathers the stack instead, and
+  reduce-scatters its gradient.  On a ring both move (n-1)/n of a layer
+  a chip for each layer, and the record counts them as the kinds
+  ``broadcast`` and ``reduce``, which the reference's record never has.
+  At reduced Llama's prefill on a (4, 4) mesh that is 1.49e5 B a chip
+  of broadcast, against the reference's 1.49e5 B of all-gather.  Before,
+  the layer was an all-reduce of a partial sum: 2.98e5 B, twice as much.
 
 Results accumulate in a JSON file so the sweep is resumable.
 
@@ -167,7 +171,8 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
                sp: bool = False, serve_layout: str | None = None,
                train_layout: str | None = None, *,
                cfg=None, batch: int | None = None, seq: int | None = None,
-               mesh_shape: tuple | None = None, pool=None):
+               mesh_shape: tuple | None = None, pool=None,
+               peak_top: int = 0):
     """Run one cell's step on ``meta`` shards; returns the result record.
 
     ``sp`` / ``serve_layout`` / ``train_layout`` select the layouts of
@@ -175,7 +180,9 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     ``mesh_shape`` (with axes (data, model) or (pod, data, model)) cut a
     cell to a small size, for tests.  ``pool`` (a ``spawn`` process pool,
     see :func:`count_pool`) runs the global count; without one the cell
-    starts its own."""
+    starts its own.  ``peak_top`` > 0 adds ``peak_tensors``, the largest
+    storages live at the peak of ``bytes_per_device``
+    (:meth:`repro_torch.launch.roofline.OpCounter.peak_tensors`)."""
     import dataclasses
 
     cfg = cfg if cfg is not None else get_config(arch)
@@ -237,7 +244,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     tc = T.TrainConfig(microbatches=microbatches,
                        opt=adamw.AdamWConfig(state_dtype=state_dtype))
     t0 = time.time()
-    counter = OpCounter()
+    counter = OpCounter(peak_top=peak_top)
     with implicit_replication():
         params = _placed_meta(params_shapes,
                               T.param_shardings(policy, params_shapes))
@@ -317,6 +324,8 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
         model_flops_per_chip=mf_per_chip,
         useful_flop_ratio=(mf_per_chip / flops) if flops else None,
     )
+    if peak_top:
+        rec["peak_tensors"] = counter.peak_tensors()
     return rec
 
 

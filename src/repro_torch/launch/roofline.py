@@ -15,16 +15,17 @@ port runs the step once under a ``TorchDispatchMode``
   per output element.  Totals are GLOBAL; per-chip is / n_chips under
   even sharding, as the reference has it.
 * on a mesh, DTensor runs each op as local ops on the shards and issues
-  c10d functional collectives; the mode counts those
-  (:func:`collective_bytes`: bytes per chip by kind, times the
-  reference's ring ``_wire_factor`` over the group's size) and the peak
-  of one rank's live local bytes.
+  c10d functional collectives, and ``sharding.select_layer`` a broadcast
+  and a reduce; the mode counts those (:func:`collective_bytes`: bytes
+  per chip by kind, times the ring ``_wire_factor`` over the group's
+  size) and the peak of one rank's live local bytes.
 
 The port loops over layers in Python, so every layer's ops are seen and
 nothing needs a trip multiplier.
 """
 from __future__ import annotations
 
+import heapq
 import weakref
 from typing import Callable
 
@@ -32,9 +33,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-                  "collective-permute")
+                  "collective-permute", "broadcast", "reduce")
 
-# c10d functional op -> collective kind
+# c10d op -> collective kind: the functional ops (DTensor's, and the
+# broadcast of ``sharding.select_layer``), and the in-place reduce of
+# ``select_layer``'s backward (c10d has no functional reduce), which takes
+# its tensors as a list and the process group itself
 _COLLECTIVE_OF = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -43,6 +47,8 @@ _COLLECTIVE_OF = {
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast",
+    "reduce_": "reduce",
 }
 
 # aten ops whose traffic the fusion model counts (the reference's ANCHORS:
@@ -96,13 +102,17 @@ def _group_size(group_name) -> int:
 
 def _wire_factor(op: str, n: int) -> float:
     """Per-chip wire bytes as a multiple of the op's output, for a ring
-    implementation over a group of size n (the reference's table):
+    implementation over a group of size n (the reference's table; the
+    last two kinds are the port's alone, ``sharding.select_layer``'s):
 
       all-reduce      2(n-1)/n x tensor     (reduce-scatter + all-gather)
       all-gather      (n-1)/n  x output     (output full)
       reduce-scatter  (n-1)    x output     (output the shard)
       all-to-all      (n-1)/n  x tensor
       collective-permute  1    x tensor
+      broadcast       (n-1)/n  x tensor     (a pipelined chain: every
+                                             chip but the last forwards it)
+      reduce          (n-1)/n  x tensor     (the chain reversed)
     """
     if op == "all-reduce":
         return 2.0 * (n - 1) / n
@@ -110,7 +120,7 @@ def _wire_factor(op: str, n: int) -> float:
         return (n - 1) / n
     if op == "reduce-scatter":
         return float(n - 1)
-    if op == "all-to-all":
+    if op in ("all-to-all", "broadcast", "reduce"):
         return (n - 1) / n
     return 1.0
 
@@ -121,9 +131,13 @@ class OpCounter(TorchDispatchMode):
     sharding propagation runs ops on fake tensors of its own, at global
     shapes, which are not the rank's work."""
 
-    def __init__(self, track_memory: bool = True):
+    def __init__(self, track_memory: bool = True, peak_top: int = 0):
         super().__init__()
         self.track_memory = track_memory
+        # with peak_top > 0, the largest live storages at the peak, as
+        # (bytes, what made them): :meth:`peak_tensors`
+        self.peak_top = peak_top
+        self._at_peak: list[tuple[float, str]] = []
         self.flops = 0.0
         self.bytes = 0.0
         self.matmul_flops = 0.0
@@ -146,9 +160,30 @@ class OpCounter(TorchDispatchMode):
         for t in _tensors(tensors):
             if isinstance(t, DTensor):
                 t = t._local_tensor
-            self._track(t)
+            self._track(t, "input")
 
-    def _track(self, t) -> None:
+    def peak_tensors(self) -> list[tuple[float, str]]:
+        """The ``peak_top`` largest storages live at the peak, largest
+        first: (bytes, "op shape dtype < the innermost model function that
+        ran it"), an input's op named ``input``."""
+        return list(self._at_peak)
+
+    @staticmethod
+    def _label(t, what: str) -> str:
+        import sys
+        f, site = sys._getframe(2), "?"
+        while f is not None:
+            path = f.f_code.co_filename
+            if "repro_torch" in path and "/launch/" not in path \
+                    and not path.endswith("sharding.py"):
+                site = (f"{path.rsplit('/', 1)[-1][:-3]}."
+                        f"{f.f_code.co_name}:{f.f_lineno}")
+                break
+            f = f.f_back
+        dtype = str(t.dtype).replace("torch.", "")
+        return f"{what} {tuple(t.shape)} {dtype} < {site}"
+
+    def _track(self, t, what: str) -> None:
         try:
             st = t.untyped_storage()
         except (RuntimeError, NotImplementedError):
@@ -165,9 +200,15 @@ class OpCounter(TorchDispatchMode):
             ref = weakref.ref(st, gone)
         except TypeError:
             return
-        self._held[key] = (ref, nbytes)
+        label = self._label(t, what) if self.peak_top else ""
+        self._held[key] = (ref, nbytes, label)
         self.live += nbytes
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self.peak_top:
+                self._at_peak = heapq.nlargest(
+                    self.peak_top, ((b, lab) for _, b, lab
+                                    in self._held.values()))
 
     # -- counting -------------------------------------------------------------
     def _count(self, name, func, args, kwargs, outs) -> None:
@@ -198,7 +239,13 @@ class OpCounter(TorchDispatchMode):
         outs = [t for t in _tensors(out) if self._ours(t)]
         kind = _COLLECTIVE_OF.get(name)
         if kind is not None:
-            n = _group_size(args[-1])
+            if name == "reduce_":
+                # (tensors, process group, ...): the tensor reduced
+                from torch.distributed import ProcessGroup
+                n = ProcessGroup.unbox(args[1]).size()
+                outs = list(_tensors(args[0]))[-1:]
+            else:
+                n = _group_size(args[-1])
             for o in outs[:1]:
                 self.collectives[kind] += _nbytes(o) * _wire_factor(kind, n)
                 self.collective_counts[kind] += 1
@@ -206,7 +253,7 @@ class OpCounter(TorchDispatchMode):
             self._count(name, func, args, kwargs, outs)
         if self.track_memory:
             for t in outs:
-                self._track(t)
+                self._track(t, name)
         return out
 
     def totals(self) -> dict[str, float]:

@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from ..sharding import (Policy, assemble, attention_shards, gather_dim,
-                        is_dtensor, local_shape_and_offset, local_value,
-                        place, reshape, sharded_on, split_ways)
+                        hold_grad, is_dtensor, local_shape_and_offset,
+                        local_value, place, reshape, rows_of, sharded_on,
+                        split_ways)
 
 F32 = torch.float32
 
@@ -68,7 +69,16 @@ def ones(n: int, dtype, device) -> torch.Tensor:
 def rms_norm(x, w, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    ms = (x * x).mean(dim=-1, keepdim=True)
+    if sharded_on(x, x.ndim - 1):
+        # a mesh splits the normalised dim: the row means made whole once,
+        # placed as x's rows, and the gradient of the scale kept so, so
+        # that the backward stays on x's shards (DTensor's own choices
+        # split the seq dim and gather x and its gradient back)
+        ms = rows_of(ms, x)
+        x = x * hold_grad(torch.rsqrt(ms + eps))
+    else:
+        x = x * torch.rsqrt(ms + eps)
     return (x * w).to(dt)
 
 
@@ -649,6 +659,41 @@ def moe_block(p, x, cfg, shd: Policy):
 # chunked gated linear recurrence — shared by Mamba2 (SSD) and mLSTM
 # ---------------------------------------------------------------------------
 
+def _intra_chunk(cc, bb, vv, cum):
+    """The intra-chunk term of :func:`chunked_linear_recurrence`, in a
+    function of its own so that its (B, nc, C, C, H) temporaries die with
+    it: L[i,j] = exp(cum_i - cum_j) for i >= j, masked before exp."""
+    chunk = cum.shape[2]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,C,C,H)
+    ii = torch.arange(chunk, device=cum.device)
+    lmask = ii[:, None] >= ii[None, :]
+    diff = torch.where(lmask[None, None, :, :, None], diff,
+                       torch.full((), -1e9, device=cum.device))
+    L = torch.exp(diff)
+    s_intra = torch.einsum("bgihn,bgjhn->bgijh", cc, bb) * L
+    return torch.einsum("bgijh,bgjhp->bgihp", s_intra, vv)
+
+
+def _inter_chunk(cc, bb, vv, cum, tot, initial_state):
+    """The inter-chunk term of :func:`chunked_linear_recurrence` from the
+    state before the first chunk (None: zeros), and the final state; its
+    chunk states die with it."""
+    # per-chunk state contribution: sum_j exp(tot - cum_j) b_j v_j^T
+    w = torch.exp(tot[:, :, None, :] - cum)                 # (B,nc,C,H)
+    chunk_state = torch.einsum("bgjh,bgjhn,bgjhp->bghnp", w, bb, vv)
+    # zeros split as the chunk states (on a mesh, not a whole-batch copy)
+    S = (torch.zeros_like(chunk_state[:, 0]) if initial_state is None
+         else initial_state.float())
+    # inter-chunk pass over nc, emitting the state *before* each chunk
+    states_in = []
+    for g in range(cum.shape[1]):
+        states_in.append(S)
+        S = S * torch.exp(tot[:, g])[..., None, None] + chunk_state[:, g]
+    states_in = torch.stack(states_in, 1)                   # (B,nc,H,N,P)
+    return torch.einsum("bgihn,bghnp,bgih->bgihp", cc, states_in,
+                        torch.exp(cum)), S
+
+
 def chunked_linear_recurrence(c, b, v, log_a, *, chunk: int,
                               initial_state=None):
     """y_t = c_t^T S_t,  S_t = exp(log_a_t) * S_{t-1} + b_t v_t^T.
@@ -670,31 +715,8 @@ def chunked_linear_recurrence(c, b, v, log_a, *, chunk: int,
     la = reshape(log_a, B, nc, chunk, H).float()
     cum = torch.cumsum(la, dim=2)                   # (B, nc, C, H)
     tot = cum[:, :, -1]                             # (B, nc, H)
-
-    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j, masked before exp
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,C,C,H)
-    ii = torch.arange(chunk, device=v.device)
-    lmask = ii[:, None] >= ii[None, :]
-    diff = torch.where(lmask[None, None, :, :, None], diff,
-                       torch.full((), -1e9, device=v.device))
-    L = torch.exp(diff)
-    s_intra = torch.einsum("bgihn,bgjhn->bgijh", cc, bb) * L
-    y_intra = torch.einsum("bgijh,bgjhp->bgihp", s_intra, vv)
-
-    # per-chunk state contribution: sum_j exp(tot - cum_j) b_j v_j^T
-    w = torch.exp(tot[:, :, None, :] - cum)                 # (B,nc,C,H)
-    chunk_state = torch.einsum("bgjh,bgjhn,bgjhp->bghnp", w, bb, vv)
-
-    # inter-chunk pass over nc, emitting the state *before* each chunk
-    S = (torch.zeros((B, H, N, P), dtype=F32, device=v.device)
-         if initial_state is None else initial_state.float())
-    states_in = []
-    for g in range(nc):
-        states_in.append(S)
-        S = S * torch.exp(tot[:, g])[..., None, None] + chunk_state[:, g]
-    states_in = torch.stack(states_in, 1)                   # (B,nc,H,N,P)
-    y_inter = torch.einsum("bgihn,bghnp,bgih->bgihp", cc, states_in,
-                           torch.exp(cum))
+    y_intra = _intra_chunk(cc, bb, vv, cum)
+    y_inter, S = _inter_chunk(cc, bb, vv, cum, tot, initial_state)
     y = reshape(y_intra + y_inter, B, nc * chunk, H, P)[:, :T]
     return y.to(v.dtype), S
 
@@ -730,6 +752,18 @@ def mamba2_init(gen, cfg, dtype, device) -> dict:
         "norm_w": ones(di, dtype, device),
         "out_proj": dense_init(gen, di, d, dtype, device),
     }
+
+
+def _causal_conv(x, w, b):
+    """The depthwise causal conv of ``x`` (B, T, C) with taps ``w`` (k,
+    C) and bias ``b`` from a zero history, in a function of its own so
+    that its padded copy of ``x`` dies with it."""
+    B, T, C = x.shape
+    k = w.shape[0]
+    pad = x.new_zeros((B, k - 1, C))
+    xin = torch.cat([pad, x], dim=1)
+    out = sum(xin[:, i:i + T] * w[i] for i in range(k))
+    return out + b
 
 
 def _repeat_groups(x, rep: int):
@@ -768,10 +802,7 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
         # the conv tail a decode continues from (the last k-1 rows, copied
         # so that a prefill's cache does not hold the whole projection)
         new_conv = xbc[:, -(cfg.ssm_conv - 1):].clone()
-        pad = xbc.new_zeros((B, cfg.ssm_conv - 1, conv_dim))
-        xin = torch.cat([pad, xbc], dim=1)
-        xbc = sum(xin[:, i:i + T] * p["conv_w"][i] for i in range(cfg.ssm_conv))
-        xbc = xbc + p["conv_b"]
+        xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xbc = F.silu(xbc)
     xs, Bc, Cc = xbc.split([di, N * G, xbc.shape[-1] - di - N * G], dim=-1)
     Tx = xs.shape[1]
@@ -799,7 +830,10 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
                                          chunk=cfg.ssm_chunk)
         new_state = {"ssm": S, "conv": new_conv}
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = reshape(y, B, y.shape[1], di)
+    # the gradient of the scan's output made whole where the forward had
+    # it whole, so that the scan's, the conv's and their splits' backward
+    # run on the forward's shards (one gather of it, not one an op)
+    y = hold_grad(reshape(y, B, y.shape[1], di))
     y = rms_norm(y * F.silu(z[:, :y.shape[1]]), p["norm_w"])
     out = y @ p["out_proj"]
     return shd.constrain(out, "batch", "seq_act", "embed", name="ssm_out"), new_state

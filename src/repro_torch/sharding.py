@@ -294,26 +294,86 @@ def sharded_on(x, dim: int) -> bool:
 def select_layer(x, i: int):
     """``x[i]`` of a DTensor split along dim 0 (a stacked parameter whose
     layer dim FSDP claimed): only layer ``i`` is gathered, never the
-    stack.  The ranks that hold layer ``i`` contribute it and the others
-    zeros, as a partial sum over the mesh dims that split dim 0, which
-    one all-reduce of the layer's size makes whole; the other dims keep
-    their placements."""
-    from torch.distributed.tensor import Partial, Shard
-    mesh = x.device_mesh
-    local = x.to_local()
-    shape, offset = local_shape_and_offset(x.shape, mesh, x.placements)
-    j = i - offset[0]
-    if 0 <= j < shape[0]:
-        piece = local[j]
-    else:
-        # zeros that stay on the autograd graph, so that every rank runs
-        # the backward all-reduce of every layer, in the same order
-        piece = torch.where(torch.zeros((), dtype=torch.bool,
-                                        device=local.device), local[0], 0)
-    part = tuple(Partial() if p.is_shard(0) else
-                 Shard(p.dim - 1) if p.is_shard() else p
-                 for p in x.placements)
-    return settle(assemble(piece, mesh, part, x.shape[1:]))
+    stack.  The rank that holds layer ``i`` broadcasts it over the mesh
+    dims that split dim 0, (n-1)/n of the layer a chip on a ring, as the
+    reference's all-gather of it; the other dims keep their placements.
+    The backward reduces the layer's gradient to that rank, where it
+    arrives as a partial sum over those dims (where it arrives whole, the
+    owner keeps its own and nothing moves).  Every rank runs every
+    layer's backward collective, in the same order, and a reduction has
+    no atomics: the gradient is the same bits run to run."""
+    return _SelectLayer.apply(x, i)
+
+
+def _layer_group(mesh, dims: tuple):
+    """The process group of the mesh dims ``dims`` (in mesh order, the
+    first the major one: DTensor's order of the shards)."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    names = mesh_axis_names(mesh)
+    return mesh[tuple(names[d] for d in dims)]._flatten().get_group()
+
+
+class _SelectLayer(torch.autograd.Function):
+    """:func:`select_layer`: a broadcast from the layer's owner, and a
+    reduce to it as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, i):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, pls = x.device_mesh, tuple(x.placements)
+        dims = tuple(m for m, p in enumerate(pls) if p.is_shard(0))
+        shape, offset = local_shape_and_offset(x.shape, mesh, pls)
+        owner, j = divmod(i, shape[0])   # the owner's rank in the group
+        group = _layer_group(mesh, dims)
+        # every rank sends a buffer of the layer's shape; only the
+        # owner's is read
+        out = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.broadcast(
+                x.to_local()[j].contiguous(), owner, group.group_name))
+        piece = tuple(Replicate() if p.is_shard(0) else
+                      Shard(p.dim - 1) if p.is_shard() else p for p in pls)
+        ctx.meta = (x.shape, pls, piece, dims, shape, j, owner, group,
+                    offset[0] == owner * shape[0])
+        return assemble(out, mesh, piece, x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate
+        full, pls, piece, dims, shape, j, owner, group, mine = ctx.meta
+        mesh = g.device_mesh
+        # the gradient in the forward's placements, but for a partial sum
+        # over the layer's dims, which the reduce makes whole on the owner
+        want = tuple((q if q.is_partial() and q.reduce_op == "sum"
+                      else Replicate()) if m in dims else p
+                     for m, (p, q) in enumerate(zip(piece, g.placements)))
+        if tuple(g.placements) != want:
+            g = g.redistribute(mesh, want)
+        gl = g.to_local()
+        if any(want[m].is_partial() for m in dims):
+            # where the gradient is whole on a dim, one rank of it sends
+            coord = mesh.get_coordinate()
+            at = _unravel(owner, [mesh.size(m) for m in dims])
+            sends = all(coord[m] == c for m, c in zip(dims, at)
+                        if not want[m].is_partial())
+            gl = gl.clone(memory_format=torch.contiguous_format) if sends \
+                else torch.zeros_like(gl, memory_format=torch.contiguous_format)
+            dist.reduce(gl, dst=dist.get_global_rank(group, owner),
+                        group=group)
+        grad = torch.zeros(shape, dtype=gl.dtype, device=gl.device)
+        if mine:
+            grad[j] = gl
+        return assemble(grad, mesh, pls, full), None
+
+
+def _unravel(k: int, sizes) -> list:
+    """The coordinates of index ``k`` in a row-major grid of ``sizes``."""
+    out = []
+    for n in reversed(sizes):
+        k, c = divmod(k, n)
+        out.append(c)
+    return out[::-1]
 
 
 class _HoldGrad(torch.autograd.Function):
@@ -477,7 +537,12 @@ def lookup(table, tokens):
     tok = place(tokens, mesh, tpl).to_local()
     shape, offset = local_shape_and_offset(table.shape, mesh,
                                            table.placements)
-    loc = table.to_local()
+    # where the tokens are split and the table is not, each rank's rows
+    # give a partial sum of the table's gradient, made whole in the
+    # table's placements
+    gpl = tuple(Partial() if t.is_shard(0) else q
+                for q, t in zip(table.placements, tpl))
+    loc = hold_grad(table).to_local(grad_placements=gpl)
     ids = tok.long() - offset[0]
     valid = (ids >= 0) & (ids < shape[0])
     rows = loc[ids.clamp(0, shape[0] - 1)] * valid[..., None].to(loc.dtype)
