@@ -32,10 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..sharding import (Policy, assemble, attention_shards, gather_dim,
-                        hold_grad, is_dtensor, local_shape_and_offset,
-                        local_value, place, reshape, rows_of, sharded_on,
-                        split_ways)
+from ..sharding import (NO_POLICY, Policy, assemble, attention_shards,
+                        column_blocks, gather_dim, hold_grad, is_dtensor,
+                        local_shape_and_offset, local_value, place,
+                        placements, reshape, rows_of, sharded_on,
+                        split_ways, to_local)
 
 F32 = torch.float32
 
@@ -323,8 +324,14 @@ def gqa_attention(p, x, cfg, shd: Policy, *, positions, cache=None,
     k = reshape(x @ p["wk"], B, T, cfg.n_kv_heads, dh)
     v = reshape(x @ p["wv"], B, T, cfg.n_kv_heads, dh)
     q = shd.constrain(q, "batch", "seq", "heads", None, name="attn_q")
-    k = shd.constrain(k, "batch", "seq", "kv_heads", None, name="attn_k")
-    v = shd.constrain(v, "batch", "seq", "kv_heads", None, name="attn_v")
+    # where each rank reads only the kv heads of its q heads, the k/v
+    # gradients are partial sums over the q heads' split: they stay so
+    # through the projections, so that the input's gradient (q's, k's and
+    # v's parts) is made whole once
+    k = shd.constrain(k, "batch", "seq", "kv_heads", None, name="attn_k",
+                      partial_grad=True)
+    v = shd.constrain(v, "batch", "seq", "kv_heads", None, name="attn_v",
+                      partial_grad=True)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -541,14 +548,11 @@ def _weight_moves(x, w) -> bool:
 
 def _column_blocks(w, sizes, shd: Policy, axes):
     """``w`` (d_in, d_out) cut into column blocks of ``sizes``, each with
-    its columns split as the logical axis in ``axes`` (None: whole); ``w``
-    is gathered once for all of them."""
-    w = gather_dim(w, w.ndim - 1)
-    out, start = [], 0
-    for n, ax in zip(sizes, axes):
-        out.append(shd.constrain(w[:, start:start + n], None, ax))
-        start += n
-    return out
+    its columns split as the logical axis in ``axes`` (None: whole)
+    (:func:`repro_torch.sharding.column_blocks`)."""
+    return column_blocks(w, sizes, [
+        placements(shd.mesh, shd.guarded_spec((w.shape[0], n), None, ax))
+        for n, ax in zip(sizes, axes)])
 
 
 def swiglu_mlp(p, x, shd: Policy):
@@ -774,14 +778,59 @@ def _repeat_groups(x, rep: int):
                    B, T, G * rep, N)
 
 
+def _heads_of_groups(x, rep: int, h0: int, h: int):
+    """(B, T, G, N) -> (B, T, h, N): the group of each head of [h0, h0 +
+    h), ``rep`` heads to a group; of all the heads, :func:`_repeat_groups`."""
+    if h0 % rep == 0 and h % rep == 0:
+        return _repeat_groups(x[:, :, h0 // rep:(h0 + h) // rep], rep)
+    idx = torch.arange(h0, h0 + h, device=x.device) // rep
+    return x.index_select(2, idx)
+
+
+def _ssd_inputs(xbc, dt, A_log, dt_bias, cfg, h: int, h0: int = 0,
+                shd: Policy = NO_POLICY):
+    """The scan's operands for heads [h0, h0 + h) from the conv's
+    activated output ``xbc`` (B, T, h*P + 2*N*G) and the projection's
+    ``dt`` (B, T, h), with ``A_log`` and ``dt_bias`` of those heads:
+    (xs (B,T,h,P), c, b (B,T,h,N), xdt (B,T,h,P), log_a (B,T,h)).  On a
+    mesh (``shd``: a decode step, with no backward) all of them take the
+    heads' split, b and c as slices of their whole value."""
+    B, T = xbc.shape[:2]
+    N, G = cfg.ssm_state, cfg.ssm_groups
+    P = cfg.ssm_d_inner // cfg.ssm_heads
+    rep = cfg.ssm_heads // G
+    xs, Bc, Cc = xbc.split([h * P, N * G, N * G], dim=-1)
+    xs = shd.constrain(reshape(xs, B, T, h, P), "batch", "seq", "heads", None)
+    Bh, Ch = (shd.constrain(_heads_of_groups(reshape(t, B, T, G, N), rep,
+                                             h0, h),
+                            "batch", "seq", "heads", None) for t in (Bc, Cc))
+    dt = shd.constrain(dt, "batch", "seq", "heads")
+    dt = F.softplus(dt.float() + dt_bias)                          # (B,T,h)
+    A = -torch.exp(A_log)
+    log_a = dt * A                                                 # (B,T,h)
+    xdt = xs * dt[..., None].to(xs.dtype)
+    return xs, Ch, Bh, xdt, log_a
+
+
+def _mamba2_out(p, y, z, shd: Policy):
+    """The Mamba-2 block's gated norm and output projection of the scan's
+    output ``y`` (B, T, di)."""
+    y = rms_norm(y * F.silu(z[:, :y.shape[1]]), p["norm_w"])
+    out = y @ p["out_proj"]
+    return shd.constrain(out, "batch", "seq_act", "embed", name="ssm_out")
+
+
 def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
                  use_kernel: bool = False):
     """Mamba-2 (SSD).  state = dict(ssm (B,H,N,P), conv (B, k-1, convdim))
     for single-step decode; None for full-sequence work, whose returned
-    state then holds the conv tail a decode continues from."""
+    state then holds the conv tail a decode continues from.  On a mesh a
+    sequence runs on each rank's heads (:func:`_mamba2_on_heads`); a
+    decode step splits x dt, b and c as the state's heads."""
+    if state is None and is_dtensor(x):
+        return _mamba2_on_heads(p, x, cfg, shd, use_kernel)
     B, T, d = x.shape
     di, H, N, G = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
-    P = di // H
     conv_dim = di + 2 * N * G
     # the input projection, split into (z, xbc, dt); where the weight moves
     # (:func:`_weight_moves`), z is split as the ff axis, xbc and dt whole
@@ -804,39 +853,95 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
         new_conv = xbc[:, -(cfg.ssm_conv - 1):].clone()
         xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xbc = F.silu(xbc)
-    xs, Bc, Cc = xbc.split([di, N * G, xbc.shape[-1] - di - N * G], dim=-1)
-    Tx = xs.shape[1]
-    xs = reshape(xs, B, Tx, H, P)
-    Bc = reshape(Bc, B, Tx, G, N)
-    Cc = reshape(Cc, B, Tx, G, N)
-    rep = H // G
-    Bh = _repeat_groups(Bc, rep)
-    Ch = _repeat_groups(Cc, rep)
-    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,T,H)
-    A = -torch.exp(p["A_log"])
-    log_a = dt * A                                                 # (B,T,H)
-    xdt = xs * dt[..., None].to(xs.dtype)
+    xs, Ch, Bh, xdt, log_a = _ssd_inputs(xbc, dt, p["A_log"], p["dt_bias"],
+                                         cfg, H, shd=shd)
     if state is not None:
         y, S = linear_recurrence_step(state["ssm"], Ch[:, 0], Bh[:, 0],
                                       xdt[:, 0], log_a[:, 0])
         y = y[:, None]
-        new_state = {"ssm": S, "conv": new_conv}
     elif use_kernel:
         from ..kernels import ops as K
         y, S = K.ssd_scan(Ch, Bh, xdt, log_a, chunk=cfg.ssm_chunk)
-        new_state = {"ssm": S, "conv": new_conv}
     else:
         y, S = chunked_linear_recurrence(Ch, Bh, xdt, log_a,
                                          chunk=cfg.ssm_chunk)
-        new_state = {"ssm": S, "conv": new_conv}
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    # the gradient of the scan's output made whole where the forward had
-    # it whole, so that the scan's, the conv's and their splits' backward
-    # run on the forward's shards (one gather of it, not one an op)
-    y = hold_grad(reshape(y, B, y.shape[1], di))
-    y = rms_norm(y * F.silu(z[:, :y.shape[1]]), p["norm_w"])
-    out = y @ p["out_proj"]
-    return shd.constrain(out, "batch", "seq_act", "embed", name="ssm_out"), new_state
+    y = reshape(y, B, y.shape[1], di)
+    return _mamba2_out(p, y, z, shd), {"ssm": S, "conv": new_conv}
+
+
+def _mamba2_on_heads(p, x, cfg, shd: Policy, use_kernel: bool):
+    """:func:`mamba2_block` over a sequence on a mesh, the conv and the
+    scan on each rank's heads.  The heads split over the mesh dims that
+    split the ff axis the same way (where they do not, they stay whole),
+    so that a rank's heads are its columns of z and the gate and the norm
+    run on them as they are.  The input projection gives xs (split as
+    z), B and C (whole) and dt (split as the heads); from there to the
+    scan's output the block runs meshless on this rank's shards: the
+    conv on its columns of xs and on B and C, the scan (the kernel
+    through its mesh entry) on its heads.  Each rank's part of B's and
+    C's gradient, and of the parameters' (the conv taps, ``A_log``,
+    ``dt_bias``, ``D``), returns as a partial sum over the mesh dims that
+    split the work: the projection's backward carries it on, so that the
+    input's gradient is made whole once."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    B, T, _ = x.shape
+    di, H, N, G = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    P, k = di // H, cfg.ssm_conv
+    ff = shd.guarded_spec((B, T, di), "batch", "seq", "ff")[2]
+    split = ff is not None and \
+        ff == shd.guarded_spec((B, T, H), "batch", "seq", "heads")[2]
+    xs_ax, dt_ax = ("ff", "heads") if split else (None, None)
+    sizes = [di, di, 2 * N * G, H]
+    if _weight_moves(x, p["in_proj"]):
+        z, xs, bc, dt = (x @ w for w in _column_blocks(
+            p["in_proj"], sizes, shd, ("ff", xs_ax, None, dt_ax)))
+    else:
+        z, xs, bc, dt = (x @ p["in_proj"]).split(sizes, dim=-1)
+    z = shd.constrain(z, "batch", "seq", "ff", name="ssm_z")
+    xs = shd.constrain(xs, "batch", "seq", xs_ax)
+    dt = shd.constrain(dt, "batch", "seq", dt_ax)
+    bc = shd.constrain(bc, "batch", "seq", None, partial_grad=True)
+    mesh, pl = xs.device_mesh, tuple(xs.placements)
+    rep = tuple(Replicate() for _ in pl)
+    wpl = tuple(Partial() if q.is_shard() else Replicate() for q in pl)
+
+    def whole(w):
+        # a parameter whole on this rank; its gradient a partial sum over
+        # the mesh dims that split the work
+        return to_local(place(w, mesh, rep), wpl)
+    shape, off = local_shape_and_offset((B, T, H), mesh, dt.placements)
+    h0, h = off[2], shape[2]
+    cols = (slice(h0 * P, (h0 + h) * P), slice(di, None))
+    cw, cb = whole(p["conv_w"]), whole(p["conv_b"])
+    xbc = torch.cat([to_local(xs), to_local(bc, tuple(
+        Partial() if q.is_shard(2) else b
+        for q, b in zip(pl, bc.placements)))], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, torch.cat([cw[:, c] for c in cols], -1),
+                              torch.cat([cb[c] for c in cols])))
+    heads = slice(h0, h0 + h)
+    xs_l, Ch, Bh, xdt, log_a = _ssd_inputs(
+        xbc, to_local(dt), whole(p["A_log"])[heads],
+        whole(p["dt_bias"])[heads], cfg, h, h0)
+    spl = tuple(Shard(1) if q.is_shard(2) else q for q in pl)
+    if use_kernel:
+        from ..kernels import ops as K
+        y, S = K.ssd_scan(*(assemble(t, mesh, pl, (B, T, H) + t.shape[3:])
+                            for t in (Ch, Bh, xdt, log_a)),
+                          chunk=cfg.ssm_chunk)
+        y = y.to_local()
+    else:
+        y, S = chunked_linear_recurrence(Ch, Bh, xdt, log_a,
+                                         chunk=cfg.ssm_chunk)
+        S = assemble(S, mesh, spl, (B, H, N, P))
+    y = y + xs_l * whole(p["D"])[heads][None, None, :, None].to(xs_l.dtype)
+    y = assemble(y.reshape(y.shape[0], T, h * P), mesh, pl, (B, T, di))
+    if not split:
+        # y whole where z is split: its gradient gathered once, here
+        y = hold_grad(y)
+    # the conv tail a decode continues from
+    new_conv = torch.cat([xs[:, -(k - 1):], bc[:, -(k - 1):]], dim=-1)
+    return _mamba2_out(p, y, z, shd), {"ssm": S, "conv": new_conv}
 
 
 # ---------------------------------------------------------------------------

@@ -532,28 +532,45 @@ def cache_pspecs(policy: Policy, cache_tree):
     return tree_unflatten(cache_tree, out)
 
 
+class _Leaf:
+    """A cache leaf's shape and dtype, without a tensor."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None,
                shd: Policy = NO_POLICY) -> dict:
     """Zeroed caches on ``device`` (default: the card).  ``len`` is a
     device int32 scalar.  With a mesh in ``shd`` every leaf is a DTensor
     with the placements of :func:`cache_pspecs`, each rank allocating
-    its shard only."""
+    its shard only (the placements read from the leaves' shapes, with no
+    whole-batch tensor made first)."""
     if device is None:
         from ..core.modelgraph import chain_device
         device = chain_device(None)
     device = torch.device(device)
     if shd.mesh is not None:
-        meta = init_cache(cfg, batch, max_len, "meta")
+        shapes = _cache_tree(cfg, batch, max_len, _Leaf)
         return tree_map(
             lambda m, s: sharded_zeros(m.shape, m.dtype, device,
                                        NamedSharding(shd.mesh, s)),
-            meta, cache_pspecs(shd, meta))
+            shapes, cache_pspecs(shd, shapes))
+    return _cache_tree(cfg, batch, max_len, lambda shape, dtype: torch.zeros(
+        shape, dtype=dtype, device=device))
+
+
+def _cache_tree(cfg, batch: int, max_len: int, leaf) -> dict:
+    """The cache tree of :func:`init_cache`, each leaf ``leaf(shape,
+    dtype)``."""
     dt = cfg.torch_dtype
     bp = cfg.block_pattern
     Lc = cfg.n_layers
 
     def zeros(shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return leaf(shape, dtype)
 
     def attn_cache(n, length):
         return {"k": zeros((n, batch, length, cfg.n_kv_heads, cfg.d_head)),

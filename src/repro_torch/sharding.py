@@ -379,29 +379,211 @@ def _unravel(k: int, sizes) -> list:
 class _HoldGrad(torch.autograd.Function):
     """Identity whose backward puts the gradient in the given placements
     (the transpose of JAX's ``with_sharding_constraint`` constrains the
-    cotangent to the same sharding)."""
+    cotangent to the same sharding); with ``partial``, a partial sum over
+    a mesh dim where the placements are whole stays pending."""
 
     @staticmethod
-    def forward(ctx, x, pl):
-        ctx.pl = pl
+    def forward(ctx, x, pl, partial):
+        ctx.pl, ctx.partial = pl, partial
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        if is_dtensor(g) and tuple(g.placements) != ctx.pl:
-            g = g.redistribute(g.device_mesh, ctx.pl)
-        return g, None
+        if not is_dtensor(g):
+            return g, None, None
+        pl = ctx.pl
+        if ctx.partial:
+            pl = tuple(q if q.is_partial() and p.is_replicate() else p
+                       for p, q in zip(pl, g.placements))
+        if tuple(g.placements) != pl:
+            g = g.redistribute(g.device_mesh, pl)
+        return g, None, None
 
 
-def hold_grad(x):
+def hold_grad(x, partial: bool = False):
     """``x``; its gradient arrives in ``x``'s placements (partial sums
     made whole), whatever placements DTensor picks for the ops after it.
-    A plain tensor, or one that needs no gradient, as it is."""
+    With ``partial``, a partial sum over a mesh dim where ``x`` is whole
+    stays a partial sum: a linear map that follows (a projection's
+    backward) carries it on, so that partial sums of several such
+    gradients are added first and made whole once.  A plain tensor, or
+    one that needs no gradient, as it is."""
     if not is_dtensor(x) or not x.requires_grad:
         return x
     from torch.distributed.tensor import Replicate
     pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
-    return _HoldGrad.apply(x, pl)
+    return _HoldGrad.apply(x, pl, partial)
+
+
+def column_blocks(w, sizes, pls) -> list:
+    """``w`` (d_in, d_out), a DTensor whose columns a mesh splits, cut
+    into column blocks of ``sizes`` with placements ``pls``.  Where one
+    mesh dim splits the columns and every block is whole on the others,
+    each rank receives only the columns its blocks hold, from the ranks
+    that hold them (an all-to-all over that dim, the permute GSPMD issues
+    there), and the backward sends each block's gradient back the same
+    way (a partial sum to each column's owner, which adds them in rank
+    order); a partial sum over the other mesh dims (the batch's split)
+    stays one where ``w`` is whole there, for ``select_layer``'s reduce
+    to take, and is reduce-scattered where ``w`` is split there.
+    Elsewhere ``w`` is gathered once for all of them, and each block's
+    gradient comes back in its placements."""
+    plan = _column_plan(w, sizes, pls)
+    if plan is None:
+        full = gather_dim(w, w.ndim - 1)
+        out, start = [], 0
+        for n, pl in zip(sizes, pls):
+            out.append(hold_grad(place(full[:, start:start + n],
+                                       w.device_mesh, pl)))
+            start += n
+        return out
+    return list(_ColumnBlocks.apply(w, tuple(sizes), tuple(map(tuple, pls)),
+                                    plan))
+
+
+def _column_plan(w, sizes, pls):
+    """For :class:`_ColumnBlocks`: (the mesh dim that splits ``w``'s
+    columns, its size, this rank's index on it, and for each rank the
+    column ranges its blocks hold, in block order, each within one
+    owner's columns), or None where the exchange does not apply."""
+    last = w.ndim - 1
+    mesh = w.device_mesh
+    dims = [m for m, q in enumerate(w.placements) if q.is_shard(last)]
+    if len(dims) != 1:
+        return None
+    m = dims[0]
+    if any(not (q.is_replicate() or i == m and q.is_shard(1))
+           for pl in pls for i, q in enumerate(pl)):
+        return None
+    n, width = mesh.size(m), w.shape[last] // mesh.size(m)
+    pieces = []
+    for q in range(n):
+        mine, start = [], 0
+        for size, pl in zip(sizes, pls):
+            lo, hi = start, start + size
+            if pl[m].is_shard(1):
+                lo, hi = lo + q * size // n, lo + (q + 1) * size // n
+            while lo < hi:          # cut at the owners' bounds
+                cut = min(hi, (lo // width + 1) * width)
+                mine.append((lo, cut))
+                lo = cut
+            start += size
+        pieces.append(mine)
+    return m, n, mesh.get_coordinate()[m], width, pieces
+
+
+def _all_to_all(rows, out_splits, in_splits, group):
+    return torch.ops._c10d_functional.wait_tensor(
+        torch.ops._c10d_functional.all_to_all_single(
+            rows.contiguous(), out_splits, in_splits, group.group_name))
+
+
+class _ColumnBlocks(torch.autograd.Function):
+    """:func:`column_blocks`' exchange."""
+
+    @staticmethod
+    def forward(ctx, w, sizes, pls, plan):
+        from torch.distributed.tensor import Replicate
+        mesh = w.device_mesh
+        m, n, r, width, pieces = plan
+        ctx.meta = (mesh, tuple(w.placements), tuple(w.shape), sizes, pls,
+                    plan)
+        local = place(w, mesh, tuple(
+            q if i == m else Replicate() for i, q in enumerate(w.placements))
+        ).to_local()
+        # to each rank, the columns of its pieces this rank owns, as rows
+        send = [local[:, lo - r * width:hi - r * width].t()
+                for q in range(n) for lo, hi in pieces[q]
+                if lo // width == r]
+        got = _all_to_all(torch.cat(send), *_splits(pieces, r, width, n),
+                          mesh.get_group(m))
+        cols = torch.cat(_in_order(got, pieces[r], width, n)).t()
+        out, start = [], 0
+        for size, pl in zip(sizes, pls):
+            k = size // n if pl[m].is_shard(1) else size
+            out.append(assemble(cols[:, start:start + k].contiguous(), mesh,
+                                pl, (w.shape[0], size)))
+            start += k
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh, wpl, shape, sizes, pls, plan = ctx.meta
+        m, n, r, width, pieces = plan
+        last = len(shape) - 1
+        # per mesh dim but the exchange's: the blocks' pending partial sum
+        # where all have one, else whole
+        common = tuple(
+            Partial() if i != m and all(
+                g is not None and g.placements[i].is_partial()
+                for g in grads) else Replicate()
+            for i in range(mesh.ndim))
+        like = next(g for g in grads if g is not None).to_local()
+        parts = []
+        for g, size, pl in zip(grads, sizes, pls):
+            k = size // n if pl[m].is_shard(1) else size
+            if g is None:
+                parts.append(torch.zeros((shape[0], k), dtype=like.dtype,
+                                         device=like.device))
+                continue
+            # a whole block's gradient as a partial sum over the dim (a
+            # whole one sent from one rank of it)
+            at = Shard(1) if pl[m].is_shard(1) else (
+                Partial() if g.placements[m].is_partial() else Replicate())
+            gl = place(g, mesh, tuple(at if i == m else common[i]
+                                      for i in range(mesh.ndim))).to_local()
+            if at.is_replicate() and r:
+                gl = torch.zeros_like(gl)
+            parts.append(gl)
+        rows = torch.cat(parts, dim=-1).t()
+        # each piece back to its owner, the owners in rank order
+        mine, at = [[] for _ in range(n)], 0
+        for lo, hi in pieces[r]:
+            mine[lo // width].append(rows[at:at + hi - lo])
+            at += hi - lo
+        recv, send = _splits(pieces, r, width, n)
+        got = _all_to_all(torch.cat([x for xs in mine for x in xs]), send,
+                          recv, mesh.get_group(m))
+        acc = torch.zeros((width, shape[0]), dtype=got.dtype,
+                          device=got.device)
+        at = 0
+        for q in range(n):
+            for lo, hi in pieces[q]:
+                if lo // width == r:
+                    acc[lo - r * width:hi - r * width] += got[at:at + hi - lo]
+                    at += hi - lo
+        g = assemble(acc.t().contiguous(), mesh, tuple(
+            Shard(last) if i == m else common[i] for i in range(mesh.ndim)),
+            shape)
+        want = tuple(q if q.is_partial() and p.is_replicate() else p
+                     for p, q in zip(wpl, g.placements))
+        return place(g, mesh, want), None, None, None
+
+
+def _splits(pieces, r: int, width: int, n: int) -> tuple[list, list]:
+    """(rows this rank receives from each rank, rows it sends to each) of
+    :class:`_ColumnBlocks`' forward exchange."""
+    recv = [sum(hi - lo for lo, hi in pieces[r] if lo // width == p)
+            for p in range(n)]
+    send = [sum(hi - lo for lo, hi in pieces[q] if lo // width == r)
+            for q in range(n)]
+    return recv, send
+
+
+def _in_order(got, mine, width: int, n: int) -> list:
+    """The rows ``got`` (grouped by the rank that sent them) as the
+    pieces ``mine`` list them."""
+    start, at = [0] * n, 0
+    for p in range(n):
+        start[p] = at
+        at += sum(hi - lo for lo, hi in mine if lo // width == p)
+    out = []
+    for lo, hi in mine:
+        p = lo // width
+        out.append(got[start[p]:start[p] + hi - lo])
+        start[p] += hi - lo
+    return out
 
 
 def split_ways(x, dim: int) -> int:
@@ -479,6 +661,28 @@ def attention_shards(q, k, v):
         return assemble(o_loc.contiguous(), mesh, qpl,
                         tuple(q.shape[:3]) + (v.shape[-1],))
     return q_loc, k_loc, v_loc, finish
+
+
+def to_local(x, grad_placements=None):
+    """``x.to_local(grad_placements=...)`` whose gradient reaches ``x`` as
+    a contiguous shard.  DTensor takes a shard's strides for those of the
+    global shape, so a strided gradient (a slice of a concatenation's, a
+    convolution's) sends the views of the backward after it to a
+    redistribution each: a reduce-scatter and a gather of what is only a
+    partial sum to carry on."""
+    return _ContiguousGrad.apply(x.to_local(grad_placements=grad_placements))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def local_value(x):
@@ -656,12 +860,15 @@ class Policy:
             return None
         return placements(self.mesh, self.spec(*logical_axes))
 
-    def constrain(self, x, *logical_axes: str | None, name: str | None = None):
+    def constrain(self, x, *logical_axes: str | None, name: str | None = None,
+                  partial_grad: bool = False):
         """Redistribute ``x`` to the policy's sharding of its logical
         axes, and its gradient to the same (as the transpose of JAX's
         sharding constraint does); the identity without a mesh.  A plain
         tensor (made inside the model) becomes a DTensor first,
-        replicated.
+        replicated.  ``partial_grad``: a gradient that arrives as a
+        partial sum over a mesh dim the sharding keeps whole stays one
+        (:func:`hold_grad`).
 
         ``name`` keys into autoshard overrides: when the BIDENT search has
         assigned this site a different sharding "PU", the override wins.
@@ -671,7 +878,8 @@ class Policy:
         if name is not None and name in self.overrides:
             logical_axes = self.overrides[name]
         return hold_grad(distribute(x, NamedSharding(
-            self.mesh, self.guarded_spec(tuple(x.shape), *logical_axes))))
+            self.mesh, self.guarded_spec(tuple(x.shape), *logical_axes))),
+            partial=partial_grad)
 
     def guarded_spec(self, shape: Sequence[int],
                      *logical_axes: str | None) -> PartitionSpec:
