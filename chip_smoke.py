@@ -1475,6 +1475,41 @@ def _overlap(iv_a, iv_b) -> float:
     return total
 
 
+def _segment_spans(run, prog, name) -> None:
+    """One warm ``orch.execute`` (``run()``, which returns a list of
+    results dicts) under ``torch.profiler``, host events only: each
+    ``laneprogram.segment`` span of the route (:mod:`repro_torch.tracing`)
+    with its lane, its first..last item (``name(request, op)``) and its
+    host interval in ms from the route's start, in the order they
+    started, so segments that overlap across lanes show it; then the
+    host ms in segments by lane."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    with profile(activities=[ProfilerActivity.CPU]):
+        _fenced(run)
+    spans = tracing.spans()
+    root = [s for s in spans if s["name"] == "orchestrator.execute"
+            and s["parent"] is None][-1]
+    segs = sorted((s for s in spans if s["request"] == root["id"]
+                   and s["name"] == "laneprogram.segment"),
+                  key=lambda s: s["start_ns"])
+    log("    segments of one warm run (lane, first..last item, host "
+        "interval ms from the route's start):")
+    per_lane: dict = {}
+    for s in segs:
+        items = prog.segments[s["attrs"]["index"]].items
+        a, b = (1e-6 * (t - root["start_ns"])
+                for t in (s["start_ns"], s["end_ns"]))
+        log(f"      {s['attrs']['lane']:13s} {name(*items[0])}.."
+            f"{name(*items[-1])}  {a:8.3f} - {b:8.3f}")
+        per_lane[s["attrs"]["lane"]] = \
+            per_lane.get(s["attrs"]["lane"], 0.0) + b - a
+    log(f"    host ms in segments by lane: "
+        f"{ {k: round(v, 3) for k, v in per_lane.items()} }, "
+        f"sum {sum(per_lane.values()):.3f} ms, route "
+        f"{1e-6 * (root['end_ns'] - root['start_ns']):.3f} ms (traced)")
+
+
 def _stream_trace(run, label, phase: int = 4) -> dict | None:
     """One warm run of ``run()`` (which returns a list of results dicts)
     under ``torch.profiler``: device busy time per CUDA stream and the
@@ -1694,20 +1729,9 @@ def phase_concurrent(main_cfg: dict, main: dict) -> dict:
                   f"({label}) request {names[r]}: (c) two warm runs are "
                   "bitwise equal")
 
-        # the segments' lanes and wall intervals in one warm run
-        trace = []
-        _fenced(lambda: orch.execute(plan, ge, trace=trace))
-        log(f"    segments of one warm run (lane, first..last (request, "
-            f"op), host interval ms from the run's start):")
-        for t in sorted(trace, key=lambda t: t.start):
-            log(f"      {t.lane:13s} {t.items[0]}..{t.items[-1]}  "
-                f"{1e3 * t.start:8.3f} - {1e3 * (t.start + t.seconds):8.3f}")
-        per_lane = {}
-        for t in trace:
-            per_lane[t.lane] = per_lane.get(t.lane, 0.0) + t.seconds
-        log(f"    host ms in segments by lane: "
-            f"{ {k: round(1e3 * v, 3) for k, v in per_lane.items()} }, "
-            f"sum {1e3 * sum(per_lane.values()):.3f} ms")
+        # the segments' lanes and host intervals in one warm run
+        _segment_spans(lambda: orch.execute(plan, ge), prog,
+                       lambda r, i: f"{(r, i)}")
         _stream_trace(lambda: orch.execute(plan, ge), label)
 
         # the concurrent path's launches: one warm run, counted from zero
@@ -1817,14 +1841,8 @@ def _run_dag_plan(label, orch, plan, graph, ext, binding, spread) -> dict:
     # kernel lane
     counts = _counted_run(lambda: [orch.execute(plan, ext)], prog, label,
                           every_kernel=False)
-    trace = []
-    _fenced(lambda: [orch.execute(plan, ext, trace=trace)])
-    log("    segments of one warm run (lane, first..last op, host "
-        "interval ms from the run's start):")
-    for t in sorted(trace, key=lambda t: t.start):
-        log(f"      {t.lane:13s} {graph.ops[t.items[0][1]].name}.."
-            f"{graph.ops[t.items[-1][1]].name}  {1e3 * t.start:8.3f} - "
-            f"{1e3 * (t.start + t.seconds):8.3f}")
+    _segment_spans(lambda: [orch.execute(plan, ext)], prog,
+                   lambda r, i: graph.ops[i].name)
     dev = _stream_trace(lambda: [orch.execute(plan, ext)], label, phase=5)
     return dict(predicted=plan.latency, measured=measured, runs=times,
                 co=plan.schedule.n_parallel_steps,

@@ -118,9 +118,9 @@ def main() -> int:
     def segments(prog, ext) -> str:
         """Host ms of each segment of one warm inline run."""
         trace = []
-        fence(list(prog.run(ext, trace=trace).values()))
-        return "  ".join(f"{t.lane}:{[i for _, i in t.items]}:"
-                         f"{1e3 * t.seconds:.3f}" for t in trace)
+        fence(list(prog.run(ext, segment_timings=trace).values()))
+        return "  ".join(f"{lane}:{[i for _, i in items]}:{1e3 * secs:.3f}"
+                         for lane, items, secs in trace)
 
     print(env["card"])
     for k, name in enumerate("AB"):

@@ -27,8 +27,8 @@ from .faults import (CHAOS_KINDS, DEFAULT_POLICY, ChaosEvent, ChaosTrace,
 from .health import (BreakerTransition, HealthMonitor, HealthPolicy,
                      TargetHealth)
 from .graph import build_dense_chain, build_sequential_graph
-from .laneprogram import (LanePool, LaneProgram, SegmentTime,
-                          compile_lane_program, results_bitwise_equal)
+from .laneprogram import (LanePool, LaneProgram, compile_lane_program,
+                          results_bitwise_equal)
 from .modelgraph import (GRANITE_MAIN_PATH, arrays_to_device, chain_arrays,
                          kernel_chain)
 from .op import Branch, FusedOp, OpGraph, Phase, chain_graph

@@ -28,10 +28,15 @@ CUDA device:
   a later run.  A replay is valid only for the arguments' signature at
   capture (shapes, dtypes, devices: :func:`arg_signature`); the caller
   checks it.
-* **Launch counts.**  A captured kernel wrapper does not launch, so the
-  kernels' launches are recorded at capture time
-  (:func:`repro_torch.kernels._build.recording_launches`) and added to
-  the counts at every replay.
+* **Counts.**  A captured kernel wrapper does not launch, so the
+  kernels' launches (and any other count the captured Python makes) are
+  recorded at capture time (:func:`repro_torch.tracing.recording`) and
+  added to the counters at every replay, with ``capture.copy_in_bytes``
+  (the arguments copied into the static inputs) and
+  ``capture.clone_bytes`` (the outputs' clones, sized once at capture).
+* **Spans.**  ``capture.capture`` around a capture; ``capture.replay``
+  around a replay, holding ``capture.copy_in``, ``capture.graph`` (the
+  graph's launch) and ``capture.clone_out``.
 
 Nothing here syncs the host.  Anything in ``fn`` that does (``.item()``,
 ``nonzero``, a copy from pageable host memory) makes the capture raise,
@@ -45,7 +50,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..kernels import _build
+from .. import tracing
 
 _side: dict[torch.device, torch.cuda.Stream] = {}
 _side_lock = threading.Lock()
@@ -83,7 +88,10 @@ class CapturedCall:
         self.static_in = static_in
         self.static_out = static_out
         self.single = single
-        self.launches = launches
+        # what each replay adds to the counters
+        self.counts = collections.Counter(launches)
+        self.counts["capture.clone_bytes"] = sum(o.nbytes
+                                                 for o in static_out)
         self._streams: set[int] = set()
 
     def replay(self, args: Sequence[torch.Tensor]):
@@ -98,12 +106,19 @@ class CapturedCall:
             self._streams.add(stream.stream_id)
             for t in self.static_in + self.static_out:
                 t.record_stream(stream)
-        for buf, a in zip(self.static_in, args):
-            if a is not buf:            # a static input handed back as is
-                buf.copy_(a)
-        self.graph.replay()
-        _build.add_launches(self.launches)
-        outs = tuple(o.clone() for o in self.static_out)
+        with tracing.span("capture.replay"):
+            copied = 0
+            with tracing.span("capture.copy_in"):
+                for buf, a in zip(self.static_in, args):
+                    if a is not buf:    # a static input handed back as is
+                        buf.copy_(a)
+                        copied += buf.nbytes
+            with tracing.span("capture.graph"):
+                self.graph.replay()
+            tracing.add(self.counts)
+            tracing.count("capture.copy_in_bytes", copied)
+            with tracing.span("capture.clone_out"):
+                outs = tuple(o.clone() for o in self.static_out)
         return outs[0] if self.single else outs
 
     def release(self) -> None:
@@ -127,6 +142,11 @@ def capture_call(fn: Callable[..., Any], args: Sequence[torch.Tensor],
                for a in args):
         raise TypeError("capture_call: every argument must be a tensor on "
                         f"{device}")
+    with tracing.span("capture.capture"):
+        return _capture_call(fn, args, device)
+
+
+def _capture_call(fn, args, device) -> tuple[CapturedCall, Any]:
     cur = torch.cuda.current_stream(device)
     side = cur == torch.cuda.default_stream(device)
     stream = _side_stream(device) if side else cur
@@ -137,7 +157,7 @@ def capture_call(fn: Callable[..., Any], args: Sequence[torch.Tensor],
             stream.wait_stream(cur)
         with torch.cuda.stream(stream):
             eager = fn(*static_in)
-            with _build.recording_launches() as launches:
+            with tracing.recording() as launches:
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     out = fn(*static_in)

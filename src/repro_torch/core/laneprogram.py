@@ -95,11 +95,12 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable, Mapping, NamedTuple, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fault.manager import RecoverableError
 from .capture import arg_signature as _arg_signature
 from .capture import capture_call
@@ -456,19 +457,6 @@ class Segment:
             self.var_fns = None
 
 
-class SegmentTime(NamedTuple):
-    """One segment of a run, as ``LaneProgram.run(trace=...)`` records
-    it: its lane, its ``(request, op)`` items, the host's wall seconds
-    for its call (for a CUDA lane: the time to issue its work, which the
-    card may finish later), and its start in seconds from the run's
-    start."""
-
-    lane: str
-    items: tuple
-    seconds: float
-    start: float
-
-
 def _current_stream(device):
     """The calling thread's current stream on ``device``."""
     return torch.cuda.current_stream(device)
@@ -727,7 +715,6 @@ class LaneProgram:
             policy: ExecutionPolicy | None = None,
             faults: FaultPlan | None = None,
             estimate: float | None = None,
-            trace: list | None = None,
             completed=None,
             segment_timings: list | None = None):
         """Execute the program; same results shape as the interpreter.
@@ -744,8 +731,7 @@ class LaneProgram:
 
         ``external_inputs`` is one ``{op: (args...)}`` mapping for a
         single-graph program and a sequence of them, one per request, for
-        an M-request program.  ``trace``, when a list, receives one
-        :class:`SegmentTime` per executed segment.
+        an M-request program.
 
         ``completed`` seeds the results with an execution frontier (one
         ``{op: value}`` dict for single-graph programs, a sequence of
@@ -756,7 +742,18 @@ class LaneProgram:
         ``segment_timings``, when a list, receives one ``(lane, items,
         wall_seconds)`` tuple per completed segment, as the reference
         records them.
+
+        Under a profiler the run is a ``laneprogram.run`` span, each
+        segment a ``laneprogram.segment`` (attrs ``index``, ``lane``,
+        ``n_ops``, ``mode``) and each host-side wait across lanes a
+        ``laneprogram.wait``.
         """
+        with tracing.span("laneprogram.run"):
+            return self._run(external_inputs, policy, faults, estimate,
+                             completed, segment_timings)
+
+    def _run(self, external_inputs, policy, faults, estimate, completed,
+             segment_timings):
         if self.single:
             ext = [dict(external_inputs or {})]
             seeds = [dict(completed or {})]
@@ -770,18 +767,18 @@ class LaneProgram:
             seeds = [dict(c or {}) for c in
                      (completed or [None] * self.n_requests)]
         results: list[dict[int, Any]] = seeds
-        t_run = time.perf_counter()
 
         def exec_seg(seg: Segment, run: RunContext | None) -> None:
-            t0 = time.perf_counter()
-            self._exec_segment(seg, results, ext, run)
-            t1 = time.perf_counter()
-            if trace is not None:
-                trace.append(SegmentTime(seg.lane, tuple(seg.items),
-                                         t1 - t0, t0 - t_run))
-            if segment_timings is not None:
+            with tracing.span("laneprogram.segment", index=seg.index,
+                              lane=seg.lane, n_ops=len(seg.items),
+                              mode=seg.mode):
+                if segment_timings is None:
+                    self._exec_segment(seg, results, ext, run)
+                    return
+                t0 = time.perf_counter()
+                self._exec_segment(seg, results, ext, run)
                 segment_timings.append((seg.lane, tuple(seg.items),
-                                        t1 - t0))
+                                        time.perf_counter() - t0))
 
         if self.serial_order is not None:
             # inherently serial: no cross-lane waits exist, so fault-free
@@ -832,7 +829,13 @@ class LaneProgram:
             dev = _cuda_device_of([results[r].get(i) for r, i in seg.items])
             return None if dev is None else _current_stream(dev).record_event()
 
+        parent = tracing.current()
+
         def lane_worker(pu: str) -> None:
+            with tracing.adopt(parent):
+                run_lane(pu)
+
+        def run_lane(pu: str) -> None:
             stream = streams.get(pu)
             try:
                 if stream is not None:
@@ -840,12 +843,14 @@ class LaneProgram:
                 for seg in self.lane_segments[pu]:
                     for d, dwhat in zip(seg.deps, seg.dep_whats):
                         if not done[d].is_set():
-                            run.wait(done[d], dwhat)
+                            with tracing.span("laneprogram.wait"):
+                                run.wait(done[d], dwhat)
                         ev = device_ev[d]
                         if ev is None:
                             continue
                         if stream is None:
-                            run.wait_device(ev, dwhat)
+                            with tracing.span("laneprogram.wait"):
+                                run.wait_device(ev, dwhat)
                         else:
                             stream[1].wait_event(ev)
                     run.check_abort()

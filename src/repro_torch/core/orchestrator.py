@@ -61,6 +61,7 @@ import hashlib
 import json
 from typing import Any, Mapping, Sequence
 
+from .. import tracing
 from .capture import arg_signature as _arg_signature
 from .contention import ContentionModel
 from .costmodel import EDGE_PUS, CostTable, PUSpec
@@ -721,8 +722,7 @@ class Orchestrator:
     def execute(self, plan: Plan, inputs=None, *, compile: bool = True,
                 policy: ExecutionPolicy | None = None,
                 faults: FaultPlan | None = None,
-                recover: bool = True,
-                trace: list | None = None) -> Any:
+                recover: bool = True) -> Any:
         """Run a plan on the multi-lane executor.
 
         Sequential, parallel and DAG plans take one ``{op: (args...)}``
@@ -732,10 +732,8 @@ class Orchestrator:
 
         By default execution goes through the compiled, cached lane
         program (:meth:`program_for`); ``compile=False`` runs the per-op
-        interpreter, the bitwise oracle.  ``trace`` (compiled path)
-        receives one :class:`~repro_torch.core.laneprogram.SegmentTime`
-        per segment.  ``policy`` tunes the watchdog/retry knobs and
-        ``faults`` injects a scripted
+        interpreter, the bitwise oracle.  ``policy`` tunes the
+        watchdog/retry knobs and ``faults`` injects a scripted
         :class:`~repro_torch.core.faults.FaultPlan`, as in the reference.
 
         With ``recover=True`` (the default) a permanent mid-run PU loss
@@ -748,18 +746,22 @@ class Orchestrator:
         whole segment's ops.  ``recover=False`` propagates the
         :class:`~repro_torch.core.errors.PULostError` (frontier attached
         as ``err.partial``) to the caller.
+
+        Under a profiler an execution is an ``orchestrator.execute`` span
+        (:mod:`repro_torch.tracing`), a root: one per route.
         """
-        try:
-            return self._execute_once(plan, inputs, compile, policy, faults,
-                                      trace)
-        except PULostError as err:
-            if not recover:
-                raise
-            return self._recover(plan, inputs, err, policy, faults)
+        with tracing.span("orchestrator.execute"):
+            try:
+                return self._execute_once(plan, inputs, compile, policy,
+                                          faults)
+            except PULostError as err:
+                if not recover:
+                    raise
+                return self._recover(plan, inputs, err, policy, faults)
 
     def _execute_once(self, plan: Plan, inputs, compile: bool,
                       policy: ExecutionPolicy | None,
-                      faults: FaultPlan | None, trace: list | None) -> Any:
+                      faults: FaultPlan | None) -> Any:
         if not compile:
             regs = self._execute_regs(plan)
             graphs = [reg.graph for reg in regs]
@@ -775,8 +777,7 @@ class Orchestrator:
                 graphs, plan.schedule, inputs,
                 policy=policy, faults=faults, estimate=plan.latency)
         return self.program_for(plan, inputs).run(
-            inputs, policy=policy, faults=faults, estimate=plan.latency,
-            trace=trace)
+            inputs, policy=policy, faults=faults, estimate=plan.latency)
 
     # -- mid-run recovery ---------------------------------------------------
     @staticmethod
@@ -901,17 +902,26 @@ class Orchestrator:
         The cache key is (plan cache key — or a content hash for plans
         restored from JSON —, the plan's handles, and the shapes, dtypes
         and devices of ``inputs``); a program whose payloads were rebound
-        after compilation is recompiled, never served.
+        after compilation is recompiled, never served.  Spans:
+        ``orchestrator.program_for``, holding ``orchestrator.compile`` on a
+        miss.
         """
-        key = (self._plan_token(plan), plan.handles,
-               _inputs_signature(inputs))
-        prog = self._programs.get(key)
-        if prog is not None:
-            if prog.payloads_current():
-                self.stats["program_hits"] += 1
-                self._programs[key] = self._programs.pop(key)  # LRU refresh
-                return prog
-            self._programs.pop(key).close()
+        with tracing.span("orchestrator.program_for"):
+            key = (self._plan_token(plan), plan.handles,
+                   _inputs_signature(inputs))
+            prog = self._programs.get(key)
+            if prog is not None:
+                if prog.payloads_current():
+                    self.stats["program_hits"] += 1
+                    # LRU refresh
+                    self._programs[key] = self._programs.pop(key)
+                    return prog
+                self._programs.pop(key).close()
+            with tracing.span("orchestrator.compile"):
+                return self._compile(plan, key)
+
+    def _compile(self, plan: Plan, key) -> LaneProgram:
+        """Compile ``plan``'s lane program and cache it under ``key``."""
         self.stats["program_misses"] += 1
         regs = self._execute_regs(plan)
         graphs = [reg.graph for reg in regs]

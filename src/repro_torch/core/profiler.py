@@ -14,7 +14,10 @@ fenced with ``torch.cuda.synchronize`` on the devices its inputs and
 outputs lie on.  A ``jit=True`` target's cell on a CUDA device is timed
 as the lane serves it: the op captured as a CUDA graph
 (:mod:`repro_torch.core.capture`) and replayed, inputs copied in and
-outputs copied out, as the reference times such a cell jitted.
+outputs copied out, as the reference times such a cell jitted.  The
+wall seconds of each measurement on a lane off the card (a target on
+the host CPU) add to the counter ``planner.measure_s.cpu``
+(:mod:`repro_torch.tracing`).
 
 ``trace_fused_ops`` extracts a fused-operator graph from an arbitrary
 PyTorch callable via its aten graph (``make_fx``; the reference walks a
@@ -32,6 +35,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from .capture import capture_call
 from .costmodel import CostEntry, CostTable, EdgeSoCCostModel
 from .op import FusedOp, OpGraph
@@ -374,6 +378,8 @@ class MeasuredProfiler:
         table.meta["measurements"] = stats
         table.meta["analytic_fallback"] = fallback
         table.meta["targets"] = {lane: t.name for lane, t in targets.items()}
+        on_host = {lane for lane, t in targets.items() if t.device is None
+                   or torch.device(t.device).type == "cpu"}
         for i, op in enumerate(graph.ops):
             unsupported = op.meta.get("unsupported_on", ())
             for lane, tgt in targets.items():
@@ -390,6 +396,7 @@ class MeasuredProfiler:
                         h2d=tgt.handoff_s, d2h=tgt.handoff_s,
                         power=tgt.power_compute))
                     continue
+                t0 = time.perf_counter()
                 try:
                     m = measure_callable_stats(
                         fn, op.meta["example_inputs"],
@@ -407,6 +414,10 @@ class MeasuredProfiler:
                         "(%s); cell omitted — op unsupported on this lane",
                         i, op.name, tgt.name, failures[(i, lane)])
                     continue
+                finally:
+                    if lane in on_host:
+                        tracing.count("planner.measure_s.cpu",
+                                      time.perf_counter() - t0)
                 stats[(i, lane)] = {"median": m.median, "best": m.best,
                                     "spread": m.spread,
                                     "captured": m.captured}

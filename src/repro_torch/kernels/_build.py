@@ -8,16 +8,15 @@ a library's file name carries a hash of its sources and flags, so an
 edited source is rebuilt and a stale library is never loaded.
 
 Each kernel wrapper launches through :func:`launch`, which counts the
-launches, so a run can show that its main path really went through the
-kernels; :func:`check_operands` holds the checks every wrapper shares.
-Under a CUDA graph capture nothing is launched: the thread's launches
-are recorded (:func:`recording_launches`) and counted at every replay of
-the graph (:func:`add_launches`).
+launches (counters ``kernels.launches.<name>`` of
+:mod:`repro_torch.tracing`), so a run can show that its main path really
+went through the kernels; :func:`check_operands` holds the checks every
+wrapper shares.  Under a CUDA graph capture nothing is launched: the
+thread's launches are recorded (``tracing.recording``) and counted at
+every replay of the graph.
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +27,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -47,9 +48,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _fns: dict[str, object] = {}
-_launches: collections.Counter = collections.Counter()
-_count_lock = threading.Lock()   # lanes may launch from several threads
-_local = threading.local()       # .recording: this thread's capture, if any
+LAUNCHES = "kernels.launches."   # + kernel name: the launch counters
 build_log: dict[str, str] = {}   # kernel -> nvcc/ptxas output of its build
 
 
@@ -203,45 +202,20 @@ def check_operands(name: str, **operands) -> None:
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point; raise if it reports a CUDA
-    error, else count the launch (or, under a capture on this thread,
-    record it for the graph's replays)."""
+    error, else count the launch (under a capture on this thread, for
+    the graph's replays)."""
     err = function(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    recording = getattr(_local, "recording", None)
-    if recording is not None:
-        recording[name] += 1
-        return
-    with _count_lock:
-        _launches[name] += 1
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """While a CUDA graph is captured on this thread: the kernels this
-    thread's wrappers put into the graph, counted into the yielded
-    ``Counter`` and not into :func:`launch_counts` (nothing runs until a
-    replay, which adds them with :func:`add_launches`)."""
-    outer = getattr(_local, "recording", None)
-    _local.recording = collections.Counter()
-    try:
-        yield _local.recording
-    finally:
-        _local.recording = outer
-
-
-def add_launches(counts) -> None:
-    """Count the launches of one replayed graph (``{kernel: launches}``,
-    as :func:`recording_launches` recorded them)."""
-    with _count_lock:
-        _launches.update(counts)
+    tracing.count(LAUNCHES + name)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return {n: _launches[n] for n in KERNELS}
+    counts = tracing.counters()
+    return {n: counts.get(LAUNCHES + n, 0) for n in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        _launches.clear()
+    """Zero the launch counters (and no other counter)."""
+    tracing.reset(LAUNCHES)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..sharding import (NO_POLICY, NamedSharding, Policy, hold_grad, lookup,
                         reshape, rows_of, select_layer, sharded_on,
                         sharded_zeros, split_ways, take_last)
@@ -763,8 +764,15 @@ def prefill(cfg, params, batch, max_len: int, shd: Policy = NO_POLICY):
     attention patterns the K/V cache is written by a second pass of the
     per-layer K/V projections, as the reference does.  With
     ``cfg.use_kernels`` attention (dense/moe) and the SSD scans
-    (Mamba-2, mLSTM) go through ``repro_torch.kernels.ops``.
+    (Mamba-2, mLSTM) go through ``repro_torch.kernels.ops``.  Under a
+    profiler the call is a ``model.prefill`` span
+    (:mod:`repro_torch.tracing`).
     """
+    with tracing.span("model.prefill"):
+        return _prefill(cfg, params, batch, max_len, shd)
+
+
+def _prefill(cfg, params, batch, max_len: int, shd: Policy):
     h = _embed_in(cfg, params, batch, shd)
     dev = h.device
     B, T = h.shape[:2]

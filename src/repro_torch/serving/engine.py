@@ -8,6 +8,10 @@ step is captured once per (batch, cache) shape signature as a CUDA graph
 graph's static input buffers and the step updates it in place, and only
 the logits are copied out.  On the CPU the step runs eagerly.
 
+Under a profiler each decode step is an ``engine.decode_step`` span
+(:mod:`repro_torch.tracing`) holding the replay's ``capture.replay``, or
+``capture.capture`` on a new signature.
+
 ``decode_trace_counts`` keeps the reference's meaning: one entry per
 signature, counted once each time the step is prepared for it (captured
 on the card, first run on the CPU), so two same-shape ``generate`` calls
@@ -30,6 +34,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..core.capture import CapturedCall, capture_call
 from ..models import model as M
 from ..models.model import _CACHE_AXES, cache_pspecs  # noqa: F401
@@ -130,6 +135,10 @@ class Engine:
         return self._step
 
     def _step(self, params, cache, batch):
+        with tracing.span("engine.decode_step"):
+            return self._decode_step(params, cache, batch)
+
+    def _decode_step(self, params, cache, batch):
         tokens = batch["tokens"]
         leaves = M.tree_leaves(cache)
         key = (tuple(tokens.shape), tuple(tuple(l.shape) for l in leaves))

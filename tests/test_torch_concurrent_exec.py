@@ -28,6 +28,7 @@ from repro_torch.core import (ConcurrentSchedule, ConcurrentStep, CostEntry,
                               Orchestrator, ScheduleExecutor, Target,
                               chain_graph, kernel_chain,
                               results_bitwise_equal, variant_tolerance)
+from repro_torch import tracing
 from repro_torch.core import laneprogram as lp
 from repro_torch.core.backends import default_registry
 from repro_torch.core.errors import ExecutionError, ExecutionTimeoutError
@@ -140,12 +141,25 @@ def test_concurrent_chains_match_isolated_interpreter_and_jax(
             np.testing.assert_allclose(warm[r][i].numpy(),
                                        np.asarray(jres[i]), rtol=1e-5,
                                        atol=1e-5)
-    trace = []
-    orch.execute(plan, exts, trace=trace)
-    assert sorted(it for t in trace for it in t.items) == sorted(
-        (r, i) for r in range(m) for i in range(len(graphs[r])))
-    assert all(t.lane in lanes and t.seconds >= 0 and t.start >= 0
-               for t in trace)
+    # one warm run under the profiler: its segments' spans, on the lane
+    # workers' threads too, belong to the run's execute span
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        orch.execute(plan, exts)
+    spans = tracing.spans()
+    root, = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "orchestrator.execute"
+    segs = [s for s in spans if s["name"] == "laneprogram.segment"]
+    assert sorted(it for s in segs
+                  for it in prog.segments[s["attrs"]["index"]].items) == \
+        sorted((r, i) for r in range(m) for i in range(len(graphs[r])))
+    assert all(s["attrs"]["lane"] in lanes
+               and s["attrs"]["lane"] == prog.segments[
+                   s["attrs"]["index"]].lane
+               and s["request"] == root["id"]
+               and root["start_ns"] <= s["start_ns"] <= s["end_ns"]
+               <= root["end_ns"] for s in segs)
     prog.close()
 
 

@@ -894,6 +894,91 @@ def test_launch_counts_of_a_replay_equal_the_eager_counts(cuda):
     prog.close()
 
 
+def _profiled(fn):
+    """``fn()`` under the host profiler, the card synchronised inside it;
+    the port's spans it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    n = len(tracing.spans())
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+        torch.cuda.synchronize()
+    return tracing.spans()[n:]
+
+
+def _children(spans, parent):
+    return [s["name"] for s in spans if s["parent"] == parent["id"]]
+
+
+@pytest.mark.gpu
+def test_a_replays_span_counts_its_copies_and_its_launches(cuda):
+    """Under the profiler a warm run of a captured segment replays in one
+    ``capture.replay`` span (copy in, the graph, the clones out) whose
+    counts are the static buffers' sizes and the kernels' launches, and
+    ``launch_counts()`` folds them in as an eager run counts them."""
+    from repro_torch.core import laneprogram as lp
+    graph, ext = _small_kernel_chain()
+    prog = _kernel_lane_program(graph)
+    prog.run(ext)
+    seg = prog.segments[0]
+    assert seg.mode == lp.JIT
+    call = seg._graph
+    kernels.reset_launch_counts()
+    spans = _profiled(lambda: prog.run(ext))
+    replay, = [s for s in spans if s["name"] == "capture.replay"]
+    assert _children(spans, replay) == ["capture.copy_in", "capture.graph",
+                                        "capture.clone_out"]
+    launches = {"flash_attention": 2, "ssd_scan": 2, "expert_glu": 2}
+    assert replay["counts"] == {
+        "capture.copy_in_bytes": sum(t.nbytes for t in call.static_in),
+        "capture.clone_bytes": sum(t.nbytes for t in call.static_out),
+        **{f"kernels.launches.{k}": n for k, n in launches.items()}}
+    assert kernels.launch_counts() == launches
+    seg_span, = [s for s in spans if s["id"] == replay["parent"]]
+    assert seg_span["name"] == "laneprogram.segment"
+    assert seg_span["attrs"]["mode"] == lp.JIT
+    prog.close()
+
+
+@pytest.mark.gpu
+def test_an_engine_decode_step_is_a_root_over_its_replay(cuda):
+    """A decode step is an ``engine.decode_step`` root: on a new
+    signature it holds the capture, then the replay, whose graph launch
+    is ``capture.graph``; the cache goes back as it is, so only the
+    tokens are copied in and the logits cloned out."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("zamba2-2.7b").reduced()
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (2, 16), dtype=torch.int32,
+                            device=cuda)
+    logits, cache = M.prefill(cfg, params, {"tokens": prompts}, max_len=24)
+    eng = Engine(cfg=cfg, params=params)
+    step = eng.decode_step_fn()
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    out = {}
+
+    def one_step():
+        out["logits"], out["cache"] = step(params, cache, {"tokens": tok})
+
+    spans = _profiled(one_step)
+    root, = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "engine.decode_step"
+    assert "capture.capture" in _children(spans, root)
+    cache = out["cache"]
+    spans = _profiled(one_step)
+    root, = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "engine.decode_step"
+    assert _children(spans, root) == ["capture.replay"]
+    replay, = [s for s in spans if s["name"] == "capture.replay"]
+    assert "capture.graph" in _children(spans, replay)
+    assert replay["counts"]["capture.copy_in_bytes"] == tok.nbytes
+    assert replay["counts"]["capture.clone_bytes"] == out["logits"].nbytes
+    eng.release()
+
+
 # ---------------------------------------------------------------------------
 # PU-loss recovery and serving under chaos on the card
 # ---------------------------------------------------------------------------
