@@ -106,14 +106,16 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    bound of the interpreter), every scripted event fired, and after the
    loss the kernel lane's breaker opens, half-opens and closes.  The
    reports, breaker transitions with their reasons, cache deltas and
-   window costs are printed; every kernel launched in the phase;
+   window costs are printed; every kernel of the chain launched in the
+   phase;
 8. model zoo serving — (a) Llama-3.2-1B, Zamba2-2.7B and xLSTM-125M at
    their published widths and depths in bf16 with ``use_kernels=True``
    (weights from ``init_params`` with a seeded generator on the card)
    serve 4 prompts of 1024 tokens through ``Engine.generate(max_new=
    32)``: one prefill launches ``flash_attention`` 16 times (Llama) or
    ``ssd_scan`` 54 times (Zamba2) or 6 times (xLSTM's mLSTM at N = 384,
-   P = 385), counted from zero, and decode none; the kernel prefill's
+   P = 385), counted from zero, and decode ``ssd_step`` once a Mamba-2
+   layer or mLSTM block a step and nothing else; the kernel prefill's
    logits and every cache leaf against the plain path's
    (``use_kernels=False``) within the bf16 bucket of the largest value,
    or within ZOO_SPREAD times the spread between two correct plain paths
@@ -130,8 +132,9 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    device trace of a prefill and of captured steps, and each kernel at
    these shapes beside SDPA and its bound are printed.  (b) every arch
    reduced, prefill and 4 decode steps with the kernels against
-   without, in f32 within 2e-4, each launching the kernels its pattern
-   calls.  (c) the zoo's kernel shapes — the prefill attention at each
+   without (the decode step's kernel against the plain step on the
+   model's own operands), in f32 within 2e-4, each launching the kernels
+   its pattern calls and the plain path none.  (c) the zoo's kernel shapes — the prefill attention at each
    head width of the dense archs (q (4, 1024, 32, D), k/v 8 heads,
    causal: Llama-3.2-1B's D 64, Qwen3-8B's 128, StableLM-12B's 160) and
    xLSTM-125M's mLSTM scan (c/b (4, 1024, 4, 384), v (4, 1024, 4, 385),
@@ -204,8 +207,10 @@ Phases (any failed check exits non-zero; nothing falls back to the CPU):
    and its engine's kernel prefill against the plain prefill within 2e-4
    (f32), every leaf.  The phase has a time budget.
 
-The second-to-last line is the ``{"kernels": [...]}`` summary, the last
-line ``{"ok": true, "device": {...}}``.  A full log goes to
+The second-to-last line is the ``{"kernels": [...]}`` summary (phase 2's
+three kernels, and the decode step's at Zamba2-2.7B's decode shape from
+phase 8 (c), its launches those of phases 8 and 10's decode steps), the
+last line ``{"ok": true, "device": {...}}``.  A full log goes to
 ``chiprun_out/chip_smoke.log``.
 """
 from __future__ import annotations
@@ -237,6 +242,8 @@ CAPTURE_REPEATS = 11     # warm runs of each of phase 3's captured / eager pair
 # which kernel each op of kernel_chain launches on the kernel lane
 KERNEL_OF_OP = {"attn": "flash_attention", "ssd": "ssd_scan",
                 "moe": "expert_glu"}
+# the kernels a chain launches (the decode step's, ssd_step, is not one)
+CHAIN_KERNELS = tuple(KERNEL_OF_OP.values())
 # A whole route is held to the oracle op by op, on the error normalised
 # by the output's largest magnitude: within the f32 variant bucket, or
 # within SPREAD times the spread between two correct runs of the
@@ -254,7 +261,7 @@ HAND_KERNELS = ("attn_kernel", "attn_wgmma_kernel", "attn_tf32_kernel",
                 "pass_kernel",
                 "out_kernel", "state_wgmma_kernel", "chunk_out_kernel",
                 "out_wgmma_kernel", "state_tf32_kernel", "out_tf32_kernel",
-                "out_wide_tf32_kernel", "pad_v_kernel")
+                "out_wide_tf32_kernel", "pad_v_kernel", "ssd_step_kernel")
 
 _log_lines: list[str] = []
 
@@ -378,7 +385,8 @@ def _expected_launches(prog) -> dict:
 def _counted_run(run, prog, label, every_kernel: bool) -> dict:
     """One warm ``run()`` with the launch counts zeroed just before and
     read just after; each kernel must have launched once per kernel-lane
-    op of its kind (and at least once when ``every_kernel``)."""
+    op of its kind (each of the chain's at least once when
+    ``every_kernel``)."""
     from repro_torch import kernels
     from repro_torch.core.profiler import fence
     kernels.reset_launch_counts()
@@ -387,10 +395,12 @@ def _counted_run(run, prog, label, every_kernel: bool) -> dict:
     expected = _expected_launches(prog)
     log(f"    kernel launches in one warm run ({label}): {counts}")
     for name, count in counts.items():
-        check(count == expected[name] and (count >= 1 or not every_kernel),
+        check(count == expected[name] and (count >= 1 or not every_kernel
+                                           or name not in CHAIN_KERNELS),
               f"{label}: {name} launched {count} times (its kernel-lane "
               f"ops: {expected[name]}"
-              + (", at least 1)" if every_kernel else ")"))
+              + (", at least 1)" if every_kernel and name in CHAIN_KERNELS
+                 else ")"))
     return counts
 
 
@@ -2182,8 +2192,10 @@ def phase_admission(main_cfg: dict, main: dict, conc: dict) -> dict:
     check(n_warm >= 1 and orch.stats["replans_cold"] == cold0,
           f"{n_warm} warm re-plans, {orch.stats['replans_cold'] - cold0} "
           "cold")
-    check(all(c >= 1 for c in counts.values()),
-          f"every kernel launched in the phase ({counts})")
+    check(all(counts[k] >= 1 for k in CHAIN_KERNELS)
+          and not counts["ssd_step"],
+          f"every kernel of the chain launched in the phase, the decode "
+          f"step's none ({counts})")
     for r, h in enumerate(hs):
         graph, ext = graphs[r], exts[r]
         check(sorted(done[h]) == list(range(n_ops[h])),
@@ -2537,10 +2549,164 @@ def phase_serving(main_cfg: dict, main: dict, conc: dict,
     for name in ("transient_storm", "straggler", "stall", "pu_lost_return"):
         out[name] = _serve_scenario(name, main, conc, lat_a, stall_budget)
     counts = kernels.launch_counts()
-    check(all(c >= 1 for c in counts.values()),
-          f"every kernel launched in the phase ({counts})")
+    check(all(counts[k] >= 1 for k in CHAIN_KERNELS)
+          and not counts["ssd_step"],
+          f"every kernel of the chain launched in the phase, the decode "
+          f"step's none ({counts})")
     log(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
     return dict(recovery=walls, scenarios=out, counts=counts)
+
+
+# The decode step's kernel (phase 8 (c)): (label, B, H, N, P, dtype of
+# c, b and v) at Zamba2-2.7B's Mamba-2 decode at the benchmark's batch 32
+# (80 heads of 64 x 64: the 16-byte route) and xLSTM-125M's mLSTM decode at
+# phase 8's batch (4 heads of 384 x 385: the one-float route)
+SSD_STEP_CASES = (("zamba2-2.7b", 32, 80, 64, 64, "bfloat16"),
+                  ("xlstm-125m mLSTM", 4, 4, 384, 385, "float32"),
+                  ("xlstm-125m mLSTM", 4, 4, 384, 385, "bfloat16"))
+# the states a timed round updates in turn, one a Zamba2-2.7B layer: 2.26
+# GB at its decode shape, so no call finds its state in the 50 MB L2
+SSD_STEP_STATES = 54
+
+
+def round_ms(fn, states, rounds: int = 10) -> float:
+    """Device ms a call of ``fn(S)`` over ``states`` in turn: one round
+    captured as a CUDA graph, its replays timed by CUDA events, so the
+    host's launches stay out of the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for S in states:
+            fn(S)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for S in states:
+            fn(S)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (rounds * len(states))
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def step_operands(B, H, N, P, dtype) -> tuple:
+    """The decode step's operands drawn on the card (S, c, b, v, log_a;
+    c, b and v in ``dtype``, a torch dtype's name) and the bytes its
+    bound counts: S read and written, every other operand and y once."""
+    import torch
+    dt = getattr(torch, dtype)
+    gen = torch.Generator("cuda").manual_seed(3)
+
+    def draw(*shape, scale=1.0, to=torch.float32):
+        return (scale * torch.randn(shape, device="cuda",
+                                    generator=gen)).to(to)
+    S = draw(B, H, N, P, scale=0.5)
+    c, b, v = draw(B, H, N, to=dt), draw(B, H, N, to=dt), draw(B, H, P, to=dt)
+    la = -torch.nn.functional.softplus(draw(B, H))
+    nbytes = 2 * S.nbytes + c.nbytes + b.nbytes + 2 * v.nbytes + la.nbytes
+    return (S, c, b, v, la), nbytes
+
+
+def _ssd_step_case(label, B, H, N, P, dtype) -> dict:
+    """The decode step's kernel at one shape against its plain version on
+    the card: S' in place and bitwise the plain step's, y within the f32
+    bucket (bf16: one ulp, or 1e-5 of the largest), one launch, bitwise
+    run to run; then timed over ``SSD_STEP_STATES`` states in turn."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ssd_step as st
+    dt = getattr(torch, dtype)
+    (S, c, b, v, la), nbytes = step_operands(B, H, N, P, dtype)
+    Sk, Sp, Sr = S.clone(), S.clone(), S.clone()
+    kernels.reset_launch_counts()
+    y, out = st.ssd_step_cuda(Sk, c, b, v, la)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    yp, _ = st.ssd_step_plain(Sp, c, b, v, la)
+    y2, _ = st.ssd_step_cuda(Sr, c, b, v, la)
+    shape = f"({B}, {H}, {N}, {P}) {dtype}"
+    check(out is Sk and launches["ssd_step"] == 1
+          and sum(launches.values()) == 1 and bitwise_equal(Sk, Sp),
+          f"ssd_step at {label} {shape}: one launch, S' written over S, "
+          "bitwise the plain step's")
+    yd, ypd = y.double(), yp.double()
+    if dt == torch.float32:
+        err = norm_err(y, yp)[1]
+        ok, what = err <= F32_TOL, f"{err:.2e} of the largest <= {F32_TOL}"
+    else:
+        gap = (yd - ypd).abs()
+        ok = bool((gap <= 2.0 ** -7 * ypd.abs()
+                   + 1e-5 * float(ypd.abs().max())).all())
+        err, what = float(gap.max()), "one bf16 ulp or 1e-5 of the largest"
+    check(ok, f"ssd_step at {label} {shape}: y within {what} of the plain "
+              f"step's (max |diff| {float((yd - ypd).abs().max()):.3e})")
+    check(bitwise_equal(y, y2) and bitwise_equal(Sk, Sr),
+          f"ssd_step at {label} {shape}: two runs bitwise equal")
+    states = [S.clone() for _ in range(SSD_STEP_STATES)]
+    ms = round_ms(lambda s: st.ssd_step_cuda(s, c, b, v, la), states)
+    plain_ms = round_ms(lambda s: st.ssd_step_plain(s, c, b, v, la), states)
+    device = _device_times(lambda: [st.ssd_step_cuda(s, c, b, v, la)
+                                    for s in states], calls=2)
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    row = dict(name="ssd_step", route="cuda",
+               source="src/repro_torch/csrc/ssd_step.cu", replaces=None,
+               arch=label, shapes=shape, ms=ms,
+               device_ms=device.get("ssd_step_kernel"), plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+               nbytes=nbytes, y_err=err,
+               max_abs_err=float((yd - ypd).abs().max()))
+    dev = "not measured (the trace held no ssd_step_kernel)" \
+        if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
+    log(f"  ssd_step at {label} {shape}: kernel {ms:.4f} ms a call (CUDA "
+        f"graph of {SSD_STEP_STATES} states in turn), on the device {dev}, "
+        f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s: {100 * bound_ms / ms:.1f}%), plain "
+        f"{plain_ms:.4f} ms")
+    del states
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ssd_step_shapes() -> list:
+    """(c) the decode step's kernel at ``SSD_STEP_CASES``; a state the
+    kernel does not take (bf16, not contiguous) raises and launches
+    nothing."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    rows = [_ssd_step_case(*case) for case in SSD_STEP_CASES]
+    c = torch.zeros((2, 4, 64), device="cuda")
+    v, la = torch.zeros((2, 4, 64), device="cuda"), \
+        torch.zeros((2, 4), device="cuda")
+    cases = {
+        "ssd_step on a bf16 state": (
+            TypeError, torch.zeros((2, 4, 64, 64), device="cuda",
+                                   dtype=torch.bfloat16)),
+        "ssd_step on a state that is not contiguous": (
+            ValueError, torch.zeros((2, 4, 64, 64),
+                                    device="cuda").transpose(2, 3)),
+    }
+    for label, (err, S) in cases.items():
+        kernels.reset_launch_counts()
+        try:
+            ops.ssd_step(S, c, c, v, la)
+            raised = None
+        except err as e:
+            raised = e
+        torch.cuda.synchronize()
+        check(raised is not None and not any(kernels.launch_counts().values()),
+              f"no fallback: {label} raises {err.__name__} ({raised})")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2944,6 +3110,13 @@ def _held_kernel_calls(run) -> list:
     return errs
 
 
+def _recurrent_layers(cfg) -> int:
+    """The layers whose decode runs the decode step's kernel: Zamba2's
+    Mamba-2 layers, xLSTM's mLSTM blocks (one a pair), none elsewhere."""
+    return {"zamba2": cfg.n_layers,
+            "xlstm": cfg.n_layers // 2}.get(cfg.block_pattern, 0)
+
+
 def _serve_full_width(arch, kernel, n_launch, second) -> dict:
     """(a) ``arch`` at its published widths and depth in bf16 with the
     kernels: prefill against the plain path, captured decode against the
@@ -3003,7 +3176,7 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
                    for _ in range(1 if light else 2)]
 
     # captured decode, step by step against the eager step on the same
-    # cache; no kernel launches in decode
+    # cache; the decode step's kernel its only launches
     eng = Engine(cfg=cfg, params=params)
     step = eng.decode_step_fn()
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -3028,8 +3201,15 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
     manual = torch.cat(toks, dim=1)
     check(all_bitwise, f"{arch}: all {MAX_NEW} captured decode steps' logits "
                        "and caches bitwise the eager decode_step's")
-    check(not any(dec_counts.values()),
-          f"{arch}: decode launched no kernel ({dec_counts})")
+    # the decode step's kernel once a recurrent layer a step, in the eager
+    # steps and in the captured ones (the first call steps once before
+    # the capture, each replay counts what the capture recorded); no
+    # other kernel
+    want_dec = dict.fromkeys(dec_counts, 0)
+    want_dec["ssd_step"] = 2 * MAX_NEW * _recurrent_layers(cfg)
+    check(dec_counts == want_dec,
+          f"{arch}: {MAX_NEW} eager and {MAX_NEW} captured decode steps "
+          f"launched {dec_counts} (expected {want_dec})")
     check(sum(eng.decode_trace_counts.values()) == 1,
           f"{arch}: one capture for the signature "
           f"({list(eng.decode_trace_counts.values())})")
@@ -3094,7 +3274,8 @@ def _serve_full_width(arch, kernel, n_launch, second) -> dict:
                tok_per_s=[N_PROMPTS * MAX_NEW / w for w in walls],
                peak_gib=peak, prefill_err=worst, spread=spread, busy=busy,
                call_err=max(e for _, e in held), kernel=times,
-               first_tokens=outs[0][0, :8].tolist())
+               first_tokens=outs[0][0, :8].tolist(),
+               decode_launches=dec_counts)
     log(f"  {arch}: prefill ms (kernels) {[round(t, 2) for t in res['prefill_ms']]}, "
         f"plain {[round(t, 2) for t in res['plain_prefill_ms']]}; decode "
         f"ms/token captured {[round(t, 3) for t in d_cap]}, eager "
@@ -3171,20 +3352,30 @@ def _reduced_arch(arch) -> dict:
         want["ssd_scan"] = cfg.n_layers // 2
     check(counts == want, f"{arch} reduced: prefill launched {counts}")
     ok, worst, n = _leaves_err([lk, ck], [lp, cp])
+    dec_k, dec_p = {}, {}
     for t in range(T, T + ZOO_DECODE_STEPS):
         if cfg.modality_stub and bp != "encdec":
             step = {"embeds": b["embeds"][:, t:t + 1]}
         else:
             step = {"tokens": b["tokens"][:, t:t + 1]}
-        lk, ck = M.decode_step(cfg, params, ck, step, donate=True)
-        lp, cp = M.decode_step(plain, params, cp, step, donate=True)
+        (lk, ck), nk = _counted(
+            lambda: M.decode_step(cfg, params, ck, step, donate=True))
+        (lp, cp), np_ = _counted(
+            lambda: M.decode_step(plain, params, cp, step, donate=True))
+        dec_k = {k: dec_k.get(k, 0) + v for k, v in nk.items()}
+        dec_p = {k: dec_p.get(k, 0) + v for k, v in np_.items()}
         ok_t, worst_t, _ = _leaves_err([lk, ck], [lp, cp])
         ok, worst = ok and ok_t, max(worst, worst_t)
+    want_k = dict.fromkeys(dec_k, 0)
+    want_k["ssd_step"] = ZOO_DECODE_STEPS * _recurrent_layers(cfg)
+    check(dec_k == want_k and not any(dec_p.values()),
+          f"{arch} reduced: {ZOO_DECODE_STEPS} decode steps launched "
+          f"{dec_k} with the kernels (expected {want_k}), {dec_p} without")
     check(ok and worst <= ZOO_F32_TOL,
           f"{arch} reduced: prefill and {ZOO_DECODE_STEPS} decode steps "
           f"with kernels against without, {n} leaves each, finite, worst "
           f"error / max|value| {worst:.3e} <= {ZOO_F32_TOL:g}")
-    return dict(counts=counts, worst=worst)
+    return dict(counts=counts, worst=worst, decode_launches=dec_k)
 
 
 # The zoo's kernel shapes the kernels took last (phase 8 (c)): StableLM-12B's
@@ -3321,11 +3512,12 @@ def phase_zoo(env: dict) -> dict:
         + ", ".join(f"{a} {r['worst']:.1e}" for a, r in reduced.items()))
     t2 = time.perf_counter()
     shapes = _zoo_kernel_shapes(env)
+    steps = _ssd_step_shapes()
     log(f"  (c) the zoo's kernel shapes in "
         f"{time.perf_counter() - t2:.1f} s")
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s")
     return dict(full=full, f32=f32, reduced=reduced, stablelm=stablelm,
-                shapes=shapes)
+                shapes=shapes, steps=steps)
 
 
 # One child process's prefill timing (prefill_turns): one arch of the zoo
@@ -3921,10 +4113,15 @@ def _mesh_serve(zoo: dict, mesh) -> dict:
             same = _mesh_against(f"(b) {arch} decode", [logits, cache],
                                  [l0, c0]) and same
             tok = torch.argmax(l0[:, -1], dim=-1)[:, None].to(torch.int32)
-        check(same and not any(dec_counts.values()),
+        want_dec = dict.fromkeys(dec_counts, 0)
+        want_dec["ssd_step"] = MESH_DECODE_STEPS * _recurrent_layers(cfg)
+        check(same and dec_counts == want_dec,
               f"(b) {arch}: {MESH_DECODE_STEPS} decode steps on the mesh, "
-              "logits and cache bitwise the meshless decode_step's, no "
-              f"kernel launched ({dec_counts})")
+              "logits and cache bitwise the meshless decode_step's, "
+              f"launched {dec_counts} (expected {want_dec}: the decode "
+              "step's kernel on the rank's heads)")
+        for name, n in dec_counts.items():
+            launches[name] = launches.get(name, 0) + n
         t_pre = [1e3 * _wall(lambda: pre(params, batch)) for _ in range(3)]
         log(f"  (b) {arch}: prefill ms on the mesh "
             f"{[round(t, 2) for t in t_pre]} against phase 8's meshless "
@@ -4343,8 +4540,9 @@ def phase_examples(env: dict) -> dict:
                 log(f"  kernel launches in torch_heterogeneous_serving "
                     f"(profile on four lanes, planned run, engine): "
                     f"{counts}")
-                check(all(n >= 1 for n in counts.values()),
-                      "torch_heterogeneous_serving launched every kernel")
+                check(all(counts[k] >= 1 for k in CHAIN_KERNELS),
+                      "torch_heterogeneous_serving launched every kernel "
+                      "of the chain")
                 _hold_heterogeneous(g)
     finally:
         shutil.rmtree(E2E_CKPT_DIR, ignore_errors=True)
@@ -4397,8 +4595,14 @@ def main() -> int:
     finally:
         LOG.parent.mkdir(exist_ok=True)
         LOG.write_text("\n".join(_log_lines) + "\n")
+    # the decode step's kernel at Zamba2-2.7B's decode shape, its
+    # launches those of phases 8 and 10's decode steps, counted from zero
+    rows["ssd_step"] = dict(zoo["steps"][0], launches=sum(
+        r["decode_launches"]["ssd_step"]
+        for part in ("full", "reduced") for r in zoo[part].values()))
     for name, row in rows.items():
-        row["launches"] = (main["counts"][name]
+        row["launches"] = (row.get("launches", 0)
+                           + main["counts"].get(name, 0)
                            + mesh["launches"].get(name, 0)
                            + examples["launches"].get(name, 0))
     log(f"total {time.perf_counter() - t_start:.1f}s")

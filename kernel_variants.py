@@ -122,7 +122,15 @@ call for the same function where there is one, all in one process:
   score c b^T skipped by ``out_wgmma_kernel``'s blocks of P's column tiles
   past the first: at the mLSTM's P = 385 each of the 7 tiles' blocks
   computes the q tile's score over all of N, so this is what computing it
-  once per (chunk, q tile) could save at most.
+  once per (chunk, q tile) could save at most;
+* for the decode step (``ssd_step_kernel``, at ``chip_smoke.py``'s
+  ``SSD_STEP_CASES``, a CUDA graph over ``SSD_STEP_STATES`` states in
+  turn): ``step_scalar`` — one float a column at every P (no 16-byte
+  rows); ``step_unroll1`` — each row stored before the next is loaded (no
+  batch of loads in flight); ``step_cached`` — Zamba2's 16-byte rows
+  without the streaming hints; ``step_tile64`` — 64 column units a block
+  (fewer, larger blocks at the mLSTM's P = 385); each against the bytes
+  bound, and whether it gives the shipped kernel's bits.
 
 The bf16 attention's variants also run at the zoo's three prefill shapes
 (Llama-3.2-1B, Qwen3-8B and StableLM-12B: q (4, 1024, 32, D), k/v 8
@@ -131,7 +139,7 @@ kernel on the upcast inputs (``bf16_ulps``) beside SDPA's; the bf16 SSD
 scan's at Zamba2-2.7B's and xLSTM-125M's prefill shapes (chunk 256), each
 with its distance in ulps and its final state's error from the shipped
 f32 kernel, beside the plain version's.  Arguments
-name kernels to run alone (default all three), e.g.
+name kernels to run alone (default all four), e.g.
 ``python3 kernel_variants.py flash_attention``.
 
 A full log goes to ``chiprun_out/kernel_variants.log``.
@@ -305,6 +313,15 @@ SSD_GV = """  hopper::wgmma_fence();
 SSD_W_TERMS = "constexpr int W_TERMS = 2;"
 SSD_SCORE = ", L.c_sub(), nsub);"   # out_wgmma_kernel's two score calls
 
+# the decode step's route to 16-byte rows, its rows loaded together,
+# its streaming loads and stores, its column tile
+STEP_VEC = "if (P % 4 == 0 && aligned16(S))"
+STEP_UNROLL = "constexpr int UNROLL = 4;"
+STEP_LOAD = "const float4 t = __ldcs(reinterpret_cast<const float4*>(p));"
+STEP_STORE = ("__stcs(reinterpret_cast<float4*>(p), make_float4(s[0], s[1], "
+              "s[2], s[3]));")
+STEP_TILE = "constexpr int TILE_UNITS = 16;"
+
 # variant -> {file: [(old, new), ...]}; each kernel builds with its own
 # copy of common.cuh
 VARIANTS = {
@@ -440,7 +457,18 @@ VARIANTS = {
     "no_split": {"flash_attention.cu": [(SPLIT_LO, "const __nv_bfloat162 pl = ph;")]},
     "no_softmax": {"flash_attention.cu": [
         (SOFTMAX, SOFTMAX + "  alpha[0] = alpha[1] = 1.f;\n  return;\n")]},
+    "step_scalar": {"ssd_step.cu": [(STEP_VEC, "if (false)")]},
+    "step_unroll1": {"ssd_step.cu": [(STEP_UNROLL, STEP_UNROLL.replace(
+        "4", "1"))]},
+    "step_cached": {"ssd_step.cu": [
+        (STEP_LOAD, "const float4 t = *reinterpret_cast<const float4*>(p);"),
+        (STEP_STORE, "*reinterpret_cast<float4*>(p) = "
+                     "make_float4(s[0], s[1], s[2], s[3]);")]},
+    "step_tile64": {"ssd_step.cu": [(STEP_TILE, STEP_TILE.replace("16", "64"))]},
 }
+# the decode step's variants
+STEP_VARIANTS = ("shipped", "step_scalar", "step_unroll1", "step_cached",
+                 "step_tile64")
 # the bf16 attention at the zoo's prefill shapes: (arch, its variants)
 ZOO_ATTENTION = ("llama3.2-1b", "qwen3-8b", "stablelm-12b")
 ATTN_BF16 = ("shipped", "p_one_bf16", "stages2", "kv32", "kv64", "kv128",
@@ -479,7 +507,7 @@ GLU_BF16 = ("shipped", "mma_sync", "ring3", "bm128", "no_mma")
 # one rank's 32 of 256 experts under an 8-way expert split, 8192 routed
 # tokens of a prefill (top-8) spread over the 256
 DEEPSEEK_GLU = (32, 256, 7168, 2048)
-KERNELS = ("expert_glu", "flash_attention", "ssd_scan")
+KERNELS = ("expert_glu", "flash_attention", "ssd_scan", "ssd_step")
 
 _log_lines: list[str] = []
 
@@ -814,6 +842,49 @@ def _zoo_ssd_f32(libs, rand, stream) -> None:
         del c, b, v, yp, sp, y64, y, s, work
 
 
+def _step_variants(libs) -> None:
+    """The decode step's variants at ``chip_smoke.SSD_STEP_CASES``: device
+    ms a call over ``SSD_STEP_STATES`` states in turn (a CUDA graph of a
+    round, as ``chip_smoke.round_ms`` times it), its share of the bytes
+    bound, and whether the new state and y are the shipped kernel's
+    bits."""
+    import torch
+    from chip_smoke import (PEAK_BYTES, SSD_STEP_CASES, SSD_STEP_STATES,
+                            round_ms, bitwise_equal, step_operands)
+    for label, B, H, N, P, dtype in SSD_STEP_CASES:
+        (S, c, b, v, la), nbytes = step_operands(B, H, N, P, dtype)
+        y = torch.empty_like(v)
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        log(f"ssd_step at {label} ({B}, {H}, {N}, {P}) {dtype}: bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB)")
+        shipped = None
+        for variant in STEP_VARIANTS:
+            if (variant, "ssd_step") not in libs:
+                continue
+            fn = bind(libs[variant, "ssd_step"], "ssd_step")
+
+            def call(s):
+                err = fn(s.data_ptr(), c.data_ptr(), b.data_ptr(),
+                         v.data_ptr(), la.data_ptr(), y.data_ptr(), B, H, N,
+                         P, *c.stride(), *b.stride(), *v.stride(),
+                         int(v.dtype == torch.bfloat16),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{variant} ssd_step: cudaError_t "
+                                       f"{err}")
+            one = S.clone()
+            call(one)
+            torch.cuda.synchronize()
+            bits = (one, y.clone())
+            shipped = shipped or bits
+            same = all(bitwise_equal(a, w) for a, w in zip(bits, shipped))
+            states = [S.clone() for _ in range(SSD_STEP_STATES)]
+            ms = round_ms(call, states)
+            log(f"  {variant:13s} {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of "
+                f"the bound), {'' if same else 'not '}the shipped bits")
+            del states
+
+
 def _glu_variants(libs, variants, shape, rand, stream, dtype) -> None:
     """The expert GLU's ``variants`` at (E, cap, d, F) = ``shape`` in
     ``dtype`` (operands from ``rand``): the C entry's time, the error over
@@ -1063,6 +1134,8 @@ def main() -> int:
     if "ssd_scan" in chosen:
         _zoo_ssd(libs, rand, stream)
         _zoo_ssd_f32(libs, rand, stream)
+    if "ssd_step" in chosen:
+        _step_variants(libs)
     LOG.parent.mkdir(exist_ok=True)
     LOG.write_text("\n".join(_log_lines) + "\n")
     return 0

@@ -7,7 +7,12 @@ use, bound with ``ctypes``) with a plain PyTorch version beside it:
 * ``flash_attention`` — blockwise causal GQA attention;
 * ``ssd_scan``        — the chunked Mamba-2 state-space scan;
 * ``expert_glu``      — the capacity-padded MoE expert GLU, under
-  ``moe_dispatch_combine``.
+  ``moe_dispatch_combine``;
+
+and one kernel of the port's own, with no Pallas kernel behind it:
+
+* ``ssd_step``        — one decode step of the same recurrence, the
+  state updated in place.
 
 ``ops`` dispatches on the tensor's device (CPU: the plain version; CUDA:
 the kernel), ``ref`` holds the dense oracles, ``payloads`` the per-dialect

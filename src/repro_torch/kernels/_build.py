@@ -32,7 +32,7 @@ from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "ssd_scan", "expert_glu")
+KERNELS = ("flash_attention", "ssd_scan", "expert_glu", "ssd_step")
 FLOATS = (torch.float32, torch.bfloat16)   # operand dtypes the kernels take
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "flash_attention": ("bident_flash_attention", [_P] * 4 + [_I] * 9 + [_P]),
     "ssd_scan": ("bident_ssd_scan", [_P] * 8 + [_I] * 7 + [_P]),
     "expert_glu": ("bident_expert_glu", [_P] * 5 + [_I] * 5 + [_P]),
+    "ssd_step": ("bident_ssd_step", [_P] * 6 + [_I] * 14 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -181,9 +182,10 @@ def function(name: str):
     return _fns[name]
 
 
-def check_operands(name: str, **operands) -> None:
-    """Raise unless every operand lies on one CUDA device, is contiguous
-    and has one of its accepted dtypes (``arg=(tensor, dtypes)``)."""
+def check_operands(name: str, strided=(), **operands) -> None:
+    """Raise unless every operand lies on one CUDA device, has one of its
+    accepted dtypes (``arg=(tensor, dtypes)``) and is contiguous, except
+    those named in ``strided``, which the kernel reads at their strides."""
     device = None
     for arg, (t, dtypes) in operands.items():
         if t.device.type != "cuda":
@@ -196,7 +198,7 @@ def check_operands(name: str, **operands) -> None:
         if t.dtype not in dtypes:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}; the kernel "
                             f"takes {[str(d) for d in dtypes]} here")
-        if not t.is_contiguous():
+        if arg not in strided and not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
 
 

@@ -32,6 +32,7 @@ import torch
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .moe_gather import dispatch_indices, expert_glu_cuda, expert_glu_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .ssd_step import ssd_step_cuda, ssd_step_plain
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -101,6 +102,24 @@ def _ssd_scan_mesh(c, b, v, log_a, *, initial_state, chunk: int):
             _assemble(S, mesh, spl, (B, H, N, P)))
 
 
+def _ssd_step_mesh(S, c, b, v, log_a):
+    from torch.distributed.tensor import DTensor
+    mesh = _dtensor_mesh(S, c, b, v, log_a)
+    # the state leads: each rank updates its own shard in place, so only
+    # its batch and head splits may stay (c, b, v and log_a share them,
+    # dim for dim)
+    spl = _keep(S, (0, 1)) or _replicated(mesh)
+    if isinstance(S, DTensor) and tuple(S.placements) != spl:
+        raise ValueError(f"ssd_step: a state placed as {S.placements} "
+                         "cannot be updated in place on its shards; only "
+                         "its batch and head dims may be split")
+    S_loc = S.to_local() if isinstance(S, DTensor) else S
+    y, _ = ssd_step(S_loc, *(_placed(x, mesh, spl)
+                             for x in (c, b, v, log_a)))
+    B, H, _, P = S.shape
+    return _assemble(y, mesh, spl, (B, H, P)), S
+
+
 def _expert_glu_mesh(x, w_up, w_down):
     mesh = _dtensor_mesh(x, w_up, w_down)
     # experts lead, as the weights hold them; the tokens follow
@@ -146,6 +165,20 @@ def ssd_scan(c, b, v, log_a, *, initial_state=None, chunk: int = 256):
                          chunk=chunk)
 
 
+def ssd_step(S, c, b, v, log_a):
+    """One decode step of the recurrence: S (B,H,N,P) f32; c, b: (B,H,N);
+    v: (B,H,P); log_a: (B,H).  Returns (y (B,H,P) in v.dtype, S_out).
+    S is updated in place and returned (S_out is S).  A CUDA state takes
+    the kernel, and must be f32 and contiguous or the kernel raises; any
+    other device (the CPU; ``meta``, the dry-run's shapes) the plain
+    version.  On a mesh each rank steps its shard of the state."""
+    if _on_mesh(S, c, b, v, log_a):
+        return _ssd_step_mesh(S, c, b, v, log_a)
+    if S.device.type != "cuda":
+        return ssd_step_plain(S, c, b, v, log_a)
+    return ssd_step_cuda(S, c, b, v, log_a.float().contiguous())
+
+
 def expert_glu(x, w_up, w_down):
     """x: (E, cap, d) capacity-padded per-expert tokens; w_up: (E, d, 2F)
     ([..., :F] gate, [..., F:] up); w_down: (E, F, d).  Returns
@@ -177,5 +210,5 @@ def moe_dispatch_combine(x, gate_idx, gate_vals, w_up, w_down, *,
     return contrib.sum(dim=1).to(x.dtype)
 
 
-__all__ = ["flash_attention", "ssd_scan", "expert_glu",
+__all__ = ["flash_attention", "ssd_scan", "ssd_step", "expert_glu",
            "moe_dispatch_combine", "dispatch_indices"]

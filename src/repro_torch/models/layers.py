@@ -726,12 +726,22 @@ def chunked_linear_recurrence(c, b, v, log_a, *, chunk: int,
 
 
 def linear_recurrence_step(S, c_t, b_t, v_t, log_a_t):
-    """Single decode step: S' = a*S + b v^T; y = c^T S'."""
+    """Single decode step: S' = a*S + b v^T; y = c^T S'.  Functional (S
+    is left as it was); the blocks' decode writes S' over the cache's
+    state (``kernels.ssd_step``)."""
     S = S.float()
     a = torch.exp(log_a_t.float())[..., None, None]
     S_new = S * a + torch.einsum("bhn,bhp->bhnp", b_t.float(), v_t.float())
     y = torch.einsum("bhn,bhnp->bhp", c_t.float(), S_new)
     return y.to(v_t.dtype), S_new
+
+
+def _decode_step(use_kernel: bool):
+    """The blocks' decode step, which writes S' over the state it is given
+    and returns it: the kernel (``ops.ssd_step``) with ``use_kernel``,
+    else the plain step in place."""
+    from ..kernels import ops, ssd_step
+    return ops.ssd_step if use_kernel else ssd_step.ssd_step_plain
 
 
 # ---------------------------------------------------------------------------
@@ -856,8 +866,8 @@ def mamba2_block(p, x, cfg, shd: Policy, *, state=None,
     xs, Ch, Bh, xdt, log_a = _ssd_inputs(xbc, dt, p["A_log"], p["dt_bias"],
                                          cfg, H, shd=shd)
     if state is not None:
-        y, S = linear_recurrence_step(state["ssm"], Ch[:, 0], Bh[:, 0],
-                                      xdt[:, 0], log_a[:, 0])
+        y, S = _decode_step(use_kernel)(state["ssm"], Ch[:, 0], Bh[:, 0],
+                                        xdt[:, 0], log_a[:, 0])
         y = y[:, None]
     elif use_kernel:
         from ..kernels import ops as K
@@ -984,8 +994,8 @@ def mlstm_block(p, x, cfg, shd: Policy, *, state=None,
     # normaliser: append ones column to v
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     if state is not None:
-        y_aug, S = linear_recurrence_step(state["ssm"], q[:, 0], k[:, 0],
-                                          v_aug[:, 0], log_f[:, 0])
+        y_aug, S = _decode_step(use_kernel)(state["ssm"], q[:, 0], k[:, 0],
+                                            v_aug[:, 0], log_f[:, 0])
         y_aug = y_aug[:, None]
     elif use_kernel:
         from ..kernels import ops as K

@@ -696,14 +696,15 @@ def decode_step(cfg, params, cache, batch, shd: Policy = NO_POLICY, *,
     elif bp == "xlstm":
         for i in range(_n(params["blocks"])):
             lp = _layer(params["blocks"], i)
-            a, nm = L.mlstm_block(lp["mlstm"], L.rms_norm(h, lp["ln_m"], eps),
-                                  cfg, shd, state={"ssm": cache["mlstm"][i]})
+            # the step writes the state in place (``kernels.ssd_step``)
+            a, _ = L.mlstm_block(lp["mlstm"], L.rms_norm(h, lp["ln_m"], eps),
+                                 cfg, shd, state={"ssm": cache["mlstm"][i]},
+                                 use_kernel=cfg.use_kernels)
             h = h + a
             s, ns = L.slstm_block(
                 lp["slstm"], L.rms_norm(h, lp["ln_s"], eps), cfg, shd,
                 state={"slstm": tuple(x[i] for x in cache["slstm"])})
             h = h + s
-            cache["mlstm"][i].copy_(nm["ssm"])
             for buf, new in zip(cache["slstm"], ns["slstm"]):
                 buf[i].copy_(new)
 
@@ -713,11 +714,12 @@ def decode_step(cfg, params, cache, batch, shd: Policy = NO_POLICY, *,
         ca = cache["attn"]
         for i in range(cfg.n_layers):
             lp = _layer(params["blocks"], i)
+            # the step writes the state in place (``kernels.ssd_step``)
             m, ns = L.mamba2_block(lp["mamba"], L.rms_norm(h, lp["ln1"], eps),
                                    cfg, shd, state={"ssm": cache["ssm"][i],
-                                                    "conv": cache["conv"][i]})
+                                                    "conv": cache["conv"][i]},
+                                   use_kernel=cfg.use_kernels)
             h = h + m
-            cache["ssm"][i].copy_(ns["ssm"])
             cache["conv"][i].copy_(ns["conv"])
             if (i + 1) % every == 0:
                 g = i // every

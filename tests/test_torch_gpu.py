@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gather as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.kernels import ssd_step as st
 
 TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
        torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
@@ -69,7 +70,75 @@ def test_each_launch_is_counted_once(cuda):
     ops.flash_attention(q.cpu(), q.cpu(), q.cpu())      # the plain version
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"flash_attention": 1, "ssd_scan": 0,
-                                       "expert_glu": 0}
+                                       "expert_glu": 0, "ssd_step": 0}
+
+
+# the decode step's kernel: (B, H, N, P, dtype of c, b and v, the
+# operands as views laid out as the decode's) at Zamba2-2.7B's decode at
+# batch 32 (16-byte rows; c and b one group's rows for every head,
+# batch-minor, as the conv leaves them) and the mLSTM's P = N + 1 (one
+# float a column)
+SSD_STEP_CASES = {"zamba2": (32, 80, 64, 64, torch.bfloat16, False),
+                  "zamba2_views": (32, 80, 64, 64, torch.bfloat16, True),
+                  "mlstm": (4, 4, 384, 385, torch.float32, False)}
+
+
+def _step_operands(rng, cuda, B, H, N, P, dtype, views=False):
+    S = _rand(rng, (B, H, N, P), cuda, torch.float32, 0.5)
+    if views:
+        c, b = (_rand(rng, (N, B), cuda, dtype).t()[:, None].expand(B, H, N)
+                for _ in range(2))
+        v = _rand(rng, (H, P, B), cuda, dtype).permute(2, 0, 1)
+    else:
+        c, b = (_rand(rng, (B, H, N), cuda, dtype) for _ in range(2))
+        v = _rand(rng, (B, H, P), cuda, dtype)
+    la = -torch.nn.functional.softplus(_rand(rng, (B, H), cuda,
+                                             torch.float32))
+    return S, c, b, v, la
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSD_STEP_CASES))
+def test_ssd_step_kernel_matches_plain(cuda, case):
+    """One launch writes S' over S, bitwise the plain step's (a product
+    and a sum, each rounded, as PyTorch computes them); y is the same sum
+    over N in another order: within the f32 bucket, or one bf16 ulp; two
+    runs give the same bits.  Views are read at their strides."""
+    S, c, b, v, la = _step_operands(np.random.default_rng(11), cuda,
+                                    *SSD_STEP_CASES[case])
+    S_plain, S_again = S.clone(), S.clone()
+    kernels.reset_launch_counts()
+    y, out = ops.ssd_step(S, c, b, v, la)
+    torch.cuda.synchronize()
+    assert out is S and y.is_contiguous()
+    assert kernels.launch_counts() == {"flash_attention": 0, "ssd_scan": 0,
+                                       "expert_glu": 0, "ssd_step": 1}
+    y_plain, _ = st.ssd_step_plain(S_plain, c, b, v, la)
+    assert torch.equal(S, S_plain)
+    if v.dtype == torch.float32:
+        scale = float(y_plain.abs().max())
+        torch.testing.assert_close(y, y_plain, atol=3e-5 * scale, rtol=0)
+    else:
+        gap = (y.double() - y_plain.double()).abs()
+        one_ulp = 2.0 ** -7 * y_plain.double().abs() \
+            + 1e-5 * float(y_plain.abs().max())
+        assert bool((gap <= one_ulp).all()), float(gap.max())
+    y_again, _ = st.ssd_step_cuda(S_again, c, b, v, la)
+    assert torch.equal(y_again, y) and torch.equal(S_again, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["bfloat16", "transposed"])
+def test_ssd_step_kernel_refuses_a_state_it_cannot_update(cuda, bad):
+    """The kernel updates an f32 contiguous state in place; any other
+    raises, and nothing launches (no fallback)."""
+    S, c, b, v, la = _step_operands(np.random.default_rng(12), cuda,
+                                    2, 4, 64, 64, torch.float32)
+    kernels.reset_launch_counts()
+    S = S.bfloat16() if bad == "bfloat16" else S.transpose(2, 3)
+    with pytest.raises(TypeError if bad == "bfloat16" else ValueError):
+        ops.ssd_step(S, c, b, v, la)
+    assert not any(kernels.launch_counts().values())
 
 
 def _unaligned(t):
@@ -230,7 +299,7 @@ def test_expert_glu_counts_one_launch_for_its_two_kernels(cuda):
     y = ops.expert_glu(x, wu, wd)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"flash_attention": 0, "ssd_scan": 0,
-                                       "expert_glu": 1}
+                                       "expert_glu": 1, "ssd_step": 0}
     torch.testing.assert_close(y, mg.expert_glu_plain(x, wu, wd),
                                **TOL[torch.float32])
 
@@ -890,7 +959,7 @@ def test_launch_counts_of_a_replay_equal_the_eager_counts(cuda):
     prog.run(ext)
     torch.cuda.synchronize()
     assert replayed == kernels.launch_counts() == {
-        "flash_attention": 2, "ssd_scan": 2, "expert_glu": 2}
+        "flash_attention": 2, "ssd_scan": 2, "expert_glu": 2, "ssd_step": 0}
     prog.close()
 
 
@@ -933,7 +1002,7 @@ def test_a_replays_span_counts_its_copies_and_its_launches(cuda):
         "capture.copy_in_bytes": sum(t.nbytes for t in call.static_in),
         "capture.clone_bytes": sum(t.nbytes for t in call.static_out),
         **{f"kernels.launches.{k}": n for k, n in launches.items()}}
-    assert kernels.launch_counts() == launches
+    assert kernels.launch_counts() == {**launches, "ssd_step": 0}
     seg_span, = [s for s in spans if s["id"] == replay["parent"]]
     assert seg_span["name"] == "laneprogram.segment"
     assert seg_span["attrs"]["mode"] == lp.JIT
@@ -1080,7 +1149,11 @@ def test_serving_recovers_from_a_lost_kernel_lane(cuda):
     assert rep.recoveries >= 1
     assert [f[:2] for f in eng.faults.fired] == [("pu_lost", "cuda-kernels")]
     assert rep.breaker["targets"]["cuda-kernels"]["state"] == "closed"
-    assert all(c >= 1 for c in kernels.launch_counts().values())
+    # each of the chain's kernels ran; a chain has no decode step
+    counts = kernels.launch_counts()
+    assert all(counts[k] >= 1 for k in ("flash_attention", "ssd_scan",
+                                        "expert_glu"))
+    assert counts["ssd_step"] == 0
     assert orch._active == {}
 
 
@@ -1170,7 +1243,7 @@ def test_zoo_kernel_shapes_d160_and_n384_match_plain(cuda, dtype):
         assert float((got - want).abs().max() / want.abs().max()) <= tol
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"flash_attention": 2, "ssd_scan": 2,
-                                       "expert_glu": 0}
+                                       "expert_glu": 0, "ssd_step": 0}
     kernels.reset_launch_counts()
     wide = _rand(rng, (1, 64, 1, ss.MAX_STATE + 16), cuda, dtype)
     with pytest.raises(ValueError, match="N <="):

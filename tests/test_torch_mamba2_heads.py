@@ -14,13 +14,15 @@ input projection's columns and the output projection's rows split over
   state again with ``use_kernel`` (on the CPU the kernel's plain version,
   through the kernels' mesh entry);
 * four decode steps from that state, the state placed as the cache
-  places it: each step's output and state;
+  places it, with the plain step and through the kernel's entry (each
+  rank's shard of the state updated in place): each step's output and
+  state;
 
 each within 1e-5 of the meshless block (relative to the largest value).
 The job records where the scan ran: the plain scan on each rank's two
 heads (its shard of xdt, whose offset is the rank's), the kernel's mesh
-entry and each decode step on DTensors split on the head dim, and the
-final state split so.  A one-rank job on a (1, 1) mesh runs reduced
+entry and each decode step on DTensors split on the head dim (the
+kernel's step then on the rank's shard), and the final state split so.  A one-rank job on a (1, 1) mesh runs reduced
 Zamba2's ``jit_prefill`` (with the kernels), two ``jit_decode_step``s
 and a ``jit_train_step``: bit for bit the meshless ones.
 """
@@ -69,9 +71,10 @@ def err(a, b):
 
 # where the scan ran: its operands' placements on the mesh (DTensor
 # calls), and the heads of the plain scan's operands
-seen = {"plain": [], "kernel": [], "step": []}
+seen = {"plain": [], "kernel": [], "step": [], "kernel_step": []}
 plain, step, kernel = (L.chunked_linear_recurrence, L.linear_recurrence_step,
                        ops.ssd_scan)
+kernel_step = ops.ssd_step
 def record_plain(c, b, v, log_a, **kw):
     seen["plain"].append(list(v.shape))
     return plain(c, b, v, log_a, **kw)
@@ -83,9 +86,15 @@ def record_kernel(c, b, v, log_a, **kw):
     if hasattr(v, "placements"):
         seen["kernel"].append(str(tuple(v.placements)))
     return kernel(c, b, v, log_a, **kw)
+def record_kernel_step(S, c, b, v, log_a):
+    # the mesh entry's call on DTensors, then its call on the rank's shard
+    seen["kernel_step"].append(str(tuple(S.placements))
+                               if hasattr(S, "placements") else
+                               list(S.shape))
+    return kernel_step(S, c, b, v, log_a)
 L.chunked_linear_recurrence, L.linear_recurrence_step = record_plain, \
     record_step
-ops.ssd_scan = record_kernel
+ops.ssd_scan, ops.ssd_step = record_kernel, record_kernel_step
 
 def run(pol, p, x, to):
     """The block over the sequence (its gradients), with the kernel, and
@@ -96,15 +105,25 @@ def run(pol, p, x, to):
     (out * to({"g": gy})["g"]).sum().backward()
     with torch.no_grad():
         ko, kst = L.mamba2_block(pd, xd, cfg, pol, use_kernel=True)
-        state = to({"ssm": st["ssm"], "conv": st["conv"]}, cache=True)
-        dec = []
+        # a decode step writes its state in place: the steps start from
+        # a copy, and each step's state is kept as a copy
+        state = to({"ssm": st["ssm"].clone(), "conv": st["conv"]},
+                   cache=True)
+        dec, kdec = [], []
         for t in steps:
             o, state = L.mamba2_block(pd, to({"t": t})["t"], cfg, pol,
                                       state=state)
-            dec.append((o, state["ssm"], state["conv"]))
+            dec.append((o, state["ssm"].clone(), state["conv"]))
+        # the same steps through the kernel's entry
+        state = to({"ssm": st["ssm"].clone(), "conv": st["conv"]},
+                   cache=True)
+        for t in steps:
+            o, state = L.mamba2_block(pd, to({"t": t})["t"], cfg, pol,
+                                      state=state, use_kernel=True)
+            kdec.append((o, state["ssm"].clone(), state["conv"]))
     return dict(out=out, ssm=st["ssm"], dx=xd.grad,
                 grads={k: v.grad for k, v in pd.items()}, kernel=ko,
-                kernel_ssm=kst["ssm"], decode=dec)
+                kernel_ssm=kst["ssm"], decode=dec, kernel_decode=kdec)
 
 want = run(NO_POLICY, p, x, lambda t, cache=False: t)
 pol = Policy(make_host_mesh(4, device="cpu"))
@@ -127,12 +146,18 @@ out = {
         err(got["grads"][k], want["grads"][k]) for k in sorted(p)],
     "decode": [[err(a, b) for a, b in zip(g, w)]
                for g, w in zip(got["decode"], want["decode"])],
+    "kernel_decode": [[err(a, b) for a, b in zip(g, w)]
+                      for g, w in zip(got["kernel_decode"],
+                                      want["kernel_decode"])],
     "ssm_placements": [str(tuple(got[k].placements))
                        for k in ("ssm", "kernel_ssm")] + [
-        str(tuple(s.placements)) for _, s, _ in got["decode"]],
+        str(tuple(s.placements)) for _, s, _ in got["decode"]
+        + got["kernel_decode"]],
     # the meshless run's plain scan came first
     "plain": seen["plain"][1:], "kernel_calls": seen["kernel"],
     "step": seen["step"], "rank": rank,
+    # the meshless run's four kernel steps came first
+    "kernel_step": seen["kernel_step"][4:],
 }
 outs = [None] * world
 dist.all_gather_object(outs, out)
@@ -247,6 +272,17 @@ def test_decode_steps_on_four_ranks_within_1e_5_of_meshless(job):
         assert len(rec["decode"]) == 4
         for i, errs in enumerate(rec["decode"]):
             assert _within(errs), (rec["rank"], i, errs)
+
+
+def test_kernel_decode_steps_on_four_ranks_within_1e_5_of_meshless(job):
+    for rec in job:
+        assert len(rec["kernel_decode"]) == 4
+        for i, errs in enumerate(rec["kernel_decode"]):
+            assert _within(errs), (rec["rank"], i, errs)
+        # each step through the kernel's mesh entry on the state split on
+        # its heads, then on the rank's shard: 2 of 8 heads, N = P = 16
+        assert rec["kernel_step"] == ["(Replicate(), Shard(dim=1))",
+                                      [2, 2, 16, 16]] * 4, rec
 
 
 def test_scan_and_state_on_each_ranks_heads(job):

@@ -490,6 +490,30 @@ def test_ssd_scan_mesh_entry_on_the_card(cuda_mesh):
 
 
 @pytest.mark.gpu
+def test_ssd_step_mesh_entry_on_the_card(cuda_mesh):
+    # the state's local shard updated in place by one launch, bitwise the
+    # meshless step on Zamba2's decode head shape
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    g = torch.Generator("cuda").manual_seed(3)
+    S = torch.randn(2, 4, 64, 64, device="cuda", generator=g)
+    c, b = (torch.randn(2, 4, 64, device="cuda", generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    v = torch.randn(2, 4, 64, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    la = -torch.rand(2, 4, device="cuda", generator=g)
+    dS, *ops_ = _rep(cuda_mesh, S.clone(), c, b, v, la)
+    ptr = dS.to_local().data_ptr()
+    kernels.reset_launch_counts()
+    y, out = ops.ssd_step(dS, *ops_)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_step"] == 1
+    y0, s0 = ops.ssd_step(S, c, b, v, la)
+    assert out is dS and dS.to_local().data_ptr() == ptr
+    assert torch.equal(y.to_local(), y0) and torch.equal(dS.to_local(), s0)
+
+
+@pytest.mark.gpu
 def test_expert_glu_mesh_entry_on_the_card(cuda_mesh):
     from repro_torch.kernels import ops
     g = torch.Generator("cuda").manual_seed(2)

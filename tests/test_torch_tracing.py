@@ -164,10 +164,10 @@ def test_reset_launch_counts_leaves_the_set_up_counters_alone():
     tracing.count("planner.measure_s.cpu", 1.25)
     tracing.count("capture.clone_bytes", 64)
     assert kernels.launch_counts() == {"flash_attention": 0, "ssd_scan": 0,
-                                       "expert_glu": 2}
+                                       "expert_glu": 2, "ssd_step": 0}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"flash_attention": 0, "ssd_scan": 0,
-                                       "expert_glu": 0}
+                                       "expert_glu": 0, "ssd_step": 0}
     assert tracing.counters() == {"planner.measure_s.cpu": 1.25,
                                   "capture.clone_bytes": 64}
 
